@@ -1,0 +1,191 @@
+"""TBSRN, the transformer-based SR network (port of
+fudanocr_tpu/models/sr/tbsrn.py; Scene Text Telescope, CVPR-21,
+scene-text-telescope/model/tbsrn.py:166-226).
+
+A 9x9 conv stem + PReLU, `srb_nums` residual blocks (conv-BN-mish-conv-BN
+then the FeatureEnhancer), a conv+BN trunk tail with a global skip from the
+stem, PixelShuffle upsampling, a 9x9 output conv and tanh. Inference only:
+the STN head is built when `stn=True` so its weights carry across, and is
+not run at eval, as in the JAX package; the TPS warp and the train path
+come with the training port.
+
+Input and output are NHWC, as in the JAX package; the convolutions run on
+an NCHW view of it (channels_last memory, which cuDNN takes directly and
+which makes the (B, H*W, C) token view of every block a free reshape).
+Module names follow the original state_dict (`block1.0`, `block{i+2}.*`,
+`block{n+2}.0/1`, `block{n+3}.*`, `stn_head.*`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+from torch import nn
+
+from fudanocr_tpu_torch.models.sr.common import ConvBN, UpsampleBlock
+from fudanocr_tpu_torch.nn.attention import (MultiHeadAttention,
+                                             positional_encoding_2d)
+from fudanocr_tpu_torch.nn.layers import (PReLU, TorchLayerNorm, batch_norm,
+                                          conv2d, mish)
+from fudanocr_tpu_torch.nn.stn import STNHead
+from fudanocr_tpu_torch.ops.fused_enhancer import (enhancer_operands,
+                                                   fused_enhancer,
+                                                   fused_enhancer_reference)
+
+
+class PositionwiseFeedForward(nn.Module):
+    """Holds the reference's `pff.w_1` / `pff.w_2` linears."""
+
+    def __init__(self, d_model: int, d_ff: int):
+        super().__init__()
+        self.w_1 = nn.Linear(d_model, d_ff)
+        self.w_2 = nn.Linear(d_ff, d_model)
+
+
+class FeatureEnhancer(nn.Module):
+    """Self-attention over the flattened feature tokens (tbsrn.py:63-92).
+
+    (B, L, C=64) tokens get the 64-d 2D positional code appended -> 128-d,
+    one MHA(4 heads) + FFN(128) block with the reference's std LayerNorm,
+    then a projection back to 64. The positional code is made for the
+    actual (h, w) of the feature map, as the JAX module does at trace time.
+    With `fused` (the default) the block runs through
+    `ops.fused_enhancer.fused_enhancer`: the CUDA kernel on CUDA tensors,
+    its plain version on CPU tensors. `fused=False` runs the plain version
+    on any device (the comparison path).
+    """
+
+    def __init__(self, fused: bool = True):
+        super().__init__()
+        self.fused = fused
+        self.multihead = MultiHeadAttention(num_heads=4, d_model=128)
+        self.mul_layernorm1 = TorchLayerNorm(128)
+        self.pff = PositionwiseFeedForward(128, 128)
+        self.mul_layernorm3 = TorchLayerNorm(128)
+        self.linear = nn.Linear(128, 64)
+        self._operands: Dict[tuple, Dict[str, torch.Tensor]] = {}
+
+    def kernel_params(self) -> Dict[str, torch.Tensor]:
+        """The weights in the (in, out) layout `enhancer_operands` takes."""
+        lin = self.multihead.linears
+        return {
+            "wqkv": torch.cat([m.weight.t() for m in lin[:3]], dim=1),
+            "bqkv": torch.cat([m.bias for m in lin[:3]]),
+            "wout": lin[3].weight.t(), "bout": lin[3].bias,
+            "ln1_scale": self.mul_layernorm1.a_2,
+            "ln1_bias": self.mul_layernorm1.b_2,
+            "w1": self.pff.w_1.weight.t(), "b1": self.pff.w_1.bias,
+            "w2": self.pff.w_2.weight.t(), "b2": self.pff.w_2.bias,
+            "ln2_scale": self.mul_layernorm3.a_2,
+            "ln2_bias": self.mul_layernorm3.b_2,
+            "wp": self.linear.weight.t(), "bp": self.linear.bias,
+        }
+
+    def operands(self, h: int, w: int, dtype: torch.dtype,
+                 device: torch.device) -> Dict[str, torch.Tensor]:
+        """Kernel operands for an (h, w) feature map, cached per geometry,
+        dtype and device until a parameter changes (in-place updates such
+        as load_state_dict bump the parameters' version counters).
+        Parameters made under inference_mode have no version counter, so
+        their operands are rebuilt on every call."""
+        params = list(self.parameters())
+        pe = positional_encoding_2d(64, h, w).reshape(64, h * w).T
+        if any(p.is_inference() for p in params):
+            return enhancer_operands(self.kernel_params(),
+                                     torch.from_numpy(pe.copy()).to(device),
+                                     dtype)
+        key = (h, w, dtype, device,
+               tuple((p.data_ptr(), p._version) for p in params))
+        if key not in self._operands:
+            self._operands = {k: v for k, v in self._operands.items()
+                              if k[4] == key[4]}
+            with torch.no_grad():
+                self._operands[key] = enhancer_operands(
+                    self.kernel_params(),
+                    torch.from_numpy(pe.copy()).to(device), dtype)
+        return self._operands[key]
+
+    def forward(self, tokens: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        """(B, L = h*w, 64) tokens of an (h, w) map -> (B, L, 64)."""
+        ops = self.operands(h, w, tokens.dtype, tokens.device)
+        run = fused_enhancer if self.fused else fused_enhancer_reference
+        return run(tokens.contiguous(), ops, heads=4)
+
+
+class TransformerResidualBlock(nn.Module):
+    """conv-BN-mish-conv-BN then FeatureEnhancer, residual (the reference's
+    RecurrentResidualBlock, tbsrn.py:229-257, without the two GRU blocks it
+    builds and never calls)."""
+
+    def __init__(self, channels: int, fused_enhancer: bool = True):
+        super().__init__()
+        self.conv1 = nn.Conv2d(channels, channels, 3, padding=1)
+        self.bn1 = nn.BatchNorm2d(channels)
+        self.conv2 = nn.Conv2d(channels, channels, 3, padding=1)
+        self.bn2 = nn.BatchNorm2d(channels)
+        self.feature_enhancer = FeatureEnhancer(fused=fused_enhancer)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        r = mish(batch_norm(self.bn1, conv2d(self.conv1, x)))
+        r = batch_norm(self.bn2, conv2d(self.conv2, r))
+        b, c, h, w = r.shape
+        tokens = r.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        tokens = self.feature_enhancer(tokens, h, w)
+        return x + tokens.view(b, h, w, c).permute(0, 3, 1, 2)
+
+
+class TBSRN(nn.Module):
+    """`width` x `height` is the HR size; at inference any LR geometry runs
+    (the enhancers make their positional code per feature map), and the
+    size is kept for the TPS warp of the training port."""
+
+    def __init__(self, scale_factor: int = 2, width: int = 128,
+                 height: int = 32, stn: bool = True, srb_nums: int = 5,
+                 mask: bool = False, hidden_units: int = 32,
+                 fused_enhancer: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.width, self.height = width, height
+        if not math.log2(scale_factor).is_integer():
+            raise ValueError(f"scale_factor must be a power of 2, got "
+                             f"{scale_factor}")
+        in_planes = 4 if mask else 3
+        feats = 2 * hidden_units
+        if feats != 64:
+            raise ValueError("the FeatureEnhancer takes 64 trunk channels "
+                             "(hidden_units=32), as the reference hardcodes")
+        self.srb_nums, self.dtype = srb_nums, dtype
+        n_up = int(math.log2(scale_factor))
+        self.block1 = nn.Sequential(
+            nn.Conv2d(in_planes, feats, 9, padding=4), PReLU())
+        for i in range(srb_nums):
+            setattr(self, f"block{i + 2}",
+                    TransformerResidualBlock(feats,
+                                             fused_enhancer=fused_enhancer))
+        setattr(self, f"block{srb_nums + 2}", ConvBN(feats))
+        setattr(self, f"block{srb_nums + 3}", nn.Sequential(
+            *[UpsampleBlock(feats, 2) for _ in range(n_up)],
+            nn.Conv2d(feats, in_planes, 9, padding=4)))
+        self.stn_head = (STNHead(in_planes, num_ctrlpoints=20)
+                         if stn else None)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """(B, H, W, C) LR images in [0, 1] -> (B, sH, sW, C) SR in [-1, 1],
+        at the model's compute dtype."""
+        if train:
+            raise NotImplementedError(
+                "TBSRN training (TPS warp, train-mode BN, dropout) is not "
+                "ported yet")
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        stem = self.block1[1](conv2d(self.block1[0], x))
+        h = stem
+        for i in range(self.srb_nums):
+            h = getattr(self, f"block{i + 2}")(h)
+        h = stem + getattr(self, f"block{self.srb_nums + 2}")(h)
+        head = getattr(self, f"block{self.srb_nums + 3}")
+        for up in head[:-1]:
+            h = up(h)
+        h = torch.tanh(conv2d(head[-1], h))
+        return h.permute(0, 2, 3, 1)

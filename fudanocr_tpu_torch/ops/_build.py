@@ -1,0 +1,101 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Every `*.cu` under `fudanocr_tpu_torch/csrc/` is compiled into one shared
+library with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/kernels/libfudanocr_kernels-<hash>.so csrc/*.cu
+
+The library name carries a hash of the sources and flags, so an edit
+rebuilds and a stale build is never loaded. It is built at first use (the
+first launch of any kernel), from the checkout's sources only, into
+`build/kernels/` at the repository root (listed in .gitignore). No nvcc, or
+a failed compile, raises with nvcc's own message. Nothing here runs at
+import time: the CPU tests import every module on hosts without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the port's CUDA kernels are built from csrc/ at first "
+                       "use")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libfudanocr_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple:
+    """Compile the kernels if no library for these sources exists.
+
+    Returns (path, seconds spent compiling; 0.0 when it was already built).
+    The compile writes to a temporary name and renames, so a process
+    building at the same time never loads a half-written library."""
+    out = library_path()
+    if out.exists():
+        return out, 0.0
+    out.parent.mkdir(parents=True, exist_ok=True)
+    srcs = [str(s) for s in _sources() if s.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                           f"\n{proc.stderr}{proc.stdout}")
+    os.replace(tmp, out)
+    return out, seconds
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The built kernel library, with argtypes declared for every entry."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fe_qkv_proj.argtypes = [p, p, p, p, i, i, i, p]
+    lib.fe_qkv_proj.restype = i
+    lib.fe_attn_epilogue.argtypes = [p] * 16 + [i, i, i, f, i, p]
+    lib.fe_attn_epilogue.restype = i
+    lib.fe_error_string.argtypes = [i]
+    lib.fe_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error code."""
+    if err != 0:
+        msg = load_library().fe_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

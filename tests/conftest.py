@@ -40,6 +40,12 @@ assert jax.device_count() == 8, (
     "initialized before conftest ran?")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the PyTorch port's kernels); "
+        "skips where there is none")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _clear_jax_caches_between_modules():
     """Drop compiled executables between test modules. The full suite

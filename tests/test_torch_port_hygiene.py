@@ -1,0 +1,141 @@
+"""Guards for the PyTorch port (fudanocr_tpu_torch): what it may import,
+how the smoke script fails without a card, how the kernel wrapper picks
+its path, and how the kernel build behaves."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from fudanocr_tpu_torch.ops import _build
+from fudanocr_tpu_torch.ops.fused_enhancer import (enhancer_operands,
+                                                   fused_enhancer,
+                                                   fused_enhancer_reference)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "fudanocr_tpu_torch"
+ALLOWED_JAX_PACKAGE = {"fudanocr_tpu.utils.torch_port",
+                       "fudanocr_tpu.utils.torch_export"}
+FORBIDDEN = ("jax", "jaxlib", "flax", "PIL", "optax")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _bad_imports(path: Path, allowed=frozenset()):
+    bad = []
+    for name in _imports(path):
+        top = name.split(".")[0]
+        if top in FORBIDDEN or (top == "fudanocr_tpu"
+                                and name not in allowed):
+            bad.append(name)
+    return bad
+
+
+def test_port_imports_no_jax_flax_pil_or_jax_package():
+    files = sorted(PORT.rglob("*.py"))
+    assert len(files) > 10
+    bad = {str(f.relative_to(ROOT)): _bad_imports(f, ALLOWED_JAX_PACKAGE)
+           for f in files}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    assert not _bad_imports(ROOT / "chip_smoke.py")
+
+
+def _run_smoke(cwd: Path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the smoke test would run")
+    out = _run_smoke(ROOT)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """Copied without the package it cannot pass, on any host."""
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def _ops(dtype=torch.float32, h=4, w=8):
+    gen = torch.Generator().manual_seed(0)
+    d = 128
+    shapes = {"wqkv": (d, 3 * d), "bqkv": (3 * d,), "wout": (d, d),
+              "bout": (d,), "ln1_scale": (d,), "ln1_bias": (d,), "w1": (d, d),
+              "b1": (d,), "w2": (d, d), "b2": (d,), "ln2_scale": (d,),
+              "ln2_bias": (d,), "wp": (d, 64), "bp": (64,)}
+    params = {k: torch.randn(*s, generator=gen) * 0.1
+              for k, s in shapes.items()}
+    return enhancer_operands(params, torch.randn(h * w, 64, generator=gen),
+                             dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wrapper_on_cpu_is_the_plain_version(dtype):
+    ops = _ops(dtype)
+    x = torch.randn(2, 32, 64).to(dtype)
+    n0 = fused_enhancer.launches
+    got = fused_enhancer(x, ops)
+    assert torch.equal(got, fused_enhancer_reference(x, ops))
+    assert got.dtype == dtype and got.shape == (2, 32, 64)
+    assert fused_enhancer.launches == n0   # no kernel ran
+
+
+def test_wrapper_refuses_devices_without_a_kernel():
+    ops = {k: v.to("meta") for k, v in _ops().items()}
+    with pytest.raises(ValueError):
+        fused_enhancer(torch.empty(2, 32, 64, device="meta"), ops)
+
+
+def _fake_nvcc(tmp_path, monkeypatch, script: str):
+    cuda = tmp_path / "cuda"
+    (cuda / "bin").mkdir(parents=True)
+    nvcc = cuda / "bin" / "nvcc"
+    nvcc.write_text("#!/bin/sh\n" + script)
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(cuda))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+
+
+def test_build_reports_nvcc_errors(tmp_path, monkeypatch):
+    _fake_nvcc(tmp_path, monkeypatch,
+               'echo "fused_enhancer.cu(1): error: boom" >&2\nexit 2\n')
+    with pytest.raises(RuntimeError, match="boom"):
+        _build.build()
+    assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch):
+    # a stand-in compiler: writes its -o argument
+    _fake_nvcc(tmp_path, monkeypatch, 'while [ "$1" != "-o" ]; do shift; '
+               'done\necho lib > "$2"\n')
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    path, seconds = _build.build()
+    assert path.exists() and path.parent == tmp_path / "build"
+    assert _build.build() == (path, 0.0)       # built once per source hash
+    (csrc / "k.cu").write_text("// v2\n")
+    assert _build.library_path() != path
