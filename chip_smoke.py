@@ -2,13 +2,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (fudanocr_tpu_torch) once on the card and fails
-loudly: it exits non-zero, and prints no result line, when there is no
-CUDA device, when a kernel does not build, launch or agree with its plain
-PyTorch version, or when any phase's check fails.
+Drives the port's main paths (fudanocr_tpu_torch) once on the card and
+fails loudly: it exits non-zero, and prints no result line, when there is
+no CUDA device, when a kernel does not build, launch or agree with its
+plain PyTorch version, or when any phase's check fails.
 
 Phases:
-  0. build the hand-written kernels from fudanocr_tpu_torch/csrc/ (nvcc);
+  0. build the hand-written kernels from fudanocr_tpu_torch/csrc/ (one
+     nvcc per source, in parallel);
   1. the fused-enhancer kernel against its plain version at the main-path
      shape (L=1024, C=64; B=64 in fp32 and bf16, B=256 in bf16), with
      random weights and non-trivial LayerNorm scales; kernel and plain ms;
@@ -21,7 +22,28 @@ Phases:
      model run through the plain version; img/s of both paths;
   3. `InferenceServer(pipe.ids_fn, buckets=(1, 8, 32))` answers 40
      concurrent single-image requests; results equal the direct batched
-     call; p50 / p99 latency.
+     call; p50 / p99 latency;
+  4. the fused residual-LayerNorm kernel against its plain version at the
+     training slice's shapes ((64*1024, 128) for TBSRN, (64*32, 1024) for
+     the oracle) in fp32 and bf16: forward, and the gradients through its
+     autograd Function against plain autograd; kernel and plain ms;
+  5. the hash-dropout attention kernels (forward and backward) against
+     the plain version at (64, 1024, 384), 4 heads, rate 0.1, fp32 and
+     bf16: the keep mask bit for bit, seed determinism, the output and
+     dqkv; kernel and plain ms of the forward, the backward and both;
+  6. the training slice at full width: `SRTrainer` over TBSRN x2 (32x128
+     HR, STN + TPS, 5 SRBs, hidden 32, fp32) with the text-focus loss of
+     the frozen OCRTransformer(37, 1 channel, (1, 2, 5, 3), 16 heads,
+     512/1024/2048) at batch 64, label length 32, Adam(1e-4, 0.5, 0.999)
+     after a 0.25 global-norm clip, on seeded smooth random HR images, their
+     bicubic LR, and random labels: (a) one step of the kernel path agrees
+     with the same step of the plain path (`kernels=False`); (b) the launch
+     counters show 5 attention forwards, 5 backwards and 10 + 3 per oracle
+     forward LayerNorms per step; (c) 32 steps over 4 repeated batches,
+     the HR-map cache hit from epoch 1, losses finite and falling;
+     (d) `evaluate()` through the inference path (10 fused-enhancer
+     launches per forward) and a CRNN; (e) step ms and img/s of both
+     paths, split into TBSRN and oracle forward + backward.
 
 Timings use CUDA events after a warm-up; every timing line carries the
 card's name and power limit. Float32 comparisons run with TF32 off. The
@@ -39,16 +61,24 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from fudanocr_tpu_torch.eval.ctc import CTCLabelConverter
+from fudanocr_tpu_torch.losses.sr_losses import LOSS_VOCAB, TextFocusLoss
 from fudanocr_tpu_torch.models.rec.crnn import CRNN, parse_crnn_input
+from fudanocr_tpu_torch.models.rec.ocr_transformer import OCRTransformer
 from fudanocr_tpu_torch.models.sr.tbsrn import TBSRN
 from fudanocr_tpu_torch.nn.attention import positional_encoding_2d
 from fudanocr_tpu_torch.ops import _build
+from fudanocr_tpu_torch.ops import flash_attention as fa
 from fudanocr_tpu_torch.ops.fused_enhancer import (enhancer_operands,
                                                    fused_enhancer,
                                                    fused_enhancer_reference)
+from fudanocr_tpu_torch.ops.fused_layernorm import (
+    fused_residual_layernorm, fused_residual_layernorm_reference)
 from fudanocr_tpu_torch.serving import InferenceServer, PixelsToStrings
+from fudanocr_tpu_torch.train.sr import SRTrainer, make_sr_train_step
+from fudanocr_tpu_torch.train.state import adam_with_clip
 
 SEED = 0
 ALPHABET = "0123456789abcdefghijklmnopqrstuvwxyz"
@@ -59,6 +89,18 @@ LR_HW = (16, 64)     # TextZoom LR geometry -> L = 1024 enhancer tokens
 BF16_ATOL, BF16_MEAN = 0.05, 0.01
 # fp32 bars: tests/test_fused_enhancer.py:37
 FP32_RTOL, FP32_ATOL = 2e-4, 2e-5
+# phases 4-5, kernel vs plain on the same inputs. fp32: the same math in
+# another summation order (measured max errors 1e-6 .. 3e-6); bf16: the
+# outputs are rounded to bf16 (8 mantissa bits), and the plain attention
+# rounds its probabilities to bf16 for the value product while the kernel
+# keeps them fp32 (measured 2e-3 forward, 3e-3 relative dqkv)
+LN_ATOL = {torch.float32: 1e-5, torch.bfloat16: 0.04}
+ATTN_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# phase 6: the full train step, kernel path vs plain path
+STEP_LOSS_REL, STEP_GRAD_REL = 1e-5, 1e-3
+TRAIN_B, LABEL_LEN, HEADS, RATE = 64, 32, 4, 0.1
+TRAIN_BATCHES, EPOCHS, EVAL_BATCHES = 4, 8, 2
 
 
 def card() -> str:
@@ -169,8 +211,8 @@ def phase2(dev, gpu: str):
                srb_nums=SRB_NUMS, hidden_units=32, dtype=bf16)
     randomize_stats(sr, gen)
     sr_plain = TBSRN(scale_factor=2, width=128, height=32, stn=True,
-                     srb_nums=SRB_NUMS, hidden_units=32,
-                     fused_enhancer=False, dtype=bf16)
+                     srb_nums=SRB_NUMS, hidden_units=32, kernels=False,
+                     dtype=bf16)
     sr_plain.load_state_dict(sr.state_dict())
     crnn = CRNN(num_classes=37, hidden=256, dtype=bf16)
     randomize_stats(crnn, gen)
@@ -294,6 +336,325 @@ def phase3(pipe: PixelsToStrings, lr: torch.Tensor, gpu: str) -> None:
           f"p99 {st['p99_ms']} ms [{gpu}]")
 
 
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).norm()
+            / b.float().norm().clamp_min(1e-30)).item()
+
+
+def phase4(dev, gpu: str) -> dict:
+    gen = torch.Generator().manual_seed(SEED + 4)
+    result = {}
+    for rows, d in ((64 * 1024, 128), (64 * 32, 1024)):
+        for dt in (torch.float32, torch.bfloat16):
+            x, r = (torch.randn(rows, d, generator=gen).to(dev, dt)
+                    for _ in range(2))
+            s = (1 + 0.2 * torch.randn(d, generator=gen)).to(dev)
+            b = (0.1 * torch.randn(d, generator=gen)).to(dev)
+            g = torch.randn(rows, d, generator=gen).to(dev, dt)
+            lk = [t.clone().requires_grad_() for t in (x, r, s, b)]
+            lp = [t.clone().requires_grad_() for t in (x, r, s, b)]
+            got = fused_residual_layernorm(*lk)
+            want = fused_residual_layernorm_reference(*lp)
+            gk = torch.autograd.grad(got, lk, g)
+            gp = torch.autograd.grad(want, lp, g)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError("LayerNorm kernel output not finite")
+            err = (got.float() - want.float()).abs().max().item()
+            grel = max(rel_err(a, c) for a, c in zip(gk, gp))
+            if err > LN_ATOL[dt] or grel > GRAD_REL[dt]:
+                raise AssertionError(
+                    f"LayerNorm kernel disagrees at ({rows}, {d}) {dt}: "
+                    f"max abs {err} (bar {LN_ATOL[dt]}), grads rel {grel} "
+                    f"(bar {GRAD_REL[dt]})")
+            k_ms, p_ms = in_turns(
+                lambda: fused_residual_layernorm(x, r, s, b),
+                lambda: fused_residual_layernorm_reference(x, r, s, b), 20)
+            kb_ms, pb_ms = in_turns(
+                lambda: torch.autograd.grad(fused_residual_layernorm(*lk),
+                                            lk, g),
+                lambda: torch.autograd.grad(
+                    fused_residual_layernorm_reference(*lp), lp, g), 10)
+            print(f"phase 4: residual LN ({rows}, {d}) {dt}: max abs err "
+                  f"{err:.3e}, grads max rel {grel:.3e}; forward kernel "
+                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; forward+backward "
+                  f"{kb_ms:.4f} ms, plain {pb_ms:.4f} ms [{gpu}]")
+            result[(rows, d, dt)] = {"max_abs_err": err, "ms": k_ms,
+                                     "plain_ms": p_ms}
+    return result[(64 * 1024, 128, torch.float32)]
+
+
+def phase5(dev, gpu: str):
+    b, l = TRAIN_B, 1024
+    gen = torch.Generator().manual_seed(SEED + 5)
+    seed = torch.tensor(20261016, device=dev)
+    keep = fa.dropout_keep_mask_cuda(seed, b, HEADS, l, RATE, dev)
+    same = torch.equal(keep, fa.dropout_keep_oracle(b, HEADS, l, seed, RATE,
+                                                    device=dev))
+    frac = keep.float().mean().item()
+    print(f"phase 5: keep mask ({b}, {HEADS}, {l}, {l}) from the kernels' "
+          f"hash equals the plain hash bit for bit: {same}; kept {frac:.5f} "
+          f"(rate {RATE}) [{gpu}]")
+    if not same or abs(frac - (1 - RATE)) > 1e-3:
+        raise AssertionError("keep mask differs from the plain hash")
+    del keep
+    fwd, bwd = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(b, l, 3 * HEADS * 32, generator=gen).to(dev, dt)
+        do = torch.randn(b, l, HEADS * 32, generator=gen).to(dev, dt)
+        xk, xp = qkv.clone().requires_grad_(), qkv.clone().requires_grad_()
+        out_k = fa.flash_mha_qkv_packed_dropout(xk, seed, HEADS, RATE)
+        (dk,) = torch.autograd.grad(out_k, xk, do)
+        out_p = fa.flash_mha_qkv_packed_dropout_reference(xp, seed, HEADS,
+                                                          RATE)
+        (dp,) = torch.autograd.grad(out_p, xp, do)
+        torch.cuda.synchronize()
+        ferr = (out_k.float() - out_p.float()).abs().max().item()
+        berr = (dk.float() - dp.float()).abs().max().item()
+        brel = rel_err(dk, dp)
+        again = fa.flash_mha_qkv_packed_dropout(qkv, seed, HEADS, RATE)
+        other = fa.flash_mha_qkv_packed_dropout(qkv, seed + 1, HEADS, RATE)
+        print(f"phase 5: dropout attention {dt}: forward max abs err "
+              f"{ferr:.3e}; dqkv max abs err {berr:.3e}, rel {brel:.3e}; "
+              f"same seed bit-identical: {torch.equal(again, out_k)}, "
+              f"another seed differs: {not torch.equal(other, again)} "
+              f"[{gpu}]")
+        if not (torch.isfinite(out_k).all() and torch.isfinite(dk).all()):
+            raise AssertionError("attention kernels' output not finite")
+        if ferr > ATTN_ATOL[dt] or brel > GRAD_REL[dt]:
+            raise AssertionError(f"attention kernels disagree ({dt})")
+        if not torch.equal(again, out_k) or torch.equal(other, again):
+            raise AssertionError("the seed does not decide the output")
+        o, lse = fa.qkv_dropout_fwd(qkv, seed, HEADS, RATE)
+        og = fa.flash_mha_qkv_packed_dropout_reference(xp, seed, HEADS, RATE)
+        f_ms, fp_ms = in_turns(
+            lambda: fa.flash_mha_qkv_packed_dropout(qkv, seed, HEADS, RATE),
+            lambda: fa.flash_mha_qkv_packed_dropout_reference(
+                qkv, seed, HEADS, RATE), 5)
+        b_ms, bp_ms = in_turns(
+            lambda: fa.qkv_dropout_bwd(qkv, o, do, lse, seed, HEADS, RATE),
+            lambda: torch.autograd.grad(og, xp, do, retain_graph=True), 5)
+        fb_ms, fbp_ms = in_turns(
+            lambda: torch.autograd.grad(fa.flash_mha_qkv_packed_dropout(
+                xk, seed, HEADS, RATE), xk, do),
+            lambda: torch.autograd.grad(
+                fa.flash_mha_qkv_packed_dropout_reference(
+                    xp, seed, HEADS, RATE), xp, do), 5)
+        print(f"phase 5: ({b}, {l}, {3 * HEADS * 32}) {dt}: forward kernel "
+              f"{f_ms:.4f} ms, plain {fp_ms:.4f} ms; backward kernel "
+              f"{b_ms:.4f} ms, plain {bp_ms:.4f} ms; forward+backward "
+              f"kernel {fb_ms:.4f} ms, plain {fbp_ms:.4f} ms [{gpu}]")
+        fwd[dt] = {"max_abs_err": ferr, "ms": f_ms, "plain_ms": fp_ms}
+        bwd[dt] = {"max_abs_err": berr, "ms": b_ms, "plain_ms": bp_ms}
+        del og, o, lse
+    return fwd[torch.float32], bwd[torch.float32]
+
+
+class SeededTextZoom:
+    """Paired SR batches made from a seed, with `.batches(batch_size)` as
+    SRTrainer takes them: smooth random HR images (bicubic upsampled 8x32
+    noise, 32x128x3 in [0, 1]), their bicubic 16x64 LR, and random
+    lowercase/digit labels of 3-12 characters."""
+
+    def __init__(self, n: int, seed: int):
+        gen = torch.Generator().manual_seed(seed)
+        hr = F.interpolate(torch.rand(n, 3, 8, 32, generator=gen), (32, 128),
+                           mode="bicubic", align_corners=False).clamp(0, 1)
+        lr = F.interpolate(hr, LR_HW, mode="bicubic",
+                           align_corners=False).clamp(0, 1)
+        self.hr = hr.permute(0, 2, 3, 1).contiguous().numpy()
+        self.lr = lr.permute(0, 2, 3, 1).contiguous().numpy()
+        rng = np.random.default_rng(seed)
+        self.labels = ["".join(rng.choice(list(ALPHABET),
+                                          rng.integers(3, 13)))
+                       for _ in range(n)]
+
+    def batches(self, batch_size: int):
+        for i in range(0, len(self.labels) - batch_size + 1, batch_size):
+            yield (self.hr[i:i + batch_size], self.lr[i:i + batch_size],
+                   self.labels[i:i + batch_size])
+
+
+def train_counts() -> tuple:
+    return (fused_residual_layernorm.launches, fa.qkv_dropout_fwd.launches,
+            fa.qkv_dropout_bwd.launches, fused_enhancer.launches)
+
+
+def reset_counts() -> None:
+    fused_residual_layernorm.launches = 0
+    fa.qkv_dropout_fwd.launches = fa.qkv_dropout_bwd.launches = 0
+    fused_enhancer.launches = 0
+
+
+def split_ms(model, loss_fn, batch, gen) -> tuple:
+    """(TBSRN forward+backward ms, oracle loss forward+backward ms) of one
+    train step, from CUDA events around the model's forward, the loss's
+    forward and backward down to the SR image, and the model's backward."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    sr = model(batch["lr"], train=True, generator=gen)
+    ev[1].record()
+    sr_d = sr.detach().requires_grad_()
+    loss, _ = loss_fn(sr_d, batch["hr"], batch["text_input"],
+                      batch["text_gt"], batch["lengths"],
+                      hr_map=batch["hr_map"])
+    (loss * 100.0).backward()
+    ev[2].record()
+    sr.backward(sr_d.grad)
+    ev[3].record()
+    torch.cuda.synchronize()
+    model.zero_grad(set_to_none=True)
+    return (ev[0].elapsed_time(ev[1]) + ev[2].elapsed_time(ev[3]),
+            ev[1].elapsed_time(ev[2]))
+
+
+def phase6(dev, gpu: str) -> tuple:
+    torch.manual_seed(SEED + 6)
+    sr_kw = dict(scale_factor=2, width=128, height=32, stn=True,
+                 srb_nums=SRB_NUMS, hidden_units=32)
+    oracle_kw = dict(vocab=LOSS_VOCAB, num_in=1, layers=(1, 2, 5, 3),
+                     num_heads=16, d_embed=512, d_model=1024, d_ff=2048)
+    model = TBSRN(**sr_kw).to(dev)
+    plain = TBSRN(**sr_kw, kernels=False).to(dev)
+    oracle = OCRTransformer(**oracle_kw).to(dev)
+    oracle_plain = OCRTransformer(**oracle_kw, kernels=False).to(dev)
+    oracle_plain.load_state_dict(oracle.state_dict())
+    crnn = CRNN(num_classes=37, hidden=256).to(dev).eval()
+    loss_k, loss_p = TextFocusLoss(oracle), TextFocusLoss(oracle_plain)
+    data = SeededTextZoom(TRAIN_BATCHES * TRAIN_B, SEED + 60)
+    eval_data = SeededTextZoom(EVAL_BATCHES * TRAIN_B, SEED + 61)
+    trainer = SRTrainer(model, loss_k, data, eval_data, batch_size=TRAIN_B,
+                        lr=1e-4, epochs=EPOCHS, eval_every=10 ** 9,
+                        max_label_len=LABEL_LEN, recognizer=crnn,
+                        converter=CTCLabelConverter(ALPHABET), seed=SEED)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = trainer._device_batch(*next(data.batches(TRAIN_B)))
+
+    # (a) one step, kernel path vs plain path, same state and generator
+    plain.load_state_dict(init)
+    step_k = make_sr_train_step(model, loss_k,
+                                adam_with_clip(model.parameters(), 1e-4))
+    step_p = make_sr_train_step(plain, loss_p,
+                                adam_with_clip(plain.parameters(), 1e-4))
+    torch.cuda.synchronize()
+    reset_counts()
+    mk = step_k(batch, torch.Generator(dev).manual_seed(7))
+    torch.cuda.synchronize()
+    live = train_counts()
+    mp = step_p(batch, torch.Generator(dev).manual_seed(7))
+    torch.cuda.synchronize()
+    lk, lp = mk["loss"].item(), mp["loss"].item()
+    loss_rel = abs(lk - lp) / abs(lp)
+    pairs = [(n, pk.grad, pp.grad) for (n, pk), pp in
+             zip(model.named_parameters(), plain.parameters())]
+    top = max(gp.norm().item() for _, _, gp in pairs)
+    worst, worst_name, zero = 0.0, "", 0
+    for name, gk, gp in pairs:
+        if gp.norm().item() <= 1e-6 * top:
+            # exactly-zero gradients up to rounding (conv biases in front
+            # of a train-mode BatchNorm): held to 1e-6 of the largest
+            zero += 1
+            if (gk - gp).norm().item() > 1e-6 * top:
+                raise AssertionError(f"{name}: zero gradient differs")
+            continue
+        err = rel_err(gk, gp)
+        if err > worst:
+            worst, worst_name = err, name
+    print(f"phase 6a: one train step at batch {TRAIN_B}, kernel path loss "
+          f"{lk:.6f}, plain path {lp:.6f} (rel {loss_rel:.3e}, bar "
+          f"{STEP_LOSS_REL}); per-tensor gradient rel err max {worst:.3e} "
+          f"({worst_name}; bar {STEP_GRAD_REL}) over {len(pairs) - zero} "
+          f"tensors, {zero} zero-gradient tensors equal; grad norm "
+          f"{mk['grad_norm'].item():.4f} vs {mp['grad_norm'].item():.4f} "
+          f"[{gpu}]")
+    if not all(np.isfinite(v.item()) for v in mk.values()):
+        raise AssertionError("train step metrics are not finite")
+    if loss_rel > STEP_LOSS_REL or worst > STEP_GRAD_REL:
+        raise AssertionError("kernel path train step disagrees with plain")
+
+    # (b) launches per step: live HR map (two oracle forwards), cached (one)
+    batch["hr_map"] = loss_k.hr_oracle_map(batch["hr"], batch["text_input"])
+    torch.cuda.synchronize()
+    reset_counts()
+    step_k(batch, torch.Generator(dev).manual_seed(8))
+    torch.cuda.synchronize()
+    cached = train_counts()
+    want_live = (2 * SRB_NUMS + 2 * 3, SRB_NUMS, SRB_NUMS, 0)
+    want_cached = (2 * SRB_NUMS + 3, SRB_NUMS, SRB_NUMS, 0)
+    print(f"phase 6b: launches per step (LayerNorm, attention forward, "
+          f"attention backward, fused enhancer): live HR map {live} "
+          f"(expected {want_live}), cached HR map {cached} (expected "
+          f"{want_cached}) [{gpu}]")
+    if live != want_live or cached != want_cached:
+        raise AssertionError("the train step did not run the expected "
+                             "kernel launches")
+
+    # (c) the trainer: 4 batches x 8 epochs, HR maps cached from epoch 1
+    model.load_state_dict(init)
+    losses, maps = [], []
+    step = trainer.train_step
+
+    def recording_step(b, generator):
+        maps.append(b["hr_map"])
+        out = step(b, generator)
+        losses.append(out["loss"])
+        return out
+
+    trainer.train_step = recording_step
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = train_counts()
+    n = len(losses)
+    losses = [v.item() for v in losses]
+    hits = all(maps[i] is maps[i % TRAIN_BATCHES] for i in range(n))
+    want = (n * 2 * SRB_NUMS + 3 * (n + TRAIN_BATCHES), n * SRB_NUMS,
+            n * SRB_NUMS, 0)
+    print(f"phase 6c: SRTrainer.train() ran {n} steps in {seconds:.3f} s; "
+          f"HR-map cache {len(trainer._hr_map_cache)} maps, hit from epoch "
+          f"1 on: {hits}; launches {counts} (expected {want}); loss first "
+          f"{losses[0]:.4f}, last four {[round(v, 4) for v in losses[-4:]]} "
+          f"[{gpu}]")
+    if (n != TRAIN_BATCHES * EPOCHS or not hits or counts != want
+            or len(trainer._hr_map_cache) != TRAIN_BATCHES):
+        raise AssertionError("the trainer did not run the expected path")
+    if not np.isfinite(losses).all() or np.mean(losses[-4:]) >= losses[0]:
+        raise AssertionError("training losses are not finite or not falling")
+
+    # (d) evaluation through the inference path
+    reset_counts()
+    res = trainer.evaluate(trainer.step)
+    torch.cuda.synchronize()
+    enh = fused_enhancer.launches
+    print(f"phase 6d: evaluate() over {EVAL_BATCHES} batches: {res}; "
+          f"fused-enhancer launches {enh} (expected "
+          f"{EVAL_BATCHES * 2 * SRB_NUMS}) [{gpu}]")
+    if (enh != EVAL_BATCHES * 2 * SRB_NUMS or not np.isfinite(res["psnr"])
+            or not 0.0 < res["ssim"] <= 1.0 or not 0.0 <= res["acc"] <= 1.0):
+        raise AssertionError("evaluation failed")
+
+    # (e) steady-state step time (cached HR map), kernel vs plain path
+    plain.load_state_dict(model.state_dict())
+    gk, gp = (torch.Generator(dev).manual_seed(9) for _ in range(2))
+    k_ms, p_ms = in_turns(lambda: step_k(batch, gk), lambda: step_p(batch,
+                                                                   gp), 3)
+    sk = [split_ms(model, loss_k, batch, gk) for _ in range(3)]
+    sp = [split_ms(plain, loss_p, batch, gp) for _ in range(3)]
+    for name, ms, parts in (("kernel", k_ms, sk), ("plain", p_ms, sp)):
+        tb = float(np.mean([p[0] for p in parts]))
+        orc = float(np.mean([p[1] for p in parts]))
+        print(f"phase 6e: {name} path train step at batch {TRAIN_B} fp32: "
+              f"{ms:.3f} ms, {1e3 / ms:.3f} steps/s, {TRAIN_B * 1e3 / ms:.1f}"
+              f" img/s; TBSRN forward+backward {tb:.3f} ms, oracle loss "
+              f"forward+backward {orc:.3f} ms [{gpu}]")
+    print(f"phase 6: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{gpu}]")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a "
@@ -311,12 +672,30 @@ def main() -> int:
     enh = phase1(dev, gpu)
     pipe, lr, launches = phase2(dev, gpu)
     phase3(pipe, lr, gpu)
-    print(json.dumps({"kernels": [{
-        "name": "fused_enhancer", "route": "cuda",
-        "source": "fudanocr_tpu_torch/csrc/fused_enhancer.cu",
-        "replaces": "fudanocr_tpu/ops/fused_enhancer.py:188",
-        "launches": launches, "max_abs_err": enh["max_abs_err"],
-        "ms": enh["ms"], "plain_ms": enh["plain_ms"]}]}))
+    del pipe, lr
+    torch.cuda.empty_cache()
+    ln = phase4(dev, gpu)
+    attn_fwd, attn_bwd = phase5(dev, gpu)
+    torch.cuda.empty_cache()
+    ln_n, fwd_n, bwd_n, _ = phase6(dev, gpu)
+    attn_src = "fudanocr_tpu_torch/csrc/flash_attention_dropout.cu"
+    print(json.dumps({"kernels": [
+        {"name": "fused_enhancer", "route": "cuda",
+         "source": "fudanocr_tpu_torch/csrc/fused_enhancer.cu",
+         "replaces": "fudanocr_tpu/ops/fused_enhancer.py:188",
+         "launches": launches, **enh},
+        {"name": "fused_residual_layernorm", "route": "cuda",
+         "source": "fudanocr_tpu_torch/csrc/fused_layernorm.cu",
+         "replaces": "fudanocr_tpu/ops/fused_layernorm.py:53",
+         "launches": ln_n, **ln},
+        {"name": "qkv_dropout_attention_fwd", "route": "cuda",
+         "source": attn_src,
+         "replaces": "fudanocr_tpu/ops/flash_attention.py:505",
+         "launches": fwd_n, **attn_fwd},
+        {"name": "qkv_dropout_attention_bwd", "route": "cuda",
+         "source": attn_src,
+         "replaces": "fudanocr_tpu/ops/flash_attention.py:528",
+         "launches": bwd_n, **attn_bwd}]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,5 +31,5 @@ class ConvBN(nn.Sequential):
         super().__init__(nn.Conv2d(features, features, 3, padding=1),
                          nn.BatchNorm2d(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return batch_norm(self[1], conv2d(self[0], x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return batch_norm(self[1], conv2d(self[0], x), train)

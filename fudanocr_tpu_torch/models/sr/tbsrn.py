@@ -4,10 +4,21 @@ scene-text-telescope/model/tbsrn.py:166-226).
 
 A 9x9 conv stem + PReLU, `srb_nums` residual blocks (conv-BN-mish-conv-BN
 then the FeatureEnhancer), a conv+BN trunk tail with a global skip from the
-stem, PixelShuffle upsampling, a 9x9 output conv and tanh. Inference only:
-the STN head is built when `stn=True` so its weights carry across, and is
-not run at eval, as in the JAX package; the TPS warp and the train path
-come with the training port.
+stem, PixelShuffle upsampling, a 9x9 output conv and tanh.
+
+`forward(x, train=True, generator=g)` is the training path of the JAX
+module (tbsrn.py:122-150, 189-228): with `stn=True` the STN head predicts
+TPS control points on the LR input and the TPS warp replaces it; every
+BatchNorm runs on batch statistics (flax's running-statistics update);
+each FeatureEnhancer runs unfused with dropout 0.1 on the attention
+probabilities (hash dropout, one seed per call) and after the FFN's ReLU,
+its two LayerNorms through the fused residual-LayerNorm op. At inference
+the STN is not run, as in the JAX package, and each enhancer is one call
+of the fused-enhancer kernel.
+
+`kernels=False` runs the plain PyTorch version of every kernel of the
+model instead (fused enhancer, residual LayerNorm, dropout attention), on
+any device: the path the kernels are compared with.
 
 Input and output are NHWC, as in the JAX package; the convolutions run on
 an NCHW view of it (channels_last memory, which cuDNN takes directly and
@@ -19,29 +30,23 @@ Module names follow the original state_dict (`block1.0`, `block{i+2}.*`,
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from fudanocr_tpu_torch.models.sr.common import ConvBN, UpsampleBlock
 from fudanocr_tpu_torch.nn.attention import (MultiHeadAttention,
                                              positional_encoding_2d)
-from fudanocr_tpu_torch.nn.layers import (PReLU, TorchLayerNorm, batch_norm,
-                                          conv2d, mish)
+from fudanocr_tpu_torch.nn.layers import (PositionwiseFeedForward, PReLU,
+                                          TorchLayerNorm, batch_norm, conv2d,
+                                          dropout, linear, mish)
 from fudanocr_tpu_torch.nn.stn import STNHead
+from fudanocr_tpu_torch.nn.tps import TPSSpatialTransformer
 from fudanocr_tpu_torch.ops.fused_enhancer import (enhancer_operands,
                                                    fused_enhancer,
                                                    fused_enhancer_reference)
-
-
-class PositionwiseFeedForward(nn.Module):
-    """Holds the reference's `pff.w_1` / `pff.w_2` linears."""
-
-    def __init__(self, d_model: int, d_ff: int):
-        super().__init__()
-        self.w_1 = nn.Linear(d_model, d_ff)
-        self.w_2 = nn.Linear(d_ff, d_model)
 
 
 class FeatureEnhancer(nn.Module):
@@ -51,21 +56,26 @@ class FeatureEnhancer(nn.Module):
     one MHA(4 heads) + FFN(128) block with the reference's std LayerNorm,
     then a projection back to 64. The positional code is made for the
     actual (h, w) of the feature map, as the JAX module does at trace time.
-    With `fused` (the default) the block runs through
-    `ops.fused_enhancer.fused_enhancer`: the CUDA kernel on CUDA tensors,
-    its plain version on CPU tensors. `fused=False` runs the plain version
-    on any device (the comparison path).
+    At inference the block runs through `ops.fused_enhancer.fused_enhancer`
+    (the CUDA kernel on CUDA tensors, its plain version on CPU tensors);
+    `kernels=False` runs the plain version on any device. In training it
+    runs unfused, as the JAX module does (tbsrn.py:84-96): the fused kernel
+    has no backward.
     """
 
-    def __init__(self, fused: bool = True):
+    dropout_rate = 0.1   # after the FFN's ReLU (flax nn.Dropout(0.1))
+
+    def __init__(self, kernels: bool = True):
         super().__init__()
-        self.fused = fused
-        self.multihead = MultiHeadAttention(num_heads=4, d_model=128)
-        self.mul_layernorm1 = TorchLayerNorm(128)
+        self.kernels = kernels
+        self.multihead = MultiHeadAttention(num_heads=4, d_model=128,
+                                            kernels=kernels)
+        self.mul_layernorm1 = TorchLayerNorm(128, kernels=kernels)
         self.pff = PositionwiseFeedForward(128, 128)
-        self.mul_layernorm3 = TorchLayerNorm(128)
+        self.mul_layernorm3 = TorchLayerNorm(128, kernels=kernels)
         self.linear = nn.Linear(128, 64)
         self._operands: Dict[tuple, Dict[str, torch.Tensor]] = {}
+        self._pe: Dict[tuple, torch.Tensor] = {}
 
     def kernel_params(self) -> Dict[str, torch.Tensor]:
         """The weights in the (in, out) layout `enhancer_operands` takes."""
@@ -107,11 +117,32 @@ class FeatureEnhancer(nn.Module):
                     torch.from_numpy(pe.copy()).to(device), dtype)
         return self._operands[key]
 
-    def forward(self, tokens: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, h: int, w: int,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, L = h*w, 64) tokens of an (h, w) map -> (B, L, 64)."""
+        if train:
+            return self._train_forward(tokens, h, w, generator)
         ops = self.operands(h, w, tokens.dtype, tokens.device)
-        run = fused_enhancer if self.fused else fused_enhancer_reference
+        run = fused_enhancer if self.kernels else fused_enhancer_reference
         return run(tokens.contiguous(), ops, heads=4)
+
+    def _train_forward(self, tokens, h, w, generator):
+        b, l, _ = tokens.shape
+        key = (h, w, tokens.dtype, tokens.device)
+        if key not in self._pe:   # one host-to-device copy per geometry
+            self._pe[key] = torch.from_numpy(positional_encoding_2d(
+                64, h, w).reshape(64, l).T.copy()).to(tokens.device,
+                                                       tokens.dtype)
+        pe = self._pe[key]
+        x = torch.cat([tokens, pe.expand(b, l, 64)], dim=-1)
+        attn, _ = self.multihead(x, x, x, deterministic=False,
+                                 need_weights=False, generator=generator)
+        x = self.mul_layernorm1(x, attn)
+        y = F.relu(linear(self.pff.w_1, x))
+        y = dropout(y, self.dropout_rate, generator)
+        x = self.mul_layernorm3(x, linear(self.pff.w_2, y))
+        return linear(self.linear, x)
 
 
 class TransformerResidualBlock(nn.Module):
@@ -119,32 +150,34 @@ class TransformerResidualBlock(nn.Module):
     RecurrentResidualBlock, tbsrn.py:229-257, without the two GRU blocks it
     builds and never calls)."""
 
-    def __init__(self, channels: int, fused_enhancer: bool = True):
+    def __init__(self, channels: int, kernels: bool = True):
         super().__init__()
         self.conv1 = nn.Conv2d(channels, channels, 3, padding=1)
         self.bn1 = nn.BatchNorm2d(channels)
         self.conv2 = nn.Conv2d(channels, channels, 3, padding=1)
         self.bn2 = nn.BatchNorm2d(channels)
-        self.feature_enhancer = FeatureEnhancer(fused=fused_enhancer)
+        self.feature_enhancer = FeatureEnhancer(kernels=kernels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        r = mish(batch_norm(self.bn1, conv2d(self.conv1, x)))
-        r = batch_norm(self.bn2, conv2d(self.conv2, r))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        r = mish(batch_norm(self.bn1, conv2d(self.conv1, x), train))
+        r = batch_norm(self.bn2, conv2d(self.conv2, r), train)
         b, c, h, w = r.shape
         tokens = r.permute(0, 2, 3, 1).reshape(b, h * w, c)
-        tokens = self.feature_enhancer(tokens, h, w)
+        tokens = self.feature_enhancer(tokens, h, w, train, generator)
         return x + tokens.view(b, h, w, c).permute(0, 3, 1, 2)
 
 
 class TBSRN(nn.Module):
     """`width` x `height` is the HR size; at inference any LR geometry runs
-    (the enhancers make their positional code per feature map), and the
-    size is kept for the TPS warp of the training port."""
+    (the enhancers make their positional code per feature map); in
+    training the TPS warp outputs the LR size (height, width) /
+    scale_factor."""
 
     def __init__(self, scale_factor: int = 2, width: int = 128,
                  height: int = 32, stn: bool = True, srb_nums: int = 5,
                  mask: bool = False, hidden_units: int = 32,
-                 fused_enhancer: bool = True,
+                 kernels: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.width, self.height = width, height
@@ -162,28 +195,33 @@ class TBSRN(nn.Module):
             nn.Conv2d(in_planes, feats, 9, padding=4), PReLU())
         for i in range(srb_nums):
             setattr(self, f"block{i + 2}",
-                    TransformerResidualBlock(feats,
-                                             fused_enhancer=fused_enhancer))
+                    TransformerResidualBlock(feats, kernels=kernels))
         setattr(self, f"block{srb_nums + 2}", ConvBN(feats))
         setattr(self, f"block{srb_nums + 3}", nn.Sequential(
             *[UpsampleBlock(feats, 2) for _ in range(n_up)],
             nn.Conv2d(feats, in_planes, 9, padding=4)))
         self.stn_head = (STNHead(in_planes, num_ctrlpoints=20)
                          if stn else None)
+        self.tps = (TPSSpatialTransformer(
+            (height // scale_factor, width // scale_factor),
+            num_control_points=20, margins=(0.05, 0.05)) if stn else None)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, H, W, C) LR images in [0, 1] -> (B, sH, sW, C) SR in [-1, 1],
-        at the model's compute dtype."""
-        if train:
-            raise NotImplementedError(
-                "TBSRN training (TPS warp, train-mode BN, dropout) is not "
-                "ported yet")
+        at the model's compute dtype. `train=True` runs the training path
+        (it updates the BatchNorm running statistics in place); dropout
+        draws from `generator`, a torch.Generator on x's device."""
+        if train and self.stn_head is not None:
+            _, ctrl = self.stn_head(x.permute(0, 3, 1, 2).to(self.dtype),
+                                    train=True)
+            x, _ = self.tps(x, ctrl)
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         stem = self.block1[1](conv2d(self.block1[0], x))
         h = stem
         for i in range(self.srb_nums):
-            h = getattr(self, f"block{i + 2}")(h)
-        h = stem + getattr(self, f"block{self.srb_nums + 2}")(h)
+            h = getattr(self, f"block{i + 2}")(h, train, generator)
+        h = stem + getattr(self, f"block{self.srb_nums + 2}")(h, train)
         head = getattr(self, f"block{self.srb_nums + 3}")
         for up in head[:-1]:
             h = up(h)

@@ -2,21 +2,26 @@
 fudanocr_tpu/nn/attention.py).
 
 The encodings are host-side numpy constants copied from the JAX module
-(which cannot be imported here: it pulls in jax). The attention is the
-self-attention plain path only; it keeps the reference's four linears
-(`linears.0..3` for q, k, v, out, tbsrn.py:116-119), which the JAX
-package's porter concatenates into its fused qkv Dense.
+(which cannot be imported here: it pulls in jax). The attention keeps the
+reference's four linears (`linears.0..3` for q, k, v, out, tbsrn.py:116-
+119), which the JAX package's porter concatenates into its fused qkv (or
+kv) Dense; self-attention concatenates them the same way at run time.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from fudanocr_tpu_torch.nn.layers import linear
+from fudanocr_tpu_torch.nn.layers import dropout, linear
+from fudanocr_tpu_torch.ops.flash_attention import (
+    flash_mha_qkv_packed_dropout, flash_mha_qkv_packed_dropout_reference,
+    flash_packed_supported)
 
 
 def positional_encoding_1d(d_model: int, length: int) -> np.ndarray:
@@ -49,24 +54,88 @@ def positional_encoding_2d(d_model: int, height: int, width: int) -> np.ndarray:
 
 
 class MultiHeadAttention(nn.Module):
-    """Self-attention over (B, L, D): per-head scaled dot product with fp32
-    scores and softmax, probabilities rounded to the activation dtype before
-    the value product, then the output linear (tbsrn.py:95-150)."""
+    """MHA over (B, L, D) with an optional boolean mask, cross-attention,
+    attention-map output and dropout on the probabilities (port of the
+    JAX module, reference tbsrn.py:95-150).
 
-    def __init__(self, num_heads: int, d_model: int):
+    Scores and softmax run in float32, the probabilities are rounded to
+    the activation dtype before the value product. `kv_features` is the
+    width of the key/value input when it differs from `d_model` (the
+    oracle's cross-attention over 1024-wide conv tokens at reduced
+    d_model).
+
+    Route, as in the JAX module (nn/attention.py:102-124): self-attention
+    in train mode with `dropout_rate > 0`, no mask, no map override, no
+    maps asked for and a shape `flash_packed_supported` takes runs through
+    `ops.flash_attention.flash_mha_qkv_packed_dropout` (the hash-dropout
+    kernels on CUDA tensors) with one uint32 seed drawn from `generator`
+    per call. Everything else runs the plain path, whose train-mode
+    dropout draws its mask from `generator`. `kernels=False` runs the
+    plain version of the dropout kernels on the same route (the
+    comparison path).
+    """
+
+    def __init__(self, num_heads: int, d_model: int,
+                 dropout_rate: float = 0.1,
+                 kv_features: Optional[int] = None, kernels: bool = True):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} % heads {num_heads} != 0")
         self.num_heads = num_heads
-        self.linears = nn.ModuleList(nn.Linear(d_model, d_model)
-                                     for _ in range(4))
+        self.dropout_rate = dropout_rate
+        self.kernels = kernels
+        kv = kv_features or d_model
+        self.linears = nn.ModuleList([
+            nn.Linear(d_model, d_model), nn.Linear(kv, d_model),
+            nn.Linear(kv, d_model), nn.Linear(d_model, d_model)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, l, d = x.shape
+    def forward(self, query: torch.Tensor, key: torch.Tensor,
+                value: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                attention_map: Optional[torch.Tensor] = None,
+                deterministic: bool = True, need_weights: bool = True,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """-> (out (B, Lq, D), probs (B, H, Lq, Lk) float32 or None).
+
+        `mask` broadcasts to (B, 1, Lq, Lk), True = attend.
+        `attention_map` replaces the probabilities. `generator` (on the
+        activations' device; its default when None) feeds dropout."""
         h = self.num_heads
-        q, k, v = (linear(m, x).view(b, l, h, d // h).transpose(1, 2)
-                   for m in self.linears[:3])
-        scores = (q @ k.transpose(-1, -2)).float() / math.sqrt(d // h)
-        probs = scores.softmax(-1).to(v.dtype)
-        out = (probs @ v).transpose(1, 2).reshape(b, l, d)
-        return linear(self.linears[3], out)
+        b, lq = query.shape[0], query.shape[1]
+        lk = key.shape[1]
+        d = self.linears[0].out_features
+        dk = d // h
+        train_dropout = not deterministic and self.dropout_rate > 0.0
+        if query is key and key is value:
+            w = torch.cat([m.weight for m in self.linears[:3]])
+            bias = torch.cat([m.bias for m in self.linears[:3]])
+            qkv = F.linear(query, w.to(query.dtype), bias.to(query.dtype))
+            if (train_dropout and not need_weights and mask is None
+                    and attention_map is None
+                    and flash_packed_supported(lq, lk, d, h)):
+                seed = torch.randint(0, 2 ** 32, (), generator=generator,
+                                     dtype=torch.int64, device=qkv.device)
+                run = (flash_mha_qkv_packed_dropout if self.kernels
+                       else flash_mha_qkv_packed_dropout_reference)
+                out = run(qkv, seed, h, self.dropout_rate)
+                return linear(self.linears[3], out), None
+            q, k, v = qkv.split(d, dim=-1)
+        else:
+            q, k, v = (linear(m, x) for m, x in
+                       zip(self.linears[:3], (query, key, value)))
+        q = q.reshape(b, lq, h, dk).transpose(1, 2)
+        k = k.reshape(b, lk, h, dk).transpose(1, 2)
+        v = v.reshape(b, lk, h, dk).transpose(1, 2)
+
+        if attention_map is not None:
+            probs = attention_map
+        else:
+            scores = (q @ k.transpose(-1, -2)).float() / math.sqrt(dk)
+            if mask is not None:
+                scores = scores.masked_fill(~mask, -1e30)
+            probs = scores.softmax(-1)
+            if train_dropout:
+                probs = dropout(probs, self.dropout_rate, generator)
+        out = (probs.to(v.dtype) @ v).transpose(1, 2).reshape(b, lq, d)
+        out = linear(self.linears[3], out)
+        return out, (probs if need_weights else None)

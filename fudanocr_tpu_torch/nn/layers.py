@@ -10,10 +10,17 @@ exactly as the JAX module does:
 * `PReLU` has one shared slope.
 * `pixel_shuffle` is `nn.PixelShuffle` on NCHW, whose channel order
   (c*r^2 + i*r + j) the JAX op reproduces in NHWC.
+* `batch_norm(..., train=True)` follows flax, not `nn.BatchNorm2d`: it
+  normalises with the biased batch variance and moves `running_var`
+  towards that same biased variance (torch's own update uses the
+  unbiased one, so the stock module drifts from the JAX `batch_stats`
+  after one step).
 
 The `conv2d` / `linear` / `batch_norm` helpers run a module's parameters at
 the activation's dtype (params stay float32), the port's counterpart of
-flax's `dtype=` field.
+flax's `dtype=` field. Dropout draws its mask from an explicit
+`torch.Generator` on the activation's device (flax's `rngs={"dropout":
+...}`).
 """
 
 from __future__ import annotations
@@ -23,6 +30,10 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from fudanocr_tpu_torch.ops.fused_layernorm import (
+    fused_residual_layernorm, fused_residual_layernorm_reference,
+    torch_layer_norm)
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -45,41 +56,77 @@ def linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, m.weight.to(x.dtype), bias)
 
 
-def batch_norm(m: nn.modules.batchnorm._BatchNorm,
-               x: torch.Tensor) -> torch.Tensor:
-    """Inference BatchNorm: float32 statistics and affine, output in x's
-    dtype (flax BatchNorm with `dtype=` rounds only its result)."""
-    return F.batch_norm(x, m.running_mean, m.running_var, m.weight, m.bias,
-                        False, 0.0, m.eps)
+def batch_norm(m: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+               train: bool = False) -> torch.Tensor:
+    """BatchNorm with float32 statistics and affine, output in x's dtype
+    (flax BatchNorm with `dtype=` rounds only its result).
+
+    Inference normalises with the running statistics. `train=True`
+    normalises with the biased batch statistics over every axis but 1
+    (gradients flow through them) and updates the running statistics in
+    place as flax does: `running = (1 - momentum) * running + momentum *
+    batch`, with the biased batch variance (torch momentum 0.1 = flax
+    momentum 0.9)."""
+    if not train:
+        return F.batch_norm(x, m.running_mean, m.running_var, m.weight,
+                            m.bias, False, 0.0, m.eps)
+    y = F.batch_norm(x, None, None, m.weight, m.bias, True, 0.0, m.eps)
+    with torch.no_grad():
+        axes = [0] + list(range(2, x.dim()))
+        var, mean = torch.var_mean(x.float(), dim=axes, correction=0)
+        m.running_mean.lerp_(mean, m.momentum)
+        m.running_var.lerp_(var, m.momentum)
+    return y
 
 
-def torch_layer_norm(v: torch.Tensor, scale: torch.Tensor,
-                     bias: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """(v - mean) / (unbiased_std + eps) * scale + bias, all in float32."""
-    v = v.float()
-    mean = v.mean(-1, keepdim=True)
-    d = v - mean
-    var = (d * d).sum(-1, keepdim=True) / max(v.shape[-1] - 1, 1)
-    return d / (var.sqrt() + eps) * scale.float() + bias.float()
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `nn.Dropout(rate)` in train mode: keep with probability
+    1 - rate and scale kept values by 1 / (1 - rate). The uniform draws
+    come from `generator` (the default generator of x's device when
+    None), so a run is reproducible from the generator's state."""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class TorchLayerNorm(nn.Module):
     """The reference LayerNorm with its `a_2` / `b_2` parameter names.
 
     `forward(x, residual)` computes LN(x + residual) with the sum taken in
-    float32, the JAX module's fused-residual form. Output dtype follows x.
+    float32, the JAX module's fused-residual form, through
+    `ops.fused_layernorm.fused_residual_layernorm` (the CUDA kernel on
+    CUDA tensors). `kernels=False` runs its plain PyTorch version instead,
+    on any device (the comparison path). Output dtype follows x.
     """
 
-    def __init__(self, features: int, eps: float = 1e-6):
+    def __init__(self, features: int, eps: float = 1e-6,
+                 kernels: bool = True):
         super().__init__()
         self.a_2 = nn.Parameter(torch.ones(features))
         self.b_2 = nn.Parameter(torch.zeros(features))
         self.eps = eps
+        self.kernels = kernels
 
     def forward(self, x: torch.Tensor,
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-        v = x.float() if residual is None else x.float() + residual.float()
-        return torch_layer_norm(v, self.a_2, self.b_2, self.eps).to(x.dtype)
+        if residual is None:
+            return torch_layer_norm(x, self.a_2, self.b_2,
+                                    self.eps).to(x.dtype)
+        run = (fused_residual_layernorm if self.kernels
+               else fused_residual_layernorm_reference)
+        return run(x, residual, self.a_2, self.b_2, self.eps)
+
+
+class PositionwiseFeedForward(nn.Module):
+    """Holds the reference's `pff.w_1` / `pff.w_2` linears."""
+
+    def __init__(self, d_model: int, d_ff: int):
+        super().__init__()
+        self.w_1 = nn.Linear(d_model, d_ff)
+        self.w_2 = nn.Linear(d_ff, d_model)
 
 
 class PReLU(nn.PReLU):
@@ -97,8 +144,8 @@ class ConvBNReLU(nn.Sequential):
         super().__init__(nn.Conv2d(in_features, features, 3, 1, 1),
                          nn.BatchNorm2d(features), nn.ReLU())
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(batch_norm(self[1], conv2d(self[0], x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return F.relu(batch_norm(self[1], conv2d(self[0], x), train))
 
 
 def max_pool(x: torch.Tensor, window: Union[int, Tuple[int, int]],

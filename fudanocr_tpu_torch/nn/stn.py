@@ -9,8 +9,13 @@ points. Parameter names are the reference's (`stn_convnet.{0,2,..,10}`,
 
 The (256, 1, 2) map is flattened in (h, w, c) order, as the JAX package
 does from its NHWC layout, so the two packages agree on the same weights.
-The reference flattens NCHW in (c, h, w) order; that difference only
-matters where the STN runs, which is training (see ROADMAP.md Queue C).
+The reference flattens NCHW in (c, h, w) order; that difference matters
+where the STN runs, which is training (ROADMAP.md Queue C6: the port
+follows the JAX package).
+
+`forward(x, train=True)` runs every BatchNorm (the conv stack's and
+`stn_fc1`'s) on batch statistics and updates their running statistics
+the flax way (`nn.layers.batch_norm`).
 """
 
 from __future__ import annotations
@@ -58,17 +63,19 @@ class STNHead(nn.Module):
             self.stn_fc2.weight.zero_()
             self.stn_fc2.bias.copy_(torch.from_numpy(bias))
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """NCHW (B, C, >=16, >=32) -> (embedding (B, 512), points (B, N, 2))."""
         if x.shape[2] < 16 or x.shape[3] < 32:
             raise ValueError(
                 f"STNHead needs input of at least 16x32 (got "
                 f"{x.shape[2]}x{x.shape[3]}): its five pooling stages reduce "
                 f"height by 16x and width by 32x (stn_head.py:32-43)")
-        x = self.stn_convnet(x)
+        for m in self.stn_convnet:
+            x = m(x, train) if isinstance(m, ConvBNReLU) else m(x)
         x = x.permute(0, 2, 3, 1).flatten(1)
         img_feat = F.relu(batch_norm(self.stn_fc1[1],
-                                     linear(self.stn_fc1[0], x)))
+                                     linear(self.stn_fc1[0], x), train))
         pts = linear(self.stn_fc2, 0.1 * img_feat)
         if self.activation == "sigmoid":
             pts = torch.sigmoid(pts)

@@ -1,10 +1,13 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Every `*.cu` under `fudanocr_tpu_torch/csrc/` is compiled into one shared
-library with a plain C interface:
+library with a plain C interface, one nvcc per source, all started
+together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/libfudanocr_kernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c csrc/<name>.cu -o <name>.o      (in parallel)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o build/kernels/libfudanocr_kernels-<hash>.so *.o
 
 The library name carries a hash of the sources and flags, so an edit
 rebuilds and a stale build is never loaded. It is built at first use (the
@@ -28,8 +31,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 
 def _sources() -> list:
@@ -64,19 +67,31 @@ def build() -> tuple:
     if out.exists():
         return out, 0.0
     out.parent.mkdir(parents=True, exist_ok=True)
-    srcs = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stderr}{proc.stdout}")
-    os.replace(tmp, out)
-    return out, seconds
+    with tempfile.TemporaryDirectory(dir=out.parent) as work:
+        objs, procs = [], []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        # wait for every compile before reporting, so no nvcc outlives us
+        outputs = [p.communicate() for _, p in procs]
+        for (cmd, p), (stdout, stderr) in zip(procs, outputs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                                   f"{' '.join(cmd)}\n{stderr}{stdout}")
+        tmp = os.path.join(work, "lib.so")
+        cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
+        os.replace(tmp, out)
+    return out, time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,10 +100,17 @@ def load_library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    i64, u32 = ctypes.c_longlong, ctypes.c_uint
     lib.fe_qkv_proj.argtypes = [p, p, p, p, i, i, i, p]
-    lib.fe_qkv_proj.restype = i
     lib.fe_attn_epilogue.argtypes = [p] * 16 + [i, i, i, f, i, p]
-    lib.fe_attn_epilogue.restype = i
+    lib.ln_residual_fwd.argtypes = [p] * 5 + [i64, i, f, i, p]
+    lib.attn_dropout_fwd.argtypes = [p] * 4 + [i] * 4 + [f, f, u32, i, p]
+    lib.attn_dropout_bwd.argtypes = [p] * 6 + [i] * 4 + [f, f, u32, i, p]
+    lib.attn_dropout_keep.argtypes = [p, p, i, i, i, u32, p]
+    for fn in (lib.fe_qkv_proj, lib.fe_attn_epilogue, lib.ln_residual_fwd,
+               lib.attn_dropout_fwd, lib.attn_dropout_bwd,
+               lib.attn_dropout_keep):
+        fn.restype = i
     lib.fe_error_string.argtypes = [i]
     lib.fe_error_string.restype = ctypes.c_char_p
     return lib

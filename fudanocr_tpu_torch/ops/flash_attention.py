@@ -1,0 +1,287 @@
+"""Self-attention with hash dropout off the fused [q|k|v] buffer: Hopper
+kernels (forward and backward) + plain twin.
+
+Port of the packed-qkv dropout part of fudanocr_tpu/ops/flash_attention.py
+(`flash_mha_qkv_packed_dropout` and its hash helpers). For (B, L, 3D) qkv
+with H heads of width dh = D / H, per image and head:
+
+    s    = q k^T / sqrt(dh)                        (float32)
+    p    = exp(s - rowmax(s)),  denom = rowsum(p)
+    keep = fmix((q_idx * L + k_idx) ^ bh_seed(seed, b, h)) < thresh(rate)
+    o    = (keep * p) v * (1 / (1 - rate)) / denom
+
+so dropout acts on the normalised probabilities (torch `F.dropout` on the
+attention weights), and the keep decision is a murmur3 counter hash of
+(seed, image, head, q, k). The hash helpers below are the JAX package's,
+bit for bit, in int64 torch arithmetic (uint32 wraparound by masking), so
+the port's masks equal `fudanocr_tpu.ops.flash_attention.
+dropout_keep_oracle` exactly.
+
+`flash_mha_qkv_packed_dropout` runs the plain version
+(`flash_mha_qkv_packed_dropout_reference`, differentiable by autograd) on
+CPU tensors. On CUDA tensors it runs `_QKVDropoutAttention`, whose forward
+launches the kernel of csrc/flash_attention_dropout.cu through
+`qkv_dropout_fwd` and whose backward launches the backward kernel through
+`qkv_dropout_bwd`; it raises on what they do not take and never falls
+back. The Function's context saves qkv and the seed, as the JAX VJP does,
+plus the forward's output o and its per-row log-sum-exp (B*H*L float32):
+the backward forms D_i = dO_i . o_i from them instead of a third pass
+over the keys, and o is the tensor the out-projection keeps alive for its
+own backward anyway.
+
+The seed is a uint32 value held in a 0-d int64 tensor on the device (an
+int is accepted too), so drawing it from a device generator needs no
+host synchronisation.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple, Union
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+KERNEL_HEAD_WIDTH = 32   # head width the kernels are built for
+KERNEL_ROW_TILE = 128    # L must be a multiple of it
+
+Seed = Union[int, torch.Tensor]
+
+
+def flash_packed_supported(lq: int, lk: int, d: int, heads: int) -> bool:
+    """The JAX package's gate for the packed-qkv attention route
+    (fudanocr_tpu/ops/flash_attention.py:190)."""
+    return (lq == lk and 512 <= lq <= 2048 and lq % 256 == 0
+            and d % heads == 0 and d <= 512 and (d // heads) % 8 == 0)
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x * c mod 2^32 for int64 x in [0, 2^32): split so no product
+    exceeds 2^49."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & MASK32
+
+
+def fmix(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 fmix32 (`_fmix`, flash_attention.py:256) on int64 values in
+    [0, 2^32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def bh_seed(seed: torch.Tensor, b: torch.Tensor, h: int,
+            heads: int) -> torch.Tensor:
+    """Per-(image, head) seed (`_bh_seed`, flash_attention.py:266)."""
+    bh = (b * heads + h) & MASK32
+    return fmix(seed ^ _mul32(bh, 0x9E3779B9))
+
+
+def keep_mask(seed_bh: torch.Tensor, row0: int, rows: int, cols: int,
+              thresh_: int) -> torch.Tensor:
+    """(..., rows, cols) keep mask (`_keep_mask`, flash_attention.py:275):
+    fmix((row * cols + col) ^ seed_bh) < thresh, with `seed_bh` of shape
+    (...) broadcast over the last two axes."""
+    dev = seed_bh.device
+    r = torch.arange(row0, row0 + rows, device=dev, dtype=torch.int64)
+    c = torch.arange(cols, device=dev, dtype=torch.int64)
+    ctr = (r[:, None] * cols + c[None, :]) & MASK32
+    return fmix(ctr ^ seed_bh[..., None, None]) < thresh_
+
+
+def thresh(rate: float) -> int:
+    """uint32 keep threshold (`_thresh`, flash_attention.py:286), rounded
+    on the host with Python's `round` as the JAX package does."""
+    return min(int(round((1.0 - rate) * 2.0 ** 32)), 2 ** 32 - 1)
+
+
+def _seed_tensor(seed: Seed, device) -> torch.Tensor:
+    if isinstance(seed, torch.Tensor):
+        if seed.numel() != 1 or seed.dtype.is_floating_point:
+            raise ValueError(f"seed must be one integer, got "
+                             f"{tuple(seed.shape)} {seed.dtype}")
+        return seed.reshape(()).to(device=device, dtype=torch.int64)
+    if not 0 <= int(seed) <= MASK32:
+        raise ValueError(f"seed must be a uint32, got {seed}")
+    return torch.tensor(int(seed), dtype=torch.int64, device=device)
+
+
+def dropout_keep_oracle(b: int, heads: int, l: int, seed: Seed,
+                        rate: float, device="cpu") -> torch.Tensor:
+    """(B, H, L, L) bool keep mask of the whole call, the counterpart of
+    the JAX package's `dropout_keep_oracle` (flash_attention.py:603),
+    computed with torch ops on `device`."""
+    seed = _seed_tensor(seed, device)
+    bidx = torch.arange(b, dtype=torch.int64, device=device)
+    return torch.stack([keep_mask(bh_seed(seed, bidx, h, heads), 0, l, l,
+                                  thresh(rate)) for h in range(heads)], 1)
+
+
+def flash_mha_qkv_packed_dropout_reference(qkv: torch.Tensor, seed: Seed,
+                                           heads: int,
+                                           rate: float) -> torch.Tensor:
+    """The plain PyTorch version, (B, L, 3D) -> (B, L, D) at qkv's dtype.
+
+    Same math and rounding points as the JAX kernel: fp32 scores and
+    softmax, probabilities rounded to qkv's dtype for the value product
+    with fp32 accumulation. One head at a time bounds the (B, L, L)
+    temporaries; gradients come from autograd (the row max is detached,
+    which is exact: the output does not depend on the shift)."""
+    b, l, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // heads
+    dt = qkv.dtype
+    scale = 1.0 / math.sqrt(dh)
+    inv_keep = 1.0 / (1.0 - rate)
+    seed = _seed_tensor(seed, qkv.device)
+    bidx = torch.arange(b, dtype=torch.int64, device=qkv.device)
+    outs = []
+    for h in range(heads):
+        q, k, v = (qkv[..., i * d + h * dh:i * d + (h + 1) * dh].float()
+                   for i in range(3))
+        s = (q @ k.transpose(1, 2)) * scale
+        p = torch.exp(s - s.amax(-1, keepdim=True).detach())
+        denom = p.sum(-1, keepdim=True)
+        keep = keep_mask(bh_seed(seed, bidx, h, heads), 0, l, l,
+                         thresh(rate))
+        p = torch.where(keep, p, torch.zeros((), device=p.device))
+        o = (p.to(dt).float() @ v) * (inv_keep / denom)
+        outs.append(o.to(dt))
+    return torch.cat(outs, dim=-1)
+
+
+def _check_qkv(qkv: torch.Tensor, heads: int, rate: float) -> Tuple[int, ...]:
+    if qkv.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"qkv dropout attention takes float32 or bfloat16 "
+                        f"qkv, got {qkv.dtype}")
+    if qkv.dim() != 3 or not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError(f"qkv dropout attention needs a contiguous, 16-byte "
+                         f"aligned (B, L, 3D) qkv, got {tuple(qkv.shape)} "
+                         f"strides {qkv.stride()}")
+    b, l, d3 = qkv.shape
+    d = d3 // 3
+    if d3 % 3 or heads < 1 or d % heads or d // heads != KERNEL_HEAD_WIDTH:
+        raise ValueError(f"the qkv dropout attention kernel needs head width "
+                         f"{KERNEL_HEAD_WIDTH}, got 3D={d3} over {heads} "
+                         f"heads")
+    if l < KERNEL_ROW_TILE or l % KERNEL_ROW_TILE or b < 1:
+        raise ValueError(f"the qkv dropout attention kernel needs L a "
+                         f"multiple of {KERNEL_ROW_TILE}, got "
+                         f"{tuple(qkv.shape)}")
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    return b, l, d
+
+
+def qkv_dropout_fwd(qkv: torch.Tensor, seed: torch.Tensor, heads: int,
+                    rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward kernel: (o (B, L, D), lse (B, H, L) fp32).
+    `qkv_dropout_fwd.launches` counts launches."""
+    from fudanocr_tpu_torch.ops._build import check, load_library
+
+    b, l, d = _check_qkv(qkv, heads, rate)
+    seed = _seed_tensor(seed, qkv.device)
+    lib = load_library()
+    with torch.cuda.device(qkv.device):
+        out = torch.empty((b, l, d), dtype=qkv.dtype, device=qkv.device)
+        lse = torch.empty((b, heads, l), dtype=torch.float32,
+                          device=qkv.device)
+        qkv_dropout_fwd.launches += 1
+        check(lib.attn_dropout_fwd(
+            qkv.data_ptr(), seed.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            b, l, heads, d // heads, 1.0 / math.sqrt(d // heads),
+            1.0 / (1.0 - rate), thresh(rate),
+            int(qkv.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream), "attn_dropout_fwd")
+    return out, lse
+
+
+def qkv_dropout_bwd(qkv: torch.Tensor, out: torch.Tensor,
+                    dout: torch.Tensor, lse: torch.Tensor,
+                    seed: torch.Tensor, heads: int,
+                    rate: float) -> torch.Tensor:
+    """Launch the backward kernel: dqkv (B, L, 3D) at qkv's dtype.
+    `qkv_dropout_bwd.launches` counts launches."""
+    from fudanocr_tpu_torch.ops._build import check, load_library
+
+    b, l, d = _check_qkv(qkv, heads, rate)
+    for name, t, shape, dtype in (("out", out, (b, l, d), qkv.dtype),
+                                  ("dout", dout, (b, l, d), qkv.dtype),
+                                  ("lse", lse, (b, heads, l), torch.float32)):
+        if (tuple(t.shape) != shape or t.dtype != dtype
+                or t.device != qkv.device or not t.is_contiguous()):
+            raise ValueError(f"qkv dropout attention backward: {name} "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device} does "
+                             f"not fit qkv {tuple(qkv.shape)} {qkv.dtype}")
+    seed = _seed_tensor(seed, qkv.device)
+    lib = load_library()
+    with torch.cuda.device(qkv.device):
+        dqkv = torch.empty_like(qkv)
+        qkv_dropout_bwd.launches += 1
+        check(lib.attn_dropout_bwd(
+            qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            seed.data_ptr(), dqkv.data_ptr(), b, l, heads, d // heads,
+            1.0 / math.sqrt(d // heads), 1.0 / (1.0 - rate), thresh(rate),
+            int(qkv.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream), "attn_dropout_bwd")
+    return dqkv
+
+
+qkv_dropout_fwd.launches = 0
+qkv_dropout_bwd.launches = 0
+
+
+def dropout_keep_mask_cuda(seed: Seed, b: int, heads: int, l: int,
+                           rate: float, device) -> torch.Tensor:
+    """(B, H, L, L) bool keep mask computed on the card by the same
+    __device__ hash the kernels use (for tests; not counted as a launch
+    of either kernel)."""
+    from fudanocr_tpu_torch.ops._build import check, load_library
+
+    seed = _seed_tensor(seed, device)
+    lib = load_library()
+    with torch.cuda.device(seed.device):
+        mask = torch.empty((b, heads, l, l), dtype=torch.uint8,
+                           device=seed.device)
+        check(lib.attn_dropout_keep(
+            seed.data_ptr(), mask.data_ptr(), b, heads, l, thresh(rate),
+            torch.cuda.current_stream().cuda_stream), "attn_dropout_keep")
+    return mask.bool()
+
+
+class _QKVDropoutAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, qkv, seed, heads, rate):
+        out, lse = qkv_dropout_fwd(qkv, seed, heads, rate)
+        ctx.heads, ctx.rate = heads, rate
+        ctx.save_for_backward(qkv, seed, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, seed, out, lse = ctx.saved_tensors
+        dqkv = qkv_dropout_bwd(qkv, out, dout.contiguous(), lse, seed,
+                               ctx.heads, ctx.rate)
+        return dqkv, None, None, None
+
+
+def flash_mha_qkv_packed_dropout(qkv: torch.Tensor, seed: Seed, heads: int,
+                                 rate: float) -> torch.Tensor:
+    """Dropout attention over the fused [q|k|v] (B, L, 3D) buffer ->
+    (B, L, D), differentiable in qkv; the gradient comes back as one
+    (B, L, 3D) buffer.
+
+    CPU tensors run the plain version. CUDA tensors run the kernels (built
+    at first use, see ops/_build.py) and raise on what they do not take:
+    dtype other than float32/bfloat16, a non-contiguous or misaligned qkv,
+    a head width other than 32, or L not a multiple of 128."""
+    if qkv.device.type == "cpu":
+        return flash_mha_qkv_packed_dropout_reference(qkv, seed, heads, rate)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"flash_mha_qkv_packed_dropout: no kernel for "
+                         f"{qkv.device}")
+    return _QKVDropoutAttention.apply(qkv, _seed_tensor(seed, qkv.device),
+                                      heads, rate)

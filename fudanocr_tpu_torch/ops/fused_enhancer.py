@@ -34,7 +34,7 @@ from typing import Dict
 
 import torch
 
-from fudanocr_tpu_torch.nn.layers import torch_layer_norm
+from fudanocr_tpu_torch.ops.fused_layernorm import torch_layer_norm
 
 D_MODEL = 128   # the kernel's model width: 64 token + 64 PE channels
 

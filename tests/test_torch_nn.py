@@ -138,7 +138,10 @@ def test_multi_head_attention_self_path():
     m = pattn.MultiHeadAttention(4, 128)
     m.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(a))
                        for k, a in sd.items()})
-    np.testing.assert_allclose(m(torch.from_numpy(x)).detach().numpy(),
+    xt = torch.from_numpy(x)
+    got, probs = m(xt, xt, xt, need_weights=False)
+    assert probs is None
+    np.testing.assert_allclose(got.detach().numpy(),
                                np.asarray(want), rtol=1e-5, atol=1e-5)
 
 

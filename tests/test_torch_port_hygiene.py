@@ -1,6 +1,6 @@
 """Guards for the PyTorch port (fudanocr_tpu_torch): what it may import,
-how the smoke script fails without a card, how the kernel wrapper picks
-its path, and how the kernel build behaves."""
+how the smoke script fails without a card, how the kernel wrappers pick
+their path, and how the kernel build behaves."""
 
 import ast
 import os
@@ -13,9 +13,12 @@ import pytest
 import torch
 
 from fudanocr_tpu_torch.ops import _build
+from fudanocr_tpu_torch.ops import flash_attention as fa
 from fudanocr_tpu_torch.ops.fused_enhancer import (enhancer_operands,
                                                    fused_enhancer,
                                                    fused_enhancer_reference)
+from fudanocr_tpu_torch.ops.fused_layernorm import (
+    fused_residual_layernorm, fused_residual_layernorm_reference)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "fudanocr_tpu_torch"
@@ -106,6 +109,40 @@ def test_wrapper_refuses_devices_without_a_kernel():
     ops = {k: v.to("meta") for k, v in _ops().items()}
     with pytest.raises(ValueError):
         fused_enhancer(torch.empty(2, 32, 64, device="meta"), ops)
+
+
+def _launch_counts():
+    return (fused_residual_layernorm.launches, fa.qkv_dropout_fwd.launches,
+            fa.qkv_dropout_bwd.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_training_wrappers_on_cpu_are_the_plain_versions(dtype):
+    """On CPU tensors the residual-LayerNorm and dropout-attention wrappers
+    run their plain versions (forward and backward) and launch nothing."""
+    gen = torch.Generator().manual_seed(0)
+    n0 = _launch_counts()
+    x, r = (torch.randn(6, 128, generator=gen).to(dtype) for _ in range(2))
+    s, b = torch.randn(128, generator=gen), torch.randn(128, generator=gen)
+    got = fused_residual_layernorm(x, r, s, b)
+    assert torch.equal(got, fused_residual_layernorm_reference(x, r, s, b))
+    qkv = torch.randn(1, 256, 192, generator=gen).to(dtype).requires_grad_()
+    out = fa.flash_mha_qkv_packed_dropout(qkv, 3, 2, 0.1)
+    assert torch.equal(out, fa.flash_mha_qkv_packed_dropout_reference(
+        qkv, 3, 2, 0.1))
+    out.float().sum().backward()
+    assert qkv.grad.shape == qkv.shape and out.dtype == dtype
+    assert _launch_counts() == n0
+
+
+def test_training_wrappers_refuse_devices_without_a_kernel():
+    x = torch.empty(4, 128, device="meta")
+    with pytest.raises(ValueError):
+        fused_residual_layernorm(x, x, torch.empty(128, device="meta"),
+                                 torch.empty(128, device="meta"))
+    with pytest.raises(ValueError):
+        fa.flash_mha_qkv_packed_dropout(
+            torch.empty(1, 512, 384, device="meta"), 1, 4, 0.1)
 
 
 def _fake_nvcc(tmp_path, monkeypatch, script: str):

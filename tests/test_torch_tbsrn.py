@@ -87,5 +87,17 @@ def test_state_dict_keeps_reference_layout():
 
 
 def test_train_mode_not_ported():
-    with pytest.raises(NotImplementedError):
-        TBSRN(srb_nums=1)(torch.zeros(1, 16, 64, 3), train=True)
+    """The train path is ported now (held against the JAX step in
+    tests/test_torch_sr_train.py): it runs, moves the BatchNorm statistics
+    and gives the HR shape; with dropout on, the generator decides it."""
+    torch.manual_seed(0)
+    m = TBSRN(srb_nums=1)
+    x = torch.rand(2, 16, 64, 3)
+    before = m.block2.bn1.running_var.clone()
+    a = m(x, train=True, generator=torch.Generator().manual_seed(1))
+    assert a.shape == (2, 32, 128, 3) and torch.isfinite(a).all()
+    assert not torch.equal(m.block2.bn1.running_var, before)
+    b = m(x, train=True, generator=torch.Generator().manual_seed(1))
+    c = m(x, train=True, generator=torch.Generator().manual_seed(2))
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not torch.equal(a, c)
