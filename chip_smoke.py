@@ -43,12 +43,37 @@ Phases:
      the HR-map cache hit from epoch 1, losses finite and falling;
      (d) `evaluate()` through the inference path (10 fused-enhancer
      launches per forward) and a CRNN; (e) step ms and img/s of both
-     paths, split into TBSRN and oracle forward + backward.
+     paths, split into TBSRN and oracle forward + backward;
+  7. the unmasked-attention kernel (csrc/unmasked_attention.cu) against its
+     plain version in fp32 and bf16: the packed route (B7) at the four
+     stage shapes of CascadeMiT-b0 on 1024² crops at batch 3, the
+     (B, H, L, dh) route (B5) at (1, 8, 512, 32) and at the 2048² whole-
+     image stage 0 (1, 1, 262144, 32) over 4096 keys; kernel, plain and
+     `F.scaled_dot_product_attention` ms (timed only; the port never calls
+     it) beside the bound;
+  8. segmentation at full width: `init_segmentor` on
+     configs/seg/textformer_b0_textseg.yaml (CascadeMiT-b0 + SegformerHead,
+     weights from a seed, non-trivial BN and LN statistics), then
+     `inference_segmentor` in the configs' slide mode (crop 1024², stride
+     768²) on a seeded 1024x2048 image, fp32: exactly 8 packed launches
+     and 0 (B, H, L, dh) launches, logits equal to `kernels=False` within
+     1e-4, class maps equal wherever the top-2 margin exceeds twice the
+     measured error; ms per canvas, canvases/s and peak memory of both
+     paths;
+  9. the same model in whole-image mode: a 512x1024 image (6 packed and
+     2 (B, H, L, dh) launches) and a 2048x2048 image (8 (B, H, L, dh)
+     launches), with the checks of phase 8.
+
+Phase 8 ends with a torch.profiler breakdown of one more canvas (device
+time by name, the device's busy time against the wall time).
 
 Timings use CUDA events after a warm-up; every timing line carries the
-card's name and power limit. Float32 comparisons run with TF32 off. The
-line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.
+card's name and power limit. Float32 comparisons run with TF32 off. A
+kernel's bound is the larger of its operations over the card's peak for
+their type (H100 SXM data sheet: fp32 67 TFLOP/s on CUDA cores, bf16
+989 TFLOP/s on tensor cores) and its bytes (each input read once, each
+output written once) over 3.35 TB/s. The line before the last is the
+kernel table as JSON; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -76,6 +101,9 @@ from fudanocr_tpu_torch.ops.fused_enhancer import (enhancer_operands,
                                                    fused_enhancer_reference)
 from fudanocr_tpu_torch.ops.fused_layernorm import (
     fused_residual_layernorm, fused_residual_layernorm_reference)
+from fudanocr_tpu_torch.ops import region_attention as ra
+from fudanocr_tpu_torch.apps.seg.inference import (inference_segmentor,
+                                                   init_segmentor)
 from fudanocr_tpu_torch.serving import InferenceServer, PixelsToStrings
 from fudanocr_tpu_torch.train.sr import SRTrainer, make_sr_train_step
 from fudanocr_tpu_torch.train.state import adam_with_clip
@@ -101,6 +129,19 @@ GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 STEP_LOSS_REL, STEP_GRAD_REL = 1e-5, 1e-3
 TRAIN_B, LABEL_LEN, HEADS, RATE = 64, 32, 4, 0.1
 TRAIN_BATCHES, EPOCHS, EVAL_BATCHES = 4, 8, 2
+# phases 7-9: the segmentation slice
+SEG_CONFIG = "configs/seg/textformer_b0_textseg.yaml"
+SEG_CROP, SEG_STRIDE = (1024, 1024), (768, 768)
+SEG_ATOL = 1e-4   # logits, kernel path vs kernels=False, fp32
+# B7 on the slide recipe's 1024² crops at batch 3: (B, Lq, Lkv, D, heads)
+B7_SHAPES = ((3, 65536, 1024, 32, 1), (3, 16384, 1024, 64, 2),
+             (3, 4096, 1024, 160, 5), (3, 1024, 1024, 256, 8))
+# B5: stage 3 of a 512x1024 whole image (the JAX full-K variant) and stage 0
+# of a 2048² whole image (online softmax): (B, H, Lq, Lkv, dh)
+B5_SHAPES = ((1, 8, 512, 512, 32), (1, 1, 262144, 4096, 32))
+# published H100 SXM peaks (dense fp32 / bf16 tensor core, HBM3), 700 W
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def card() -> str:
@@ -122,6 +163,24 @@ def cuda_ms(fn, iters: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def bound(flops: float, nbytes: float, dtype) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the peak for `dtype` and the bytes over the memory rate."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def attn_bound(b: int, h: int, lq: int, lk: int, dh: int, dtype,
+               extra_bytes: int = 0) -> dict:
+    """Softmax attention forward: two products of 2*Lq*Lkv*dh flops per
+    head; q, k, v read and o written once."""
+    es = torch.finfo(dtype).bits // 8
+    return bound(4 * b * h * lq * lk * dh,
+                 es * b * h * dh * (2 * lq + 2 * lk) + extra_bytes, dtype)
 
 
 def in_turns(a, b, iters: int):
@@ -177,7 +236,13 @@ def phase1(dev, gpu: str) -> dict:
                                   lambda: fused_enhancer_reference(x, ops), 10)
             print(f"phase 1: B={b} L={h * w} bf16 enhancer: kernel "
                   f"{k_ms:.4f} ms, plain {p_ms:.4f} ms [{gpu}]")
-            result[b] = {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}
+            # per token: qkv 2*64*384, attention 4*L*128, out 2*128*128, FFN
+            # 2*2*128*128, proj 2*128*64; tokens in and out, the PE terms
+            flops = b * h * w * (2 * 64 * 384 + 4 * h * w * 128
+                                 + 6 * 128 * 128 + 2 * 128 * 64)
+            nbytes = 2 * b * h * w * 64 * 2 + h * w * (64 * 2 + 384 * 4)
+            result[b] = {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+                         **bound(flops, nbytes, dt), "library_ms": None}
     return result[BATCH]
 
 
@@ -196,6 +261,10 @@ def randomize_stats(model: torch.nn.Module, gen: torch.Generator) -> None:
                 n = m.a_2.numel()
                 m.a_2.copy_(1 + torch.randn(n, generator=gen) * 0.2)
                 m.b_2.copy_(torch.randn(n, generator=gen) * 0.1)
+            elif isinstance(m, torch.nn.LayerNorm):
+                n = m.weight.numel()
+                m.weight.copy_(1 + torch.randn(n, generator=gen) * 0.2)
+                m.bias.copy_(torch.randn(n, generator=gen) * 0.1)
 
 
 def top2_margin(logits: torch.Tensor) -> torch.Tensor:
@@ -379,8 +448,14 @@ def phase4(dev, gpu: str) -> dict:
                   f"{err:.3e}, grads max rel {grel:.3e}; forward kernel "
                   f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; forward+backward "
                   f"{kb_ms:.4f} ms, plain {pb_ms:.4f} ms [{gpu}]")
+            es = torch.finfo(dt).bits // 8
+            # F.layer_norm is another function (biased variance, eps under
+            # the root): no library call
             result[(rows, d, dt)] = {"max_abs_err": err, "ms": k_ms,
-                                     "plain_ms": p_ms}
+                                     "plain_ms": p_ms,
+                                     **bound(8 * rows * d,
+                                             3 * rows * d * es + 8 * d, dt),
+                                     "library_ms": None}
     return result[(64 * 1024, 128, torch.float32)]
 
 
@@ -440,13 +515,37 @@ def phase5(dev, gpu: str):
             lambda: torch.autograd.grad(
                 fa.flash_mha_qkv_packed_dropout_reference(
                     xp, seed, HEADS, RATE), xp, do), 5)
+        # the yardstick: SDPA with dropout 0.1 on the same (B, H, L, dh)
+        # views (it draws another mask; timed only)
+        xs = qkv.clone().requires_grad_()
+        qh, kh, vh = (xs[..., i * HEADS * 32:(i + 1) * HEADS * 32]
+                      .unflatten(-1, (HEADS, 32)).transpose(1, 2)
+                      for i in range(3))
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                      dropout_p=RATE)
+        lib_f = cuda_ms(sdpa, 5)
+        so = sdpa().transpose(1, 2).reshape(b, l, HEADS * 32)
+        lib_b = cuda_ms(lambda: torch.autograd.grad(so, xs, do,
+                                                    retain_graph=True), 5)
+        es = torch.finfo(dt).bits // 8
+        n_qkv, n_o = b * l * 3 * HEADS * 32, b * l * HEADS * 32
+        fb = attn_bound(b, HEADS, l, l, 32, dt, extra_bytes=b * HEADS * l * 4)
+        # backward: 5 products (s again, dV, dP, dQ, dK); qkv, o, dO, lse
+        # read, dqkv written
+        bb = bound(10 * b * HEADS * l * l * 32,
+                   (2 * n_qkv + 2 * n_o) * es + b * HEADS * l * 4, dt)
         print(f"phase 5: ({b}, {l}, {3 * HEADS * 32}) {dt}: forward kernel "
-              f"{f_ms:.4f} ms, plain {fp_ms:.4f} ms; backward kernel "
-              f"{b_ms:.4f} ms, plain {bp_ms:.4f} ms; forward+backward "
-              f"kernel {fb_ms:.4f} ms, plain {fbp_ms:.4f} ms [{gpu}]")
-        fwd[dt] = {"max_abs_err": ferr, "ms": f_ms, "plain_ms": fp_ms}
-        bwd[dt] = {"max_abs_err": berr, "ms": b_ms, "plain_ms": bp_ms}
-        del og, o, lse
+              f"{f_ms:.4f} ms, plain {fp_ms:.4f} ms, SDPA {lib_f:.4f} ms, "
+              f"bound {fb['bound_ms']:.4f} ms ({fb['bound_by']}); backward "
+              f"kernel {b_ms:.4f} ms, plain {bp_ms:.4f} ms, SDPA "
+              f"{lib_b:.4f} ms, bound {bb['bound_ms']:.4f} ms "
+              f"({bb['bound_by']}); forward+backward kernel {fb_ms:.4f} ms, "
+              f"plain {fbp_ms:.4f} ms [{gpu}]")
+        fwd[dt] = {"max_abs_err": ferr, "ms": f_ms, "plain_ms": fp_ms, **fb,
+                   "library_ms": lib_f}
+        bwd[dt] = {"max_abs_err": berr, "ms": b_ms, "plain_ms": bp_ms, **bb,
+                   "library_ms": lib_b}
+        del og, o, lse, so, xs
     return fwd[torch.float32], bwd[torch.float32]
 
 
@@ -655,6 +754,195 @@ def phase6(dev, gpu: str) -> tuple:
     return counts
 
 
+def _attn_operands(gen, dev, dt, b, lq, lk, d):
+    """q, k, v as CascadeMiT's projections give them: with spatial
+    reduction (Lkv < Lq) q alone and k, v column slices of one (B, Lkv, 2D)
+    projection; without it, all three slices of one (B, L, 3D) qkv."""
+    if lq == lk:
+        qkv = torch.randn(b, lq, 3 * d, generator=gen).to(dev, dt)
+        return qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    q = torch.randn(b, lq, d, generator=gen).to(dev, dt)
+    kv = torch.randn(b, lk, 2 * d, generator=gen).to(dev, dt)
+    return q, kv[..., :d], kv[..., d:]
+
+
+def _attn_check(name, got, want, dt):
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: kernel output not finite")
+    err = (got.float() - want.float()).abs().max().item()
+    if err > ATTN_ATOL[dt]:
+        raise AssertionError(f"{name} {dt}: kernel disagrees with the plain "
+                             f"version, max abs err {err} > {ATTN_ATOL[dt]}")
+    return err
+
+
+def phase7(dev, gpu: str) -> tuple:
+    gen = torch.Generator().manual_seed(SEED + 7)
+    b7, b5 = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        for b, lq, lk, d, heads in B7_SHAPES:
+            q, k, v = _attn_operands(gen, dev, dt, b, lq, lk, d)
+            err = _attn_check("packed_flash_mha",
+                              ra.packed_flash_mha(q, k, v, heads),
+                              ra.packed_flash_mha_reference(q, k, v, heads),
+                              dt)
+            k_ms, p_ms = in_turns(lambda: ra.packed_flash_mha(q, k, v, heads),
+                                  lambda: ra.packed_flash_mha_reference(
+                                      q, k, v, heads), 5)
+            qh, kh, vh = (t.unflatten(-1, (heads, d // heads)).transpose(1, 2)
+                          for t in (q, k, v))
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh,
+                                                                    vh), 5)
+            bd = attn_bound(b, heads, lq, lk, d // heads, dt)
+            print(f"phase 7: packed (B7) q ({b}, {lq}, {d}), k/v ({b}, {lk}, "
+                  f"{d}), {heads} heads, {dt}: max abs err {err:.3e}; kernel "
+                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+                  f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}); "
+                  f"{4 * b * lq * lk * d / k_ms / 1e9:.1f} TFLOP/s [{gpu}]")
+            b7[(lq, dt)] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                            **bd, "library_ms": lib_ms}
+            del q, k, v, qh, kh, vh
+        for b, h, lq, lk, dh in B5_SHAPES:
+            q, k, v = (t.unflatten(-1, (h, dh)).transpose(1, 2) for t in
+                       _attn_operands(gen, dev, dt, b, lq, lk, h * dh))
+            err = _attn_check("flash_mha", fa.flash_mha(q, k, v),
+                              fa.flash_mha_reference(q, k, v), dt)
+            k_ms, p_ms = in_turns(lambda: fa.flash_mha(q, k, v),
+                                  lambda: fa.flash_mha_reference(q, k, v), 3)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                             3)
+            bd = attn_bound(b, h, lq, lk, dh, dt)
+            print(f"phase 7: head-major (B5) q ({b}, {h}, {lq}, {dh}), "
+                  f"{lk} keys, {dt}: max abs err {err:.3e}; kernel "
+                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+                  f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}); "
+                  f"{4 * b * h * lq * lk * dh / k_ms / 1e9:.1f} TFLOP/s "
+                  f"[{gpu}]")
+            b5[(lq, dt)] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                            **bd, "library_ms": lib_ms}
+            del q, k, v
+        torch.cuda.empty_cache()
+    # the JSON rows: the largest call of each route, fp32
+    return b7[(65536, torch.float32)], b5[(262144, torch.float32)]
+
+
+def seg_counts() -> tuple:
+    return ra.unmasked_packed_fwd.launches, fa.unmasked_bhld_fwd.launches
+
+
+def seg_models(dev):
+    """CascadeMiT-b0 + SegformerHead from the TextSeg config, weights from
+    a seed, non-trivial BN statistics and LN scales; and the same weights
+    on the plain path."""
+    gen = torch.Generator().manual_seed(SEED + 8)
+    model, cfg = init_segmentor(SEG_CONFIG, device="cpu", seed=SEED + 8)
+    randomize_stats(model, gen)
+    plain, _ = init_segmentor(SEG_CONFIG, device="cpu", kernels=False)
+    plain.load_state_dict(model.state_dict())
+    return model.to(dev), plain.to(dev), cfg
+
+
+def seg_run(phase: str, model, plain, img: np.ndarray, crop, stride,
+            want_counts: tuple, gpu: str) -> tuple:
+    """One `inference_segmentor` call per path, checked; returns the
+    launch counts of the kernel path's call."""
+    run = lambda m: inference_segmentor(m, img, crop, stride,
+                                        return_logits=True)
+    run(plain)                       # warm-up: kernel build, cuDNN plans
+    run(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ra.unmasked_packed_fwd.launches = fa.unmasked_bhld_fwd.launches = 0
+    seg, logits = run(model)         # the main path's run, counted
+    torch.cuda.synchronize()
+    counts = seg_counts()
+    peak_k = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    seg_p, logits_p = run(plain)
+    torch.cuda.synchronize()
+    peak_p = torch.cuda.max_memory_allocated() / 2 ** 30
+    h, w = img.shape[:2]
+    mode = (f"slide crop {crop[0]}x{crop[1]} stride {stride[0]}x{stride[1]}"
+            if crop else "whole image")
+    if tuple(logits.shape) != (1, h, w, 2) or not torch.isfinite(
+            logits).all():
+        raise AssertionError(f"{phase}: logits {tuple(logits.shape)} or not "
+                             "finite")
+    err = (logits - logits_p).abs().max().item()
+    tol = max(2 * err, 1e-6)
+    sure = (top2_margin(logits_p[0]) > tol).cpu().numpy()
+    same = seg == seg_p
+    print(f"phase {phase}: {h}x{w} {mode}: launches (packed B7, head-major "
+          f"B5) {counts} (expected {want_counts}); logits vs kernels=False "
+          f"max abs err {err:.3e} (bar {SEG_ATOL}), |logits| max "
+          f"{logits_p.abs().max().item():.3f}; class maps equal at "
+          f"{int(same.sum())} of {same.size} pixels and at all "
+          f"{int(sure.sum())} whose top-2 margin exceeds {tol:.3e}: "
+          f"{bool(same[sure].all())}; text share {seg.mean():.4f}")
+    if counts != want_counts:
+        raise AssertionError(f"{phase}: the run did not launch the expected "
+                             "attention kernels")
+    if err > SEG_ATOL or not same[sure].all():
+        raise AssertionError(f"{phase}: kernel path disagrees with "
+                             "kernels=False")
+    k_ms, p_ms = in_turns(lambda: run(model), lambda: run(plain), 3)
+    print(f"phase {phase}: {h}x{w} {mode} fp32, per canvas: kernel path "
+          f"{k_ms:.3f} ms ({1e3 / k_ms:.3f} canvases/s, peak "
+          f"{peak_k:.2f} GiB), plain path {p_ms:.3f} ms "
+          f"({1e3 / p_ms:.3f} canvases/s, peak {peak_p:.2f} GiB) [{gpu}]")
+    return counts
+
+
+def profile_canvas(model, img: np.ndarray, gpu: str) -> None:
+    """torch.profiler over one slide canvas: device kernel time by name
+    and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        inference_segmentor(model, img, SEG_CROP, SEG_STRIDE)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_time_total > 0),
+                  key=lambda e: -e.device_time_total)
+    busy = sum(e.device_time_total for e in rows if e.device_type.name
+               == "CUDA") / 1e3
+    print(f"profile: one {SEG_CROP} slide canvas, wall {wall:.3f} ms, "
+          f"device busy {busy:.3f} ms (kernels and copies) [{gpu}]")
+    for e in rows[:15]:
+        print(f"profile: {e.device_time_total / 1e3:9.3f} ms "
+              f"{e.count:5d}x {e.key[:90]}")
+
+
+def phase8(dev, gpu: str, models) -> int:
+    model, plain, cfg = models
+    test = cfg.test
+    if (test.mode, tuple(test.crop), tuple(test.stride)) != (
+            "slide", SEG_CROP, SEG_STRIDE):
+        raise AssertionError(f"{SEG_CONFIG}: test recipe {test}")
+    img = np.random.default_rng(SEED + 80).integers(0, 256, (1024, 2048, 3),
+                                                    dtype=np.uint8)
+    counts = seg_run("8", model, plain, img, SEG_CROP, SEG_STRIDE, (8, 0),
+                     gpu)
+    profile_canvas(model, img, gpu)
+    return counts[0]
+
+
+def phase9(dev, gpu: str, models) -> int:
+    model, plain, _ = models
+    launches = 0
+    for (h, w), want in (((512, 1024), (6, 2)), ((2048, 2048), (0, 8))):
+        img = np.random.default_rng(SEED + 90 + h).integers(
+            0, 256, (h, w, 3), dtype=np.uint8)
+        launches += seg_run("9", model, plain, img, None, None, want, gpu)[1]
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a "
@@ -678,7 +966,14 @@ def main() -> int:
     attn_fwd, attn_bwd = phase5(dev, gpu)
     torch.cuda.empty_cache()
     ln_n, fwd_n, bwd_n, _ = phase6(dev, gpu)
+    torch.cuda.empty_cache()
+    b7, b5 = phase7(dev, gpu)
+    models = seg_models(dev)
+    b7_n = phase8(dev, gpu, models)
+    b5_n = phase9(dev, gpu, models)
+    del models
     attn_src = "fudanocr_tpu_torch/csrc/flash_attention_dropout.cu"
+    seg_src = "fudanocr_tpu_torch/csrc/unmasked_attention.cu"
     print(json.dumps({"kernels": [
         {"name": "fused_enhancer", "route": "cuda",
          "source": "fudanocr_tpu_torch/csrc/fused_enhancer.cu",
@@ -695,7 +990,15 @@ def main() -> int:
         {"name": "qkv_dropout_attention_bwd", "route": "cuda",
          "source": attn_src,
          "replaces": "fudanocr_tpu/ops/flash_attention.py:528",
-         "launches": bwd_n, **attn_bwd}]}))
+         "launches": bwd_n, **attn_bwd},
+        {"name": "unmasked_attention_packed", "route": "cuda",
+         "source": seg_src,
+         "replaces": "fudanocr_tpu/ops/region_attention.py:280",
+         "launches": b7_n, **b7},
+        {"name": "unmasked_attention_bhld", "route": "cuda",
+         "source": seg_src,
+         "replaces": "fudanocr_tpu/ops/flash_attention.py:653",
+         "launches": b5_n, **b5}]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

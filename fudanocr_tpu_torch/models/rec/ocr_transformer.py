@@ -5,7 +5,7 @@ frozen text-focus oracle of TBSRN training
 `OCRTransformer(vocab=37, num_in=1, layers=(1, 2, 5, 3), num_heads=16)`.
 
 Module names follow the reference state_dict that
-`fudanocr_tpu.utils.torch_port.port_ocr_transformer` reads, with the
+`utils/porters.port_ocr_transformer` reads, with the
 oracle's `encoder.cnn.` prefix: `encoder.cnn.{conv1,bn1,conv2,bn2}`,
 `encoder.cnn.layer{s}.{i}.{conv1,bn1,conv2,bn2,downsample.0,downsample.1}`,
 `encoder.cnn.layer{s}_conv/_bn`, `encoder.cnn.layer4_conv2/_bn`,

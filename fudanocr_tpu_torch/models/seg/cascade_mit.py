@@ -1,0 +1,261 @@
+"""Cascade MixVisionTransformer backbone, eval (port of
+fudanocr_tpu/models/seg/cascade_mit.py; reference text-focused-Transformers/
+mmseg/models/backbones/cascade_mit.py:40-524).
+
+A 7x7/4 conv stem and three pairs of ResNet basic blocks make a pyramid
+(d x [1, 2, 5, 8] channels at 1/4 .. 1/32); the SegFormer stages then run
+top-down, coarsest first: each stage's output is upsampled to the next
+finer level, refined by that level's stage, and fused with the pyramid
+level by concat + 1x1 conv. A stage is a 3x3 patch embed, LayerNorm,
+`num_layers` pre-LN encoder layers (efficient attention with spatial
+reduction `sr_ratio` on K/V, then MixFFN) and a LayerNorm.
+
+`EfficientAttention` takes the JAX module's three routes
+(cascade_mit.py:193-233): the packed kernel (`ops/region_attention.
+packed_flash_mha`, B7) when `packed_flash_supported` holds, else the
+(B, H, L, dh) kernel (`ops/flash_attention.flash_mha`, B5) when
+`flash_attention_supported` holds, else plain matmuls with an fp32
+softmax. `kernels=False` takes the plain route everywhere (the comparison
+path). On CPU tensors the kernel routes run their plain versions.
+
+Internal layout NCHW (feature maps) and (B, H*W, C) row-major tokens (the
+JAX package's NHWC reshape); `CascadeMiT.forward` takes and returns NCHW,
+and `models/seg/encoder_decoder.EncoderDecoder` is the NHWC public
+function. Module names are the reference's state_dict keys (`conv1`,
+`bn1`, `layer{1,2,3}.{0,1}`, `layers.{i}.{0,1,2}`, `conv2`..`conv5`), which
+`utils/porters.port_cascade_mit` reads. Eval only, float32: BatchNorm uses
+its running statistics, drop-path is the identity; train mode and
+drop-path come with the segmentation training slice. The JAX stem's
+space-to-depth rewrite (`StemConv4x`, used only in training) is a TPU
+matrix-unit trick and is not ported: the stem is a plain 7x7/4 conv.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fudanocr_tpu_torch.nn.layers import batch_norm
+from fudanocr_tpu_torch.ops.flash_attention import (flash_attention_supported,
+                                                    flash_mha)
+from fudanocr_tpu_torch.ops.region_attention import (packed_flash_mha,
+                                                     packed_flash_supported)
+
+
+def to_tokens(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) -> (B, H*W, C), row-major positions."""
+    return x.flatten(2).transpose(1, 2)
+
+
+def to_map(t: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """(B, H*W, C) -> (B, C, H, W)."""
+    return t.transpose(1, 2).reshape(t.shape[0], t.shape[2], *hw)
+
+
+def upsample(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Bilinear, half-pixel centres, to ref's spatial size. The JAX package
+    uses `jax.image.resize(..., "bilinear")`, which equals this whenever
+    the size grows or stays (its antialiasing acts only when shrinking),
+    and every call here grows or keeps the size."""
+    if x.shape[-2:] == ref.shape[-2:]:
+        return x
+    return F.interpolate(x, size=ref.shape[-2:], mode="bilinear",
+                         align_corners=False)
+
+
+class StemConv4x(nn.Conv2d):
+    """The 7x7 stride-4 stem conv, padding 3 (keys `weight`, `bias`)."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__(in_features, features, 7, stride=4, padding=3)
+
+
+class ResNetBlock(nn.Module):
+    """Basic block with biased convs (cascade_mit.py:45-67): keys `conv1`,
+    `bn1`, `conv2`, `bn2` and, when the stride or width changes,
+    `shortcut.{0,1}`."""
+
+    def __init__(self, in_features: int, features: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_features, features, 3, stride, 1)
+        self.bn1 = nn.BatchNorm2d(features)
+        self.conv2 = nn.Conv2d(features, features, 3, 1, 1)
+        self.bn2 = nn.BatchNorm2d(features)
+        self.shortcut = None
+        if stride != 1 or in_features != features:
+            self.shortcut = nn.Sequential(
+                nn.Conv2d(in_features, features, 1, stride),
+                nn.BatchNorm2d(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(batch_norm(self.bn1, self.conv1(x)))
+        y = batch_norm(self.bn2, self.conv2(y))
+        r = x
+        if self.shortcut is not None:
+            r = batch_norm(self.shortcut[1], self.shortcut[0](x))
+        return F.relu(y + r)
+
+
+class _InProj(nn.Module):
+    """nn.MultiheadAttention's parameters: `in_proj_weight` (3C, C) and
+    `in_proj_bias` for q, k, v, and `out_proj`."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * c, c))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * c))
+        self.out_proj = nn.Linear(c, c)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+
+class EfficientAttention(nn.Module):
+    """SegFormer attention with spatial reduction on K/V
+    (cascade_mit.py:94-215) over (B, H*W, C) tokens: keys `attn.*`, and
+    `sr`, `norm` when sr_ratio > 1."""
+
+    def __init__(self, c: int, num_heads: int, sr_ratio: int = 1,
+                 kernels: bool = True):
+        super().__init__()
+        self.num_heads = num_heads
+        self.sr_ratio = sr_ratio
+        self.kernels = kernels
+        self.attn = _InProj(c)
+        if sr_ratio > 1:
+            self.sr = nn.Conv2d(c, c, sr_ratio, sr_ratio)
+            self.norm = nn.LayerNorm(c, eps=1e-6)
+
+    def forward(self, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+        b, lq, c = x.shape
+        nh = self.num_heads
+        w, bias = self.attn.in_proj_weight, self.attn.in_proj_bias
+        if self.sr_ratio > 1:
+            q = F.linear(x, w[:c], bias[:c])
+            kv = to_tokens(self.sr(to_map(x, hw)))
+            kv = F.linear(self.norm(kv), w[c:], bias[c:])
+            k, v = kv[..., :c], kv[..., c:]
+        else:
+            qkv = F.linear(x, w, bias)
+            q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+        lkv = k.shape[1]
+
+        if self.kernels and packed_flash_supported(lq, lkv, c, nh):
+            o = packed_flash_mha(q, k, v, nh)
+            return self.attn.out_proj(o)
+        heads = lambda t: t.unflatten(-1, (nh, c // nh)).transpose(1, 2)
+        q, k, v = heads(q), heads(k), heads(v)
+        if self.kernels and flash_attention_supported(q.shape, lkv):
+            o = flash_mha(q, k, v)
+        else:
+            s = torch.matmul(q, k.transpose(-1, -2)).float()
+            s = s / math.sqrt(c // nh)
+            o = torch.matmul(torch.softmax(s, -1).to(v.dtype), v)
+        return self.attn.out_proj(o.transpose(1, 2).reshape(b, lq, c))
+
+
+class MixFFN(nn.Module):
+    """1x1 conv -> 3x3 depthwise -> GELU -> 1x1 conv (cascade_mit.py:40-92):
+    keys `layers.{0,1,4}` (2 is the GELU, 3 the reference's dropout)."""
+
+    def __init__(self, c: int, hidden: int):
+        super().__init__()
+        self.layers = nn.Sequential(
+            nn.Conv2d(c, hidden, 1),
+            nn.Conv2d(hidden, hidden, 3, 1, 1, groups=hidden),
+            nn.GELU(), nn.Identity(), nn.Conv2d(hidden, c, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layers(x)
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Pre-LN: x + attn(norm1(x)), then + ffn(norm2(x)), on tokens."""
+
+    def __init__(self, c: int, num_heads: int, mlp_ratio: int = 4,
+                 sr_ratio: int = 1, kernels: bool = True):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(c, eps=1e-6)
+        self.attn = EfficientAttention(c, num_heads, sr_ratio, kernels)
+        self.norm2 = nn.LayerNorm(c, eps=1e-6)
+        self.ffn = MixFFN(c, c * mlp_ratio)
+
+    def forward(self, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), hw)
+        return x + to_tokens(self.ffn(to_map(self.norm2(x), hw)))
+
+
+class _PatchEmbed(nn.Module):
+    def __init__(self, in_features: int, c: int):
+        super().__init__()
+        self.projection = nn.Conv2d(in_features, c, 3, 1, 1)
+        self.norm = nn.LayerNorm(c, eps=1e-6)
+
+
+class CascadeStage(nn.ModuleList):
+    """One cascade level: [patch embed (3x3/1 + LN), encoder layers, LN]
+    (keys `0.projection`, `0.norm`, `1.{j}.*`, `2`)."""
+
+    def __init__(self, in_features: int, c: int, num_layers: int,
+                 num_heads: int, sr_ratio: int, mlp_ratio: int = 4,
+                 kernels: bool = True):
+        super().__init__([
+            _PatchEmbed(in_features, c),
+            nn.ModuleList(TransformerEncoderLayer(c, num_heads, mlp_ratio,
+                                                  sr_ratio, kernels)
+                          for _ in range(num_layers)),
+            nn.LayerNorm(c, eps=1e-6)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        embed, layers, norm = self
+        x = embed.projection(x)
+        hw = tuple(x.shape[-2:])
+        t = embed.norm(to_tokens(x))
+        for layer in layers:
+            t = layer(t, hw)
+        return to_map(norm(t), hw)
+
+
+class CascadeMiT(nn.Module):
+    """Top-down cascade SegFormer backbone: NCHW image -> the 4-scale
+    pyramid [(d, 1/4), (2d, 1/8), (5d, 1/16), (8d, 1/32)] for heads
+    (1, 2, 5, 8), NCHW."""
+
+    def __init__(self, embed_dims: int = 32,
+                 num_layers: Sequence[int] = (2, 2, 2, 2),
+                 num_heads: Sequence[int] = (1, 2, 5, 8),
+                 sr_ratios: Sequence[int] = (8, 4, 2, 1),
+                 mlp_ratio: int = 4, in_features: int = 3,
+                 kernels: bool = True):
+        super().__init__()
+        d, nh = embed_dims, tuple(num_heads)
+        pyr = [d, d * nh[1], d * nh[2], d * nh[3]]
+        self.conv1 = StemConv4x(in_features, d)
+        self.bn1 = nn.BatchNorm2d(d)
+        for i in range(3):
+            self.add_module(f"layer{i + 1}", nn.Sequential(
+                ResNetBlock(pyr[i], pyr[i + 1], 2),
+                ResNetBlock(pyr[i + 1], pyr[i + 1], 1)))
+        self.layers = nn.ModuleList(
+            CascadeStage(d * nh[min(i + 1, 3)], d * nh[i], num_layers[i],
+                         nh[i], sr_ratios[i], mlp_ratio, kernels)
+            for i in range(4))
+        # conv2..conv5 fuse levels 4..1 (the JAX package's fuse4..fuse1)
+        for i in range(4):
+            lvl = 3 - i
+            self.add_module(f"conv{2 + i}", nn.Conv2d(
+                pyr[lvl] + d * nh[lvl], pyr[lvl], 1, bias=False))
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x1 = batch_norm(self.bn1, self.conv1(x))
+        x2 = self.layer1(x1)
+        x3 = self.layer2(x2)
+        x4 = self.layer3(x3)
+        stage = self.layers
+        x4_ = self.conv2(torch.cat([x4, stage[3](x4)], 1))
+        x3_ = self.conv3(torch.cat([x3, stage[2](upsample(x4_, x3))], 1))
+        x2_ = self.conv4(torch.cat([x2, stage[1](upsample(x3_, x2))], 1))
+        x1_ = self.conv5(torch.cat([x1, stage[0](upsample(x2_, x1))], 1))
+        return [x1_, x2_, x3_, x4_]

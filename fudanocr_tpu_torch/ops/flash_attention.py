@@ -1,5 +1,7 @@
-"""Self-attention with hash dropout off the fused [q|k|v] buffer: Hopper
-kernels (forward and backward) + plain twin.
+"""Attention kernels' wrappers and plain twins: self-attention with hash
+dropout off the fused [q|k|v] buffer (Hopper kernels, forward and
+backward), and unmasked (B, H, L, dh) attention `flash_mha` (Hopper kernel,
+forward; at the end of this module).
 
 Port of the packed-qkv dropout part of fudanocr_tpu/ops/flash_attention.py
 (`flash_mha_qkv_packed_dropout` and its hash helpers). For (B, L, 3D) qkv
@@ -285,3 +287,129 @@ def flash_mha_qkv_packed_dropout(qkv: torch.Tensor, seed: Seed, heads: int,
                          f"{qkv.device}")
     return _QKVDropoutAttention.apply(qkv, _seed_tensor(seed, qkv.device),
                                       heads, rate)
+
+
+# -- unmasked attention (CascadeMiT) ----------------------------------------
+#
+# `flash_mha` over (B, H, L, dh) operands: the port of the JAX package's
+# `flash_mha` (flash_attention.py:620), whose two Pallas variants (`_mha_full`
+# :119 for Lq, Lk <= 1024 and dh <= 64, the online-softmax `_flash_mha_impl`
+# :653 otherwise) compute one function. On CUDA tensors it runs the strided
+# kernel of csrc/unmasked_attention.cu, which also serves the packed layout
+# of ops/region_attention.py `packed_flash_mha`. Forward only: the JAX VJP
+# (plain XLA, :634-646) comes with the segmentation training slice, and
+# until then a CUDA call that needs a gradient raises.
+
+UNMASKED_HEAD_WIDTHS = (32, 64)   # head widths the kernel is built for
+UNMASKED_ROW_TILE = 128           # Lq must be a multiple of it
+UNMASKED_KEY_TILE = 64            # Lkv must be a multiple of it
+
+
+def flash_attention_supported(q_shape, lk: int) -> bool:
+    """CascadeMiT's gate for the `flash_mha` route: the device-side
+    condition of the JAX package's `_flash_ok`
+    (fudanocr_tpu/models/seg/cascade_mit.py:35-44), without its bound for
+    CPU interpret mode. `q_shape` is (B, H, Lq, dh)."""
+    _, _, lq, hd = q_shape
+    return (lq >= 512 and lq % 256 == 0 and (lq <= 1024 or lq % 1024 == 0)
+            and lk >= 128 and lk % 128 == 0 and hd % 8 == 0 and hd <= 128)
+
+
+def flash_mha_reference(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version: q (B, H, Lq, dh), k/v (B, H, Lkv, dh) ->
+    softmax(q k^T / sqrt(dh)) v, (B, H, Lq, dh) at q's dtype.
+
+    The JAX kernels' rounding points: fp32 scores, row max subtracted, the
+    unnormalised probabilities rounded to v's dtype for the value product
+    with fp32 accumulation, divided by the fp32 row sum at the end. The
+    (B, H, Lq, Lkv) scores are materialised once and updated in place."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s.mul_(1.0 / math.sqrt(q.shape[-1]))
+    s.sub_(s.detach().amax(-1, keepdim=True)).exp_()
+    denom = s.sum(-1, keepdim=True)
+    o = torch.matmul(s.to(v.dtype).float(), v.float()) / denom
+    return o.to(q.dtype)
+
+
+def check_unmasked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   what: str) -> None:
+    """Raise on operands the unmasked-attention kernel does not take (the
+    layout-independent part; each wrapper checks its shapes)."""
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in (torch.float32,
+                                                            torch.bfloat16):
+        raise TypeError(f"{what} takes float32 or bfloat16 q, k, v of one "
+                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not q.device == k.device == v.device:
+        raise ValueError(f"{what}: q, k, v on {q.device}, {k.device}, "
+                         f"{v.device}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError(f"{what} needs unit feature strides, got "
+                         f"{q.stride()}, {k.stride()}, {v.stride()}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(f"{what}: the kernel has no backward yet "
+                                  "(the segmentation training slice)")
+
+
+def check_unmasked_shape(b: int, heads: int, lq: int, lk: int, dh: int,
+                         what: str) -> None:
+    if dh not in UNMASKED_HEAD_WIDTHS:
+        raise ValueError(f"{what}: the kernel takes head widths "
+                         f"{UNMASKED_HEAD_WIDTHS}, got {dh}")
+    if (lq < UNMASKED_ROW_TILE or lq % UNMASKED_ROW_TILE
+            or lk < UNMASKED_KEY_TILE or lk % UNMASKED_KEY_TILE):
+        raise ValueError(f"{what}: the kernel needs Lq a multiple of "
+                         f"{UNMASKED_ROW_TILE} and Lkv of {UNMASKED_KEY_TILE},"
+                         f" got Lq={lq}, Lkv={lk}")
+    if not (1 <= b <= 65535 and 1 <= heads <= 65535):
+        raise ValueError(f"{what}: batch {b} or heads {heads} out of range")
+
+
+def unmasked_bhld_fwd(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on (B, H, L, dh) operands of any batch, head and
+    row strides (e.g. the (B, H, L, dh) view of a (B, L, H*dh) projection).
+    The output has q's stride order. `unmasked_bhld_fwd.launches` counts
+    launches."""
+    from fudanocr_tpu_torch.ops._build import check, load_library
+
+    what = "flash_mha"
+    check_unmasked(q, k, v, what)
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"{what} takes q (B, H, Lq, dh) and k, v "
+                         f"(B, H, Lkv, dh), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, lq, dh = q.shape
+    lk = k.shape[2]
+    check_unmasked_shape(b, h, lq, lk, dh, what)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        o = torch.empty_like(q)
+        unmasked_bhld_fwd.launches += 1
+        check(lib.attn_unmasked_bhld_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, lq,
+            lk, dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *o.stride()[:3], 1.0 / math.sqrt(dh),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream), "attn_unmasked_bhld_fwd")
+    return o
+
+
+unmasked_bhld_fwd.launches = 0
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> torch.Tensor:
+    """Unmasked softmax(q k^T / sqrt(dh)) v over (B, H, L, dh) operands.
+
+    CPU tensors run the plain version. CUDA tensors run the kernel (built at
+    first use, see ops/_build.py) and raise on what it does not take: a
+    dtype other than float32/bfloat16, a head width other than 32 or 64, Lq
+    not a multiple of 128 or Lkv of 64, a feature stride other than 1, or a
+    gradient to be taken."""
+    if q.device.type == "cpu":
+        return flash_mha_reference(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_mha: no kernel for {q.device}")
+    return unmasked_bhld_fwd(q, k, v)

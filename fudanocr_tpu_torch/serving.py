@@ -62,7 +62,7 @@ class PixelsToStrings:
 
     def __init__(self, sr_apply: Callable, rec_apply: Callable, converter,
                  rec_hw: Tuple[int, int] = (32, 100),
-                 device: Device = "cpu"):
+                 device: Device = "cuda"):
         self.sr_apply, self.rec_apply = sr_apply, rec_apply
         self.converter = converter
         self.rec_hw = tuple(rec_hw)
@@ -95,7 +95,7 @@ class PixelsToStrings:
 
 class InferenceServer:
     def __init__(self, apply_fn: Callable, buckets: Sequence[int] = (1, 8, 32),
-                 max_wait_ms: float = 5.0, device: Device = "cpu"):
+                 max_wait_ms: float = 5.0, device: Device = "cuda"):
         if list(buckets) != sorted(set(int(b) for b in buckets)):
             raise ValueError(f"buckets must be ascending unique: {buckets}")
         self._apply = apply_fn

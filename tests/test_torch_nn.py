@@ -1,8 +1,8 @@
 """Layer-level parity of the PyTorch port (fudanocr_tpu_torch/nn, ops/resize)
 against the JAX package on the CPU: the same seeded numpy inputs and
-weights through both, compared in fp32. Weights move through the JAX
-package's own porter functions (utils/torch_port.py) inverted by its
-exporter, as `utils.weights.load_jax_variables` does for whole models."""
+weights through both, compared in fp32. Weights move through the port's
+porter functions (utils/porters.py) inverted by `utils/weights.py`, as
+`load_jax_variables` does for whole models."""
 
 import jax
 import jax.numpy as jnp
@@ -16,12 +16,12 @@ from fudanocr_tpu.nn import layers as jl
 from fudanocr_tpu.nn.recurrent import BiLSTM as JaxBiLSTM
 from fudanocr_tpu.nn.stn import STNHead as JaxSTNHead
 from fudanocr_tpu.ops.resize import resize_bicubic_torch as jax_resize
-from fudanocr_tpu.utils import torch_port
 from fudanocr_tpu_torch.nn import attention as pattn
 from fudanocr_tpu_torch.nn import layers as pl
 from fudanocr_tpu_torch.nn.recurrent import BiLSTM
 from fudanocr_tpu_torch.nn.stn import STNHead
 from fudanocr_tpu_torch.ops.resize import resize_bicubic_torch
+from fudanocr_tpu_torch.utils import porters
 from fudanocr_tpu_torch.utils.weights import load_jax_variables
 
 ATOL = 2e-4   # the module-parity bar (ROADMAP.md, tests/test_torch_port.py)
@@ -156,8 +156,8 @@ class _Holder(nn.Module):
 def test_stn_head(monkeypatch):
     """STNHead weights through the porter's _stn_head; the control points
     and the embedding agree with the JAX head."""
-    monkeypatch.setitem(torch_port.PORTERS, "_stn", lambda sd: dict(
-        zip(("params", "batch_stats"), torch_port._stn_head(sd))))
+    monkeypatch.setitem(porters.PORTERS, "_stn", lambda sd: dict(
+        zip(("params", "batch_stats"), porters._stn_head(sd))))
     rng = np.random.default_rng(5)
     x = rng.random((2, 16, 64, 3)).astype(np.float32)
     jm = JaxSTNHead(num_ctrlpoints=20)
@@ -176,8 +176,8 @@ def test_stn_head(monkeypatch):
 def test_bilstm(monkeypatch):
     """nn.LSTM-based BiLSTM against the JAX lax.scan BiLSTM, weights
     through the porter's `birnn`."""
-    monkeypatch.setitem(torch_port.PORTERS, "_birnn", lambda sd: {
-        "params": torch_port.birnn(sd, "rnn")})
+    monkeypatch.setitem(porters.PORTERS, "_birnn", lambda sd: {
+        "params": porters.birnn(sd, "rnn")})
     rng = np.random.default_rng(6)
     x = rng.standard_normal((3, 9, 20)).astype(np.float32)
     jm = JaxBiLSTM(16)

@@ -3,6 +3,7 @@ how the smoke script fails without a card, how the kernel wrappers pick
 their path, and how the kernel build behaves."""
 
 import ast
+import inspect
 import os
 import shutil
 import subprocess
@@ -12,8 +13,11 @@ from pathlib import Path
 import pytest
 import torch
 
+from fudanocr_tpu_torch import serving
+from fudanocr_tpu_torch.apps.seg import inference as seg_inference
 from fudanocr_tpu_torch.ops import _build
 from fudanocr_tpu_torch.ops import flash_attention as fa
+from fudanocr_tpu_torch.ops import region_attention as ra
 from fudanocr_tpu_torch.ops.fused_enhancer import (enhancer_operands,
                                                    fused_enhancer,
                                                    fused_enhancer_reference)
@@ -22,8 +26,7 @@ from fudanocr_tpu_torch.ops.fused_layernorm import (
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "fudanocr_tpu_torch"
-ALLOWED_JAX_PACKAGE = {"fudanocr_tpu.utils.torch_port",
-                       "fudanocr_tpu.utils.torch_export"}
+ALLOWED_JAX_PACKAGE = frozenset()   # the port imports nothing of it
 FORBIDDEN = ("jax", "jaxlib", "flax", "PIL", "optax")
 
 
@@ -143,6 +146,47 @@ def test_training_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError):
         fa.flash_mha_qkv_packed_dropout(
             torch.empty(1, 512, 384, device="meta"), 1, 4, 0.1)
+
+
+def _unmasked_counts():
+    return ra.unmasked_packed_fwd.launches, fa.unmasked_bhld_fwd.launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unmasked_attention_wrappers_on_cpu_are_the_plain_versions(dtype):
+    """On CPU tensors `packed_flash_mha` and `flash_mha` run their plain
+    versions and launch nothing."""
+    gen = torch.Generator().manual_seed(1)
+    n0 = _unmasked_counts()
+    q = torch.randn(2, 256, 64, generator=gen).to(dtype)
+    kv = torch.randn(2, 128, 128, generator=gen).to(dtype)
+    k, v = kv[..., :64], kv[..., 64:]
+    got = ra.packed_flash_mha(q, k, v, 2)
+    assert torch.equal(got, ra.packed_flash_mha_reference(q, k, v, 2))
+    assert got.dtype == dtype and got.shape == (2, 256, 64)
+    qh, kh, vh = (t.unflatten(-1, (2, 32)).transpose(1, 2) for t in (q, k, v))
+    got = fa.flash_mha(qh, kh, vh)
+    assert torch.equal(got, fa.flash_mha_reference(qh, kh, vh))
+    assert got.dtype == dtype and got.shape == (2, 2, 256, 32)
+    assert _unmasked_counts() == n0
+
+
+def test_unmasked_attention_wrappers_refuse_devices_without_a_kernel():
+    q = torch.empty(1, 1024, 64, device="meta")
+    k = torch.empty(1, 256, 64, device="meta")
+    with pytest.raises(ValueError):
+        ra.packed_flash_mha(q, k, k, 2)
+    with pytest.raises(ValueError):
+        fa.flash_mha(q.view(1, 1024, 2, 32).transpose(1, 2),
+                     k.view(1, 256, 2, 32).transpose(1, 2),
+                     k.view(1, 256, 2, 32).transpose(1, 2))
+
+
+@pytest.mark.parametrize("entry", [serving.PixelsToStrings,
+                                   serving.InferenceServer,
+                                   seg_inference.init_segmentor])
+def test_entry_points_default_to_the_card(entry):
+    assert inspect.signature(entry).parameters["device"].default == "cuda"
 
 
 def _fake_nvcc(tmp_path, monkeypatch, script: str):

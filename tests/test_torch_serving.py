@@ -46,12 +46,14 @@ def test_pixels_to_strings_matches_jax_and_server():
     sr = load_jax_variables(TBSRN(**sr_kw), "tbsrn", sr_vars,
                             srb_nums=1, stn=False).eval()
     crnn = load_jax_variables(CRNN(37, 32), "crnn", crnn_vars).eval()
-    pipe = PixelsToStrings(sr, crnn, CTCLabelConverter(ALPHABET))
+    pipe = PixelsToStrings(sr, crnn, CTCLabelConverter(ALPHABET),
+                           device="cpu")
     got, sr_out = pipe(lr, return_sr=True)
     assert got == want
     assert tuple(sr_out.shape) == (3, 16, 64, 3)
 
-    srv = InferenceServer(pipe.ids_fn, buckets=(1, 4), max_wait_ms=2.0)
+    srv = InferenceServer(pipe.ids_fn, buckets=(1, 4),
+                          max_wait_ms=2.0, device="cpu")
     futs = [srv.submit(lr[i]) for i in range(3)]
     served = [pipe.decode_ids(f.result(timeout=60)[None])[0] for f in futs]
     srv.close()
@@ -66,7 +68,8 @@ def test_normalize_uint8_matches_host_collate():
 
 
 def test_results_match_direct_application():
-    srv = InferenceServer(_double, buckets=(1, 4), max_wait_ms=2.0)
+    srv = InferenceServer(_double, buckets=(1, 4),
+                          max_wait_ms=2.0, device="cpu")
     rng = np.random.default_rng(0)
     imgs = [rng.random((4, 6, 3), np.float32) for _ in range(11)]
     futs = [srv.submit(im) for im in imgs]
@@ -78,7 +81,8 @@ def test_results_match_direct_application():
 
 
 def test_concurrent_submitters_and_full_batches():
-    srv = InferenceServer(_double, buckets=(1, 8), max_wait_ms=50.0)
+    srv = InferenceServer(_double, buckets=(1, 8),
+                          max_wait_ms=50.0, device="cpu")
     results = {}
     lock = threading.Lock()
 
@@ -101,7 +105,8 @@ def test_concurrent_submitters_and_full_batches():
 
 
 def test_deadline_flush_pads_whole_backlog_into_one_bucket():
-    srv = InferenceServer(_double, buckets=(1, 8), max_wait_ms=100.0)
+    srv = InferenceServer(_double, buckets=(1, 8),
+                          max_wait_ms=100.0, device="cpu")
     imgs = [np.full((2, 2, 1), float(i), np.float32) for i in range(7)]
     futs = [srv.submit(im) for im in imgs]
     outs = [f.result(timeout=30) for f in futs]
@@ -112,7 +117,8 @@ def test_deadline_flush_pads_whole_backlog_into_one_bucket():
 
 
 def test_mixed_shapes_served_in_same_shape_runs():
-    srv = InferenceServer(_double, buckets=(1, 4), max_wait_ms=5.0)
+    srv = InferenceServer(_double, buckets=(1, 4),
+                          max_wait_ms=5.0, device="cpu")
     a = np.ones((2, 2, 1), np.float32)
     b = np.ones((3, 5, 1), np.float32) * 3.0
     fa, fb, fc = srv.submit(a), srv.submit(b), srv.submit(a * 5.0)
@@ -124,7 +130,7 @@ def test_mixed_shapes_served_in_same_shape_runs():
 
 def test_apply_errors_propagate_and_close_rejects():
     srv = InferenceServer(lambda x: x.view(-1, 9999), buckets=(1,),
-                          max_wait_ms=1.0)
+                          max_wait_ms=1.0, device="cpu")
     fut = srv.submit(np.ones((2, 2, 1), np.float32))
     with pytest.raises(RuntimeError):
         fut.result(timeout=30)
@@ -140,7 +146,8 @@ def test_warmup_runs_every_bucket_on_the_batcher_and_stats():
         seen.append((threading.current_thread().name, x.shape[0]))
         return x * 2.0
 
-    srv = InferenceServer(apply, buckets=(1, 4), max_wait_ms=2.0)
+    srv = InferenceServer(apply, buckets=(1, 4),
+                          max_wait_ms=2.0, device="cpu")
     srv.warmup(np.ones((2, 2, 1), np.float32))
     assert [b for _, b in seen] == [1, 4]
     assert srv.stats()["requests"] == 0

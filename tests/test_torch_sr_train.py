@@ -40,6 +40,7 @@ from fudanocr_tpu_torch.nn.stn import STNHead
 from fudanocr_tpu_torch.nn.tps import TPSSpatialTransformer
 from fudanocr_tpu_torch.train.sr import SRTrainer, make_sr_train_step
 from fudanocr_tpu_torch.train.state import AdamWithClip, adam_with_clip
+from fudanocr_tpu_torch.utils import porters
 from fudanocr_tpu_torch.utils.weights import (load_jax_variables,
                                               to_jax_variables)
 
@@ -161,8 +162,8 @@ class _Holder(torch.nn.Module):
 def test_stn_head_train_mode_matches_jax(monkeypatch):
     """Batch statistics in the conv stack and stn_fc1, and the running
     statistics after the step."""
-    monkeypatch.setitem(torch_port.PORTERS, "_stn", lambda sd: dict(
-        zip(("params", "batch_stats"), torch_port._stn_head(sd))))
+    monkeypatch.setitem(porters.PORTERS, "_stn", lambda sd: dict(
+        zip(("params", "batch_stats"), porters._stn_head(sd))))
     rng = np.random.default_rng(2)
     x = rng.random((4, 16, 64, 3)).astype(np.float32)
     jm = JaxSTNHead(num_ctrlpoints=20)
