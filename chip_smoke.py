@@ -62,10 +62,28 @@ Phases:
      paths;
   9. the same model in whole-image mode: a 512x1024 image (6 packed and
      2 (B, H, L, dh) launches) and a 2048x2048 image (8 (B, H, L, dh)
-     launches), with the checks of phase 8.
+     launches), with the checks of phase 8;
+ 10. the region-masked attention kernel (B6, the MASKED variant of
+     csrc/unmasked_attention.cu) against its plain version in fp32 and
+     bf16 at the four level shapes of CascadeMiT-b0-det on 1024² crops at
+     batch 3, with seeded blob ids (0, 1 and 0.5 ids, instance ids, an
+     all-background image): max error, fully suppressed rows equal to the
+     mean of v; kernel, plain and masked-SDPA ms (timed only) beside the
+     bound;
+ 11. det-guided segmentation at full width: `init_segmentor` on
+     configs/seg/textformer_b0_textseg_det.yaml (CascadeMiTDetGuided-b0 +
+     SegformerHead, weights from a seed, non-trivial BN and LN statistics;
+     `det_cls` redrawn from a seed if the text maps come out trivial), then
+     `inference_segmentor` slide on a seeded 1024x2048 image: every crop's
+     text map neither all 0 nor all 1 with at least 2 instances, exactly
+     (B6, B7, B5) = (8, 8, 0) launches, the checks of phase 8; labelling
+     rounds and ms, its ids equal to the same labelling on the CPU; a
+     profiler breakdown of one canvas;
+ 12. the same model in whole mode on 512x1024: (6, 6, 2) launches (level
+     3's branches run plain with the materialised mask), the same checks.
 
-Phase 8 ends with a torch.profiler breakdown of one more canvas (device
-time by name, the device's busy time against the wall time).
+Phases 8 and 11 end with a torch.profiler breakdown of one more canvas
+(device time by name, the device's busy time against the wall time).
 
 Timings use CUDA events after a warm-up; every timing line carries the
 card's name and power limit. Float32 comparisons run with TF32 off. A
@@ -104,6 +122,11 @@ from fudanocr_tpu_torch.ops.fused_layernorm import (
 from fudanocr_tpu_torch.ops import region_attention as ra
 from fudanocr_tpu_torch.apps.seg.inference import (inference_segmentor,
                                                    init_segmentor)
+from fudanocr_tpu_torch.data.seg_pipeline import Normalize
+from fudanocr_tpu_torch.models.seg.det_guided import (instance_labels,
+                                                      region_vectors,
+                                                      soft_argmax)
+from fudanocr_tpu_torch.models.seg.encoder_decoder import crop_grid
 from fudanocr_tpu_torch.serving import InferenceServer, PixelsToStrings
 from fudanocr_tpu_torch.train.sr import SRTrainer, make_sr_train_step
 from fudanocr_tpu_torch.train.state import adam_with_clip
@@ -139,6 +162,16 @@ B7_SHAPES = ((3, 65536, 1024, 32, 1), (3, 16384, 1024, 64, 2),
 # B5: stage 3 of a 512x1024 whole image (the JAX full-K variant) and stage 0
 # of a 2048² whole image (online softmax): (B, H, Lq, Lkv, dh)
 B5_SHAPES = ((1, 8, 512, 512, 32), (1, 1, 262144, 4096, 32))
+# phases 10-12: the det-guided slice; B6 at the four levels of 1024² crops at
+# batch 3: (B, Lq, Lkv, D, heads, level side, sr)
+DET_CONFIG = "configs/seg/textformer_b0_textseg_det.yaml"
+B6_SHAPES = ((3, 65536, 1024, 32, 1, 256, 8), (3, 16384, 1024, 64, 2, 128, 4),
+             (3, 4096, 1024, 160, 5, 64, 2), (3, 1024, 1024, 256, 8, 32, 1))
+# the det-guided canvases and their (B6, B7, B5) launches: a slide canvas
+# (3 crops, every level's branches on B6, every stage on B7) and a whole
+# 512x1024 image (level 3: Lq = 512, branches plain, stage on B5)
+DET_SLIDE_HW, DET_SLIDE_LAUNCHES = (1024, 2048), (8, 8, 0)
+DET_WHOLE_HW, DET_WHOLE_LAUNCHES = (512, 1024), (6, 6, 2)
 # published H100 SXM peaks (dense fp32 / bf16 tensor core, HBM3), 700 W
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -181,6 +214,22 @@ def attn_bound(b: int, h: int, lq: int, lk: int, dh: int, dtype,
     es = torch.finfo(dtype).bits // 8
     return bound(4 * b * h * lq * lk * dh,
                  es * b * h * dh * (2 * lq + 2 * lk) + extra_bytes, dtype)
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean device time per call of `fn` over `iters` calls: the card's
+    kernel and copy time in torch.profiler, without the host's launch
+    time between calls that `cuda_ms` sees when a call is short."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / 1e3 / iters
 
 
 def in_turns(a, b, iters: int):
@@ -444,9 +493,12 @@ def phase4(dev, gpu: str) -> dict:
                                             lk, g),
                 lambda: torch.autograd.grad(
                     fused_residual_layernorm_reference(*lp), lp, g), 10)
+            kd_ms = device_ms(lambda: fused_residual_layernorm(x, r, s, b),
+                              20)
             print(f"phase 4: residual LN ({rows}, {d}) {dt}: max abs err "
                   f"{err:.3e}, grads max rel {grel:.3e}; forward kernel "
-                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; forward+backward "
+                  f"{k_ms:.4f} ms ({kd_ms:.4f} ms of device time in the "
+                  f"profiler), plain {p_ms:.4f} ms; forward+backward "
                   f"{kb_ms:.4f} ms, plain {pb_ms:.4f} ms [{gpu}]")
             es = torch.finfo(dt).bits // 8
             # F.layer_norm is another function (biased variance, eps under
@@ -828,7 +880,13 @@ def phase7(dev, gpu: str) -> tuple:
 
 
 def seg_counts() -> tuple:
-    return ra.unmasked_packed_fwd.launches, fa.unmasked_bhld_fwd.launches
+    return (ra.region_packed_fwd.launches, ra.unmasked_packed_fwd.launches,
+            fa.unmasked_bhld_fwd.launches)
+
+
+def reset_seg_counts() -> None:
+    ra.region_packed_fwd.launches = 0
+    ra.unmasked_packed_fwd.launches = fa.unmasked_bhld_fwd.launches = 0
 
 
 def seg_models(dev):
@@ -853,7 +911,7 @@ def seg_run(phase: str, model, plain, img: np.ndarray, crop, stride,
     run(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ra.unmasked_packed_fwd.launches = fa.unmasked_bhld_fwd.launches = 0
+    reset_seg_counts()
     seg, logits = run(model)         # the main path's run, counted
     torch.cuda.synchronize()
     counts = seg_counts()
@@ -873,8 +931,9 @@ def seg_run(phase: str, model, plain, img: np.ndarray, crop, stride,
     tol = max(2 * err, 1e-6)
     sure = (top2_margin(logits_p[0]) > tol).cpu().numpy()
     same = seg == seg_p
-    print(f"phase {phase}: {h}x{w} {mode}: launches (packed B7, head-major "
-          f"B5) {counts} (expected {want_counts}); logits vs kernels=False "
+    print(f"phase {phase}: {h}x{w} {mode}: launches (region B6, packed B7, "
+          f"head-major B5) {counts} (expected {want_counts}); logits vs "
+          f"kernels=False "
           f"max abs err {err:.3e} (bar {SEG_ATOL}), |logits| max "
           f"{logits_p.abs().max().item():.3f}; class maps equal at "
           f"{int(same.sum())} of {same.size} pixels and at all "
@@ -894,7 +953,8 @@ def seg_run(phase: str, model, plain, img: np.ndarray, crop, stride,
     return counts
 
 
-def profile_canvas(model, img: np.ndarray, gpu: str) -> None:
+def profile_canvas(model, img: np.ndarray, gpu: str,
+                   what: str = "") -> None:
     """torch.profiler over one slide canvas: device kernel time by name
     and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -911,7 +971,7 @@ def profile_canvas(model, img: np.ndarray, gpu: str) -> None:
                   key=lambda e: -e.device_time_total)
     busy = sum(e.device_time_total for e in rows if e.device_type.name
                == "CUDA") / 1e3
-    print(f"profile: one {SEG_CROP} slide canvas, wall {wall:.3f} ms, "
+    print(f"profile:{what} one {SEG_CROP} slide canvas, wall {wall:.3f} ms, "
           f"device busy {busy:.3f} ms (kernels and copies) [{gpu}]")
     for e in rows[:15]:
         print(f"profile: {e.device_time_total / 1e3:9.3f} ms "
@@ -926,21 +986,189 @@ def phase8(dev, gpu: str, models) -> int:
         raise AssertionError(f"{SEG_CONFIG}: test recipe {test}")
     img = np.random.default_rng(SEED + 80).integers(0, 256, (1024, 2048, 3),
                                                     dtype=np.uint8)
-    counts = seg_run("8", model, plain, img, SEG_CROP, SEG_STRIDE, (8, 0),
+    counts = seg_run("8", model, plain, img, SEG_CROP, SEG_STRIDE, (0, 8, 0),
                      gpu)
     profile_canvas(model, img, gpu)
-    return counts[0]
+    return counts[1]
 
 
 def phase9(dev, gpu: str, models) -> int:
     model, plain, _ = models
     launches = 0
-    for (h, w), want in (((512, 1024), (6, 2)), ((2048, 2048), (0, 8))):
+    for (h, w), want in (((512, 1024), (0, 6, 2)), ((2048, 2048), (0, 0, 8))):
         img = np.random.default_rng(SEED + 90 + h).integers(
             0, 256, (h, w, 3), dtype=np.uint8)
-        launches += seg_run("9", model, plain, img, None, None, want, gpu)[1]
+        launches += seg_run("9", model, plain, img, None, None, want, gpu)[2]
         torch.cuda.empty_cache()
     return launches
+
+
+def blob_regions(dev, side: int = 256) -> torch.Tensor:
+    """(3, side, side) float32 region maps made from a seed, at the 1/4
+    scale of a 1024² crop: image 0 a text map of rectangles (ids 1 and some
+    0.5 on 0), image 1 the instance ids of its own rectangles, image 2 all
+    background (every row of its attention is fully suppressed)."""
+    rng = np.random.default_rng(SEED + 10)
+    maps = np.zeros((3, side, side), np.float32)
+    for b in range(2):
+        for _ in range(12):
+            y, x = rng.integers(0, side - 40, 2)
+            hh, ww = rng.integers(8, 40, 2)
+            maps[b, y:y + hh, x:x + ww] = rng.choice([1.0, 0.5], p=[0.8, 0.2])
+    regions = torch.from_numpy(maps).to(dev)
+    regions[1] = instance_labels(regions[1:2])[0]
+    return regions
+
+
+def phase10(dev, gpu: str) -> dict:
+    gen = torch.Generator().manual_seed(SEED + 10)
+    regions = blob_regions(dev)
+    b6 = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for b, lq, lk, d, heads, side, sr in B6_SHAPES:
+            q, k, v = _attn_operands(gen, dev, dt, b, lq, lk, d)
+            rq, rkv = (r.contiguous() for r in
+                       region_vectors(regions, (side, side), sr))
+            got = ra.region_flash_mha(q, k, v, rq, rkv, heads)
+            err = _attn_check("region_flash_mha", got,
+                              ra.region_flash_mha_reference(q, k, v, rq, rkv,
+                                                            heads), dt)
+            # rows whose every pair is suppressed are the mean of v
+            full = (rq[:, :, None] == rkv[:, None, :]).all(-1)
+            free = ~(rq[:, :, None] == rkv[:, None, :]).any(-1)
+            mean_v = v.float().mean(1, keepdim=True).expand(-1, lq, -1)
+            full_err = (got.float() - mean_v)[full].abs().max().item()
+            n_full, n_free = int(full.sum()), int(free.sum())
+            if (full_err > ATTN_ATOL[dt] or n_full == 0
+                    or n_full + n_free == b * lq):
+                raise AssertionError(
+                    f"region_flash_mha {dt} Lq={lq}: fully suppressed rows "
+                    f"{n_full} (max err to the mean of v {full_err}), "
+                    f"partly suppressed {b * lq - n_full - n_free}")
+            k_ms, p_ms = in_turns(
+                lambda: ra.region_flash_mha(q, k, v, rq, rkv, heads),
+                lambda: ra.region_flash_mha_reference(q, k, v, rq, rkv,
+                                                      heads), 5)
+            qh, kh, vh = (t.unflatten(-1, (heads, d // heads)).transpose(1, 2)
+                          for t in (q, k, v))
+            mask = ra.region_mask(rq, rkv)[:, None].to(dt)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask), 5)
+            bd = attn_bound(b, heads, lq, lk, d // heads, dt,
+                            extra_bytes=4 * b * (lq + lk))
+            print(f"phase 10: region (B6) q ({b}, {lq}, {d}), k/v ({b}, {lk}, "
+                  f"{d}), {heads} heads, {dt}: max abs err {err:.3e}; "
+                  f"{n_full} fully suppressed rows (max err to the mean of v "
+                  f"{full_err:.3e}), {n_free} rows with no suppressed pair; "
+                  f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA with the "
+                  f"float mask {lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+                  f"({bd['bound_by']}); {4 * b * lq * lk * d / k_ms / 1e9:.1f}"
+                  f" TFLOP/s [{gpu}]")
+            b6[(lq, dt)] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                            **bd, "library_ms": lib_ms}
+            del q, k, v, qh, kh, vh, mask, got, full, free, mean_v
+        torch.cuda.empty_cache()
+    return b6[(B6_SHAPES[0][1], torch.float32)]   # level 0, fp32
+
+
+def det_models(dev):
+    """CascadeMiTDetGuided-b0 + SegformerHead from the TextSeg det config,
+    weights from a seed, non-trivial BN statistics and LN scales; and the
+    same weights on the plain path."""
+    gen = torch.Generator().manual_seed(SEED + 11)
+    model, cfg = init_segmentor(DET_CONFIG, device="cpu", seed=SEED + 11)
+    randomize_stats(model, gen)
+    plain, _ = init_segmentor(DET_CONFIG, device="cpu", kernels=False)
+    plain.load_state_dict(model.state_dict())
+    return model.to(dev), plain.to(dev), cfg
+
+
+def normalized(img: np.ndarray, dev) -> torch.Tensor:
+    return torch.from_numpy(Normalize()({"img": img})["img"][None]).to(dev)
+
+
+def det_maps(model, x: torch.Tensor) -> tuple:
+    """The text and instance maps of the model's det head for images x."""
+    with torch.inference_mode():
+        _, det = model(x)
+        text = soft_argmax(det)
+        return text, instance_labels(text)
+
+
+def maps_ok(text: torch.Tensor, inst: torch.Tensor) -> list:
+    """Per image (text share, instances); None where the map is all 0, all
+    text, or has fewer than 2 instances."""
+    out = []
+    for t, i in zip(text, inst):
+        share = (t > 0).float().mean().item()
+        n = torch.unique(i[i > 0]).numel()
+        out.append((share, n) if 0 < share < 1 and n >= 2 else None)
+    return out
+
+
+def nontrivial_text_maps(model, plain, inputs: list) -> list:
+    """Make every image's text map neither all 0 nor all 1, with at least
+    2 instances: keep the seeded weights if they do, else redraw `det_cls`
+    from the next seed (at most 8)."""
+    conv = model.backbone.det_cls[0]
+    for attempt in range(8):
+        stats = [maps_ok(*det_maps(model, x)) for x in inputs]
+        if all(s is not None for st in stats for s in st):
+            print(f"phase 11: text maps non-trivial with "
+                  + ("the seeded weights" if attempt == 0 else
+                     f"det_cls redrawn from seed {SEED + 110 + attempt - 1}")
+                  + f": (text share, instances) per image {stats}")
+            return stats
+        g = torch.Generator().manual_seed(SEED + 110 + attempt)
+        with torch.no_grad():
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=g)
+                              * 4 / conv.in_channels ** 0.5)
+            conv.bias.zero_()
+        plain.backbone.det_cls.load_state_dict(
+            model.backbone.det_cls.state_dict())
+    raise AssertionError(f"no det_cls seed gives non-trivial text maps: "
+                         f"{stats}")
+
+
+def phase11_12(dev, gpu: str) -> int:
+    model, plain, cfg = det_models(dev)
+    test = cfg.test
+    if (test.mode, tuple(test.crop), tuple(test.stride)) != (
+            "slide", SEG_CROP, SEG_STRIDE):
+        raise AssertionError(f"{DET_CONFIG}: test recipe {test}")
+    img = np.random.default_rng(SEED + 110).integers(
+        0, 256, (*DET_SLIDE_HW, 3), dtype=np.uint8)
+    whole = np.random.default_rng(SEED + 120).integers(
+        0, 256, (*DET_WHOLE_HW, 3), dtype=np.uint8)
+    x = normalized(img, dev)
+    ch, cw, pos = crop_grid(*DET_SLIDE_HW, SEG_CROP, SEG_STRIDE)
+    crops = torch.cat([x[:, y:y + ch, c:c + cw] for y, c in pos])
+    nontrivial_text_maps(model, plain, [crops, normalized(whole, dev)])
+    text, inst = det_maps(model, crops)
+    if not torch.equal(inst, det_maps(plain, crops)[1]):
+        raise AssertionError("phase 11: the instance maps of the kernel and "
+                             "plain paths differ")
+    if not torch.equal(inst.cpu(), instance_labels(text.cpu())):
+        raise AssertionError("phase 11: the labelling on the card differs "
+                             "from the same labelling on the CPU")
+    ccl = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        instance_labels(text)
+        torch.cuda.synchronize()
+        ccl.append((time.perf_counter() - t0) * 1e3)
+    print(f"phase 11: labelling the 3 crops' text maps {tuple(text.shape)}: "
+          f"{instance_labels.rounds} rounds, {float(np.median(ccl)):.3f} ms "
+          f"(median of 5, host clock), equal to the CPU's and to the plain "
+          f"path's [{gpu}]")
+    del x, crops, text, inst
+    counts = seg_run("11", model, plain, img, SEG_CROP, SEG_STRIDE,
+                     DET_SLIDE_LAUNCHES, gpu)
+    profile_canvas(model, img, gpu, " det-guided")
+    torch.cuda.empty_cache()
+    seg_run("12", model, plain, whole, None, None, DET_WHOLE_LAUNCHES, gpu)
+    return counts[0]
 
 
 def main() -> int:
@@ -972,6 +1200,9 @@ def main() -> int:
     b7_n = phase8(dev, gpu, models)
     b5_n = phase9(dev, gpu, models)
     del models
+    torch.cuda.empty_cache()
+    b6 = phase10(dev, gpu)
+    b6_n = phase11_12(dev, gpu)
     attn_src = "fudanocr_tpu_torch/csrc/flash_attention_dropout.cu"
     seg_src = "fudanocr_tpu_torch/csrc/unmasked_attention.cu"
     print(json.dumps({"kernels": [
@@ -998,7 +1229,11 @@ def main() -> int:
         {"name": "unmasked_attention_bhld", "route": "cuda",
          "source": seg_src,
          "replaces": "fudanocr_tpu/ops/flash_attention.py:653",
-         "launches": b5_n, **b5}]}))
+         "launches": b5_n, **b5},
+        {"name": "region_attention_packed", "route": "cuda",
+         "source": seg_src,
+         "replaces": "fudanocr_tpu/ops/region_attention.py:167",
+         "launches": b6_n, **b6}]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

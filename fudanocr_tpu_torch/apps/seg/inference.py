@@ -7,12 +7,16 @@ and `build_model` of apps/seg/train.py:65-87; mmseg/apis/inference.py).
     overlay = show_result(image, seg)
 
 `init_segmentor` builds the configured `EncoderDecoder(CascadeMiT,
-SegformerHead)` on the card (unless `device` says otherwise), with JAX-layout
-numpy `variables` moved in through `utils.weights.load_jax_variables`, or
-else the modules' own initialisation drawn from `seed`. `inference_segmentor`
-normalises the image and runs the whole image (`crop=None`) or the sliding
-window (the configs' test recipe is `test.mode: slide`, crop 1024²,
-stride 768²).
+SegformerHead)`, or for a det-guided config (`model.det_guided: true`, every
+`*_det` file) `DetGuidedEncoderDecoder(CascadeMiTDetGuided,
+SegformerHead)`, on the card (unless `device` says otherwise), with
+JAX-layout numpy `variables` moved in through
+`utils.weights.load_jax_variables` (porter `segmentor` or `segmentor_det`),
+or else the modules' own initialisation drawn from `seed`.
+`inference_segmentor` normalises the image and runs the whole image
+(`crop=None`) or the sliding window (the configs' test recipe is
+`test.mode: slide`, crop 1024², stride 768²); of a det-guided model it keeps
+the segmentation logits.
 """
 
 from __future__ import annotations
@@ -25,8 +29,9 @@ import torch
 from fudanocr_tpu_torch.core.config import load_config, merge_cli_overrides
 from fudanocr_tpu_torch.data.seg_pipeline import Normalize
 from fudanocr_tpu_torch.models.seg.cascade_mit import CascadeMiT
-from fudanocr_tpu_torch.models.seg.encoder_decoder import (EncoderDecoder,
-                                                           slide_inference)
+from fudanocr_tpu_torch.models.seg.det_guided import CascadeMiTDetGuided
+from fudanocr_tpu_torch.models.seg.encoder_decoder import (
+    DetGuidedEncoderDecoder, EncoderDecoder, slide_inference)
 from fudanocr_tpu_torch.models.seg.segformer_head import SegformerHead
 from fudanocr_tpu_torch.utils.weights import load_jax_variables
 
@@ -40,18 +45,22 @@ def backbone_kwargs(cfg) -> dict:
                 num_heads=tuple(b.num_heads), sr_ratios=tuple(b.sr_ratios))
 
 
+def is_det_guided(cfg) -> bool:
+    return bool(cfg.model.get("det_guided", False))
+
+
 def build_model(cfg, kernels: bool = True) -> EncoderDecoder:
-    """EncoderDecoder(CascadeMiT, SegformerHead) from a seg config, in eval
-    mode on the CPU. Raises NotImplementedError for what the port does not
-    have yet: the det-guided V10 backbone (`model.det_guided`, ROADMAP
-    "the det-guided inference slice") and other registered types."""
+    """The configured segmentor in eval mode on the CPU, with the JAX
+    package's registry defaults (apps/seg/train.py:65-87):
+    EncoderDecoder(CascadeMiT, SegformerHead), or with `model.det_guided`
+    DetGuidedEncoderDecoder(CascadeMiTDetGuided, SegformerHead). Raises
+    NotImplementedError for other registered types."""
     m = cfg.model
-    if m.get("det_guided", False):
-        raise NotImplementedError(
-            "det-guided configs need the det-guided inference slice (ROADMAP "
-            "Next: B6 forward and the device connected-component labelling)")
-    for key, want in (("type", "EncoderDecoder"),
-                      ("backbone.type", "CascadeMiT"),
+    det = is_det_guided(cfg)
+    for key, want in (("type", "DetGuidedEncoderDecoder" if det
+                       else "EncoderDecoder"),
+                      ("backbone.type", "CascadeMiTDetGuided" if det
+                       else "CascadeMiT"),
                       ("decode_head.type", "SegformerHead")):
         node = m
         for part in key.split(".")[:-1]:
@@ -61,12 +70,14 @@ def build_model(cfg, kernels: bool = True) -> EncoderDecoder:
             raise NotImplementedError(f"model.{key} = {got!r}: the port has "
                                       f"only {want}")
     kw = backbone_kwargs(cfg)
-    backbone = CascadeMiT(**kw, kernels=kernels)
+    backbone = (CascadeMiTDetGuided if det else CascadeMiT)(**kw,
+                                                           kernels=kernels)
     d, nh = kw["embed_dims"], kw["num_heads"]
     h = m.decode_head
     head = SegformerHead([d * n for n in (1,) + tuple(nh[1:])],
                          num_classes=h.num_classes, channels=h.channels)
-    return EncoderDecoder(backbone, head).eval()
+    segmentor = DetGuidedEncoderDecoder if det else EncoderDecoder
+    return segmentor(backbone, head).eval()
 
 
 def init_segmentor(config_path: str, variables=None, device="cuda",
@@ -81,7 +92,8 @@ def init_segmentor(config_path: str, variables=None, device="cuda",
         torch.manual_seed(seed)
         model = build_model(cfg, kernels=kernels)
     if variables is not None:
-        load_jax_variables(model, "segmentor", variables,
+        load_jax_variables(model, "segmentor_det" if is_det_guided(cfg)
+                           else "segmentor", variables,
                            **backbone_kwargs(cfg))
     return model.to(device), cfg
 
@@ -93,16 +105,22 @@ def inference_segmentor(model: EncoderDecoder, image: np.ndarray,
     """image (H, W, 3) float or uint8 RGB -> (H, W) int64 class map on the
     host; with `return_logits`, also the (1, H, W, C) float32 logits on the
     model's device. `crop` runs the sliding window (`stride` defaults to
-    `crop`), else the whole image in one forward."""
+    `crop`), else the whole image in one forward. A model that returns a
+    tuple (the det-guided one: logits, det logits) gives its first item."""
     dev = next(model.parameters()).device
     img = Normalize()({"img": np.asarray(image)})["img"][None]
+
+    def fwd(x):
+        out = model(x)
+        return out[0] if isinstance(out, tuple) else out
+
     with torch.inference_mode():
         x = torch.from_numpy(img).to(dev)
         if crop is not None:
-            logits = slide_inference(model, x, tuple(crop),
+            logits = slide_inference(fwd, x, tuple(crop),
                                      tuple(stride or crop))
         else:
-            logits = model(x).float()
+            logits = fwd(x).float()
         seg = logits.argmax(-1)[0].cpu().numpy()
     return (seg, logits) if return_logits else seg
 

@@ -10,11 +10,15 @@ level by concat + 1x1 conv. A stage is a 3x3 patch embed, LayerNorm,
 `num_layers` pre-LN encoder layers (efficient attention with spatial
 reduction `sr_ratio` on K/V, then MixFFN) and a LayerNorm.
 
-`EfficientAttention` takes the JAX module's three routes
-(cascade_mit.py:193-233): the packed kernel (`ops/region_attention.
-packed_flash_mha`, B7) when `packed_flash_supported` holds, else the
-(B, H, L, dh) kernel (`ops/flash_attention.flash_mha`, B5) when
-`flash_attention_supported` holds, else plain matmuls with an fp32
+`EfficientAttention` takes the JAX module's routes (cascade_mit.py:
+173-233). With a `region` (the det-guided branches of models/seg/
+det_guided.py: a pair of fp32 id vectors) it runs the region-masked kernel
+(`ops/region_attention.region_flash_mha`, B6) when `region_flash_supported`
+holds, else plain matmuls with the materialised (B, 1, Lq, Lkv) additive
+mask; a masked call never takes B7 or B5. Without one, the packed kernel
+(`ops/region_attention.packed_flash_mha`, B7) when `packed_flash_supported`
+holds, else the (B, H, L, dh) kernel (`ops/flash_attention.flash_mha`, B5)
+when `flash_attention_supported` holds, else plain matmuls with an fp32
 softmax. `kernels=False` takes the plain route everywhere (the comparison
 path). On CPU tensors the kernel routes run their plain versions.
 
@@ -33,7 +37,7 @@ matrix-unit trick and is not ported: the stem is a plain 7x7/4 conv.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,7 +47,12 @@ from fudanocr_tpu_torch.nn.layers import batch_norm
 from fudanocr_tpu_torch.ops.flash_attention import (flash_attention_supported,
                                                     flash_mha)
 from fudanocr_tpu_torch.ops.region_attention import (packed_flash_mha,
-                                                     packed_flash_supported)
+                                                     packed_flash_supported,
+                                                     region_flash_mha,
+                                                     region_flash_supported,
+                                                     region_mask)
+
+Region = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def to_tokens(x: torch.Tensor) -> torch.Tensor:
@@ -128,7 +137,10 @@ class EfficientAttention(nn.Module):
             self.sr = nn.Conv2d(c, c, sr_ratio, sr_ratio)
             self.norm = nn.LayerNorm(c, eps=1e-6)
 
-    def forward(self, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, hw: Tuple[int, int],
+                region: Region = None) -> torch.Tensor:
+        """`region`: (rq (B, Lq), rkv (B, Lkv)) ids; pairs with equal ids
+        get -1e10 added to their score."""
         b, lq, c = x.shape
         nh = self.num_heads
         w, bias = self.attn.in_proj_weight, self.attn.in_proj_bias
@@ -142,16 +154,27 @@ class EfficientAttention(nn.Module):
             q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
         lkv = k.shape[1]
 
-        if self.kernels and packed_flash_supported(lq, lkv, c, nh):
+        mask = None
+        if region is not None:
+            rq, rkv = (r.float() for r in region)
+            if self.kernels and region_flash_supported(lq, lkv, c, nh):
+                o = region_flash_mha(q, k, v, rq.contiguous(),
+                                     rkv.contiguous(), nh)
+                return self.attn.out_proj(o)
+            mask = region_mask(rq, rkv)[:, None]
+        elif self.kernels and packed_flash_supported(lq, lkv, c, nh):
             o = packed_flash_mha(q, k, v, nh)
             return self.attn.out_proj(o)
         heads = lambda t: t.unflatten(-1, (nh, c // nh)).transpose(1, 2)
         q, k, v = heads(q), heads(k), heads(v)
-        if self.kernels and flash_attention_supported(q.shape, lkv):
+        if (mask is None and self.kernels
+                and flash_attention_supported(q.shape, lkv)):
             o = flash_mha(q, k, v)
         else:
             s = torch.matmul(q, k.transpose(-1, -2)).float()
             s = s / math.sqrt(c // nh)
+            if mask is not None:
+                s = s + mask
             o = torch.matmul(torch.softmax(s, -1).to(v.dtype), v)
         return self.attn.out_proj(o.transpose(1, 2).reshape(b, lq, c))
 
@@ -182,8 +205,9 @@ class TransformerEncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(c, eps=1e-6)
         self.ffn = MixFFN(c, c * mlp_ratio)
 
-    def forward(self, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), hw)
+    def forward(self, x: torch.Tensor, hw: Tuple[int, int],
+                region: Region = None) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), hw, region)
         return x + to_tokens(self.ffn(to_map(self.norm2(x), hw)))
 
 

@@ -1,10 +1,13 @@
-"""EncoderDecoder segmentor and sliding-window inference (port of
-fudanocr_tpu/models/seg/encoder_decoder.py:24-41 and :115-168; reference
-mmseg/models/segmentors/encoder_decoder.py:14-337), eval.
+"""EncoderDecoder segmentors and sliding-window inference (port of
+fudanocr_tpu/models/seg/encoder_decoder.py:24-41, :69-86 and :115-168;
+reference mmseg/models/segmentors/encoder_decoder.py:14-337), eval.
 
 `EncoderDecoder(img)` maps an NHWC image batch to NHWC per-pixel class
 logits at the input size (backbone -> decode head at 1/4 -> bilinear
-upsampling). `slide_inference` runs it over the same crop grid as the JAX
+upsampling). `DetGuidedEncoderDecoder(img, det_gt=None)` (the reference's
+EncoderDecoder_V4, over `CascadeMiTDetGuided`) returns those logits and
+the backbone's NHWC det logits at 1/4. `slide_inference` runs a segmentor
+over the same crop grid as the JAX
 package: crops of `crop` every `stride`, the last row and column clamped
 to the border, several crops batched into one forward (at most
 `max_fwd_images` images), logits summed where crops overlap and divided by
@@ -13,7 +16,7 @@ the count map.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +38,20 @@ class EncoderDecoder(nn.Module):
         x = img.permute(0, 3, 1, 2)
         logits = upsample(self.decode_head(self.backbone(x)), x)
         return logits.permute(0, 2, 3, 1)
+
+
+class DetGuidedEncoderDecoder(EncoderDecoder):
+    """Det-guided backbone + decode head: (logits (B, H, W, classes),
+    det logits (B, H/4, W/4, 2)), both NHWC. `det_gt` (B, H, W) {0, 1}
+    replaces the predicted text map in the attention masks."""
+
+    def forward(self, img: torch.Tensor,
+                det_gt: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = img.permute(0, 3, 1, 2)
+        feats, det_logits = self.backbone(x, det_gt)
+        logits = upsample(self.decode_head(feats), x)
+        return logits.permute(0, 2, 3, 1), det_logits.permute(0, 2, 3, 1)
 
 
 def crop_grid(h: int, w: int, crop: Tuple[int, int],

@@ -1,9 +1,10 @@
 """Porters: original FudanOCR state_dicts -> JAX-layout variable trees.
 
 The port's own copy of the porters in fudanocr_tpu/utils/torch_port.py
-(lines 21-166, 205-296, 453-548, 591-608) for the models the port has:
-TBSRN, CRNN, the OCRTransformer, CascadeMiT and the SegFormer head, plus
-`port_segmentor` for a whole EncoderDecoder. Each maps a torch state_dict
+(lines 21-166, 205-296, 453-608) for the models the port has:
+TBSRN, CRNN, the OCRTransformer, CascadeMiT, the det-guided CascadeMiT (V10)
+and the SegFormer head, plus `port_segmentor` / `port_segmentor_det` for a
+whole EncoderDecoder / DetGuidedEncoderDecoder. Each maps a torch state_dict
 (reference key layout, which every port module carries) onto the JAX
 package's {"params": ..., "batch_stats": ...} tree: conv OIHW -> HWIO,
 linear W -> W^T, LSTM gate blocks transposed, BatchNorm running stats into
@@ -355,6 +356,47 @@ def port_cascade_mit(sd: Dict, embed_dims: int = 32,
     return {"params": params, "batch_stats": stats}
 
 
+def _conv_bn_seq(sd, prefix):
+    """Sequential(Conv2d, BatchNorm2d) -> the JAX _DetConvBN {conv, bn}."""
+    p, s = bn(sd, f"{prefix}.1")
+    return {"conv": conv(sd, f"{prefix}.0"), "bn": p}, {"bn": s}
+
+
+def port_cascade_mit_v10(sd: Dict, embed_dims: int = 32,
+                         num_layers=(2, 2, 2, 2), num_heads=(1, 2, 5, 8),
+                         sr_ratios=(8, 4, 2, 1)) -> Dict:
+    """cascade_mit.py:4581-5131 CascadeMixVisionTransformer_V10 ->
+    CascadeMiTDetGuided variables (det head + dual masked SA + gates +
+    BN'd fusion convs)."""
+    sd = strip_module_prefix(sd)
+    params, stats = _seg_stem_and_pyramid(sd)
+    for i in range(4):
+        params[f"stage{i}"] = _seg_stage(sd, i, num_layers[i], sr_ratios[i])
+    for i in range(4):  # conv2..5 here are Sequential(conv, bn)
+        p, s = _conv_bn_seq(sd, f"conv{2 + i}")
+        params[f"fuse{4 - i}"] = p
+        stats[f"fuse{4 - i}"] = s
+    for i in range(4):
+        p, s = _conv_bn_seq(sd, f"out_det_{i + 1}")
+        params[f"out_det_{i + 1}"] = p
+        stats[f"out_det_{i + 1}"] = s
+    p, s = _conv_bn_seq(sd, "fusion_conv")
+    params["fusion_conv"] = p
+    stats["fusion_conv"] = s
+    params["det_cls"] = conv(sd, "det_cls.0")
+    for i in range(4):
+        for ref_kind, our_kind in (("text", "text"), ("instance", "inst")):
+            params[f"{our_kind}_sa_{i + 1}"] = _seg_encoder_layer(
+                sd, f"{ref_kind}_sa_{i + 1}", sr_ratios[i])
+            p, s = bn(sd, f"{ref_kind}_sa_bn_{i + 1}")
+            params[f"{our_kind}_sa_bn_{i + 1}"] = p
+            stats[f"{our_kind}_sa_bn_{i + 1}"] = s
+        p, s = _conv_bn_seq(sd, f"fuse_text_instance_{i + 1}")
+        params[f"fuse_text_instance_{i + 1}"] = p
+        stats[f"fuse_text_instance_{i + 1}"] = s
+    return {"params": params, "batch_stats": stats}
+
+
 def port_segformer_head(sd: Dict, num_scales: int = 4) -> Dict:
     """mmseg/models/decode_heads/segformer_head.py:92-147 (+ decode_head
     cls_seg/conv_seg) -> SegformerHead variables."""
@@ -381,17 +423,27 @@ def _under(sd: Dict, prefix: str) -> Dict:
 
 
 def port_segmentor(sd: Dict, embed_dims: int = 32, num_layers=(2, 2, 2, 2),
-                   num_heads=(1, 2, 5, 8), sr_ratios=(8, 4, 2, 1)) -> Dict:
+                   num_heads=(1, 2, 5, 8), sr_ratios=(8, 4, 2, 1),
+                   backbone=port_cascade_mit) -> Dict:
     """EncoderDecoder(CascadeMiT, SegformerHead): the `backbone.` keys
-    through `port_cascade_mit`, the `decode_head.` keys through
-    `port_segformer_head`, into the JAX EncoderDecoder's tree (its
+    through `backbone` (`port_cascade_mit`), the `decode_head.` keys
+    through `port_segformer_head`, into the JAX EncoderDecoder's tree (its
     submodules are named `backbone` and `decode_head`)."""
     sd = strip_module_prefix(sd)
-    bb = port_cascade_mit(_under(sd, "backbone."), embed_dims, num_layers,
-                          num_heads, sr_ratios)
+    bb = backbone(_under(sd, "backbone."), embed_dims, num_layers,
+                  num_heads, sr_ratios)
     head = port_segformer_head(_under(sd, "decode_head."))
     return {kind: {"backbone": bb[kind], "decode_head": head[kind]}
             for kind in ("params", "batch_stats")}
+
+
+def port_segmentor_det(sd: Dict, embed_dims: int = 32,
+                       num_layers=(2, 2, 2, 2), num_heads=(1, 2, 5, 8),
+                       sr_ratios=(8, 4, 2, 1)) -> Dict:
+    """DetGuidedEncoderDecoder(CascadeMiTDetGuided, SegformerHead): as
+    `port_segmentor`, the backbone through `port_cascade_mit_v10`."""
+    return port_segmentor(sd, embed_dims, num_layers, num_heads, sr_ratios,
+                          backbone=port_cascade_mit_v10)
 
 
 PORTERS = {
@@ -399,6 +451,8 @@ PORTERS = {
     "crnn": port_crnn,
     "ocr_transformer": port_ocr_transformer,
     "cascade_mit": port_cascade_mit,
+    "cascade_mit_v10": port_cascade_mit_v10,
     "segformer_head": port_segformer_head,
     "segmentor": port_segmentor,
+    "segmentor_det": port_segmentor_det,
 }

@@ -27,7 +27,7 @@ from fudanocr_tpu_torch.ops.fused_layernorm import (
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "fudanocr_tpu_torch"
 ALLOWED_JAX_PACKAGE = frozenset()   # the port imports nothing of it
-FORBIDDEN = ("jax", "jaxlib", "flax", "PIL", "optax")
+FORBIDDEN = ("jax", "jaxlib", "flax", "PIL", "optax", "cv2")
 
 
 def _imports(path: Path):
@@ -149,7 +149,8 @@ def test_training_wrappers_refuse_devices_without_a_kernel():
 
 
 def _unmasked_counts():
-    return ra.unmasked_packed_fwd.launches, fa.unmasked_bhld_fwd.launches
+    return (ra.unmasked_packed_fwd.launches, fa.unmasked_bhld_fwd.launches,
+            ra.region_packed_fwd.launches)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -16,8 +16,9 @@ from fudanocr_tpu.utils import torch_export
 from fudanocr_tpu.utils import torch_port
 from fudanocr_tpu_torch.models.rec.crnn import CRNN
 from fudanocr_tpu_torch.models.rec.ocr_transformer import OCRTransformer
-from fudanocr_tpu_torch.models.seg import (CascadeMiT, EncoderDecoder,
-                                           SegformerHead)
+from fudanocr_tpu_torch.models.seg import (CascadeMiT, CascadeMiTDetGuided,
+                                           DetGuidedEncoderDecoder,
+                                           EncoderDecoder, SegformerHead)
 from fudanocr_tpu_torch.models.sr import TBSRN
 from fudanocr_tpu_torch.utils import porters
 from fudanocr_tpu_torch.utils.weights import (load_jax_variables,
@@ -34,6 +35,11 @@ def _segmentor():
     return EncoderDecoder(CascadeMiT(**SEG), SegformerHead(HEAD_IN, 2, 32))
 
 
+def _segmentor_det():
+    return DetGuidedEncoderDecoder(CascadeMiTDetGuided(**SEG),
+                                   SegformerHead(HEAD_IN, 2, 32))
+
+
 # (porter, port module factory, porter kwargs)
 CASES = {
     "tbsrn": (lambda: TBSRN(srb_nums=2), dict(srb_nums=2)),
@@ -41,9 +47,14 @@ CASES = {
     "ocr_transformer": (lambda: OCRTransformer(**OCR),
                         dict(layers=OCR["layers"])),
     "cascade_mit": (lambda: CascadeMiT(**SEG), SEG),
+    "cascade_mit_v10": (lambda: CascadeMiTDetGuided(**SEG), SEG),
     "segformer_head": (lambda: SegformerHead(HEAD_IN, 2, 32), {}),
     "segmentor": (_segmentor, SEG),
+    "segmentor_det": (_segmentor_det, SEG),
 }
+# the port's whole-segmentor porters: (the JAX package's backbone porter)
+SEGMENTORS = {"segmentor": torch_port.port_cascade_mit,
+              "segmentor_det": torch_port.port_cascade_mit_v10}
 
 
 def _leaves(tree, path=()):
@@ -76,11 +87,11 @@ def _module(name):
 
 def _jax_porter(name, sd, kw):
     """The JAX package's porters; a segmentor is its two halves."""
-    if name != "segmentor":
+    if name not in SEGMENTORS:
         return torch_port.PORTERS[name](sd, **kw)
     under = lambda p: {k[len(p):]: v for k, v in sd.items()
                        if k.startswith(p)}
-    bb = torch_port.port_cascade_mit(under("backbone."), **kw)
+    bb = SEGMENTORS[name](under("backbone."), **kw)
     head = torch_port.port_segformer_head(under("decode_head."))
     return {kind: {"backbone": bb[kind], "decode_head": head[kind]}
             for kind in ("params", "batch_stats")}
@@ -103,7 +114,7 @@ def test_jax_variables_round_trip_bit_for_bit(name):
         torch.nn.init.uniform_(p.data, -1, 1)
     loaded = load_jax_variables(fresh, name, variables, **kw)
     _assert_bit_equal(to_jax_variables(loaded, name, **kw), variables)
-    if name != "segmentor":   # the JAX exporter does not know that porter
+    if name not in SEGMENTORS:   # the JAX exporter does not know those
         template = {k: v.clone() for k, v in fresh.state_dict().items()}
         want = torch_export.export_state_dict(name, variables, template,
                                               **kw)
