@@ -80,7 +80,28 @@ Phases:
      rounds and ms, its ids equal to the same labelling on the CPU; a
      profiler breakdown of one canvas;
  12. the same model in whole mode on 512x1024: (6, 6, 2) launches (level
-     3's branches run plain with the materialised mask), the same checks.
+     3's branches run plain with the materialised mask), the same checks;
+ 13. the backward kernels of the packed (B7) and region-masked (B6)
+     attention (csrc/unmasked_attention.cu, with their training forward)
+     against the plain backwards in fp32 and bf16, at the det recipe's four
+     level shapes at batch 2 and the plain recipe's stage 0 (B7 only; B6
+     with the phase-10 ids of an instance map and an all-background image,
+     fully suppressed rows checked on their own): dq/dk/dv relative error,
+     kernel, plain and SDPA-backward ms (timed only) beside the bound;
+ 14. one train step of each seg recipe at full b0 width and depth, fp32:
+     configs/seg/textformer_b0_textseg.yaml (512², batch 8, CE) and
+     textformer_b0_textseg_det.yaml (1024², batch 2, CE + Lovász + 0.1 det
+     loss), weights from a seed with non-trivial BN/LN statistics, seeded
+     blob batches: the kernel path against `kernels=False` on the same
+     generator (loss rel 1e-5, every gradient rel 1e-3, BN statistics
+     atol 1e-5), and launches per step of (B7 fwd, B7 bwd, B6 fwd, B6 bwd)
+     exactly (6, 6, 0, 0) and (8, 8, 8, 8);
+ 15. `SegTrainer.train()` for 8 iterations of each recipe with the kwargs
+     the JAX app builds from the config (losses finite, every lr the poly
+     schedule's) and `evaluate()`; then 16 steps from optimizer count 1500
+     (the end of the warmup) on 2 repeated batches, the loss falling;
+ 16. per recipe and path: step ms, img/s and peak memory, and a
+     torch.profiler split of one kernel-path step.
 
 Phases 8 and 11 end with a torch.profiler breakdown of one more canvas
 (device time by name, the device's busy time against the wall time).
@@ -127,7 +148,10 @@ from fudanocr_tpu_torch.models.seg.det_guided import (instance_labels,
                                                       region_vectors,
                                                       soft_argmax)
 from fudanocr_tpu_torch.models.seg.encoder_decoder import crop_grid
+from fudanocr_tpu_torch.data.seg_dataset import batches_from
 from fudanocr_tpu_torch.serving import InferenceServer, PixelsToStrings
+from fudanocr_tpu_torch.train.seg import (SegTrainer, make_seg_optimizer,
+                                          make_seg_train_step, poly_schedule)
 from fudanocr_tpu_torch.train.sr import SRTrainer, make_sr_train_step
 from fudanocr_tpu_torch.train.state import adam_with_clip
 
@@ -172,6 +196,16 @@ B6_SHAPES = ((3, 65536, 1024, 32, 1, 256, 8), (3, 16384, 1024, 64, 2, 128, 4),
 # 512x1024 image (level 3: Lq = 512, branches plain, stage on B5)
 DET_SLIDE_HW, DET_SLIDE_LAUNCHES = (1024, 2048), (8, 8, 0)
 DET_WHOLE_HW, DET_WHOLE_LAUNCHES = (512, 1024), (6, 6, 2)
+# phases 13-16: the seg training slice. Backward shapes (B, Lq, Lkv, D,
+# heads, level side, sr): the det recipe's four levels at batch 2, then the
+# plain recipe's stage 0 at batch 8 (B7 only)
+BWD_SHAPES = ((2, 65536, 1024, 32, 1, 256, 8), (2, 16384, 1024, 64, 2, 128, 4),
+              (2, 4096, 1024, 160, 5, 64, 2), (2, 1024, 1024, 256, 8, 32, 1),
+              (8, 16384, 256, 32, 1, 128, 8))
+# the two recipes: (config, launches per step of (B7 fwd, B7 bwd, B6 fwd,
+# B6 bwd)); crop and batch come from the configs (512², 8; 1024², 2)
+TRAIN_RECIPES = ((SEG_CONFIG, (6, 6, 0, 0)), (DET_CONFIG, (8, 8, 8, 8)))
+TRAIN_ITERS, TRAJ_STEPS, TRAJ_START = 8, 16, 1500
 # published H100 SXM peaks (dense fp32 / bf16 tensor core, HBM3), 700 W
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -1171,6 +1205,352 @@ def phase11_12(dev, gpu: str) -> int:
     return counts[0]
 
 
+# -- phases 13-16: the segmentation training slice ---------------------------
+
+BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def train_seg_counts() -> tuple:
+    """(B7 fwd, B7 bwd, B6 fwd, B6 bwd) launches."""
+    return (ra.unmasked_packed_fwd.launches, ra.unmasked_packed_bwd.launches,
+            ra.region_packed_fwd.launches, ra.region_packed_bwd.launches)
+
+
+def reset_train_seg_counts() -> None:
+    reset_seg_counts()
+    ra.unmasked_packed_bwd.launches = ra.region_packed_bwd.launches = 0
+
+
+def bwd_bound(b: int, h: int, lq: int, lk: int, dh: int, dt) -> dict:
+    """The attention backward: 5 products of 2*Lq*Lkv*dh flops per head
+    (the JAX CostEstimate); q, k, v, dO, the fp32 o and the row statistics
+    read once, dq, dk, dv written once."""
+    es = torch.finfo(dt).bits // 8
+    d = h * dh
+    nbytes = es * b * (3 * lq * d + 4 * lk * d) + 4 * b * (lq * d + 2 * h * lq)
+    return bound(10 * b * h * lq * lk * dh, nbytes, dt)
+
+
+def bwd_check(q, k, v, do, ids, heads: int, dt, gpu: str) -> dict:
+    """The training forward and the backward kernel on strided packed
+    operands (as the model gives them) against the plain backward; the
+    fully suppressed rows' dq on their own; kernel, plain and SDPA-backward
+    ms."""
+    b, lq, d = q.shape
+    lk, dh = k.shape[1], d // heads
+    if ids is None:
+        name = "packed (B7)"
+        fwd = lambda: ra.unmasked_packed_fwd(q, k, v, heads, stats=True)
+        o, o32, m, inv = fwd()
+        bwd = lambda: ra.unmasked_packed_bwd(q, k, v, o32, do, m, inv, heads)
+        plain = lambda: ra.packed_flash_mha_bwd_reference(q, k, v, do, heads)
+    else:
+        name = "region (B6)"
+        fwd = lambda: ra.region_packed_fwd(q, k, v, *ids, heads, stats=True)
+        o, o32, m, inv = fwd()
+        bwd = lambda: ra.region_packed_bwd(q, k, v, *ids, o32, do, m, inv,
+                                           heads)
+        plain = lambda: ra.region_flash_mha_bwd_reference(q, k, v, *ids, do,
+                                                          heads)
+    got, want = bwd(), plain()
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(g).all() for g in got):
+        raise AssertionError(f"{name} backward not finite")
+    rels = [rel_err(g, w) for g, w in zip(got, want)]
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    full_note = ""
+    if ids is not None:
+        full = (ids[0][:, :, None] == ids[1][:, None, :]).all(-1)
+        n_full = int(full.sum())
+        full_rel = rel_err(got[0][full], want[0][full]) if n_full else 1.0
+        full_note = (f"; {n_full} fully suppressed rows, their dq rel "
+                     f"{full_rel:.3e}")
+        if n_full == 0 or full_rel > BWD_REL[dt]:
+            raise AssertionError(f"{name} {dt} Lq={lq}: fully suppressed "
+                                 f"rows {n_full}, dq rel {full_rel}")
+        del full
+    if max(rels) > BWD_REL[dt]:
+        raise AssertionError(f"{name} backward {dt} at ({b}, {lq}, {d}) x "
+                             f"{lk}: dq/dk/dv rel {rels} > {BWD_REL[dt]}")
+    del got, want
+    k_ms, p_ms = in_turns(bwd, plain, 3)
+    f_ms = cuda_ms(fwd, 3)
+    # the yardstick: SDPA's backward on the same (B, H, L, dh) views
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    qh, kh, vh = (t.unflatten(-1, (heads, dh)).transpose(1, 2)
+                  for t in leaves)
+    mask = None if ids is None else ra.region_mask(*ids)[:, None].to(dt)
+    so = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    doh = do.unflatten(-1, (heads, dh)).transpose(1, 2)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(so, leaves, doh,
+                                                 retain_graph=True), 3)
+    bd = bwd_bound(b, heads, lq, lk, dh, dt)
+    print(f"phase 13: {name} backward q ({b}, {lq}, {d}), k/v ({b}, {lk}, "
+          f"{d}), {heads} heads, {dt}: dq/dk/dv rel err "
+          f"{rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e}, max abs {err:.3e}"
+          f"{full_note}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
+          f"backward {lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']}); training forward {f_ms:.4f} ms; "
+          f"{10 * b * lq * lk * d / k_ms / 1e9:.1f} TFLOP/s [{gpu}]")
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **bd,
+            "library_ms": lib_ms}
+
+
+def phase13(dev, gpu: str) -> tuple:
+    gen = torch.Generator().manual_seed(SEED + 13)
+    # an instance map and an all-background image (every row of its
+    # attention fully suppressed), at the 1/4 scale of a 1024² crop
+    regions = blob_regions(dev)[1:]
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for b, lq, lk, d, heads, side, sr in BWD_SHAPES:
+            q, k, v = _attn_operands(gen, dev, dt, b, lq, lk, d)
+            do = torch.randn(b, lq, d, generator=gen).to(dev, dt)
+            rows[(False, lq, b, dt)] = bwd_check(q, k, v, do, None, heads,
+                                                 dt, gpu)
+            if b == len(regions):
+                ids = tuple(r.contiguous() for r in
+                            region_vectors(regions, (side, side), sr))
+                rows[(True, lq, b, dt)] = bwd_check(q, k, v, do, ids, heads,
+                                                    dt, gpu)
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    # the JSON rows: the det recipe's level 0, fp32
+    return (rows[(False, 65536, 2, torch.float32)],
+            rows[(True, 65536, 2, torch.float32)])
+
+
+class SeededTextSeg:
+    """Segmentation samples made from a seed, with `.batches(batch_size,
+    shuffle, seed)` as SegTrainer takes them: smooth blob text masks
+    (gt_seg), a uint8 image whose text pixels are darker, normalised
+    (`Normalize`), and with `with_det` the mask dilated by 8 px (gt_det)."""
+
+    def __init__(self, n: int, side: int, seed: int, with_det: bool):
+        rng = np.random.default_rng(seed)
+        gt = np.zeros((n, side, side), np.int32)
+        for i in range(n):
+            for _ in range(8):
+                y, x = rng.integers(0, side * 7 // 8, 2)
+                h, w = rng.integers(side // 64, side // 8, 2)
+                gt[i, y:y + h, x:x + w] = 1
+        img = (rng.integers(90, 230, (n, 1, 1, 3))
+               + rng.integers(-25, 26, (n, side, side, 3)) - 70 * gt[..., None])
+        img = Normalize()({"img": np.clip(img, 0, 255).astype(np.uint8)})[
+            "img"]
+        self.samples = [{"img": img[i], "gt_seg": gt[i]} for i in range(n)]
+        if with_det:
+            det = F.max_pool2d(torch.from_numpy(gt[:, None]).float(), 17, 1,
+                               8)[:, 0].numpy().astype(np.int32)
+            for i, sample in enumerate(self.samples):
+                sample["gt_det"] = det[i]
+
+    def batches(self, batch_size: int, shuffle: bool = False, seed: int = 0):
+        return batches_from(self.samples.__getitem__, len(self.samples),
+                            batch_size, shuffle, seed, False)
+
+
+def trainer_kwargs(cfg) -> dict:
+    """SegTrainer's kwargs as fudanocr_tpu/apps/seg/train.py:118-134 builds
+    them from the config, for data that is not a directory of images
+    (whole-image evaluation) and without `ckpt_dir` (checkpoints wait for
+    ROADMAP A11)."""
+    tc = cfg.get("train_cfg", {})
+    return dict(num_classes=cfg.model.decode_head.num_classes,
+                batch_size=cfg.data.batch_size, lr=cfg.optimizer.lr,
+                total_iters=cfg.schedule.total_iters,
+                eval_every=cfg.schedule.eval_every,
+                loss_weights=cfg.loss.to_dict(), crop=None, stride=None,
+                det_loss_ratio=tc.get("det_loss_ratio", 0.1),
+                gt_guided_masks=tc.get("gt_guided_masks", False))
+
+
+def recipe_step(model, cfg, count: int = 0):
+    """(optimizer at update `count`, train step) of the config's recipe."""
+    kw = trainer_kwargs(cfg)
+    opt = make_seg_optimizer(model, kw["lr"], total_iters=kw["total_iters"])
+    opt.count = count
+    return opt, make_seg_train_step(model, opt, kw["loss_weights"],
+                                    kw["det_loss_ratio"],
+                                    kw["gt_guided_masks"])
+
+
+def grads_agree(model, plain, what: str) -> tuple:
+    """(worst per-tensor gradient rel err, its name, zero-gradient count),
+    kernel path against plain; raises where an exactly-zero gradient (a
+    conv bias in front of a train-mode BatchNorm) differs beyond 1e-6 of
+    the largest."""
+    pairs = [(n, pk.grad, pp.grad) for (n, pk), pp in
+             zip(model.named_parameters(), plain.parameters())]
+    top = max(gp.norm().item() for _, _, gp in pairs)
+    worst, worst_name, zero = 0.0, "", 0
+    for name, gk, gp in pairs:
+        if gp.norm().item() <= 1e-6 * top:
+            zero += 1
+            if (gk - gp).norm().item() > 1e-6 * top:
+                raise AssertionError(f"{what} {name}: zero gradient differs")
+            continue
+        err = rel_err(gk, gp)
+        if err > worst:
+            worst, worst_name = err, name
+    return worst, worst_name, zero
+
+
+def device_batch(batch: dict, dev) -> dict:
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def profile_step(step, batch, gen, gpu: str, what: str) -> None:
+    """torch.profiler over one train step: device time by name and the
+    device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # kernels and copies only: a user annotation (the optimizer's step)
+    # spans kernels already counted
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_time_total > 0 and e.device_type.name
+                   == "CUDA" and not getattr(e, "is_user_annotation", False)),
+                  key=lambda e: -e.device_time_total)
+    busy = sum(e.device_time_total for e in rows) / 1e3
+    print(f"profile: {what} one train step, wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms ({100 * busy / wall:.1f} %) [{gpu}]")
+    for e in rows[:12]:
+        print(f"profile: {e.device_time_total / 1e3:9.3f} ms "
+              f"{e.count:5d}x {e.key[:90]}")
+
+
+def train_recipe(config: str, want: tuple, dev, gpu: str) -> tuple:
+    """Phases 14-16 for one recipe; returns phase 14's launches per step."""
+    gen = torch.Generator().manual_seed(SEED + 14)
+    model, cfg = init_segmentor(config, device=dev, seed=SEED + 14)
+    randomize_stats(model, gen)
+    plain, _ = init_segmentor(config, device=dev, kernels=False)
+    plain.load_state_dict(model.state_dict())
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    side, bs = cfg.data.crop_size[0], cfg.data.batch_size
+    det = bool(cfg.model.get("det_guided", False))
+    tag = f"{config.split('/')[-1]} ({side}², batch {bs})"
+    data = SeededTextSeg(2 * bs, side, SEED + 140, det)
+    batches = [device_batch(b, dev) for b in data.batches(bs)]
+    batch = batches[0]
+
+    # 14: one step, kernel path against plain path on the same generator;
+    # cuDNN in its deterministic algorithms (its default weight gradient
+    # sums with atomics, noise of its own between any two runs)
+    _, step_k = recipe_step(model, cfg)
+    _, step_p = recipe_step(plain, cfg)
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.synchronize()
+    reset_train_seg_counts()
+    mk = step_k(batch, torch.Generator(dev).manual_seed(7))
+    torch.cuda.synchronize()
+    counts = train_seg_counts()
+    mp = step_p(batch, torch.Generator(dev).manual_seed(7))
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    loss_rel = abs(mk["loss"].item() - mp["loss"].item()) / abs(
+        mp["loss"].item())
+    worst, worst_name, zero = grads_agree(model, plain, tag)
+    stats_err = max((a.float() - c.float()).abs().max().item()
+                    for (n, a), c in zip(model.named_buffers(),
+                                         plain.buffers())
+                    if n.endswith(("running_mean", "running_var")))
+    print(f"phase 14: {tag}: one train step, kernel path "
+          f"{ {k: round(v.item(), 6) for k, v in mk.items()} }, plain loss "
+          f"{mp['loss'].item():.6f} (rel {loss_rel:.3e}, bar {STEP_LOSS_REL})"
+          f"; per-tensor gradient rel err max {worst:.3e} ({worst_name}; bar "
+          f"{STEP_GRAD_REL}), {zero} zero-gradient tensors equal; BN "
+          f"statistics max abs err {stats_err:.3e} (bar 1e-5); launches (B7 "
+          f"fwd, B7 bwd, B6 fwd, B6 bwd) {counts} (expected {want}) [{gpu}]")
+    if not all(np.isfinite(v.item()) for v in mk.values()):
+        raise AssertionError(f"{tag}: train step metrics are not finite")
+    if loss_rel > STEP_LOSS_REL or worst > STEP_GRAD_REL or stats_err > 1e-5:
+        raise AssertionError(f"{tag}: kernel path train step disagrees with "
+                             "kernels=False")
+    if counts != want:
+        raise AssertionError(f"{tag}: the train step did not launch the "
+                             "expected attention kernels")
+
+    # 15: the trainer, then the post-warmup trajectory
+    model.load_state_dict(init)
+    trainer = SegTrainer(model, data, SeededTextSeg(bs, side, SEED + 150,
+                                                    det),
+                         **trainer_kwargs(cfg))
+    losses, lrs = [], []
+    inner = trainer.train_step
+
+    def recording(b, generator):
+        out = inner(b, generator)
+        losses.append(out["loss"])
+        lrs.append(trainer.optimizer.last_lr)
+        return out
+
+    trainer.train_step = recording
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reached = trainer.train(stop_after=TRAIN_ITERS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    losses = [v.item() for v in losses]
+    sched = poly_schedule(cfg.optimizer.lr, cfg.schedule.total_iters)
+    res = trainer.evaluate(reached)
+    print(f"phase 15: {tag}: SegTrainer.train() ran {reached} iterations in "
+          f"{seconds:.3f} s, losses {[round(v, 4) for v in losses]}, lr "
+          f"{lrs[0]:.3e} .. {lrs[-1]:.3e} (the poly schedule's: "
+          f"{lrs == [sched(i) for i in range(len(lrs))]}); evaluate(): "
+          f"{res} [{gpu}]")
+    if (reached != TRAIN_ITERS or len(losses) != TRAIN_ITERS
+            or not np.isfinite(losses).all()
+            or lrs != [sched(i) for i in range(TRAIN_ITERS)]):
+        raise AssertionError(f"{tag}: the trainer did not run as configured")
+    if (set(res) != {"aAcc", "mIoU", "mDice", "mFscore"}
+            or not all(0.0 <= v <= 1.0 for v in res.values())):
+        raise AssertionError(f"{tag}: evaluate() returned {res}")
+    model.load_state_dict(init)
+    opt, step_t = recipe_step(model, cfg, count=TRAJ_START)
+    traj = [step_t(batches[i % 2], torch.Generator(dev).manual_seed(100 + i))
+            ["loss"].item() for i in range(TRAJ_STEPS)]
+    first, last = np.mean(traj[:4]), np.mean(traj[-4:])
+    print(f"phase 15: {tag}: {TRAJ_STEPS} steps from count {TRAJ_START} (lr "
+          f"{sched(TRAJ_START):.3e}, head x10) on 2 repeated batches: losses "
+          f"{[round(v, 4) for v in traj]}; mean of the first 4 {first:.5f}, "
+          f"of the last 4 {last:.5f} [{gpu}]")
+    if not np.isfinite(traj).all() or not last < first:
+        raise AssertionError(f"{tag}: the post-warmup loss does not fall")
+
+    # 16: step time, img/s and peak memory of both paths; a profile
+    model.load_state_dict(init)
+    plain.load_state_dict(init)
+    _, step_k = recipe_step(model, cfg)
+    _, step_p = recipe_step(plain, cfg)
+    gk, gp = (torch.Generator(dev).manual_seed(9) for _ in range(2))
+    peaks = []
+    for step, g in ((step_k, gk), (step_p, gp)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(batch, g)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+    k_ms, p_ms = in_turns(lambda: step_k(batch, gk),
+                          lambda: step_p(batch, gp), 2)
+    for name, ms, peak in (("kernel", k_ms, peaks[0]),
+                           ("plain", p_ms, peaks[1])):
+        print(f"phase 16: {tag}: {name} path train step fp32 {ms:.3f} ms, "
+              f"{bs * 1e3 / ms:.2f} img/s, peak {peak:.2f} GiB [{gpu}]")
+    profile_step(step_k, batch, gk, gpu, tag)
+    del model, plain, trainer, batches, batch, data
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a "
@@ -1203,6 +1583,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     b6 = phase10(dev, gpu)
     b6_n = phase11_12(dev, gpu)
+    torch.cuda.empty_cache()
+    b7_bwd, b6_bwd = phase13(dev, gpu)
+    for config, want in TRAIN_RECIPES:
+        counts = train_recipe(config, want, dev, gpu)
+    b7_bwd_n, b6_bwd_n = counts[1], counts[3]   # per det-recipe step
     attn_src = "fudanocr_tpu_torch/csrc/flash_attention_dropout.cu"
     seg_src = "fudanocr_tpu_torch/csrc/unmasked_attention.cu"
     print(json.dumps({"kernels": [
@@ -1233,7 +1618,15 @@ def main() -> int:
         {"name": "region_attention_packed", "route": "cuda",
          "source": seg_src,
          "replaces": "fudanocr_tpu/ops/region_attention.py:167",
-         "launches": b6_n, **b6}]}))
+         "launches": b6_n, **b6},
+        {"name": "unmasked_attention_packed_bwd", "route": "cuda",
+         "source": seg_src,
+         "replaces": "fudanocr_tpu/ops/region_attention.py:306",
+         "launches": b7_bwd_n, **b7_bwd},
+        {"name": "region_attention_packed_bwd", "route": "cuda",
+         "source": seg_src,
+         "replaces": "fudanocr_tpu/ops/region_attention.py:201",
+         "launches": b6_bwd_n, **b6_bwd}]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -50,8 +50,9 @@ def is_det_guided(cfg) -> bool:
 
 
 def build_model(cfg, kernels: bool = True) -> EncoderDecoder:
-    """The configured segmentor in eval mode on the CPU, with the JAX
-    package's registry defaults (apps/seg/train.py:65-87):
+    """The configured segmentor in eval mode on the CPU (its forward takes
+    `train=True` for training), with the JAX package's registry defaults
+    and the config's drop-path and dropout rates (apps/seg/train.py:65-87):
     EncoderDecoder(CascadeMiT, SegformerHead), or with `model.det_guided`
     DetGuidedEncoderDecoder(CascadeMiTDetGuided, SegformerHead). Raises
     NotImplementedError for other registered types."""
@@ -70,12 +71,14 @@ def build_model(cfg, kernels: bool = True) -> EncoderDecoder:
             raise NotImplementedError(f"model.{key} = {got!r}: the port has "
                                       f"only {want}")
     kw = backbone_kwargs(cfg)
-    backbone = (CascadeMiTDetGuided if det else CascadeMiT)(**kw,
-                                                           kernels=kernels)
+    backbone = (CascadeMiTDetGuided if det else CascadeMiT)(
+        **kw, kernels=kernels,
+        drop_path_rate=m.backbone.get("drop_path_rate", 0.1))
     d, nh = kw["embed_dims"], kw["num_heads"]
     h = m.decode_head
     head = SegformerHead([d * n for n in (1,) + tuple(nh[1:])],
-                         num_classes=h.num_classes, channels=h.channels)
+                         num_classes=h.num_classes, channels=h.channels,
+                         dropout_ratio=h.get("dropout_ratio", 0.1))
     segmentor = DetGuidedEncoderDecoder if det else EncoderDecoder
     return segmentor(backbone, head).eval()
 

@@ -1,23 +1,26 @@
-// Softmax attention forward over strided q/k/v/o, unmasked or region-masked,
-// hand-written for Hopper (sm_90a), bound to Python through a plain C
-// interface (ctypes).
+// Softmax attention over strided q/k/v/o, unmasked or region-masked,
+// forward and backward, hand-written for Hopper (sm_90a), bound to Python
+// through a plain C interface (ctypes).
 //
-// Replaces three Pallas TPU kernels of the JAX package (fudanocr_tpu/ops/):
-//   * region_attention.py `_plain_fwd` (:280, pallas_call :284), reached
-//     through `packed_flash_mha` (:340): lane-packed q (B, Lq, H*dh) and
-//     k/v (B, Lkv, H*dh), head h in columns [h*dh, (h+1)*dh);
-//   * region_attention.py `_region_fwd` (:167, pallas_call :177), reached
-//     through `region_flash_mha` (:239): the same packed layout plus
-//     (B, Lq) and (B, Lkv) fp32 region ids;
+// Replaces five Pallas TPU kernels of the JAX package (fudanocr_tpu/ops/):
+//   * region_attention.py `_plain_fwd` (:280, pallas_call :284) and its
+//     backward `_plain_bwd` (:306, pallas_call :311), reached through
+//     `packed_flash_mha` (:340): lane-packed q (B, Lq, H*dh) and k/v
+//     (B, Lkv, H*dh), head h in columns [h*dh, (h+1)*dh);
+//   * region_attention.py `_region_fwd` (:167, pallas_call :177) and its
+//     backward `_region_bwd` (:201, pallas_call :208), reached through
+//     `region_flash_mha` (:239): the same packed layout plus (B, Lq) and
+//     (B, Lkv) fp32 region ids;
 //   * flash_attention.py `_mha_full` (:119, pallas_call :122) and the
 //     online-softmax `_flash_mha_impl` (:653, pallas_call :682), reached
-//     through `flash_mha` (:620): (B, H, L, dh) operands.
+//     through `flash_mha` (:620): (B, H, L, dh) operands (forward only: the
+//     JAX VJP of `flash_mha` is plain XLA).
 // They compute one function and differ only in layout and the mask, so one
-// kernel takes batch, head and row strides (in elements; the feature stride
-// is 1) for each operand and a compile-time MASKED flag. The Python
-// wrappers, with their launch counters and the plain PyTorch versions, are
-// `packed_flash_mha` and `region_flash_mha` in
-// fudanocr_tpu_torch/ops/region_attention.py and `flash_mha` in
+// kernel family takes batch, head and row strides (in elements; the
+// feature stride is 1) for each operand and a compile-time MASKED flag. The
+// Python wrappers, with their launch counters, the autograd Functions and
+// the plain PyTorch versions, are `packed_flash_mha` and `region_flash_mha`
+// in fudanocr_tpu_torch/ops/region_attention.py and `flash_mha` in
 // fudanocr_tpu_torch/ops/flash_attention.py.
 //
 // Per (image b, head h), with scale = 1/sqrt(dh):
@@ -30,40 +33,64 @@
 // as the JAX kernel does. In fp32 the spacing near 1e10 is 1024, so every
 // |s| < 512 suppressed score becomes exactly -1e10: a row whose keys are
 // all suppressed is uniform (o = mean of v), not the softmax of its scores.
-// The kernel never skips a suppressed key and starts its running max at
+// The kernels never skip a suppressed key and start the running max at
 // -inf, so such a row comes out as the plain version computes it.
 //
-// Design: one block of 128 threads per (128-row q tile, head, image), one
-// thread per q row holding its q row and its output accumulator in
-// registers. K and V of one head do not fit in shared memory at the
-// segmentation shapes (Lkv = 1024, dh = 32, fp32: 256 KB; 1 MB at
-// Lkv = 4096), so they stream through it in tiles of 64 keys (16 KB at
-// dh = 32, 32 KB at dh = 64) with an online softmax: per chunk of keys the
-// running max, the running denominator and the accumulator are rescaled
-// once. Nothing of size Lq x Lkv touches device memory.
+// Forward design: one block of 128 threads per (128-row q tile, head,
+// image), one thread per q row holding its q row and its output
+// accumulator in registers. K and V of one head do not fit in shared
+// memory at the segmentation shapes (Lkv = 1024, dh = 32, fp32: 256 KB;
+// 1 MB at Lkv = 4096), so they stream through it in tiles of 64 keys
+// (16 KB at dh = 32, 32 KB at dh = 64) with an online softmax: per chunk of
+// keys the running max, the running denominator and the accumulator are
+// rescaled once. Nothing of size Lq x Lkv touches device memory. The
+// training forward (STATS) also writes, per (image, head, q row), the row
+// max m and 1/l (l the denominator), and o in fp32. One log-sum-exp would
+// not do: for a fully suppressed row m = -1e10, and m + log(l) rounds back
+// to -1e10 in fp32, so exp(s - lse) would give 1 where the answer is 1/Lkv.
 //
-// What bounds it on this card: 4*B*H*Lq*Lkv*dh flops (two products) against
-// each of q, k, v (and the ids) read once and o written once. At the slide
-// recipe's stage 0 (B = 3, Lq = 65,536, Lkv = 1024, dh = 32, fp32) that is
-// 25.8 GFLOP against 51 MB: fp32 FMA sets the bound (0.38 ms at 67 TFLOP/s
-// against 0.015 ms for the bytes). The design spends its registers on
-// FMAs: each K/V row is read from shared memory as a broadcast (every
-// thread of the warp reads the same 16 bytes) and feeds one FMA per
-// feature per thread. The mask costs one compare and one add per score:
-// the thread that owns a q row keeps its id in a register, and each 64-key
-// tile stages its kv ids into shared memory beside K and V. fp32 stays on
-// CUDA cores because TF32 misses the fp32 bar; bf16 on tensor cores
-// (mma.sync / wgmma, TMA-fed K/V) is later work.
+// Backward design (the JAX `_bwd_body`: probs = softmax(s + M),
+// dv = probs^T dO, dp = dO v^T, ds = probs * (dp - rowsum(dp * probs)),
+// dq = ds k * scale, dk = ds^T q * scale), FlashAttention-2's split:
+// p_ij = exp(s_ij - m_i) / l_i is recomputed from the saved statistics with
+// the forward's rounding, and rowsum(dp * probs) = D_i = dO_i . o_i from the
+// saved fp32 o. Three launches, no atomics, deterministic:
+//   1. dQ: one thread per q row against every key (K/V tiles in shared
+//      memory); it also writes D_i for launch 2;
+//   2. dK/dV partials: one thread per key row against a slice of the q
+//      rows (Q/dO tiles in shared memory). One pass over all of Lq would
+//      give B*H*Lkv/128 blocks, 16 at stage 0 of both seg recipes against
+//      132 SMs, so Lq is split across blocks (about 528 blocks in all) and
+//      each slice writes fp32 partial sums;
+//   3. the partials summed in a fixed order, dk scaled, both rounded to the
+//      input type.
+//
+// What bounds it on this card: the forward does 4*B*H*Lq*Lkv*dh flops (two
+// products), the backward 10*B*H*Lq*Lkv*dh (the JAX CostEstimate: s, dv, dp,
+// dq, dk), against each operand read once and each result written once.
+// At the det recipe's stage 0 (B = 2, Lq = 65,536, Lkv = 1024, dh = 32,
+// fp32) the backward's 42.9 GFLOP take 0.64 ms at 67 TFLOP/s against
+// ~0.01 ms for its bytes: fp32 FMA sets the bound. The design spends its
+// registers on FMAs: each shared-memory row is read as a broadcast (every
+// thread of the warp reads the same 16 bytes) and feeds one FMA per feature
+// per thread. The mask costs one compare and one add per score: the thread
+// keeps its own row's id in a register, and each tile stages the other
+// side's ids into shared memory. fp32 stays on CUDA cores because TF32
+// misses the fp32 bar; bf16 on tensor cores (mma.sync / wgmma, TMA-fed
+// tiles) is later work, as is keeping fewer than 4*dh values a thread in
+// the dK/dV pass (at dh = 64 it spills to local memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kRows = 128;   // q rows per block = threads per block
-constexpr int kTile = 64;    // keys per K/V tile in shared memory
+constexpr int kRows = 128;   // q rows (or keys) per block = threads per block
+constexpr int kTile = 64;    // rows per K/V (or Q/dO) tile in shared memory
 constexpr float kNeg = -1e10f;   // the reference's suppression constant
 
 struct Strides {   // element strides of one operand
@@ -116,6 +143,12 @@ __device__ __forceinline__ void axpy_sm(float* acc, float c,
   }
 }
 
+template <typename T, int DH>
+__device__ __forceinline__ void load_row(const T* __restrict__ p, float* r) {
+#pragma unroll
+  for (int i = 0; i < DH; ++i) r[i] = to_f(p[i]);
+}
+
 // Copy kTile rows of DH features, rows r0.. of a matrix with row stride
 // `stride` at src, into the (kTile, DH) fp32 tile dst. Neighbouring threads
 // read neighbouring features of a row.
@@ -128,11 +161,24 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ src,
     dst[i] = to_f(src[(int64_t)(r0 + i / DH) * stride + i % DH]);
 }
 
-template <typename T, int DH, bool MASKED>
+// the scaled score of one (q, key) pair, with the forward's rounding: the
+// masked sum is rounded twice (product, then sum), never contracted into
+// one FMA, to keep the JAX kernel's rounding
+template <bool MASKED>
+__device__ __forceinline__ float score(float d, float scale, float rid,
+                                       float kid) {
+  return MASKED ? __fadd_rn(__fmul_rn(d, scale), rid == kid ? kNeg : 0.f)
+                : d * scale;
+}
+
+// STATS: o is fp32 and the row max and 1/denominator are written to
+// stat_m / stat_inv at ((b * H + h) * Lq + row)
+template <typename T, typename TO, int DH, bool MASKED, bool STATS>
 __global__ void __launch_bounds__(kRows)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ o,
+                const T* __restrict__ v, TO* __restrict__ o,
                 const float* __restrict__ rq, const float* __restrict__ rkv,
+                float* __restrict__ stat_m, float* __restrict__ stat_inv,
                 int Lq, int Lkv, Strides sq, Strides sk, Strides sv,
                 Strides so, float scale) {
   // scores held in registers per online-softmax step: fewer at dh = 64,
@@ -148,12 +194,9 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float rid = MASKED ? rq[(int64_t)b * Lq + row] : 0.f;
 
   float qr[DH], acc[DH];
-  const T* qp = q + b * sq.b + h * sq.h + row * sq.r;
+  load_row<T, DH>(q + b * sq.b + h * sq.h + row * sq.r, qr);
 #pragma unroll
-  for (int i = 0; i < DH; ++i) {
-    qr[i] = to_f(qp[i]);
-    acc[i] = 0.f;
-  }
+  for (int i = 0; i < DH; ++i) acc[i] = 0.f;
   float m = -INFINITY, l = 0.f;
 
   for (int k0 = 0; k0 < Lkv; k0 += kTile) {
@@ -169,12 +212,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float cmax = -INFINITY;
 #pragma unroll
       for (int j = 0; j < kChunk; ++j) {
-        const float d = dot_sm<DH>(qr, ks + (c0 + j) * DH);
-        // the masked sum is rounded twice (product, then sum), never
-        // contracted into one FMA, to keep the JAX kernel's rounding
-        s[j] = MASKED ? __fadd_rn(__fmul_rn(d, scale),
-                                  rid == ids[c0 + j] ? kNeg : 0.f)
-                      : d * scale;
+        s[j] = score<MASKED>(dot_sm<DH>(qr, ks + (c0 + j) * DH), scale, rid,
+                             MASKED ? ids[c0 + j] : 0.f);
         cmax = fmaxf(cmax, s[j]);
       }
       const float mnew = fmaxf(m, cmax);
@@ -192,58 +231,277 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   const float inv = 1.f / l;
-  T* op = o + b * so.b + h * so.h + row * so.r;
+  TO* op = o + b * so.b + h * so.h + row * so.r;
 #pragma unroll
   for (int i = 0; i < DH; ++i) store_f(op + i, acc[i] * inv);
+  if (STATS) {
+    const int64_t r = ((int64_t)b * gridDim.y + h) * Lq + row;
+    stat_m[r] = m;
+    stat_inv[r] = inv;
+  }
 }
+
+// Backward launch 1: dq (B, Lq, H*DH) contiguous, and D_i = dO_i . o_i into
+// delta, for this thread's q row against every key. dout (input type) and
+// o (fp32) are contiguous (B, Lq, H*DH).
+template <typename T, int DH, bool MASKED>
+__global__ void __launch_bounds__(kRows)
+attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const float* __restrict__ o,
+                   const T* __restrict__ dout, const float* __restrict__ rq,
+                   const float* __restrict__ rkv,
+                   const float* __restrict__ stat_m,
+                   const float* __restrict__ stat_inv,
+                   float* __restrict__ delta, T* __restrict__ dq, int Lq,
+                   int Lkv, Strides sq, Strides sk, Strides sv, float scale) {
+  __shared__ __align__(16) float ks[kTile * DH];
+  __shared__ __align__(16) float vs[kTile * DH];
+  __shared__ float ids[MASKED ? kTile : 1];
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int64_t D = (int64_t)gridDim.y * DH;
+  const int64_t row = (int64_t)blockIdx.x * kRows + threadIdx.x;
+  const int64_t srow = ((int64_t)b * gridDim.y + h) * Lq + row;
+  const int64_t prow = ((int64_t)b * Lq + row) * D + h * DH;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+  const float rid = MASKED ? rq[(int64_t)b * Lq + row] : 0.f;
+
+  float qr[DH], dor[DH], acc[DH];
+  load_row<T, DH>(q + b * sq.b + h * sq.h + row * sq.r, qr);
+  load_row<T, DH>(dout + prow, dor);
+  load_row<float, DH>(o + prow, acc);   // o, to form D_i
+  float di = 0.f;
+#pragma unroll
+  for (int i = 0; i < DH; ++i) {
+    di = fmaf(dor[i], acc[i], di);
+    acc[i] = 0.f;
+  }
+  delta[srow] = di;
+  const float m = stat_m[srow], inv = stat_inv[srow];
+
+  for (int k0 = 0; k0 < Lkv; k0 += kTile) {
+    __syncthreads();
+    stage_tile<T, DH>(kb, sk.r, k0, ks);
+    stage_tile<T, DH>(vb, sv.r, k0, vs);
+    if (MASKED && threadIdx.x < kTile)
+      ids[threadIdx.x] = rkv[(int64_t)b * Lkv + k0 + threadIdx.x];
+    __syncthreads();
+#pragma unroll 2
+    for (int j = 0; j < kTile; ++j) {
+      const float s = score<MASKED>(dot_sm<DH>(qr, ks + j * DH), scale, rid,
+                                    MASKED ? ids[j] : 0.f);
+      const float p = __expf(s - m) * inv;
+      const float dp = dot_sm<DH>(dor, vs + j * DH);
+      axpy_sm<DH>(acc, p * (dp - di), ks + j * DH);
+    }
+  }
+  T* dst = dq + prow;
+#pragma unroll
+  for (int i = 0; i < DH; ++i) store_f(dst + i, acc[i] * scale);
+}
+
+// Backward launch 2: this thread's key row against q rows
+// [split * q_chunk, min(Lq, (split + 1) * q_chunk)), block x = split *
+// (Lkv / kRows) + key block. Writes unscaled fp32 partial dk and dv at
+// ((split * B + b) * Lkv + key) * H*DH + h*DH.
+template <typename T, int DH, bool MASKED>
+__global__ void __launch_bounds__(kRows)
+attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ rq,
+                    const float* __restrict__ rkv,
+                    const float* __restrict__ stat_m,
+                    const float* __restrict__ stat_inv,
+                    const float* __restrict__ delta,
+                    float* __restrict__ dk_part, float* __restrict__ dv_part,
+                    int Lq, int Lkv, int q_chunk, Strides sq, Strides sk,
+                    Strides sv, float scale) {
+  __shared__ __align__(16) float qs[kTile * DH];
+  __shared__ __align__(16) float dos[kTile * DH];
+  __shared__ float s_m[kTile], s_inv[kTile], s_di[kTile];
+  __shared__ float ids[MASKED ? kTile : 1];
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int H = gridDim.y;
+  const int64_t D = (int64_t)H * DH;
+  const int nkb = Lkv / kRows;
+  const int split = blockIdx.x / nkb;
+  const int64_t key = (int64_t)(blockIdx.x % nkb) * kRows + threadIdx.x;
+  const int q0 = split * q_chunk;
+  const int q1 = min(Lq, q0 + q_chunk);
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* dob = dout + (int64_t)b * Lq * D + h * DH;
+  const int64_t sbase = ((int64_t)b * H + h) * Lq;
+  const float rid = MASKED ? rkv[(int64_t)b * Lkv + key] : 0.f;
+
+  float kr[DH], vr[DH], dk[DH], dv[DH];
+  load_row<T, DH>(k + b * sk.b + h * sk.h + key * sk.r, kr);
+  load_row<T, DH>(v + b * sv.b + h * sv.h + key * sv.r, vr);
+#pragma unroll
+  for (int i = 0; i < DH; ++i) dk[i] = dv[i] = 0.f;
+
+  for (int t0 = q0; t0 < q1; t0 += kTile) {
+    __syncthreads();
+    stage_tile<T, DH>(qb, sq.r, t0, qs);
+    stage_tile<T, DH>(dob, D, t0, dos);
+    if (threadIdx.x < kTile) {
+      const int64_t r = sbase + t0 + threadIdx.x;
+      s_m[threadIdx.x] = stat_m[r];
+      s_inv[threadIdx.x] = stat_inv[r];
+      s_di[threadIdx.x] = delta[r];
+      if (MASKED) ids[threadIdx.x] = rq[(int64_t)b * Lq + t0 + threadIdx.x];
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int i = 0; i < kTile; ++i) {
+      // kr . q_i multiplies the same pairs in the same order as the
+      // forward's q_i . k_j: the same score
+      const float s = score<MASKED>(dot_sm<DH>(kr, qs + i * DH), scale,
+                                    MASKED ? ids[i] : 0.f, rid);
+      const float p = __expf(s - s_m[i]) * s_inv[i];
+      const float dp = dot_sm<DH>(vr, dos + i * DH);
+      axpy_sm<DH>(dv, p, dos + i * DH);
+      axpy_sm<DH>(dk, p * (dp - s_di[i]), qs + i * DH);
+    }
+  }
+  const int64_t out = ((int64_t)(split * gridDim.z + b) * Lkv + key) * D +
+                      h * DH;
+#pragma unroll
+  for (int i = 0; i < DH; ++i) {
+    dk_part[out + i] = dk[i];
+    dv_part[out + i] = dv[i];
+  }
+}
+
+// Backward launch 3: dk = scale * sum over splits, dv = sum over splits, in
+// split order, each of n = B * Lkv * H*DH elements.
+template <typename T>
+__global__ void attn_bwd_reduce_kernel(const float* __restrict__ dk_part,
+                                       const float* __restrict__ dv_part,
+                                       T* __restrict__ dk, T* __restrict__ dv,
+                                       int64_t n, int splits, float scale) {
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    float a = 0.f, c = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      a += dk_part[s * n + i];
+      c += dv_part[s * n + i];
+    }
+    store_f(dk + i, a * scale);
+    store_f(dv + i, c);
+  }
+}
+
+struct FwdArgs {
+  const void *q, *k, *v;
+  void* o;
+  const float *rq, *rkv;
+  float *stat_m, *stat_inv;
+  int Lq, Lkv;
+  Strides sq, sk, sv, so;
+  float scale;
+};
+
+template <typename T, int DH, bool MASKED, bool STATS>
+void launch_fwd(const FwdArgs& a, dim3 grid, cudaStream_t s) {
+  using TO = typename std::conditional<STATS, float, T>::type;
+  attn_fwd_kernel<T, TO, DH, MASKED, STATS><<<grid, kRows, 0, s>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (TO*)a.o, a.rq, a.rkv,
+      a.stat_m, a.stat_inv, a.Lq, a.Lkv, a.sq, a.sk, a.sv, a.so, a.scale);
+}
+
+template <typename T, bool MASKED, bool STATS>
+void launch_fwd_dh(const FwdArgs& a, int dh, dim3 grid, cudaStream_t s) {
+  if (dh == 32)
+    launch_fwd<T, 32, MASKED, STATS>(a, grid, s);
+  else
+    launch_fwd<T, 64, MASKED, STATS>(a, grid, s);
+}
+
+template <typename T, bool MASKED>
+void launch_fwd_stats(const FwdArgs& a, int dh, bool stats, dim3 grid,
+                      cudaStream_t s) {
+  if (stats)
+    launch_fwd_dh<T, MASKED, true>(a, dh, grid, s);
+  else
+    launch_fwd_dh<T, MASKED, false>(a, dh, grid, s);
+}
+
+template <typename T>
+void launch_fwd_masked(const FwdArgs& a, int dh, bool stats, dim3 grid,
+                       cudaStream_t s) {
+  if (a.rq)
+    launch_fwd_stats<T, true>(a, dh, stats, grid, s);
+  else
+    launch_fwd_stats<T, false>(a, dh, stats, grid, s);
+}
+
+bool shape_ok(int B, int H, int Lq, int Lkv, int dh) {
+  return B >= 1 && H >= 1 && B <= 65535 && H <= 65535 && Lq >= kRows &&
+         Lq % kRows == 0 && Lkv >= kTile && Lkv % kTile == 0 &&
+         (dh == 32 || dh == 64);
+}
+
+// rq == rkv == nullptr: unmasked; both set: region-masked. stats: the
+// training forward (o fp32, stat_m and stat_inv written).
+int launch(const FwdArgs& a, int B, int H, int dh, bool stats, int bf16,
+           void* stream) {
+  if (!shape_ok(B, H, a.Lq, a.Lkv, dh) || (a.rq == nullptr) != (a.rkv ==
+      nullptr) || (stats && (a.stat_m == nullptr || a.stat_inv == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(a.Lq / kRows, H, B);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    launch_fwd_masked<__nv_bfloat16>(a, dh, stats, grid, s);
+  else
+    launch_fwd_masked<float>(a, dh, stats, grid, s);
+  return (int)cudaGetLastError();
+}
+
+struct BwdArgs {
+  const void *q, *k, *v, *dout;
+  const float *o, *rq, *rkv, *stat_m, *stat_inv;
+  float *delta, *dk_part, *dv_part;
+  void *dq, *dk, *dv;
+  int B, H, Lq, Lkv, q_chunk;
+  Strides sq, sk, sv;
+  float scale;
+};
 
 template <typename T, int DH, bool MASKED>
-void launch_typed(const void* q, const void* k, const void* v, void* o,
-                  const float* rq, const float* rkv, dim3 grid, int Lq,
-                  int Lkv, Strides sq, Strides sk, Strides sv, Strides so,
-                  float scale, cudaStream_t s) {
-  attn_fwd_kernel<T, DH, MASKED><<<grid, kRows, 0, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, rq, rkv, Lq, Lkv, sq,
-      sk, sv, so, scale);
-}
-
-template <bool MASKED>
-void launch_masked(const void* q, const void* k, const void* v, void* o,
-                   const float* rq, const float* rkv, dim3 grid, int Lq,
-                   int Lkv, int dh, Strides sq, Strides sk, Strides sv,
-                   Strides so, float scale, int bf16, cudaStream_t s) {
-  if (bf16 && dh == 32)
-    launch_typed<__nv_bfloat16, 32, MASKED>(q, k, v, o, rq, rkv, grid, Lq,
-                                            Lkv, sq, sk, sv, so, scale, s);
-  else if (bf16)
-    launch_typed<__nv_bfloat16, 64, MASKED>(q, k, v, o, rq, rkv, grid, Lq,
-                                            Lkv, sq, sk, sv, so, scale, s);
-  else if (dh == 32)
-    launch_typed<float, 32, MASKED>(q, k, v, o, rq, rkv, grid, Lq, Lkv, sq,
-                                    sk, sv, so, scale, s);
-  else
-    launch_typed<float, 64, MASKED>(q, k, v, o, rq, rkv, grid, Lq, Lkv, sq,
-                                    sk, sv, so, scale, s);
-}
-
-// rq == rkv == nullptr: unmasked; both set: region-masked
-int launch(const void* q, const void* k, const void* v, void* o,
-           const float* rq, const float* rkv, int B, int H, int Lq, int Lkv,
-           int dh, Strides sq, Strides sk, Strides sv, Strides so,
-           float scale, int bf16, void* stream) {
-  if (B < 1 || H < 1 || B > 65535 || H > 65535 || Lq < kRows ||
-      Lq % kRows || Lkv < kTile || Lkv % kTile || (dh != 32 && dh != 64) ||
-      (rq == nullptr) != (rkv == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(Lq / kRows, H, B);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (rq)
-    launch_masked<true>(q, k, v, o, rq, rkv, grid, Lq, Lkv, dh, sq, sk, sv,
-                        so, scale, bf16, s);
-  else
-    launch_masked<false>(q, k, v, o, rq, rkv, grid, Lq, Lkv, dh, sq, sk, sv,
-                         so, scale, bf16, s);
+int launch_bwd_typed(const BwdArgs& a, cudaStream_t s) {
+  attn_bwd_dq_kernel<T, DH, MASKED><<<dim3(a.Lq / kRows, a.H, a.B), kRows, 0,
+                                      s>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.o, (const T*)a.dout,
+      a.rq, a.rkv, a.stat_m, a.stat_inv, a.delta, (T*)a.dq, a.Lq, a.Lkv,
+      a.sq, a.sk, a.sv, a.scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int splits = (a.Lq + a.q_chunk - 1) / a.q_chunk;
+  attn_bwd_dkv_kernel<T, DH, MASKED><<<dim3(splits * (a.Lkv / kRows), a.H,
+                                            a.B), kRows, 0, s>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, a.rq,
+      a.rkv, a.stat_m, a.stat_inv, a.delta, a.dk_part, a.dv_part, a.Lq,
+      a.Lkv, a.q_chunk, a.sq, a.sk, a.sv, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int64_t n = (int64_t)a.B * a.Lkv * a.H * DH;
+  const int64_t blocks = (n + 255) / 256;
+  attn_bwd_reduce_kernel<T><<<(int)(blocks < 4096 ? blocks : 4096), 256, 0,
+                              s>>>(a.dk_part, a.dv_part, (T*)a.dk, (T*)a.dv,
+                                   n, splits, a.scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool MASKED>
+int launch_bwd_dh(const BwdArgs& a, int dh, cudaStream_t s) {
+  return dh == 32 ? launch_bwd_typed<T, 32, MASKED>(a, s)
+                  : launch_bwd_typed<T, 64, MASKED>(a, s);
+}
+
+template <typename T>
+int launch_bwd_masked(const BwdArgs& a, int dh, cudaStream_t s) {
+  return a.rq ? launch_bwd_dh<T, true>(a, dh, s)
+              : launch_bwd_dh<T, false>(a, dh, s);
 }
 
 }  // namespace
@@ -263,10 +521,10 @@ extern "C" int attn_unmasked_packed_fwd(const void* q, const void* k,
                                         int64_t v_row, int64_t o_row,
                                         float scale, int bf16, void* stream) {
   const int64_t hs = dh;   // head h starts at column h * dh
-  return launch(q, k, v, o, nullptr, nullptr, B, H, Lq, Lkv, dh,
-                {Lq * q_row, hs, q_row}, {Lkv * k_row, hs, k_row},
-                {Lkv * v_row, hs, v_row}, {Lq * o_row, hs, o_row}, scale,
-                bf16, stream);
+  return launch({q, k, v, o, nullptr, nullptr, nullptr, nullptr, Lq, Lkv,
+                 {Lq * q_row, hs, q_row}, {Lkv * k_row, hs, k_row},
+                 {Lkv * v_row, hs, v_row}, {Lq * o_row, hs, o_row}, scale},
+                B, H, dh, false, bf16, stream);
 }
 
 // Region-masked packed layout (B6): as attn_unmasked_packed_fwd, plus fp32
@@ -281,10 +539,58 @@ extern "C" int attn_region_packed_fwd(const void* q, const void* k,
                                       void* stream) {
   if (rq == nullptr || rkv == nullptr) return (int)cudaErrorInvalidValue;
   const int64_t hs = dh;
-  return launch(q, k, v, o, rq, rkv, B, H, Lq, Lkv, dh,
-                {Lq * q_row, hs, q_row}, {Lkv * k_row, hs, k_row},
-                {Lkv * v_row, hs, v_row}, {Lq * o_row, hs, o_row}, scale,
-                bf16, stream);
+  return launch({q, k, v, o, rq, rkv, nullptr, nullptr, Lq, Lkv,
+                 {Lq * q_row, hs, q_row}, {Lkv * k_row, hs, k_row},
+                 {Lkv * v_row, hs, v_row}, {Lq * o_row, hs, o_row}, scale},
+                B, H, dh, false, bf16, stream);
+}
+
+// The training forward of both packed routes: as attn_unmasked_packed_fwd
+// (rq == rkv == nullptr) or attn_region_packed_fwd, but o32 is a
+// contiguous fp32 (B, Lq, H*dh), and stat_m, stat_inv (B, H, Lq) fp32
+// receive each row's max and 1/denominator.
+extern "C" int attn_packed_fwd_stats(const void* q, const void* k,
+                                     const void* v, const float* rq,
+                                     const float* rkv, float* o32,
+                                     float* stat_m, float* stat_inv, int B,
+                                     int H, int Lq, int Lkv, int dh,
+                                     int64_t q_row, int64_t k_row,
+                                     int64_t v_row, float scale, int bf16,
+                                     void* stream) {
+  const int64_t hs = dh, d = (int64_t)H * dh;
+  return launch({q, k, v, o32, rq, rkv, stat_m, stat_inv, Lq, Lkv,
+                 {Lq * q_row, hs, q_row}, {Lkv * k_row, hs, k_row},
+                 {Lkv * v_row, hs, v_row}, {Lq * d, hs, d}, scale},
+                B, H, dh, true, bf16, stream);
+}
+
+// The backward of both packed routes (three launches, see the top of this
+// file). q, k, v, rq, rkv as the forward took them; o32, stat_m, stat_inv
+// from attn_packed_fwd_stats; dout (B, Lq, H*dh) contiguous in the input
+// type. Scratch: delta (B, H, Lq) fp32, dk_part and dv_part
+// (ceil(Lq / q_chunk), B, Lkv, H*dh) fp32. Results dq (B, Lq, H*dh), dk and
+// dv (B, Lkv, H*dh), contiguous, in the input type. Lkv must be a multiple
+// of 128 and q_chunk a positive multiple of 64.
+extern "C" int attn_packed_bwd(const void* q, const void* k, const void* v,
+                               const float* rq, const float* rkv,
+                               const float* o32, const void* dout,
+                               const float* stat_m, const float* stat_inv,
+                               float* delta, float* dk_part, float* dv_part,
+                               void* dq, void* dk, void* dv, int B, int H,
+                               int Lq, int Lkv, int dh, int64_t q_row,
+                               int64_t k_row, int64_t v_row, int q_chunk,
+                               float scale, int bf16, void* stream) {
+  if (!shape_ok(B, H, Lq, Lkv, dh) || Lkv % kRows || q_chunk < kTile ||
+      q_chunk % kTile || (rq == nullptr) != (rkv == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int64_t hs = dh;
+  const BwdArgs a{q, k, v, dout, o32, rq, rkv, stat_m, stat_inv, delta,
+                  dk_part, dv_part, dq, dk, dv, B, H, Lq, Lkv, q_chunk,
+                  {Lq * q_row, hs, q_row}, {Lkv * k_row, hs, k_row},
+                  {Lkv * v_row, hs, v_row}, scale};
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? launch_bwd_masked<__nv_bfloat16>(a, dh, s)
+              : launch_bwd_masked<float>(a, dh, s);
 }
 
 // Head-major layout (B5): q/o (B, H, Lq, dh) and k/v (B, H, Lkv, dh), each
@@ -296,7 +602,8 @@ extern "C" int attn_unmasked_bhld_fwd(
     int64_t k_b, int64_t k_h, int64_t k_r, int64_t v_b, int64_t v_h,
     int64_t v_r, int64_t o_b, int64_t o_h, int64_t o_r, float scale,
     int bf16, void* stream) {
-  return launch(q, k, v, o, nullptr, nullptr, B, H, Lq, Lkv, dh,
-                {q_b, q_h, q_r}, {k_b, k_h, k_r}, {v_b, v_h, v_r},
-                {o_b, o_h, o_r}, scale, bf16, stream);
+  return launch({q, k, v, o, nullptr, nullptr, nullptr, nullptr, Lq, Lkv,
+                 {q_b, q_h, q_r}, {k_b, k_h, k_r}, {v_b, v_h, v_r},
+                 {o_b, o_h, o_r}, scale},
+                B, H, dh, false, bf16, stream);
 }

@@ -1,4 +1,4 @@
-"""Cascade MixVisionTransformer backbone, eval (port of
+"""Cascade MixVisionTransformer backbone (port of
 fudanocr_tpu/models/seg/cascade_mit.py; reference text-focused-Transformers/
 mmseg/models/backbones/cascade_mit.py:40-524).
 
@@ -27,11 +27,16 @@ JAX package's NHWC reshape); `CascadeMiT.forward` takes and returns NCHW,
 and `models/seg/encoder_decoder.EncoderDecoder` is the NHWC public
 function. Module names are the reference's state_dict keys (`conv1`,
 `bn1`, `layer{1,2,3}.{0,1}`, `layers.{i}.{0,1,2}`, `conv2`..`conv5`), which
-`utils/porters.port_cascade_mit` reads. Eval only, float32: BatchNorm uses
-its running statistics, drop-path is the identity; train mode and
-drop-path come with the segmentation training slice. The JAX stem's
+`utils/porters.port_cascade_mit` reads. Float32. The mode is an argument,
+as in the JAX modules: `forward(x, train=True, generator=g)` normalises
+with batch statistics and moves the running ones (flax BatchNorm,
+`nn/layers.batch_norm`) and applies drop-path with the schedule
+rate * i / (total - 1) over the encoder layers (cascade_mit.py:350-354),
+its per-sample draws from the `torch.Generator` g; `train=False` (the
+default) uses the running statistics and no drop-path. The JAX stem's
 space-to-depth rewrite (`StemConv4x`, used only in training) is a TPU
-matrix-unit trick and is not ported: the stem is a plain 7x7/4 conv.
+matrix-unit trick computing the same function, and is not ported: the stem
+is a plain 7x7/4 conv.
 """
 
 from __future__ import annotations
@@ -63,6 +68,29 @@ def to_tokens(x: torch.Tensor) -> torch.Tensor:
 def to_map(t: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
     """(B, H*W, C) -> (B, C, H, W)."""
     return t.transpose(1, 2).reshape(t.shape[0], t.shape[2], *hw)
+
+
+def drop_path(x: torch.Tensor, rate: float, train: bool,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Stochastic depth (cascade_mit.py:47-54): in training each sample of
+    x is kept with probability 1 - rate and scaled by 1 / (1 - rate), else
+    zeroed; the draws come from `generator` (on x's device)."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def drop_path_rates(rate: float, num_layers: Sequence[int]) -> List[float]:
+    """The per-layer schedule rate * i / (total - 1) over all encoder
+    layers (cascade_mit.py:350-354), cut into stages."""
+    total = sum(num_layers)
+    dpr = [rate * i / max(total - 1, 1) for i in range(total)]
+    offs = [sum(num_layers[:i]) for i in range(len(num_layers))]
+    return [dpr[o:o + n] for o, n in zip(offs, num_layers)]
 
 
 def upsample(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -100,13 +128,21 @@ class ResNetBlock(nn.Module):
                 nn.Conv2d(in_features, features, 1, stride),
                 nn.BatchNorm2d(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(batch_norm(self.bn1, self.conv1(x)))
-        y = batch_norm(self.bn2, self.conv2(y))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = F.relu(batch_norm(self.bn1, self.conv1(x), train))
+        y = batch_norm(self.bn2, self.conv2(y), train)
         r = x
         if self.shortcut is not None:
-            r = batch_norm(self.shortcut[1], self.shortcut[0](x))
+            r = batch_norm(self.shortcut[1], self.shortcut[0](x), train)
         return F.relu(y + r)
+
+
+def run_blocks(blocks: nn.Sequential, x: torch.Tensor,
+               train: bool) -> torch.Tensor:
+    """A Sequential of ResNet blocks, each in the given mode."""
+    for block in blocks:
+        x = block(x, train)
+    return x
 
 
 class _InProj(nn.Module):
@@ -195,20 +231,27 @@ class MixFFN(nn.Module):
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Pre-LN: x + attn(norm1(x)), then + ffn(norm2(x)), on tokens."""
+    """Pre-LN: x + drop_path(attn(norm1(x))), then
+    + drop_path(ffn(norm2(x))), on tokens."""
 
     def __init__(self, c: int, num_heads: int, mlp_ratio: int = 4,
-                 sr_ratio: int = 1, kernels: bool = True):
+                 sr_ratio: int = 1, kernels: bool = True,
+                 drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         self.norm1 = nn.LayerNorm(c, eps=1e-6)
         self.attn = EfficientAttention(c, num_heads, sr_ratio, kernels)
         self.norm2 = nn.LayerNorm(c, eps=1e-6)
         self.ffn = MixFFN(c, c * mlp_ratio)
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int],
-                region: Region = None) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), hw, region)
-        return x + to_tokens(self.ffn(to_map(self.norm2(x), hw)))
+                region: Region = None, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate = self.drop_path_rate
+        y = self.attn(self.norm1(x), hw, region)
+        x = x + drop_path(y, rate, train, generator)
+        y = to_tokens(self.ffn(to_map(self.norm2(x), hw)))
+        return x + drop_path(y, rate, train, generator)
 
 
 class _PatchEmbed(nn.Module):
@@ -224,21 +267,25 @@ class CascadeStage(nn.ModuleList):
 
     def __init__(self, in_features: int, c: int, num_layers: int,
                  num_heads: int, sr_ratio: int, mlp_ratio: int = 4,
-                 kernels: bool = True):
+                 kernels: bool = True,
+                 drop_path_rates: Sequence[float] = ()):
+        rates = list(drop_path_rates) + [0.0] * num_layers
         super().__init__([
             _PatchEmbed(in_features, c),
             nn.ModuleList(TransformerEncoderLayer(c, num_heads, mlp_ratio,
-                                                  sr_ratio, kernels)
-                          for _ in range(num_layers)),
+                                                  sr_ratio, kernels,
+                                                  rates[j])
+                          for j in range(num_layers)),
             nn.LayerNorm(c, eps=1e-6)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         embed, layers, norm = self
         x = embed.projection(x)
         hw = tuple(x.shape[-2:])
         t = embed.norm(to_tokens(x))
         for layer in layers:
-            t = layer(t, hw)
+            t = layer(t, hw, None, train, generator)
         return to_map(norm(t), hw)
 
 
@@ -252,10 +299,11 @@ class CascadeMiT(nn.Module):
                  num_heads: Sequence[int] = (1, 2, 5, 8),
                  sr_ratios: Sequence[int] = (8, 4, 2, 1),
                  mlp_ratio: int = 4, in_features: int = 3,
-                 kernels: bool = True):
+                 kernels: bool = True, drop_path_rate: float = 0.1):
         super().__init__()
         d, nh = embed_dims, tuple(num_heads)
         pyr = [d, d * nh[1], d * nh[2], d * nh[3]]
+        dpr = drop_path_rates(drop_path_rate, num_layers)
         self.conv1 = StemConv4x(in_features, d)
         self.bn1 = nn.BatchNorm2d(d)
         for i in range(3):
@@ -264,7 +312,7 @@ class CascadeMiT(nn.Module):
                 ResNetBlock(pyr[i + 1], pyr[i + 1], 1)))
         self.layers = nn.ModuleList(
             CascadeStage(d * nh[min(i + 1, 3)], d * nh[i], num_layers[i],
-                         nh[i], sr_ratios[i], mlp_ratio, kernels)
+                         nh[i], sr_ratios[i], mlp_ratio, kernels, dpr[i])
             for i in range(4))
         # conv2..conv5 fuse levels 4..1 (the JAX package's fuse4..fuse1)
         for i in range(4):
@@ -272,14 +320,16 @@ class CascadeMiT(nn.Module):
             self.add_module(f"conv{2 + i}", nn.Conv2d(
                 pyr[lvl] + d * nh[lvl], pyr[lvl], 1, bias=False))
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        x1 = batch_norm(self.bn1, self.conv1(x))
-        x2 = self.layer1(x1)
-        x3 = self.layer2(x2)
-        x4 = self.layer3(x3)
-        stage = self.layers
-        x4_ = self.conv2(torch.cat([x4, stage[3](x4)], 1))
-        x3_ = self.conv3(torch.cat([x3, stage[2](upsample(x4_, x3))], 1))
-        x2_ = self.conv4(torch.cat([x2, stage[1](upsample(x3_, x2))], 1))
-        x1_ = self.conv5(torch.cat([x1, stage[0](upsample(x2_, x1))], 1))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
+        x1 = batch_norm(self.bn1, self.conv1(x), train)
+        x2 = run_blocks(self.layer1, x1, train)
+        x3 = run_blocks(self.layer2, x2, train)
+        x4 = run_blocks(self.layer3, x3, train)
+        stage = lambda i, t: self.layers[i](t, train, generator)
+        x4_ = self.conv2(torch.cat([x4, stage(3, x4)], 1))
+        x3_ = self.conv3(torch.cat([x3, stage(2, upsample(x4_, x3))], 1))
+        x2_ = self.conv4(torch.cat([x2, stage(1, upsample(x3_, x2))], 1))
+        x1_ = self.conv5(torch.cat([x1, stage(0, upsample(x2_, x1))], 1))
         return [x1_, x2_, x3_, x4_]

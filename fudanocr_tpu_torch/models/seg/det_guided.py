@@ -1,5 +1,5 @@
-"""Det-guided CascadeMiT (the V10 variant behind every `*_det` config),
-eval: port of fudanocr_tpu/models/seg/det_guided.py (reference text-
+"""Det-guided CascadeMiT (the V10 variant behind every `*_det` config):
+port of fudanocr_tpu/models/seg/det_guided.py (reference text-
 focused-Transformers/mmseg/models/backbones/cascade_mit.py:4581-5131).
 
 On top of the cascade backbone of models/seg/cascade_mit.py it adds
@@ -7,8 +7,8 @@ On top of the cascade backbone of models/seg/cascade_mit.py it adds
 * a multi-scale detection head: per pyramid level a 1x1 conv + BN to 8d
   channels, bilinear to the 1/4 scale, concat, a 1x1 fusion conv + BN and a
   1x1 classifier to 2-class det logits;
-* `soft_argmax` of the det logits: the text map (0, 1, or 0.5 at an exact
-  tie), or the nearest-resized `det_gt` when one is given;
+* `soft_argmax` of the det logits, detached: the text map (0, 1, or 0.5
+  at an exact tie), or the nearest-resized `det_gt` when one is given;
 * `instance_labels`: 4-connected components of the text map, labelled on
   the tensor's device (the JAX package's `instance_labels_device` output;
   see that function for how it differs from the reference's OpenCV
@@ -23,7 +23,11 @@ On top of the cascade backbone of models/seg/cascade_mit.py it adds
 Module names are the reference V10 state_dict keys that
 `utils/porters.port_cascade_mit_v10` reads. Ids travel as float32: a tie
 gives the id 0.5, which is foreground and an id of its own, and instance
-ids (at most H/4*W/4 + 1) are exact in float32. Eval only, float32.
+ids (at most H/4*W/4 + 1) are exact in float32. Float32. `train=True,
+generator=g` is the training forward of the JAX module: batch statistics
+in every BN (det head, gates, branch BNs, fusion convs), drop-path in the
+cascade stages (not in the branches, whose rate is 0 in JAX), the masks
+carrying no gradient and the labelling run under no_grad.
 """
 
 from __future__ import annotations
@@ -38,8 +42,9 @@ from fudanocr_tpu_torch.models.seg.cascade_mit import (CascadeStage,
                                                        ResNetBlock,
                                                        StemConv4x, Region,
                                                        TransformerEncoderLayer,
-                                                       to_map, to_tokens,
-                                                       upsample)
+                                                       drop_path_rates,
+                                                       run_blocks, to_map,
+                                                       to_tokens, upsample)
 from fudanocr_tpu_torch.nn.layers import batch_norm
 from fudanocr_tpu_torch.ops.region_attention import region_mask
 
@@ -155,8 +160,8 @@ class _DetConvBN(nn.Sequential):
         super().__init__(nn.Conv2d(in_features, features, 1, bias=bias),
                          nn.BatchNorm2d(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return batch_norm(self[1], self[0](x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return batch_norm(self[1], self[0](x), train)
 
 
 class _GateFuse(_DetConvBN):
@@ -166,8 +171,9 @@ class _GateFuse(_DetConvBN):
     def __init__(self, features: int):
         super().__init__(2 * features, features)
 
-    def forward(self, text: torch.Tensor, inst: torch.Tensor) -> torch.Tensor:
-        g = torch.sigmoid(super().forward(torch.cat([text, inst], 1)))
+    def forward(self, text: torch.Tensor, inst: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        g = torch.sigmoid(super().forward(torch.cat([text, inst], 1), train))
         return g * text + (1 - g) * inst
 
 
@@ -181,10 +187,11 @@ class CascadeMiTDetGuided(nn.Module):
                  num_heads: Sequence[int] = (1, 2, 5, 8),
                  sr_ratios: Sequence[int] = (8, 4, 2, 1),
                  mlp_ratio: int = 4, in_features: int = 3,
-                 kernels: bool = True):
+                 kernels: bool = True, drop_path_rate: float = 0.1):
         super().__init__()
         d, nh = embed_dims, tuple(num_heads)
         dims = [d * n for n in nh]
+        dpr = drop_path_rates(drop_path_rate, num_layers)
         self.sr_ratios = tuple(sr_ratios)
         self.conv1 = StemConv4x(in_features, d)
         self.bn1 = nn.BatchNorm2d(d)
@@ -194,7 +201,7 @@ class CascadeMiTDetGuided(nn.Module):
                 ResNetBlock(dims[i + 1], dims[i + 1], 1)))
         self.layers = nn.ModuleList(
             CascadeStage(dims[i], dims[i], num_layers[i], nh[i],
-                         sr_ratios[i], mlp_ratio, kernels)
+                         sr_ratios[i], mlp_ratio, kernels, dpr[i])
             for i in range(4))
         # conv2..conv5 fuse levels 4..1: [pyramid, (upsampled,) gated]
         for i in range(4):
@@ -213,49 +220,53 @@ class CascadeMiTDetGuided(nn.Module):
         self.fusion_conv = _DetConvBN(4 * dims[3], dims[3])
         self.det_cls = nn.Sequential(nn.Conv2d(dims[3], 2, 1))
 
-    def _branch(self, kind: str, i: int, f: torch.Tensor,
-                region: Region) -> torch.Tensor:
+    def _branch(self, kind: str, i: int, f: torch.Tensor, region: Region,
+                train: bool) -> torch.Tensor:
         hw = tuple(f.shape[-2:])
         y = getattr(self, f"{kind}_sa_{i + 1}")(to_tokens(f), hw, region)
         return batch_norm(getattr(self, f"{kind}_sa_bn_{i + 1}"),
-                          to_map(y, hw))
+                          to_map(y, hw), train)
 
     def forward(self, x: torch.Tensor,
-                det_gt: Optional[torch.Tensor] = None
+                det_gt: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-        x1 = batch_norm(self.bn1, self.conv1(x))
+        x1 = batch_norm(self.bn1, self.conv1(x), train)
         feats = [x1]
         for i in range(3):
-            feats.append(getattr(self, f"layer{i + 1}")(feats[-1]))
+            feats.append(run_blocks(getattr(self, f"layer{i + 1}"),
+                                    feats[-1], train))
 
-        det = [upsample(getattr(self, f"out_det_{i + 1}")(f), x1)
+        det = [upsample(getattr(self, f"out_det_{i + 1}")(f, train), x1)
                for i, f in enumerate(feats)]
-        det_logits = self.det_cls(self.fusion_conv(torch.cat(det, 1)))
+        det_logits = self.det_cls(self.fusion_conv(torch.cat(det, 1), train))
 
         hw1 = tuple(x1.shape[-2:])
-        if det_gt is not None:
-            text_map = nearest_resize_torch(det_gt.float(), hw1)
-        else:
-            text_map = soft_argmax(det_logits.detach().permute(0, 2, 3, 1))
-        inst_map = instance_labels(text_map)
+        # the masks carry no gradient (the reference's pass through numpy
+        # and .long())
+        with torch.no_grad():
+            if det_gt is not None:
+                text_map = nearest_resize_torch(det_gt.float(), hw1)
+            else:
+                text_map = soft_argmax(det_logits.permute(0, 2, 3, 1))
+            inst_map = instance_labels(text_map)
 
         fused = []
         for i, f in enumerate(feats):
             hw, sr = tuple(f.shape[-2:]), self.sr_ratios[i]
-            text = self._branch("text", i, f, region_vectors(text_map, hw,
-                                                             sr))
+            text = self._branch("text", i, f,
+                                region_vectors(text_map, hw, sr), train)
             inst = self._branch("instance", i, f,
-                                region_vectors(inst_map, hw, sr))
-            fused.append(getattr(self, f"fuse_text_instance_{i + 1}")(text,
-                                                                      inst))
+                                region_vectors(inst_map, hw, sr), train)
+            fused.append(getattr(self, f"fuse_text_instance_{i + 1}")(
+                text, inst, train))
 
         x1, x2, x3, x4 = feats
-        stage = self.layers
-        x4_ = stage[3](self.conv2(torch.cat([x4, fused[3]], 1)))
-        x3_ = stage[2](self.conv3(torch.cat([x3, upsample(x4_, x3),
-                                             fused[2]], 1)))
-        x2_ = stage[1](self.conv4(torch.cat([x2, upsample(x3_, x2),
-                                             fused[1]], 1)))
-        x1_ = stage[0](self.conv5(torch.cat([x1, upsample(x2_, x1),
-                                             fused[0]], 1)))
+        stage = lambda i, t: self.layers[i](t, train, generator)
+        cat = lambda i, parts: getattr(self, f"conv{i}")(torch.cat(parts, 1),
+                                                         train)
+        x4_ = stage(3, cat(2, [x4, fused[3]]))
+        x3_ = stage(2, cat(3, [x3, upsample(x4_, x3), fused[2]]))
+        x2_ = stage(1, cat(4, [x2, upsample(x3_, x2), fused[1]]))
+        x1_ = stage(0, cat(5, [x1, upsample(x2_, x1), fused[0]]))
         return [x1_, x2_, x3_, x4_], det_logits

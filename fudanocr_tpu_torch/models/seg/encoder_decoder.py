@@ -1,12 +1,14 @@
 """EncoderDecoder segmentors and sliding-window inference (port of
 fudanocr_tpu/models/seg/encoder_decoder.py:24-41, :69-86 and :115-168;
-reference mmseg/models/segmentors/encoder_decoder.py:14-337), eval.
+reference mmseg/models/segmentors/encoder_decoder.py:14-337).
 
 `EncoderDecoder(img)` maps an NHWC image batch to NHWC per-pixel class
 logits at the input size (backbone -> decode head at 1/4 -> bilinear
 upsampling). `DetGuidedEncoderDecoder(img, det_gt=None)` (the reference's
 EncoderDecoder_V4, over `CascadeMiTDetGuided`) returns those logits and
-the backbone's NHWC det logits at 1/4. `slide_inference` runs a segmentor
+the backbone's NHWC det logits at 1/4. Both take `train=True, generator=g`
+for the training forward (batch statistics, drop-path and dropout drawn
+from g), which returns the same outputs. `slide_inference` runs a segmentor
 over the same crop grid as the JAX
 package: crops of `crop` every `stride`, the last row and column clamped
 to the border, several crops batched into one forward (at most
@@ -25,6 +27,13 @@ from torch import nn
 from fudanocr_tpu_torch.models.seg.cascade_mit import upsample
 
 
+def nchw(img: torch.Tensor) -> torch.Tensor:
+    """NHWC -> a contiguous NCHW copy. Not the channels-last view: on the
+    CPU, torch 2.13's backward of a 1x1 stride-2 convolution (the ResNet
+    shortcuts) over a channels-last input corrupts the heap."""
+    return img.permute(0, 3, 1, 2).contiguous()
+
+
 class EncoderDecoder(nn.Module):
     """Backbone + decode head, keys `backbone.*` and `decode_head.*`."""
 
@@ -33,10 +42,12 @@ class EncoderDecoder(nn.Module):
         self.backbone = backbone
         self.decode_head = decode_head
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, H, W, C) image -> (B, H, W, num_classes) logits."""
-        x = img.permute(0, 3, 1, 2)
-        logits = upsample(self.decode_head(self.backbone(x)), x)
+        x = nchw(img)
+        feats = self.backbone(x, train, generator)
+        logits = upsample(self.decode_head(feats, train, generator), x)
         return logits.permute(0, 2, 3, 1)
 
 
@@ -46,11 +57,12 @@ class DetGuidedEncoderDecoder(EncoderDecoder):
     replaces the predicted text map in the attention masks."""
 
     def forward(self, img: torch.Tensor,
-                det_gt: Optional[torch.Tensor] = None
+                det_gt: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = img.permute(0, 3, 1, 2)
-        feats, det_logits = self.backbone(x, det_gt)
-        logits = upsample(self.decode_head(feats), x)
+        x = nchw(img)
+        feats, det_logits = self.backbone(x, det_gt, train, generator)
+        logits = upsample(self.decode_head(feats, train, generator), x)
         return logits.permute(0, 2, 3, 1), det_logits.permute(0, 2, 3, 1)
 
 

@@ -1,7 +1,7 @@
 """Attention kernels' wrappers and plain twins: self-attention with hash
 dropout off the fused [q|k|v] buffer (Hopper kernels, forward and
-backward), and unmasked (B, H, L, dh) attention `flash_mha` (Hopper kernel,
-forward; at the end of this module).
+backward), and unmasked (B, H, L, dh) attention `flash_mha` (Hopper kernel
+forward, plain backward; at the end of this module).
 
 Port of the packed-qkv dropout part of fudanocr_tpu/ops/flash_attention.py
 (`flash_mha_qkv_packed_dropout` and its hash helpers). For (B, L, 3D) qkv
@@ -296,9 +296,9 @@ def flash_mha_qkv_packed_dropout(qkv: torch.Tensor, seed: Seed, heads: int,
 # :119 for Lq, Lk <= 1024 and dh <= 64, the online-softmax `_flash_mha_impl`
 # :653 otherwise) compute one function. On CUDA tensors it runs the strided
 # kernel of csrc/unmasked_attention.cu, which also serves the packed layout
-# of ops/region_attention.py `packed_flash_mha`. Forward only: the JAX VJP
-# (plain XLA, :634-646) comes with the segmentation training slice, and
-# until then a CUDA call that needs a gradient raises.
+# of ops/region_attention.py `packed_flash_mha`. Its gradient is the JAX
+# VJP's plain recompute (`_flash_vjp_bwd`, plain XLA, :634-646), in plain
+# PyTorch: the JAX package has no backward kernel for it.
 
 UNMASKED_HEAD_WIDTHS = (32, 64)   # head widths the kernel is built for
 UNMASKED_ROW_TILE = 128           # Lq must be a multiple of it
@@ -340,15 +340,12 @@ def check_unmasked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                             torch.bfloat16):
         raise TypeError(f"{what} takes float32 or bfloat16 q, k, v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if not q.device == k.device == v.device:
-        raise ValueError(f"{what}: q, k, v on {q.device}, {k.device}, "
-                         f"{v.device}")
+    if not q.device == k.device == v.device or q.device.type != "cuda":
+        raise ValueError(f"{what}: the kernel takes q, k, v on one CUDA "
+                         f"device, got {q.device}, {k.device}, {v.device}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError(f"{what} needs unit feature strides, got "
                          f"{q.stride()}, {k.stride()}, {v.stride()}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(f"{what}: the kernel has no backward yet "
-                                  "(the segmentation training slice)")
 
 
 def check_unmasked_shape(b: int, heads: int, lq: int, lk: int, dh: int,
@@ -399,17 +396,53 @@ def unmasked_bhld_fwd(q: torch.Tensor, k: torch.Tensor,
 unmasked_bhld_fwd.launches = 0
 
 
+def flash_mha_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor
+                            ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of `flash_mha` as the JAX VJP computes it
+    (`_flash_vjp_bwd`, flash_attention.py:634-646): the scores recomputed
+    at q's dtype then widened to fp32, softmax, dv = p^T dO,
+    dp = dO v^T, ds = p (dp - rowsum(dp p)), dq = ds k * scale,
+    dk = ds^T q * scale, each at its operand's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)).float() * scale,
+                      -1)
+    do32 = do.float()
+    dv = torch.matmul(p.transpose(-1, -2), do32)
+    dp = torch.matmul(do32, v.float().transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashMHA(torch.autograd.Function):
+    """The kernel's forward; the plain recompute as the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return unmasked_bhld_fwd(q, k, v)
+
+    @staticmethod
+    def backward(ctx, do):
+        return flash_mha_bwd_reference(*ctx.saved_tensors, do)
+
+
 def flash_mha(q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor) -> torch.Tensor:
-    """Unmasked softmax(q k^T / sqrt(dh)) v over (B, H, L, dh) operands.
+    """Unmasked softmax(q k^T / sqrt(dh)) v over (B, H, L, dh) operands,
+    differentiable in q, k and v.
 
     CPU tensors run the plain version. CUDA tensors run the kernel (built at
-    first use, see ops/_build.py) and raise on what it does not take: a
-    dtype other than float32/bfloat16, a head width other than 32 or 64, Lq
-    not a multiple of 128 or Lkv of 64, a feature stride other than 1, or a
-    gradient to be taken."""
+    first use, see ops/_build.py), with the plain recompute as its
+    backward, and raise on what it does not take: a dtype other than
+    float32/bfloat16, a head width other than 32 or 64, Lq not a multiple
+    of 128 or Lkv of 64, or a feature stride other than 1."""
     if q.device.type == "cpu":
         return flash_mha_reference(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha: no kernel for {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashMHA.apply(q, k, v)
     return unmasked_bhld_fwd(q, k, v)

@@ -13,13 +13,16 @@ inverse is recovered mechanically, as the JAX package's
 3. scatter the JAX variables back through that mapping.
 
 `load_jax_variables` does that; `to_jax_variables` runs the porter itself
-for the way back. Keys the porter never reads (BatchNorm
-`num_batches_tracked`) keep the module's values.
+for the way back, on a module or on any state_dict-like mapping, such as
+`grad_state_dict(module)`, which puts each parameter's gradient where the
+parameter was: through the porter it gives the gradients in the JAX
+layout beside the (updated) BatchNorm statistics. Keys the porter never
+reads (BatchNorm `num_batches_tracked`) keep the module's values.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -122,9 +125,19 @@ def load_jax_variables(module: nn.Module, porter: str, variables,
     return module
 
 
-def to_jax_variables(module: nn.Module, porter: str, **porter_kwargs):
-    """The reverse direction: `module`'s state_dict through porter
-    `porter`, giving {"params": ..., "batch_stats": ...} as nested dicts of
-    numpy arrays."""
-    state = {k: v.detach().cpu() for k, v in module.state_dict().items()}
+def grad_state_dict(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """`module`'s state_dict with every parameter replaced by its gradient
+    (zeros where it has none); buffers as they are."""
+    grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
+             for k, p in module.named_parameters()}
+    return {k: grads.get(k, v) for k, v in module.state_dict().items()}
+
+
+def to_jax_variables(module: Union[nn.Module, Mapping[str, torch.Tensor]],
+                     porter: str, **porter_kwargs):
+    """The reverse direction: `module`'s state_dict (or a state_dict-like
+    mapping) through porter `porter`, giving {"params": ...,
+    "batch_stats": ...} as nested dicts of numpy arrays."""
+    sd = module.state_dict() if isinstance(module, nn.Module) else module
+    state = {k: v.detach().cpu() for k, v in sd.items()}
     return PORTERS[porter](state, **porter_kwargs)

@@ -10,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -150,7 +151,8 @@ def test_training_wrappers_refuse_devices_without_a_kernel():
 
 def _unmasked_counts():
     return (ra.unmasked_packed_fwd.launches, fa.unmasked_bhld_fwd.launches,
-            ra.region_packed_fwd.launches)
+            ra.region_packed_fwd.launches, ra.unmasked_packed_bwd.launches,
+            ra.region_packed_bwd.launches)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -170,6 +172,58 @@ def test_unmasked_attention_wrappers_on_cpu_are_the_plain_versions(dtype):
     assert torch.equal(got, fa.flash_mha_reference(qh, kh, vh))
     assert got.dtype == dtype and got.shape == (2, 2, 256, 32)
     assert _unmasked_counts() == n0
+
+
+def test_attention_gradients_on_cpu_run_the_plain_versions():
+    """With a gradient to take, CPU tensors still run the plain forwards
+    (autograd differentiates them) and launch nothing."""
+    gen = torch.Generator().manual_seed(2)
+    n0 = _unmasked_counts()
+    q = torch.randn(2, 256, 64, generator=gen).requires_grad_()
+    kv = torch.randn(2, 128, 128, generator=gen).requires_grad_()
+    k, v = kv[..., :64], kv[..., 64:]
+    rq, rkv = torch.zeros(2, 256), torch.zeros(2, 128)
+    for o in (ra.packed_flash_mha(q, k, v, 2),
+              ra.region_flash_mha(q, k, v, rq, rkv, 2),
+              fa.flash_mha(*(t.unflatten(-1, (2, 32)).transpose(1, 2)
+                             for t in (q, k, v)))):
+        o.sum().backward()
+    assert q.grad.shape == q.shape and kv.grad.shape == kv.shape
+    assert _unmasked_counts() == n0
+
+
+def test_attention_functions_have_no_cpu_fallback():
+    """The autograd Functions behind the CUDA routes launch kernels only:
+    handed CPU tensors they raise, they never run the plain versions."""
+    q = torch.randn(1, 1024, 64, requires_grad=True)
+    k = torch.randn(1, 256, 64, requires_grad=True)
+    n0 = _unmasked_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        ra._PackedAttention.apply(q, k, k, None, None, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ra._PackedAttention.apply(q, k, k, torch.zeros(1, 1024),
+                                  torch.zeros(1, 256), 2)
+    qh, kh = (t.unflatten(-1, (2, 32)).transpose(1, 2) for t in (q, k))
+    with pytest.raises(ValueError, match="CUDA"):
+        fa._FlashMHA.apply(qh, kh, kh)
+    assert _unmasked_counts() == n0
+
+
+def test_seg_trainer_runs_on_the_model_device():
+    """SegTrainer takes its device from the model's parameters (the port's
+    entry points put models on the card) and moves each batch there."""
+    from fudanocr_tpu_torch.train.seg import SegTrainer
+
+    model, _ = seg_inference.init_segmentor(
+        "configs/seg/textformer_b0_textseg.yaml", device="meta",
+        overrides=("model.backbone.embed_dims=8",
+                   "model.backbone.num_layers=[1, 1, 1, 1]",
+                   "model.decode_head.channels=32"))
+    trainer = SegTrainer(model, None, None)
+    assert trainer.device == torch.device("meta")
+    batch = trainer._device_batch({"img": np.zeros((1, 4, 4, 3), np.float32),
+                                   "gt_seg": np.zeros((1, 4, 4), np.int32)})
+    assert all(t.device.type == "meta" for t in batch.values())
 
 
 def test_unmasked_attention_wrappers_refuse_devices_without_a_kernel():

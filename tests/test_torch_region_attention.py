@@ -168,5 +168,6 @@ def test_region_kernel_refuses_what_it_cannot_take(cuda):
         ra.region_flash_mha(q, k, k, rq[:1], rkv, 8)             # id shape
     with pytest.raises(ValueError):
         ra.region_flash_mha(q, k, k, rq.cpu(), rkv, 8)           # id device
-    with pytest.raises(NotImplementedError):
-        ra.region_flash_mha(q.requires_grad_(), k, k, rq, rkv, 8)
+    with pytest.raises(ValueError):     # backward: Lkv not a multiple of 128
+        ra.region_flash_mha(q.requires_grad_(), k[:, :192], k[:, :192], rq,
+                            rkv[:, :192], 8)

@@ -193,8 +193,8 @@ def test_kernel_wrappers_reject_what_they_cannot_take(cuda):
         ra.packed_flash_mha(q, k[:, :200], k[:, :200], 8)    # Lkv % 64
     with pytest.raises(ValueError):
         ra.packed_flash_mha(q.transpose(1, 2), k, k, 8)      # feature stride
-    with pytest.raises(NotImplementedError):
-        ra.packed_flash_mha(q.requires_grad_(), k, k, 8)
+    with pytest.raises(ValueError):     # backward: Lkv not a multiple of 128
+        ra.packed_flash_mha(q.requires_grad_(), k[:, :192], k[:, :192], 8)
     qh = torch.randn(1, 2, 512, 128, device=cuda)
     with pytest.raises(ValueError):
         fa.flash_mha(qh, qh, qh)                             # head width 128
