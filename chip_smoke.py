@@ -101,7 +101,36 @@ Phases:
      schedule's) and `evaluate()`; then 16 steps from optimizer count 1500
      (the end of the warmup) on 2 repeated batches, the loss falling;
  16. per recipe and path: step ms, img/s and peak memory, and a
-     torch.profiler split of one kernel-path step.
+     torch.profiler split of one kernel-path step;
+ 17. the packed-qkv attention (B3: `flash_mha_qkv_packed`, the unmasked
+     kernel of csrc/unmasked_attention.cu on column slices of one
+     (B, L, 384) buffer, 4 heads) against its plain version at L 1024
+     (B 64 and 256), L 512 and 2048 (B 64), fp32 and bf16; kernel, plain
+     and SDPA ms (timed only) beside the bound;
+ 18. phase 2's TBSRN with `fused_enhancer=False` at batch 256 bf16:
+     exactly 5 B3, 0 fused-enhancer and 10 residual-LayerNorm launches
+     per forward; SR and CRNN logits at phase 2's bars against the fused
+     path and against `kernels=False`; img/s of the three paths;
+ 19. the bidirectional GRU kernel (B8, csrc/fused_gru.cu) against its
+     plain version at TSRN's shapes (16384, 16, 96) and (4096, 64, 96),
+     fp32; kernel, plain and cuDNN GRU ms (timed only; alone, and beside
+     the port's projection + kernel) beside the bound;
+ 20. TSRN at full width (x2, 32x128 HR, STN built, 5 SRBs, hidden 32,
+     bf16, `fused_gru=True`, non-trivial BN statistics) through
+     `PixelsToStrings` with phase 2's CRNN at batch 256: exactly 10 B8
+     launches per forward; SR and logits at phase 2's bars against
+     `fused_gru=False` (cuDNN) and `kernels=False` (the plain version);
+     img/s of the three paths; `InferenceServer(buckets=(1, 8, 32))` as
+     in phase 3, and which buckets pass the GRU's rows % 256 gate;
+ 21. Text Gestalt's stroke-focus training: `StrokeSRTrainer` over TSRN
+     (STN + TPS, 5 SRBs, hidden 32, fp32) with `StrokeFocusLoss`
+     (stroke_lambda 50) of the frozen stroke oracle OCRTransformer(10,
+     1 channel, (1, 2, 5, 3), 16 heads) at batch 64, random labels
+     through the fallback stroke codec: (a) one step against
+     `kernels=False` (loss rel 1e-5, gradients rel 1e-3) and its B2 and
+     B8 launches; (b) 32 steps over 4 repeated batches, the loss
+     falling; (c) `evaluate()` through the fused-GRU inference path (10
+     B8 launches per forward); (d) step ms and img/s of both paths.
 
 Phases 8 and 11 end with a torch.profiler breakdown of one more canvas
 (device time by name, the device's busy time against the wall time).
@@ -129,12 +158,16 @@ import torch.nn.functional as F
 
 from fudanocr_tpu_torch.eval.ctc import CTCLabelConverter
 from fudanocr_tpu_torch.losses.sr_losses import LOSS_VOCAB, TextFocusLoss
+from fudanocr_tpu_torch.losses.stroke_focus import StrokeFocusLoss
 from fudanocr_tpu_torch.models.rec.crnn import CRNN, parse_crnn_input
 from fudanocr_tpu_torch.models.rec.ocr_transformer import OCRTransformer
 from fudanocr_tpu_torch.models.sr.tbsrn import TBSRN
+from fudanocr_tpu_torch.models.sr.tsrn import TSRN
 from fudanocr_tpu_torch.nn.attention import positional_encoding_2d
+from fudanocr_tpu_torch.nn.recurrent import BiGRU
 from fudanocr_tpu_torch.ops import _build
 from fudanocr_tpu_torch.ops import flash_attention as fa
+from fudanocr_tpu_torch.ops import fused_gru as fgru
 from fudanocr_tpu_torch.ops.fused_enhancer import (enhancer_operands,
                                                    fused_enhancer,
                                                    fused_enhancer_reference)
@@ -152,7 +185,8 @@ from fudanocr_tpu_torch.data.seg_dataset import batches_from
 from fudanocr_tpu_torch.serving import InferenceServer, PixelsToStrings
 from fudanocr_tpu_torch.train.seg import (SegTrainer, make_seg_optimizer,
                                           make_seg_train_step, poly_schedule)
-from fudanocr_tpu_torch.train.sr import SRTrainer, make_sr_train_step
+from fudanocr_tpu_torch.train.sr import (SRTrainer, StrokeSRTrainer,
+                                        make_sr_train_step)
 from fudanocr_tpu_torch.train.state import adam_with_clip
 
 SEED = 0
@@ -435,7 +469,8 @@ def phase2(dev, gpu: str):
     return pipe, lr, launches
 
 
-def phase3(pipe: PixelsToStrings, lr: torch.Tensor, gpu: str) -> None:
+def phase3(pipe: PixelsToStrings, lr: torch.Tensor, gpu: str,
+           phase: str = "3") -> None:
     n = 40
     imgs = lr[:n].cpu().numpy()
     def run(x):
@@ -481,7 +516,8 @@ def phase3(pipe: PixelsToStrings, lr: torch.Tensor, gpu: str) -> None:
     if not same[sure].all():
         raise AssertionError("served ids differ from the direct call")
     st = srv.stats()
-    print(f"phase 3: {n} concurrent requests, buckets run {st['batches']}; "
+    print(f"phase {phase}: {n} concurrent requests, buckets run "
+          f"{st['batches']}; "
           f"ids equal to the direct batched call at {int(same.sum())} of "
           f"{same.size} steps, and at all {int(sure.sum())} steps with a "
           f"top-2 margin above {tol:.3e}; latency p50 {st['p50_ms']} ms, "
@@ -1551,6 +1587,357 @@ def train_recipe(config: str, want: tuple, dev, gpu: str) -> tuple:
     return counts
 
 
+# -- phases 17-21: TBSRN's packed-qkv route and the TSRN / Text Gestalt slice
+
+# B3 at TBSRN's enhancer shapes: (B, L), D = 128 over 4 heads of 32
+B3_SHAPES = ((64, 1024), (BATCH, 1024), (64, 512), (64, 2048))
+# B8 at TSRN's two GRUs over 16x64 LR at batch 256: (rows, T, hidden)
+B8_SHAPES = ((BATCH * LR_HW[1], LR_HW[0], 32), (BATCH * LR_HW[0], LR_HW[1],
+                                                 32))
+GRU_ATOL = 1e-5   # fp32, the same recurrence in another summation order
+STROKE_VOCAB = 10
+
+
+def phase17(dev, gpu: str) -> dict:
+    gen = torch.Generator().manual_seed(SEED + 17)
+    result = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for b, l in B3_SHAPES:
+            qkv = torch.randn(b, l, 3 * HEADS * 32, generator=gen).to(dev, dt)
+            err = _attn_check("flash_mha_qkv_packed",
+                              fa.flash_mha_qkv_packed(qkv, HEADS),
+                              fa.flash_mha_qkv_packed_reference(qkv, HEADS),
+                              dt)
+            k_ms, p_ms = in_turns(
+                lambda: fa.flash_mha_qkv_packed(qkv, HEADS),
+                lambda: fa.flash_mha_qkv_packed_reference(qkv, HEADS), 5)
+            qh, kh, vh = (qkv[..., i * HEADS * 32:(i + 1) * HEADS * 32]
+                          .unflatten(-1, (HEADS, 32)).transpose(1, 2)
+                          for i in range(3))
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh,
+                                                                    vh), 5)
+            bd = attn_bound(b, HEADS, l, l, 32, dt)
+            print(f"phase 17: packed qkv (B3) ({b}, {l}, {3 * HEADS * 32}), "
+                  f"{HEADS} heads, {dt}: max abs err {err:.3e}; kernel "
+                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+                  f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}); "
+                  f"{4 * b * l * l * HEADS * 32 / k_ms / 1e9:.1f} TFLOP/s "
+                  f"[{gpu}]")
+            result[(b, l, dt)] = {"max_abs_err": err, "ms": k_ms,
+                                  "plain_ms": p_ms, **bd,
+                                  "library_ms": lib_ms}
+            del qkv, qh, kh, vh
+        torch.cuda.empty_cache()
+    # the JSON row: phase 18's shape and type
+    return result[(BATCH, 1024, torch.bfloat16)]
+
+
+def compare_paths(phase: str, what: str, sr_out, sr_ref, crnn) -> None:
+    """Phase 2's bars between two SR outputs and the CRNN logits on them:
+    the bf16 enhancer bars on the SR image (tanh, in [-1, 1]) and, scaled
+    by the largest logit, on the logits."""
+    hr = (sr_ref.shape[0], 2 * LR_HW[0], 2 * LR_HW[1], 3)
+    if tuple(sr_out.shape) != hr or not torch.isfinite(sr_out).all():
+        raise AssertionError(f"phase {phase}: SR output "
+                             f"{tuple(sr_out.shape)} (want {hr}) or not "
+                             "finite")
+    with torch.inference_mode():
+        logits = crnn(parse_crnn_input(sr_out)).float()
+        logits_ref = crnn(parse_crnn_input(sr_ref)).float()
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"phase {phase}: CRNN logits not finite")
+    sr_err = (sr_out.float() - sr_ref.float()).abs()
+    lg_err = (logits - logits_ref).abs()
+    scale = logits_ref.abs().max().clamp(min=1.0)
+    print(f"phase {phase}: SR against {what}: max abs err "
+          f"{sr_err.max().item():.3e}, mean {sr_err.mean().item():.3e}; "
+          f"logits max abs err {lg_err.max().item():.3e}, mean "
+          f"{lg_err.mean().item():.3e} (scale {scale.item():.3f})")
+    if (sr_err.max() > BF16_ATOL or sr_err.mean() > BF16_MEAN
+            or lg_err.max() > BF16_ATOL * scale
+            or lg_err.mean() > BF16_MEAN * scale):
+        raise AssertionError(f"phase {phase}: disagrees with {what}")
+
+
+def phase18(dev, gpu: str, pipe: PixelsToStrings,
+            lr: torch.Tensor) -> int:
+    """Phase 2's TBSRN run unfused (`fused_enhancer=False`)."""
+    bf16 = torch.bfloat16
+    kw = dict(scale_factor=2, width=128, height=32, stn=True,
+              srb_nums=SRB_NUMS, hidden_units=32, dtype=bf16,
+              fused_enhancer=False)
+    unfused, plain = TBSRN(**kw), TBSRN(**kw, kernels=False)
+    for m in (unfused, plain):
+        m.load_state_dict(pipe.sr_apply.state_dict())
+    unfused, plain = unfused.to(dev).eval(), plain.to(dev).eval()
+    conv = pipe.converter
+    paths = {"unfused kernel": PixelsToStrings(unfused, pipe.rec_apply, conv,
+                                               device=dev),
+             "fused kernel": pipe,
+             "unfused plain": PixelsToStrings(plain, pipe.rec_apply, conv,
+                                              device=dev)}
+    for p in paths.values():
+        p.ids_fn(lr)                 # warm-up
+    torch.cuda.synchronize()
+    counts = lambda: (fa.flash_mha_qkv_packed.launches,
+                      fused_enhancer.launches,
+                      fused_residual_layernorm.launches)
+    fa.flash_mha_qkv_packed.launches = fused_enhancer.launches = 0
+    fused_residual_layernorm.launches = 0
+    _, sr_out = paths["unfused kernel"](lr, return_sr=True)
+    torch.cuda.synchronize()
+    got = counts()
+    want = (SRB_NUMS, 0, 2 * SRB_NUMS)
+    print(f"phase 18: one PixelsToStrings call through TBSRN with "
+          f"fused_enhancer=False ran (B3, fused enhancer, B2) launches "
+          f"{got} (expected {want})")
+    if got != want:
+        raise AssertionError("phase 18: the unfused TBSRN did not run the "
+                             "expected kernel launches")
+    with torch.inference_mode():
+        for what in ("fused kernel", "unfused plain"):
+            compare_paths("18", f"the {what} path", sr_out,
+                          paths[what].sr_apply(lr), pipe.rec_apply)
+    names = list(paths)
+    ms = dict(zip(names[:2], in_turns(lambda: paths[names[0]].ids_fn(lr),
+                                      lambda: paths[names[1]].ids_fn(lr), 5)))
+    ms[names[2]] = cuda_ms(lambda: paths[names[2]].ids_fn(lr), 3)
+    print("phase 18: pixels->strings at batch " + str(BATCH) + " bf16: "
+          + ", ".join(f"{k} path {BATCH / v * 1e3:.1f} img/s ({v:.3f} ms)"
+                      for k, v in ms.items()) + f" [{gpu}]")
+    return got[0]
+
+
+def gru_bound(rows: int, t: int, h: int) -> dict:
+    """Both directions: per row and step a (H, 3H) product (6H^2 flops)
+    and ~10 operations per gate element; the two projections read, y
+    written, fp32."""
+    return bound(2 * rows * t * (6 * h * h + 30 * h),
+                 4 * rows * t * (2 * 3 * h + 2 * h), torch.float32)
+
+
+def phase19(dev, gpu: str) -> dict:
+    gen = torch.Generator().manual_seed(SEED + 19)
+    result = {}
+    for rows, t, h in B8_SHAPES:
+        xf, xb = (torch.randn(rows, t, 3 * h, generator=gen).to(dev)
+                  for _ in range(2))
+        whf, whb = ((torch.randn(h, 3 * h, generator=gen) * h ** -0.5)
+                    .to(dev) for _ in range(2))
+        bhf, bhb = ((torch.randn(3 * h, generator=gen) * 0.1).to(dev)
+                    for _ in range(2))
+        args = (xf, xb, whf, bhf, whb, bhb, h)
+        got = fgru.fused_bigru(*args)
+        want = fgru.fused_bigru_reference(*args)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError("B8 kernel output not finite")
+        err = (got - want).abs().max().item()
+        if err > GRU_ATOL:
+            raise AssertionError(f"B8 kernel disagrees with the plain version "
+                                 f"at ({rows}, {t}, {3 * h}): max abs err "
+                                 f"{err} > {GRU_ATOL}")
+        k_ms, p_ms = in_turns(lambda: fgru.fused_bigru(*args),
+                              lambda: fgru.fused_bigru_reference(*args), 5)
+        # the yardstick: cuDNN's bidirectional GRU on the module input
+        # (it includes the input projection), and the port's projection +
+        # kernel on the same input
+        gru = BiGRU(2 * h, h, fuse=True).to(dev)
+        x = torch.randn(rows, t, 2 * h, generator=gen).to(dev)
+        with torch.no_grad():
+            lib_ms = cuda_ms(lambda: torch.nn.GRU.forward(gru, x), 5)
+            full_ms = cuda_ms(lambda: gru(x), 5)
+        bd = gru_bound(rows, t, h)
+        print(f"phase 19: BiGRU (B8) ({rows}, {t}, {3 * h}) fp32: max abs "
+              f"err {err:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}); cuDNN GRU "
+              f"{lib_ms:.4f} ms against projection + kernel {full_ms:.4f} ms "
+              f"[{gpu}]")
+        result[(rows, t)] = {"max_abs_err": err, "ms": k_ms,
+                             "plain_ms": p_ms, **bd, "library_ms": lib_ms}
+        del xf, xb, x, got, want
+    torch.cuda.empty_cache()
+    return result[B8_SHAPES[0][:2]]
+
+
+def tsrn(dev, **kw) -> TSRN:
+    return TSRN(scale_factor=2, width=128, height=32, stn=True,
+                srb_nums=SRB_NUMS, hidden_units=32, **kw).to(dev)
+
+
+def phase20(dev, gpu: str, crnn, lr: torch.Tensor) -> int:
+    torch.manual_seed(SEED + 20)
+    gen = torch.Generator().manual_seed(SEED + 20)
+    bf16 = torch.bfloat16
+    fused = tsrn("cpu", fused_gru=True, dtype=bf16)
+    randomize_stats(fused, gen)
+    models = {"kernel": fused,
+              "cuDNN GRU": tsrn("cpu", fused_gru=False, dtype=bf16),
+              "plain": tsrn("cpu", fused_gru=True, kernels=False,
+                            dtype=bf16)}
+    for m in models.values():
+        m.load_state_dict(fused.state_dict())
+    conv = CTCLabelConverter(ALPHABET)
+    pipes = {k: PixelsToStrings(m.to(dev).eval(), crnn, conv, device=dev)
+             for k, m in models.items()}
+    for p in pipes.values():
+        p.ids_fn(lr)                 # warm-up: kernel build, cuDNN plans
+    torch.cuda.synchronize()
+    fgru.fused_bigru.launches = 0
+    _, sr_out = pipes["kernel"](lr, return_sr=True)
+    torch.cuda.synchronize()
+    launches = fgru.fused_bigru.launches
+    print(f"phase 20: one PixelsToStrings call through TSRN (fused_gru) ran "
+          f"{launches} B8 launches (expected {2 * SRB_NUMS})")
+    if launches != 2 * SRB_NUMS:
+        raise AssertionError("phase 20: TSRN did not run the expected B8 "
+                             "launches")
+    with torch.inference_mode():
+        for what in ("cuDNN GRU", "plain"):
+            compare_paths("20", f"the {what} path", sr_out,
+                          pipes[what].sr_apply(lr), crnn)
+    names = list(pipes)
+    ms = dict(zip(names[:2], in_turns(lambda: pipes[names[0]].ids_fn(lr),
+                                      lambda: pipes[names[1]].ids_fn(lr), 5)))
+    ms[names[2]] = cuda_ms(lambda: pipes[names[2]].ids_fn(lr), 2)
+    print("phase 20: TSRN pixels->strings at batch " + str(BATCH) + " bf16: "
+          + ", ".join(f"{k} path {BATCH / v * 1e3:.1f} img/s ({v:.3f} ms)"
+                      for k, v in ms.items()) + f" [{gpu}]")
+    h, w = LR_HW
+    gate = {b: (fgru.fused_gru_supported(b * w, h, 32),
+                fgru.fused_gru_supported(b * h, w, 32)) for b in (1, 8, 32)}
+    print(f"phase 20: server buckets whose (gru1, gru2) rows pass the "
+          f"rows % 256 gate: {gate}")
+    phase3(pipes["kernel"], lr, gpu, phase="20")
+    return launches
+
+
+def phase21(dev, gpu: str) -> int:
+    torch.manual_seed(SEED + 21)
+    oracle_kw = dict(vocab=STROKE_VOCAB, num_in=1, layers=(1, 2, 5, 3),
+                     num_heads=16, d_embed=512, d_model=1024, d_ff=2048)
+    model = tsrn(dev, fused_gru=True)
+    plain = tsrn(dev, fused_gru=True, kernels=False)
+    oracle = OCRTransformer(**oracle_kw).to(dev)
+    oracle_plain = OCRTransformer(**oracle_kw, kernels=False).to(dev)
+    oracle_plain.load_state_dict(oracle.state_dict())
+    crnn = CRNN(num_classes=37, hidden=256).to(dev).eval()
+    loss_k = StrokeFocusLoss(oracle, stroke_lambda=50.0)
+    loss_p = StrokeFocusLoss(oracle_plain, stroke_lambda=50.0)
+    data = SeededTextZoom(TRAIN_BATCHES * TRAIN_B, SEED + 210)
+    eval_data = SeededTextZoom(EVAL_BATCHES * TRAIN_B, SEED + 211)
+    trainer = StrokeSRTrainer(model, loss_k, data, eval_data,
+                              batch_size=TRAIN_B, lr=1e-4, epochs=EPOCHS,
+                              eval_every=10 ** 9, max_label_len=LABEL_LEN,
+                              recognizer=crnn,
+                              converter=CTCLabelConverter(ALPHABET),
+                              seed=SEED)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = trainer._device_batch(*next(data.batches(TRAIN_B)))
+    if int(batch["text_gt"].max()) >= STROKE_VOCAB:
+        raise AssertionError("phase 21: labels are not stroke ids")
+
+    # (a) one step, kernel path vs plain path, same state
+    plain.load_state_dict(init)
+    step_k = make_sr_train_step(model, loss_k,
+                                adam_with_clip(model.parameters(), 1e-4))
+    step_p = make_sr_train_step(plain, loss_p,
+                                adam_with_clip(plain.parameters(), 1e-4))
+    torch.cuda.synchronize()
+    reset_counts()
+    fgru.fused_bigru.launches = 0
+    mk = step_k(batch)
+    torch.cuda.synchronize()
+    ln_live, gru_train = fused_residual_layernorm.launches, \
+        fgru.fused_bigru.launches
+    mp = step_p(batch)
+    torch.cuda.synchronize()
+    lk, lp = mk["loss"].item(), mp["loss"].item()
+    loss_rel = abs(lk - lp) / abs(lp)
+    pairs = [(n, pk.grad, pp.grad) for (n, pk), pp in
+             zip(model.named_parameters(), plain.parameters())]
+    top = max(gp.norm().item() for _, _, gp in pairs)
+    worst, worst_name, zero = 0.0, "", 0
+    for name, gk, gp in pairs:
+        if gp.norm().item() <= 1e-6 * top:
+            zero += 1        # conv biases in front of a train-mode BatchNorm
+            if (gk - gp).norm().item() > 1e-6 * top:
+                raise AssertionError(f"{name}: zero gradient differs")
+            continue
+        err = rel_err(gk, gp)
+        if err > worst:
+            worst, worst_name = err, name
+    print(f"phase 21a: one stroke-focus step of TSRN at batch {TRAIN_B}, "
+          f"kernel path loss {lk:.6f} (mse {mk['mse'].item():.6e}, stroke "
+          f"attention {mk['attention'].item():.6e}), plain path {lp:.6f} "
+          f"(rel {loss_rel:.3e}, bar {STEP_LOSS_REL}); per-tensor gradient "
+          f"rel err max {worst:.3e} ({worst_name}; bar {STEP_GRAD_REL}) over "
+          f"{len(pairs) - zero} tensors, {zero} zero-gradient tensors equal; "
+          f"B2 launches {ln_live} (expected 6: two oracle forwards), B8 "
+          f"launches {gru_train} (expected 0: training keeps cuDNN's GRU) "
+          f"[{gpu}]")
+    if not all(np.isfinite(v.item()) for v in mk.values()):
+        raise AssertionError("phase 21: train step metrics are not finite")
+    if loss_rel > STEP_LOSS_REL or worst > STEP_GRAD_REL:
+        raise AssertionError("phase 21: kernel path train step disagrees "
+                             "with plain")
+    if ln_live != 6 or gru_train != 0:
+        raise AssertionError("phase 21: the train step did not run the "
+                             "expected kernel launches")
+
+    # (b) the trainer: 4 batches x 8 epochs, HR maps cached from epoch 1
+    model.load_state_dict(init)
+    losses = []
+    step = trainer.train_step
+
+    def recording_step(b, generator):
+        out = step(b, generator)
+        losses.append(out["loss"])
+        return out
+
+    trainer.train_step = recording_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    losses = [v.item() for v in losses]
+    print(f"phase 21b: StrokeSRTrainer.train() ran {len(losses)} steps in "
+          f"{seconds:.3f} s; HR-map cache {len(trainer._hr_map_cache)} maps; "
+          f"loss first {losses[0]:.4f}, last four "
+          f"{[round(v, 4) for v in losses[-4:]]} [{gpu}]")
+    if (len(losses) != TRAIN_BATCHES * EPOCHS
+            or len(trainer._hr_map_cache) != TRAIN_BATCHES):
+        raise AssertionError("phase 21: the trainer did not run the "
+                             "expected path")
+    if not np.isfinite(losses).all() or np.mean(losses[-4:]) >= losses[0]:
+        raise AssertionError("phase 21: losses not finite or not falling")
+
+    # (c) evaluation through the fused-GRU inference path
+    fgru.fused_bigru.launches = 0
+    res = trainer.evaluate(trainer.step)
+    torch.cuda.synchronize()
+    evals = fgru.fused_bigru.launches
+    print(f"phase 21c: evaluate() over {EVAL_BATCHES} batches: {res}; B8 "
+          f"launches {evals} (expected {EVAL_BATCHES * 2 * SRB_NUMS}) "
+          f"[{gpu}]")
+    if (evals != EVAL_BATCHES * 2 * SRB_NUMS or not np.isfinite(res["psnr"])
+            or not 0.0 < res["ssim"] <= 1.0 or not 0.0 <= res["acc"] <= 1.0):
+        raise AssertionError("phase 21: evaluation failed")
+
+    # (d) steady-state step time (cached HR map), kernel vs plain path
+    batch["hr_map"] = loss_k.hr_oracle_map(batch["hr"], batch["text_input"])
+    plain.load_state_dict(model.state_dict())
+    k_ms, p_ms = in_turns(lambda: step_k(batch), lambda: step_p(batch), 3)
+    for name, ms in (("kernel", k_ms), ("plain", p_ms)):
+        print(f"phase 21d: {name} path stroke-focus step at batch {TRAIN_B} "
+              f"fp32 (cached HR map): {ms:.3f} ms, {TRAIN_B * 1e3 / ms:.1f} "
+              f"img/s [{gpu}]")
+    print(f"phase 21: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{gpu}]")
+    return ln_live
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a "
@@ -1568,7 +1955,6 @@ def main() -> int:
     enh = phase1(dev, gpu)
     pipe, lr, launches = phase2(dev, gpu)
     phase3(pipe, lr, gpu)
-    del pipe, lr
     torch.cuda.empty_cache()
     ln = phase4(dev, gpu)
     attn_fwd, attn_bwd = phase5(dev, gpu)
@@ -1588,6 +1974,14 @@ def main() -> int:
     for config, want in TRAIN_RECIPES:
         counts = train_recipe(config, want, dev, gpu)
     b7_bwd_n, b6_bwd_n = counts[1], counts[3]   # per det-recipe step
+    torch.cuda.empty_cache()
+    b3 = phase17(dev, gpu)
+    b3_n = phase18(dev, gpu, pipe, lr)
+    b8 = phase19(dev, gpu)
+    b8_n = phase20(dev, gpu, pipe.rec_apply, lr)
+    del pipe, lr
+    torch.cuda.empty_cache()
+    phase21(dev, gpu)
     attn_src = "fudanocr_tpu_torch/csrc/flash_attention_dropout.cu"
     seg_src = "fudanocr_tpu_torch/csrc/unmasked_attention.cu"
     print(json.dumps({"kernels": [
@@ -1626,7 +2020,14 @@ def main() -> int:
         {"name": "region_attention_packed_bwd", "route": "cuda",
          "source": seg_src,
          "replaces": "fudanocr_tpu/ops/region_attention.py:201",
-         "launches": b6_bwd_n, **b6_bwd}]}))
+         "launches": b6_bwd_n, **b6_bwd},
+        {"name": "flash_mha_qkv_packed", "route": "cuda", "source": seg_src,
+         "replaces": "fudanocr_tpu/ops/flash_attention.py:220",
+         "launches": b3_n, **b3},
+        {"name": "fused_bigru", "route": "cuda",
+         "source": "fudanocr_tpu_torch/csrc/fused_gru.cu",
+         "replaces": "fudanocr_tpu/ops/fused_gru.py:80",
+         "launches": b8_n, **b8}]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

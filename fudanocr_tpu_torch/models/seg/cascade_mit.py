@@ -18,7 +18,7 @@ holds, else plain matmuls with the materialised (B, 1, Lq, Lkv) additive
 mask; a masked call never takes B7 or B5. Without one, the packed kernel
 (`ops/region_attention.packed_flash_mha`, B7) when `packed_flash_supported`
 holds, else the (B, H, L, dh) kernel (`ops/flash_attention.flash_mha`, B5)
-when `flash_attention_supported` holds, else plain matmuls with an fp32
+when `_flash_ok` holds, else plain matmuls with an fp32
 softmax. `kernels=False` takes the plain route everywhere (the comparison
 path). On CPU tensors the kernel routes run their plain versions.
 
@@ -49,8 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fudanocr_tpu_torch.nn.layers import batch_norm
-from fudanocr_tpu_torch.ops.flash_attention import (flash_attention_supported,
-                                                    flash_mha)
+from fudanocr_tpu_torch.ops.flash_attention import flash_mha
 from fudanocr_tpu_torch.ops.region_attention import (packed_flash_mha,
                                                      packed_flash_supported,
                                                      region_flash_mha,
@@ -58,6 +57,16 @@ from fudanocr_tpu_torch.ops.region_attention import (packed_flash_mha,
                                                      region_mask)
 
 Region = Optional[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _flash_ok(q_shape, lk: int) -> bool:
+    """The gate of the `flash_mha` route: the device-side condition of the
+    JAX package's `_flash_ok` (fudanocr_tpu/models/seg/cascade_mit.py:
+    35-44), without its bound for CPU interpret mode. `q_shape` is
+    (B, H, Lq, dh)."""
+    _, _, lq, hd = q_shape
+    return (lq >= 512 and lq % 256 == 0 and (lq <= 1024 or lq % 1024 == 0)
+            and lk >= 128 and lk % 128 == 0 and hd % 8 == 0 and hd <= 128)
 
 
 def to_tokens(x: torch.Tensor) -> torch.Tensor:
@@ -204,7 +213,7 @@ class EfficientAttention(nn.Module):
         heads = lambda t: t.unflatten(-1, (nh, c // nh)).transpose(1, 2)
         q, k, v = heads(q), heads(k), heads(v)
         if (mask is None and self.kernels
-                and flash_attention_supported(q.shape, lkv)):
+                and _flash_ok(q.shape, lkv)):
             o = flash_mha(q, k, v)
         else:
             s = torch.matmul(q, k.transpose(-1, -2)).float()

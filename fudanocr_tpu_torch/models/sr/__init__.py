@@ -1,1 +1,2 @@
 from fudanocr_tpu_torch.models.sr.tbsrn import TBSRN  # noqa: F401
+from fudanocr_tpu_torch.models.sr.tsrn import TSRN  # noqa: F401

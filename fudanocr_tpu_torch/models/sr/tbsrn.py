@@ -14,11 +14,15 @@ each FeatureEnhancer runs unfused with dropout 0.1 on the attention
 probabilities (hash dropout, one seed per call) and after the FFN's ReLU,
 its two LayerNorms through the fused residual-LayerNorm op. At inference
 the STN is not run, as in the JAX package, and each enhancer is one call
-of the fused-enhancer kernel.
+of the fused-enhancer kernel when `fused_enhancer` is on (JAX's flag,
+tbsrn.py:176) and the token count passes JAX's `fused_enhancer_supported`;
+otherwise it runs unfused, its attention through the `use_flash` route of
+nn/attention.py (the packed-qkv kernel at 512 <= L <= 2048).
 
 `kernels=False` runs the plain PyTorch version of every kernel of the
-model instead (fused enhancer, residual LayerNorm, dropout attention), on
-any device: the path the kernels are compared with.
+model instead (fused enhancer, residual LayerNorm, the attention kernels),
+on any device and on the same routes: the path the kernels are compared
+with.
 
 Input and output are NHWC, as in the JAX package; the convolutions run on
 an NCHW view of it (channels_last memory, which cuDNN takes directly and
@@ -29,24 +33,22 @@ Module names follow the original state_dict (`block1.0`, `block{i+2}.*`,
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fudanocr_tpu_torch.models.sr.common import ConvBN, UpsampleBlock
+from fudanocr_tpu_torch.models.sr.common import SRGenerator
 from fudanocr_tpu_torch.nn.attention import (MultiHeadAttention,
                                              positional_encoding_2d)
-from fudanocr_tpu_torch.nn.layers import (PositionwiseFeedForward, PReLU,
+from fudanocr_tpu_torch.nn.layers import (PositionwiseFeedForward,
                                           TorchLayerNorm, batch_norm, conv2d,
                                           dropout, linear, mish)
-from fudanocr_tpu_torch.nn.stn import STNHead
-from fudanocr_tpu_torch.nn.tps import TPSSpatialTransformer
 from fudanocr_tpu_torch.ops.fused_enhancer import (enhancer_operands,
                                                    fused_enhancer,
-                                                   fused_enhancer_reference)
+                                                   fused_enhancer_reference,
+                                                   fused_enhancer_supported)
 
 
 class FeatureEnhancer(nn.Module):
@@ -56,20 +58,21 @@ class FeatureEnhancer(nn.Module):
     one MHA(4 heads) + FFN(128) block with the reference's std LayerNorm,
     then a projection back to 64. The positional code is made for the
     actual (h, w) of the feature map, as the JAX module does at trace time.
-    At inference the block runs through `ops.fused_enhancer.fused_enhancer`
-    (the CUDA kernel on CUDA tensors, its plain version on CPU tensors);
-    `kernels=False` runs the plain version on any device. In training it
-    runs unfused, as the JAX module does (tbsrn.py:84-96): the fused kernel
-    has no backward.
+    At inference with `fused` on and an L that `fused_enhancer_supported`
+    takes, the block runs through `ops.fused_enhancer.fused_enhancer` (the
+    CUDA kernel on CUDA tensors, its plain version on CPU tensors);
+    `kernels=False` runs the plain version on any device. Otherwise, and
+    in training, it runs unfused, as the JAX module does (tbsrn.py:65-96;
+    the fused kernel has no backward), its MHA built with `use_flash`.
     """
 
     dropout_rate = 0.1   # after the FFN's ReLU (flax nn.Dropout(0.1))
 
-    def __init__(self, kernels: bool = True):
+    def __init__(self, kernels: bool = True, fused: bool = True):
         super().__init__()
-        self.kernels = kernels
+        self.kernels, self.fused = kernels, fused
         self.multihead = MultiHeadAttention(num_heads=4, d_model=128,
-                                            kernels=kernels)
+                                            kernels=kernels, use_flash=True)
         self.mul_layernorm1 = TorchLayerNorm(128, kernels=kernels)
         self.pff = PositionwiseFeedForward(128, 128)
         self.mul_layernorm3 = TorchLayerNorm(128, kernels=kernels)
@@ -121,26 +124,29 @@ class FeatureEnhancer(nn.Module):
                 train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, L = h*w, 64) tokens of an (h, w) map -> (B, L, 64)."""
-        if train:
-            return self._train_forward(tokens, h, w, generator)
-        ops = self.operands(h, w, tokens.dtype, tokens.device)
-        run = fused_enhancer if self.kernels else fused_enhancer_reference
-        return run(tokens.contiguous(), ops, heads=4)
+        if not train and self.fused and fused_enhancer_supported(h * w, 128,
+                                                                  4):
+            ops = self.operands(h, w, tokens.dtype, tokens.device)
+            run = fused_enhancer if self.kernels else fused_enhancer_reference
+            return run(tokens.contiguous(), ops, heads=4)
+        return self._unfused(tokens, h, w, train, generator)
 
-    def _train_forward(self, tokens, h, w, generator):
+    def _unfused(self, tokens, h, w, train, generator):
         b, l, _ = tokens.shape
-        key = (h, w, tokens.dtype, tokens.device)
+        key = (h, w, tokens.dtype, tokens.device,
+               torch.is_inference_mode_enabled())
         if key not in self._pe:   # one host-to-device copy per geometry
             self._pe[key] = torch.from_numpy(positional_encoding_2d(
                 64, h, w).reshape(64, l).T.copy()).to(tokens.device,
                                                        tokens.dtype)
         pe = self._pe[key]
         x = torch.cat([tokens, pe.expand(b, l, 64)], dim=-1)
-        attn, _ = self.multihead(x, x, x, deterministic=False,
+        attn, _ = self.multihead(x, x, x, deterministic=not train,
                                  need_weights=False, generator=generator)
         x = self.mul_layernorm1(x, attn)
         y = F.relu(linear(self.pff.w_1, x))
-        y = dropout(y, self.dropout_rate, generator)
+        if train:
+            y = dropout(y, self.dropout_rate, generator)
         x = self.mul_layernorm3(x, linear(self.pff.w_2, y))
         return linear(self.linear, x)
 
@@ -150,13 +156,15 @@ class TransformerResidualBlock(nn.Module):
     RecurrentResidualBlock, tbsrn.py:229-257, without the two GRU blocks it
     builds and never calls)."""
 
-    def __init__(self, channels: int, kernels: bool = True):
+    def __init__(self, channels: int, kernels: bool = True,
+                 fused_enhancer: bool = True):
         super().__init__()
         self.conv1 = nn.Conv2d(channels, channels, 3, padding=1)
         self.bn1 = nn.BatchNorm2d(channels)
         self.conv2 = nn.Conv2d(channels, channels, 3, padding=1)
         self.bn2 = nn.BatchNorm2d(channels)
-        self.feature_enhancer = FeatureEnhancer(kernels=kernels)
+        self.feature_enhancer = FeatureEnhancer(kernels=kernels,
+                                                fused=fused_enhancer)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -168,62 +176,20 @@ class TransformerResidualBlock(nn.Module):
         return x + tokens.view(b, h, w, c).permute(0, 3, 1, 2)
 
 
-class TBSRN(nn.Module):
-    """`width` x `height` is the HR size; at inference any LR geometry runs
-    (the enhancers make their positional code per feature map); in
-    training the TPS warp outputs the LR size (height, width) /
-    scale_factor."""
+class TBSRN(SRGenerator):
+    """TBSRN on the shared trunk (`models/sr/common.SRGenerator`), its
+    residual blocks `TransformerResidualBlock`s."""
 
     def __init__(self, scale_factor: int = 2, width: int = 128,
                  height: int = 32, stn: bool = True, srb_nums: int = 5,
                  mask: bool = False, hidden_units: int = 32,
-                 kernels: bool = True,
+                 kernels: bool = True, fused_enhancer: bool = True,
                  dtype: torch.dtype = torch.float32):
-        super().__init__()
-        self.width, self.height = width, height
-        if not math.log2(scale_factor).is_integer():
-            raise ValueError(f"scale_factor must be a power of 2, got "
-                             f"{scale_factor}")
-        in_planes = 4 if mask else 3
-        feats = 2 * hidden_units
-        if feats != 64:
+        if hidden_units != 32:
             raise ValueError("the FeatureEnhancer takes 64 trunk channels "
                              "(hidden_units=32), as the reference hardcodes")
-        self.srb_nums, self.dtype = srb_nums, dtype
-        n_up = int(math.log2(scale_factor))
-        self.block1 = nn.Sequential(
-            nn.Conv2d(in_planes, feats, 9, padding=4), PReLU())
-        for i in range(srb_nums):
-            setattr(self, f"block{i + 2}",
-                    TransformerResidualBlock(feats, kernels=kernels))
-        setattr(self, f"block{srb_nums + 2}", ConvBN(feats))
-        setattr(self, f"block{srb_nums + 3}", nn.Sequential(
-            *[UpsampleBlock(feats, 2) for _ in range(n_up)],
-            nn.Conv2d(feats, in_planes, 9, padding=4)))
-        self.stn_head = (STNHead(in_planes, num_ctrlpoints=20)
-                         if stn else None)
-        self.tps = (TPSSpatialTransformer(
-            (height // scale_factor, width // scale_factor),
-            num_control_points=20, margins=(0.05, 0.05)) if stn else None)
-
-    def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """(B, H, W, C) LR images in [0, 1] -> (B, sH, sW, C) SR in [-1, 1],
-        at the model's compute dtype. `train=True` runs the training path
-        (it updates the BatchNorm running statistics in place); dropout
-        draws from `generator`, a torch.Generator on x's device."""
-        if train and self.stn_head is not None:
-            _, ctrl = self.stn_head(x.permute(0, 3, 1, 2).to(self.dtype),
-                                    train=True)
-            x, _ = self.tps(x, ctrl)
-        x = x.permute(0, 3, 1, 2).to(self.dtype)
-        stem = self.block1[1](conv2d(self.block1[0], x))
-        h = stem
-        for i in range(self.srb_nums):
-            h = getattr(self, f"block{i + 2}")(h, train, generator)
-        h = stem + getattr(self, f"block{self.srb_nums + 2}")(h, train)
-        head = getattr(self, f"block{self.srb_nums + 3}")
-        for up in head[:-1]:
-            h = up(h)
-        h = torch.tanh(conv2d(head[-1], h))
-        return h.permute(0, 2, 3, 1)
+        super().__init__(
+            lambda feats: TransformerResidualBlock(
+                feats, kernels=kernels, fused_enhancer=fused_enhancer),
+            scale_factor, width, height, stn, srb_nums, mask, hidden_units,
+            dtype)

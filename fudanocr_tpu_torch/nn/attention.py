@@ -20,8 +20,10 @@ from torch import nn
 
 from fudanocr_tpu_torch.nn.layers import dropout, linear
 from fudanocr_tpu_torch.ops.flash_attention import (
-    flash_mha_qkv_packed_dropout, flash_mha_qkv_packed_dropout_reference,
-    flash_packed_supported)
+    KERNEL_HEAD_WIDTH, UNMASKED_HEAD_WIDTHS, flash_attention_supported,
+    flash_mha, flash_mha_qkv_packed, flash_mha_qkv_packed_dropout,
+    flash_mha_qkv_packed_dropout_reference, flash_mha_qkv_packed_reference,
+    flash_mha_reference, flash_packed_supported)
 
 
 def positional_encoding_1d(d_model: int, length: int) -> np.ndarray:
@@ -64,26 +66,35 @@ class MultiHeadAttention(nn.Module):
     oracle's cross-attention over 1024-wide conv tokens at reduced
     d_model).
 
-    Route, as in the JAX module (nn/attention.py:102-124): self-attention
-    in train mode with `dropout_rate > 0`, no mask, no map override, no
-    maps asked for and a shape `flash_packed_supported` takes runs through
-    `ops.flash_attention.flash_mha_qkv_packed_dropout` (the hash-dropout
-    kernels on CUDA tensors) with one uint32 seed drawn from `generator`
-    per call. Everything else runs the plain path, whose train-mode
-    dropout draws its mask from `generator`. `kernels=False` runs the
-    plain version of the dropout kernels on the same route (the
-    comparison path).
+    Routes, as in the JAX module (nn/attention.py:102-146): a module built
+    with `use_flash=True` (TBSRN's enhancer), called without a mask, a map
+    override or maps asked for, takes the attention kernels:
+    self-attention at a shape `flash_packed_supported` takes runs off the
+    fused [q|k|v] buffer, through `flash_mha_qkv_packed_dropout` (hash
+    dropout, one uint32 seed drawn from `generator` per call) in train
+    mode with `dropout_rate > 0`, else through `flash_mha_qkv_packed`;
+    otherwise, without train-mode dropout, a (B, H, L, dh) q that
+    `flash_attention_supported` takes runs through `flash_mha`. Each
+    route also needs a head width its kernel is built for (32 for the
+    dropout kernels, 32 or 64 for the others; `flash_mha` also a key count
+    that is a multiple of 64); JAX's gates admit more, and those shapes
+    run plain. Everything else, and every call of a
+    module without `use_flash`, runs the plain path, whose train-mode
+    dropout draws its mask from `generator`. `kernels=False` runs each
+    kernel's plain version on the same route (the comparison path).
     """
 
     def __init__(self, num_heads: int, d_model: int,
                  dropout_rate: float = 0.1,
-                 kv_features: Optional[int] = None, kernels: bool = True):
+                 kv_features: Optional[int] = None, kernels: bool = True,
+                 use_flash: bool = False):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} % heads {num_heads} != 0")
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
         self.kernels = kernels
+        self.use_flash = use_flash
         kv = kv_features or d_model
         self.linears = nn.ModuleList([
             nn.Linear(d_model, d_model), nn.Linear(kv, d_model),
@@ -106,19 +117,25 @@ class MultiHeadAttention(nn.Module):
         d = self.linears[0].out_features
         dk = d // h
         train_dropout = not deterministic and self.dropout_rate > 0.0
+        flash = (self.use_flash and not need_weights and mask is None
+                 and attention_map is None)
         if query is key and key is value:
             w = torch.cat([m.weight for m in self.linears[:3]])
             bias = torch.cat([m.bias for m in self.linears[:3]])
             qkv = F.linear(query, w.to(query.dtype), bias.to(query.dtype))
-            if (train_dropout and not need_weights and mask is None
-                    and attention_map is None
-                    and flash_packed_supported(lq, lk, d, h)):
-                seed = torch.randint(0, 2 ** 32, (), generator=generator,
-                                     dtype=torch.int64, device=qkv.device)
-                run = (flash_mha_qkv_packed_dropout if self.kernels
-                       else flash_mha_qkv_packed_dropout_reference)
-                out = run(qkv, seed, h, self.dropout_rate)
-                return linear(self.linears[3], out), None
+            if flash and flash_packed_supported(lq, lk, d, h):
+                if train_dropout and dk == KERNEL_HEAD_WIDTH:
+                    seed = torch.randint(0, 2 ** 32, (), generator=generator,
+                                         dtype=torch.int64,
+                                         device=qkv.device)
+                    run = (flash_mha_qkv_packed_dropout if self.kernels
+                           else flash_mha_qkv_packed_dropout_reference)
+                    out = run(qkv, seed, h, self.dropout_rate)
+                    return linear(self.linears[3], out), None
+                if not train_dropout and dk in UNMASKED_HEAD_WIDTHS:
+                    run = (flash_mha_qkv_packed if self.kernels
+                           else flash_mha_qkv_packed_reference)
+                    return linear(self.linears[3], run(qkv, h)), None
             q, k, v = qkv.split(d, dim=-1)
         else:
             q, k, v = (linear(m, x) for m, x in
@@ -129,6 +146,11 @@ class MultiHeadAttention(nn.Module):
 
         if attention_map is not None:
             probs = attention_map
+        elif (flash and not train_dropout and dk in UNMASKED_HEAD_WIDTHS
+              and lk % 64 == 0 and flash_attention_supported(q.shape)):
+            run = flash_mha if self.kernels else flash_mha_reference
+            out = run(q, k, v).transpose(1, 2).reshape(b, lq, d)
+            return linear(self.linears[3], out), None
         else:
             scores = (q @ k.transpose(-1, -2)).float() / math.sqrt(dk)
             if mask is not None:

@@ -305,14 +305,16 @@ UNMASKED_ROW_TILE = 128           # Lq must be a multiple of it
 UNMASKED_KEY_TILE = 64            # Lkv must be a multiple of it
 
 
-def flash_attention_supported(q_shape, lk: int) -> bool:
-    """CascadeMiT's gate for the `flash_mha` route: the device-side
-    condition of the JAX package's `_flash_ok`
-    (fudanocr_tpu/models/seg/cascade_mit.py:35-44), without its bound for
-    CPU interpret mode. `q_shape` is (B, H, Lq, dh)."""
-    _, _, lq, hd = q_shape
-    return (lq >= 512 and lq % 256 == 0 and (lq <= 1024 or lq % 1024 == 0)
-            and lk >= 128 and lk % 128 == 0 and hd % 8 == 0 and hd <= 128)
+def flash_attention_supported(q_shape) -> bool:
+    """The JAX package's gate for the `use_flash` attention route of
+    nn/attention.py (fudanocr_tpu/ops/flash_attention.py:38-43): q of shape
+    (B, H, L, dh) with L >= 512, L % 256 == 0 and dh in (32, 64, 128,
+    256). The port's route also needs the kernel's head widths
+    (`UNMASKED_HEAD_WIDTHS`)."""
+    if len(q_shape) != 4:
+        return False
+    _, _, l, d = q_shape
+    return l >= 512 and l % 256 == 0 and d in (32, 64, 128, 256)
 
 
 def flash_mha_reference(q: torch.Tensor, k: torch.Tensor,
@@ -446,3 +448,60 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashMHA.apply(q, k, v)
     return unmasked_bhld_fwd(q, k, v)
+
+
+# -- self-attention off the fused [q|k|v] buffer, no dropout (B3) -----------
+#
+# The port of the JAX package's `flash_mha_qkv_packed` (flash_attention.py:
+# 220, Pallas `_qkv_kernel` :195-216), the eval route of a `use_flash`
+# module (TBSRN's enhancer run unfused). On CUDA tensors it launches the
+# strided kernel of csrc/unmasked_attention.cu (`unmasked_packed_fwd`, the
+# B7 wrapper) on the three column slices of qkv: views at row stride 3D, no
+# copy. Like B7 it is bound by its operations (4 L^2 dh flops per image and
+# head against 4 L dh elements moved) and keeps the L x L scores on chip;
+# with a gradient to take it runs B7's training forward and backward
+# kernels (`ops/region_attention.packed_flash_mha`).
+
+
+def flash_mha_qkv_packed_reference(qkv: torch.Tensor,
+                                   heads: int) -> torch.Tensor:
+    """The plain PyTorch version, (B, L, 3D) -> (B, L, D) at qkv's dtype,
+    at the rounding points of the JAX `_qkv_kernel`: fp32 scores times
+    1/sqrt(dh), the row max subtracted, exp, the unnormalised
+    probabilities rounded to v's dtype for the value product with fp32
+    accumulation, divided by the fp32 row sum. Autograd differentiates
+    it."""
+    b, l, d3 = qkv.shape
+    d = d3 // 3
+    q, k, v = (qkv[..., i * d:(i + 1) * d].unflatten(-1, (heads, d // heads))
+               .transpose(1, 2) for i in range(3))
+    return flash_mha_reference(q, k, v).transpose(1, 2).reshape(b, l, d)
+
+
+def flash_mha_qkv_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """Self-attention over the fused [q|k|v] (B, L, 3D) projection ->
+    (B, L, D), differentiable in qkv.
+
+    CPU tensors run the plain version. CUDA tensors run the unmasked
+    attention kernel on column slices of qkv and raise on what it does
+    not take: a dtype other than float32/bfloat16, a head width other
+    than 32 or 64, L not a multiple of 128, or a feature stride other
+    than 1. `flash_mha_qkv_packed.launches` counts calls that launched
+    the kernel (each also counts as one `unmasked_packed_fwd` launch)."""
+    if qkv.device.type == "cpu":
+        return flash_mha_qkv_packed_reference(qkv, heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"flash_mha_qkv_packed: no kernel for {qkv.device}")
+    from fudanocr_tpu_torch.ops.region_attention import packed_flash_mha
+
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"flash_mha_qkv_packed takes a (B, L, 3D) qkv, got "
+                         f"{tuple(qkv.shape)}")
+    d = qkv.shape[-1] // 3
+    out = packed_flash_mha(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:],
+                           heads)
+    flash_mha_qkv_packed.launches += 1
+    return out
+
+
+flash_mha_qkv_packed.launches = 0

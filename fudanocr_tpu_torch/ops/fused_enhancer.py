@@ -39,6 +39,14 @@ from fudanocr_tpu_torch.ops.fused_layernorm import torch_layer_norm
 D_MODEL = 128   # the kernel's model width: 64 token + 64 PE channels
 
 
+def fused_enhancer_supported(l: int, d_model: int, heads: int) -> bool:
+    """The JAX package's gate for the fused-enhancer route
+    (fudanocr_tpu/ops/fused_enhancer.py:49-53)."""
+    return (512 <= l <= 2048 and l % 256 == 0 and d_model % 128 == 0
+            and d_model <= 256 and d_model % heads == 0
+            and (d_model // heads) % 8 == 0)
+
+
 def enhancer_operands(params: Dict[str, torch.Tensor], pe: torch.Tensor,
                       dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     """Kernel operands from the FeatureEnhancer weights.

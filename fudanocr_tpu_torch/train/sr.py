@@ -6,8 +6,10 @@ The train step scales the loss x100 before the backward, so the 0.25
 global-norm clip bites where the reference's does, then clips and runs
 Adam (`train.state.adam_with_clip`); the BatchNorm running statistics
 move in the forward. The eval step super-resolves through the inference
-path (the fused-enhancer kernel), scores PSNR/SSIM, and reads the SR
-image with a CRNN when one is given. Everything runs eagerly on the
+path (TBSRN's fused-enhancer kernel, TSRN's fused GRU kernel when its
+`fused_gru` is on), scores PSNR/SSIM, and reads the SR image with a CRNN
+when one is given. `StrokeSRTrainer` is Text Gestalt's trainer: the same
+loop with the stroke codec's labels. Everything runs eagerly on the
 model's device, one process, one device.
 """
 
@@ -20,6 +22,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from fudanocr_tpu_torch.data.codecs import SequenceCodec, english_stroke_codec
 from fudanocr_tpu_torch.eval.ctc import CTCLabelConverter, ctc_greedy_decode
 from fudanocr_tpu_torch.eval.metrics import psnr, sequence_accuracy, ssim
 from fudanocr_tpu_torch.losses.sr_losses import encode_text_labels
@@ -137,9 +140,12 @@ class SRTrainer:
         self.step = int(ckpt.get("step", 0))
         log.info("resumed from %s", ckpt_path)
 
+    def _encode(self, labels):
+        """Labels -> (text_input, text_gt, lengths) for the loss."""
+        return encode_text_labels(labels, self.max_label_len)
+
     def _device_batch(self, hr, lr, labels) -> Batch:
-        text_input, text_gt, lengths = encode_text_labels(
-            labels, self.max_label_len)
+        text_input, text_gt, lengths = self._encode(labels)
 
         def dev(a, dtype):
             return torch.as_tensor(np.asarray(a), dtype=dtype).to(
@@ -222,3 +228,21 @@ class SRTrainer:
                         "step": self.step, "metrics": res},
                        os.path.join(self.ckpt_dir, "best.pt"))
         return res
+
+
+class StrokeSRTrainer(SRTrainer):
+    """Text Gestalt's trainer (fudanocr_tpu/apps/text_gestalt/main.py:
+    71-78): `SRTrainer` whose labels go through the stroke codec (ten
+    stroke classes, terminator '0'; `data/codecs.english_stroke_codec`,
+    its built-in fallback table when `codec` is None), for a
+    `losses/stroke_focus.StrokeFocusLoss` over the frozen stroke oracle
+    `OCRTransformer(vocab=10, num_in=1, layers=(1, 2, 5, 3),
+    num_heads=16)`."""
+
+    def __init__(self, *args, codec: Optional[SequenceCodec] = None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.codec = codec or english_stroke_codec(None)
+
+    def _encode(self, labels):
+        return self.codec.encode(labels, self.max_label_len)

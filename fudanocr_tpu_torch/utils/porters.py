@@ -1,9 +1,9 @@
 """Porters: original FudanOCR state_dicts -> JAX-layout variable trees.
 
 The port's own copy of the porters in fudanocr_tpu/utils/torch_port.py
-(lines 21-166, 205-296, 453-608) for the models the port has:
-TBSRN, CRNN, the OCRTransformer, CascadeMiT, the det-guided CascadeMiT (V10)
-and the SegFormer head, plus `port_segmentor` / `port_segmentor_det` for a
+(lines 21-296, 453-608) for the models the port has: TBSRN, TSRN, CRNN,
+the OCRTransformer, CascadeMiT, the det-guided CascadeMiT (V10) and the
+SegFormer head, plus `port_segmentor` / `port_segmentor_det` for a
 whole EncoderDecoder / DetGuidedEncoderDecoder. Each maps a torch state_dict
 (reference key layout, which every port module carries) onto the JAX
 package's {"params": ..., "batch_stats": ...} tree: conv OIHW -> HWIO,
@@ -128,9 +128,10 @@ def _feature_enhancer(sd, prefix):
     }
 
 
-def port_tbsrn(sd: Dict, srb_nums: int = 5, scale_factor: int = 2,
-               stn: bool = True) -> Dict:
-    """scene-text-telescope/model/tbsrn.py:166-226 -> TBSRN variables."""
+def _port_sr(sd: Dict, srb_nums: int, scale_factor: int, stn: bool,
+             block_extra) -> Dict:
+    """The trunk TBSRN and TSRN share; `block_extra(sd, prefix)` gives the
+    residual block's entries beside conv1/bn1/conv2/bn2."""
     sd = strip_module_prefix(sd)
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
@@ -145,7 +146,7 @@ def port_tbsrn(sd: Dict, srb_nums: int = 5, scale_factor: int = 2,
         params[f"srb{i}"] = {
             "conv1": conv(sd, f"{b}.conv1"), "bn1": p,
             "conv2": conv(sd, f"{b}.conv2"), "bn2": p2,
-            "enhancer": _feature_enhancer(sd, f"{b}.feature_enhancer"),
+            **block_extra(sd, b),
         }
         stats[f"srb{i}"] = {"bn1": s, "bn2": s2}
 
@@ -165,6 +166,22 @@ def port_tbsrn(sd: Dict, srb_nums: int = 5, scale_factor: int = 2,
         params["stn_head"] = p
         stats["stn_head"] = s
     return {"params": params, "batch_stats": stats}
+
+
+def port_tbsrn(sd: Dict, srb_nums: int = 5, scale_factor: int = 2,
+               stn: bool = True) -> Dict:
+    """scene-text-telescope/model/tbsrn.py:166-226 -> TBSRN variables."""
+    return _port_sr(sd, srb_nums, scale_factor, stn, lambda sd, b: {
+        "enhancer": _feature_enhancer(sd, f"{b}.feature_enhancer")})
+
+
+def port_tsrn(sd: Dict, srb_nums: int = 5, scale_factor: int = 2,
+              stn: bool = False) -> Dict:
+    """tsrn.py:18-98 -> TSRN variables (GRU blocks instead of enhancer;
+    fudanocr_tpu/utils/torch_port.py:167)."""
+    return _port_sr(sd, srb_nums, scale_factor, stn, lambda sd, b: {
+        f"gru{g}": {"conv1": conv(sd, f"{b}.gru{g}.conv1"),
+                    "gru": birnn(sd, f"{b}.gru{g}.gru")} for g in (1, 2)})
 
 
 def port_crnn(sd: Dict) -> Dict:
@@ -448,6 +465,7 @@ def port_segmentor_det(sd: Dict, embed_dims: int = 32,
 
 PORTERS = {
     "tbsrn": port_tbsrn,
+    "tsrn": port_tsrn,
     "crnn": port_crnn,
     "ocr_transformer": port_ocr_transformer,
     "cascade_mit": port_cascade_mit,

@@ -163,12 +163,13 @@ def test_cross_attention_and_map_override_match_jax(jx):
 
 
 def test_train_route_is_the_dropout_op():
-    """Train-mode self-attention at a supported shape runs the packed
-    dropout op with one seed drawn from the generator; kernels=False runs
-    the plain version on the same route; maps or a mask take the plain
-    path, whose dropout also draws from the generator."""
+    """Train-mode self-attention of a `use_flash` module (TBSRN's
+    enhancer) at a supported shape runs the packed dropout op with one
+    seed drawn from the generator; kernels=False runs the plain version on
+    the same route; maps or a mask take the plain path, whose dropout also
+    draws from the generator."""
     torch.manual_seed(0)
-    m = MultiHeadAttention(4, 128)
+    m = MultiHeadAttention(4, 128, use_flash=True)
     x = torch.randn(2, 512, 128)
     g = torch.Generator().manual_seed(3)
     got, probs = m(x, x, x, deterministic=False, need_weights=False,

@@ -209,6 +209,40 @@ def test_attention_functions_have_no_cpu_fallback():
     assert _unmasked_counts() == n0
 
 
+def test_qkv_attention_and_gru_wrappers_on_cpu_are_the_plain_versions():
+    """`flash_mha_qkv_packed` (B3) and `fused_bigru` (B8) on CPU tensors
+    run their plain versions, forward and (B3) backward, and launch
+    nothing."""
+    from fudanocr_tpu_torch.ops import fused_gru as fg
+
+    gen = torch.Generator().manual_seed(3)
+    n0 = (fa.flash_mha_qkv_packed.launches, fg.fused_bigru.launches,
+          _unmasked_counts())
+    qkv = torch.randn(2, 512, 192, generator=gen).requires_grad_()
+    out = fa.flash_mha_qkv_packed(qkv, 2)
+    assert torch.equal(out, fa.flash_mha_qkv_packed_reference(qkv, 2))
+    out.sum().backward()
+    assert qkv.grad.shape == qkv.shape
+    args = [torch.randn(*s, generator=gen) for s in (
+        (256, 4, 24), (256, 4, 24), (8, 24), (24,), (8, 24), (24,))]
+    got = fg.fused_bigru(*args, 8)
+    assert torch.equal(got, fg.fused_bigru_reference(*args, 8))
+    assert got.shape == (256, 4, 16)
+    assert (fa.flash_mha_qkv_packed.launches, fg.fused_bigru.launches,
+            _unmasked_counts()) == n0
+
+
+def test_qkv_attention_and_gru_wrappers_refuse_devices_without_a_kernel():
+    from fudanocr_tpu_torch.ops import fused_gru as fg
+
+    with pytest.raises(ValueError):
+        fa.flash_mha_qkv_packed(torch.empty(1, 512, 384, device="meta"), 4)
+    x = torch.empty(256, 4, 96, device="meta")
+    w, b = torch.empty(32, 96, device="meta"), torch.empty(96, device="meta")
+    with pytest.raises(ValueError):
+        fg.fused_bigru(x, x, w, b, w, b, 32)
+
+
 def test_seg_trainer_runs_on_the_model_device():
     """SegTrainer takes its device from the model's parameters (the port's
     entry points put models on the card) and moves each batch there."""

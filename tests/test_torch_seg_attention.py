@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from fudanocr_tpu_torch.models.seg import cascade_mit as pcm
 from fudanocr_tpu_torch.ops import flash_attention as fa
 from fudanocr_tpu_torch.ops import region_attention as ra
 
@@ -117,7 +118,7 @@ def test_flash_gate_matches_jax(jx):
         if lq * lk > 2 ** 24:
             continue
         shape = (3, 2, lq, hd)
-        assert fa.flash_attention_supported(shape, lk) == \
+        assert pcm._flash_ok(shape, lk) == \
             jcm._flash_ok(shape, lk), (lq, lk, hd)
         n += 1
     assert n > 200

@@ -30,6 +30,7 @@ from fudanocr_tpu_torch.models.seg import (CascadeMiT,
                                            slide_inference)
 from fudanocr_tpu_torch.models.seg.encoder_decoder import crop_grid
 from fudanocr_tpu_torch.utils.weights import load_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 2e-4     # the module-parity bar (ROADMAP.md)
 MARGIN = 1e-3   # class maps must agree where the top-2 gap exceeds it

@@ -1,7 +1,10 @@
 """The segmentation training slice of the port (fudanocr_tpu_torch/train/
 seg.py, the SegAdam optimizer of train/state.py, the train modes of
 models/seg, data/seg_dataset.py) against the JAX package on the CPU, on the
-same seeded numpy inputs and weights, fp32:
+same seeded numpy inputs and weights, fp32. The step parity
+(`train_step_parity`) runs from tests/test_torch_seg_train_step.py (plain
+recipe, with the trainer) and tests/test_torch_seg_train_det_step.py (det
+recipe), so that the three files spread over the workers:
 
 * one `make_seg_train_step` of a narrow CascadeMiT segmentor (embed 8,
   layers (1, 1, 1, 1), heads (1, 2, 5, 8), sr (8, 4, 2, 1), head 32
@@ -127,8 +130,9 @@ def _leaves(tree):
             for p, a in jax.tree_util.tree_leaves_with_path(tree)}
 
 
-@pytest.mark.parametrize("det", [False, True])
-def test_train_step_matches_jax(det):
+def train_step_parity(det: bool) -> None:
+    """One train step of either recipe against JAX (see the module
+    docstring); the step files run it per recipe."""
     porter = "segmentor_det" if det else "segmentor"
     weights = {"ce": 1.0, "lovasz": 1.0} if det else {"ce": 1.0}
     m = _port_model(det)
@@ -332,34 +336,3 @@ def test_gt_guided_masks_feed_the_det_annotation_to_the_masks():
     assert torch.equal(seen[0], want) and seen[1] is None
 
 
-def test_seg_trainer_trains_and_evaluates_on_the_model_device():
-    model = _port_model(det=True)
-    trainer = pseg.SegTrainer(model, _Blobs(4, 11), _Blobs(3, 12),
-                              batch_size=2, total_iters=3, eval_every=10 ** 9,
-                              loss_weights={"ce": 1.0, "lovasz": 1.0},
-                              crop=(48, 48), stride=(32, 32), seed=3)
-    assert trainer.device == torch.device("cpu")
-    losses, lrs = [], []
-    step = trainer.train_step
-
-    def recording(batch, generator):
-        assert all(t.device == trainer.device for t in batch.values())
-        out = step(batch, generator)
-        losses.append(out["loss"].item())
-        lrs.append(trainer.optimizer.last_lr)
-        return out
-
-    trainer.train_step = recording
-    assert trainer.train() == 3
-    sched = pseg.poly_schedule(6e-5, 3)
-    assert lrs == [sched(i) for i in range(3)]
-    assert np.isfinite(losses).all()
-    res = trainer.evaluate(3)
-    assert set(res) == {"aAcc", "mIoU", "mDice", "mFscore"}
-    assert all(0.0 <= v <= 1.0 for v in res.values())
-    # the per-iteration generator depends on (seed, it) alone
-    g = lambda it: torch.rand(4, generator=pseg.iteration_generator(3, it,
-                                                                    "cpu"))
-    assert torch.equal(g(2), g(2)) and not torch.equal(g(1), g(2))
-    with pytest.raises(NotImplementedError, match="A11"):
-        pseg.SegTrainer(model, _Blobs(2, 1), _Blobs(2, 2), ckpt_dir="ckpt")

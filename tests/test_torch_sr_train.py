@@ -43,6 +43,7 @@ from fudanocr_tpu_torch.train.state import AdamWithClip, adam_with_clip
 from fudanocr_tpu_torch.utils import porters
 from fudanocr_tpu_torch.utils.weights import (load_jax_variables,
                                               to_jax_variables)
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 2e-4   # the module-parity bar (ROADMAP.md, tests/test_torch_port.py)
 ORACLE = dict(vocab=37, num_in=1, layers=(1, 1, 1, 1), num_heads=4,
