@@ -130,7 +130,29 @@ Phases:
      `kernels=False` (loss rel 1e-5, gradients rel 1e-3) and its B2 and
      B8 launches; (b) 32 steps over 4 repeated batches, the loss
      falling; (c) `evaluate()` through the fused-GRU inference path (10
-     B8 launches per forward); (d) step ms and img/s of both paths.
+     B8 launches per forward); (d) step ms and img/s of both paths;
+ 22. the whole-SRB kernel (B9: csrc/fused_srb.cu's two convolutions, then
+     the fused enhancer's two kernels with the block residual in their
+     epilogue) against its plain version at (64, 16, 64, 64) in fp32 and
+     bf16 and (256, 16, 64, 64) in bf16, on a TransformerResidualBlock with
+     weights from a seed and non-trivial BN statistics and LN scales, at
+     phase 1's bars; kernel, plain and module-path ms (cuDNN convs, BN,
+     mish, B1, add; timed only) beside the bound, and the device ms of
+     each of its four launches;
+ 23. phase 2's TBSRN with `fused_srb=True` through `PixelsToStrings` at
+     batch 256 bf16: exactly 5 B9 calls and 0 standalone B1 launches per
+     forward; SR and logits at phase 2's bars against the fused-enhancer
+     path and against `kernels=False`; img/s of the three paths;
+     `InferenceServer(buckets=(1, 8, 32))` as in phase 3; after one train
+     step on the model (its BN running statistics move), inference agrees
+     with `fused_srb=False` on the same weights;
+ 24. the split-operand attention kernels at (64, 1024, 128), 4 heads, fp32
+     and bf16: B10 (`flash_mha_packed`, B7's forward on separate q, k, v)
+     and B11 (`flash_mha_packed_dropout`, B4's kernels at per-operand row
+     strides, rate 0.1: the keep mask bit for bit, seed determinism, the
+     output, dq, dk and dv); kernel, plain and SDPA ms (timed only) beside
+     the bound. No path of the system reaches B10 or B11, as in JAX: their
+     launches are those of this phase's checks.
 
 Phases 8 and 11 end with a torch.profiler breakdown of one more canvas
 (device time by name, the device's busy time against the wall time).
@@ -140,13 +162,15 @@ card's name and power limit. Float32 comparisons run with TF32 off. A
 kernel's bound is the larger of its operations over the card's peak for
 their type (H100 SXM data sheet: fp32 67 TFLOP/s on CUDA cores, bf16
 989 TFLOP/s on tensor cores) and its bytes (each input read once, each
-output written once) over 3.35 TB/s. The line before the last is the
-kernel table as JSON; the last line is {"ok": true, "device": {...}}.
+output written once) over 3.35 TB/s. The last line is {"ok": true,
+"device": {...}}; the line before it is the card's name and power limit as
+nvidia-smi gives them, and the line before that the kernel table as JSON.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -161,7 +185,8 @@ from fudanocr_tpu_torch.losses.sr_losses import LOSS_VOCAB, TextFocusLoss
 from fudanocr_tpu_torch.losses.stroke_focus import StrokeFocusLoss
 from fudanocr_tpu_torch.models.rec.crnn import CRNN, parse_crnn_input
 from fudanocr_tpu_torch.models.rec.ocr_transformer import OCRTransformer
-from fudanocr_tpu_torch.models.sr.tbsrn import TBSRN
+from fudanocr_tpu_torch.models.sr.tbsrn import (TBSRN,
+                                                TransformerResidualBlock)
 from fudanocr_tpu_torch.models.sr.tsrn import TSRN
 from fudanocr_tpu_torch.nn.attention import positional_encoding_2d
 from fudanocr_tpu_torch.nn.recurrent import BiGRU
@@ -173,6 +198,7 @@ from fudanocr_tpu_torch.ops.fused_enhancer import (enhancer_operands,
                                                    fused_enhancer_reference)
 from fudanocr_tpu_torch.ops.fused_layernorm import (
     fused_residual_layernorm, fused_residual_layernorm_reference)
+from fudanocr_tpu_torch.ops.fused_srb import fused_srb, fused_srb_reference
 from fudanocr_tpu_torch.ops import region_attention as ra
 from fudanocr_tpu_torch.apps.seg.inference import (inference_segmentor,
                                                    init_segmentor)
@@ -1938,6 +1964,270 @@ def phase21(dev, gpu: str) -> int:
     return ln_live
 
 
+# phases 22-24: the whole-SRB kernel (B9) and the split-operand attention
+# kernels (B10, B11). B9 shapes: (B, H, W, dtype), the last the JSON row's
+B9_SHAPES = ((64, *LR_HW, torch.float32), (64, *LR_HW, torch.bfloat16),
+             (BATCH, *LR_HW, torch.bfloat16))
+B10_B, B10_L = TRAIN_B, 1024   # (64, 1024, 128), 4 heads: JAX's test shape x32
+
+
+def srb_bound(b: int, h: int, w: int, dt) -> dict:
+    """Two 3x3 convs (2*B*L*9*C^2 flops each) and the enhancer (JAX's
+    count, fused_srb.py:149-152); the map read and the output written
+    once."""
+    l, c, d = h * w, 64, 128
+    conv = 2 * (2 * b * l * 9 * c * c)
+    enh = 2 * b * l * (c * 3 * d + 4 * 2 * l * (d // 4) + 3 * d * d + d * c)
+    return bound(conv + enh, 2 * b * l * c * torch.finfo(dt).bits // 8, dt)
+
+
+def kernel_split(fn, iters: int) -> dict:
+    """Device ms per call of `fn` by kernel name, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA" and e.device_time_total > 0:
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
+            name = re.split(r"[<(]", name)[0][:40]
+            split[name] = round(split.get(name, 0.0)
+                                + e.device_time_total / 1e3 / iters, 4)
+    return split
+
+
+def phase22(dev, gpu: str) -> dict:
+    gen = torch.Generator().manual_seed(SEED + 22)
+    torch.manual_seed(SEED + 22)
+    blk = TransformerResidualBlock(64, fused_srb=True)
+    randomize_stats(blk, gen)
+    blk = blk.to(dev).eval()
+    result = {}
+    for b, h, w, dt in B9_SHAPES:
+        ops = blk.srb_operands(h, w, dt, dev)
+        x = (torch.randn(b, h, w, 64, generator=gen) * 0.5).to(dev, dt)
+        got = fused_srb(x, ops).float()
+        want = fused_srb_reference(x, ops).float()
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError("B9 kernel output is not finite")
+        err = (got - want).abs()
+        max_err, mean_err = err.max().item(), err.mean().item()
+        if dt == torch.float32:
+            torch.testing.assert_close(got, want, rtol=FP32_RTOL,
+                                       atol=FP32_ATOL)
+        elif max_err > BF16_ATOL or mean_err > BF16_MEAN:
+            raise AssertionError(f"bf16 B9 kernel disagrees: max {max_err} > "
+                                 f"{BF16_ATOL} or mean {mean_err} > "
+                                 f"{BF16_MEAN}")
+        del got, want
+        k_ms, p_ms = in_turns(lambda: fused_srb(x, ops),
+                              lambda: fused_srb_reference(x, ops), 5)
+        # the module path on the same block and map: cuDNN convs, BN, mish,
+        # the fused enhancer (B1), the residual add (timed only)
+        xm = x.permute(0, 3, 1, 2)
+        blk.fused_srb = False
+        with torch.inference_mode():
+            m_ms = cuda_ms(lambda: blk(xm), 5)
+        blk.fused_srb = True
+        split = kernel_split(lambda: fused_srb(x, ops), 5)
+        bd = srb_bound(b, h, w, dt)
+        print(f"phase 22: whole SRB (B9) ({b}, {h}, {w}, 64) {dt}: max abs "
+              f"err {max_err:.3e}, mean {mean_err:.3e}; kernel {k_ms:.4f} ms "
+              f"(4 launches, device ms by kernel {split}), plain {p_ms:.4f} "
+              f"ms, module path {m_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+              f"({bd['bound_by']}) [{gpu}]")
+        result[(b, dt)] = {"max_abs_err": max_err, "ms": k_ms,
+                           "plain_ms": p_ms, **bd, "library_ms": None}
+        del x
+    torch.cuda.empty_cache()
+    return result[(BATCH, torch.bfloat16)]
+
+
+def phase23(dev, gpu: str, pipe: PixelsToStrings,
+            lr: torch.Tensor) -> int:
+    """Phase 2's TBSRN with `fused_srb=True`: every SRB through B9."""
+    bf16 = torch.bfloat16
+    kw = dict(scale_factor=2, width=128, height=32, stn=True,
+              srb_nums=SRB_NUMS, hidden_units=32, dtype=bf16, fused_srb=True)
+    models = {"B9": TBSRN(**kw), "plain": TBSRN(**kw, kernels=False)}
+    for m in models.values():
+        m.load_state_dict(pipe.sr_apply.state_dict())
+    conv = pipe.converter
+    paths = {"B9": PixelsToStrings(models["B9"].to(dev).eval(),
+                                   pipe.rec_apply, conv, device=dev),
+             "fused enhancer": pipe,
+             "plain": PixelsToStrings(models["plain"].to(dev).eval(),
+                                      pipe.rec_apply, conv, device=dev)}
+    for p in paths.values():
+        p.ids_fn(lr)                 # warm-up
+    torch.cuda.synchronize()
+    fused_srb.launches = fused_enhancer.launches = 0
+    _, sr_out = paths["B9"](lr, return_sr=True)
+    torch.cuda.synchronize()
+    got = (fused_srb.launches, fused_enhancer.launches)
+    print(f"phase 23: one PixelsToStrings call through TBSRN with "
+          f"fused_srb=True ran (B9 calls, standalone B1 launches) {got} "
+          f"(expected ({SRB_NUMS}, 0))")
+    if got != (SRB_NUMS, 0):
+        raise AssertionError("phase 23: the TBSRN did not run the expected "
+                             "kernel launches")
+    with torch.inference_mode():
+        for what in ("fused enhancer", "plain"):
+            compare_paths("23", f"the {what} path", sr_out,
+                          paths[what].sr_apply(lr), pipe.rec_apply)
+    names = list(paths)
+    ms = dict(zip(names[:2], in_turns(lambda: paths[names[0]].ids_fn(lr),
+                                      lambda: paths[names[1]].ids_fn(lr), 5)))
+    ms[names[2]] = cuda_ms(lambda: paths[names[2]].ids_fn(lr), 3)
+    print("phase 23: pixels->strings at batch " + str(BATCH) + " bf16: "
+          + ", ".join(f"{k} path {BATCH / v * 1e3:.1f} img/s ({v:.3f} ms)"
+                      for k, v in ms.items()) + f" [{gpu}]")
+    phase3(paths["B9"], lr, gpu, phase="23")
+
+    # a train step moves the BN running statistics in place: the next
+    # inference must fold the new ones (the operand cache follows them)
+    model = models["B9"]
+    stats = model.block2.bn1.running_mean.clone()
+    step = make_sr_train_step(
+        model, lambda sr, hr, *_: (F.mse_loss(sr.float(), hr), {}),
+        adam_with_clip(model.parameters(), 1e-4))
+    gen = torch.Generator().manual_seed(SEED + 23)
+    hr = (torch.rand(TRAIN_B, 2 * LR_HW[0], 2 * LR_HW[1], 3, generator=gen)
+          * 2 - 1).to(dev)
+    loss = step({"lr": lr[:TRAIN_B], "hr": hr, "text_input": None,
+                 "text_gt": None, "lengths": None},
+                torch.Generator(dev).manual_seed(SEED + 23))["loss"].item()
+    moved = (model.block2.bn1.running_mean - stats).abs().max().item()
+    unfused = TBSRN(**{**kw, "fused_srb": False})
+    unfused.load_state_dict(model.state_dict())
+    unfused = unfused.to(dev).eval()
+    with torch.inference_mode():
+        sr_after = model(lr)
+        compare_paths("23", "fused_srb=False after a train step", sr_after,
+                      unfused(lr), pipe.rec_apply)
+    print(f"phase 23: one train step (loss {loss:.4f}) moved the BN running "
+          f"means by up to {moved:.3e}; inference after it agrees with "
+          f"fused_srb=False on the same weights [{gpu}]")
+    if not moved > 0 or not np.isfinite(loss):
+        raise AssertionError("phase 23: the train step did not move the BN "
+                             "statistics")
+    return got[0]
+
+
+def phase24(dev, gpu: str) -> tuple:
+    b, l, heads, dh = B10_B, B10_L, HEADS, 32
+    gen = torch.Generator().manual_seed(SEED + 24)
+    seed = torch.tensor(20261017, device=dev)
+    keep = fa.dropout_keep_mask_cuda(seed, b, heads, l, RATE, dev)
+    same = torch.equal(keep, fa.dropout_keep_oracle(b, heads, l, seed, RATE,
+                                                    device=dev))
+    print(f"phase 24: keep mask ({b}, {heads}, {l}, {l}) from the kernels' "
+          f"hash equals the plain hash bit for bit: {same} [{gpu}]")
+    if not same:
+        raise AssertionError("keep mask differs from the plain hash")
+    del keep
+    rows, counted = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn(b, l, heads * dh, generator=gen)
+                       .to(dev, dt) for _ in range(4))
+        fa.flash_mha_packed.launches = 0     # the checking run, counted
+        fa.packed_dropout_fwd.launches = fa.packed_dropout_bwd.launches = 0
+        ten = _attn_check("flash_mha_packed", fa.flash_mha_packed(q, k, v,
+                                                                   heads),
+                          fa.flash_mha_packed_reference(q, k, v, heads), dt)
+        xk = [t.clone().requires_grad_() for t in (q, k, v)]
+        xp = [t.clone().requires_grad_() for t in (q, k, v)]
+        out_k = fa.flash_mha_packed_dropout(*xk, seed, heads, RATE)
+        gk = torch.autograd.grad(out_k, xk, do)
+        out_p = fa.flash_mha_packed_dropout_reference(*xp, seed, heads, RATE)
+        gp = torch.autograd.grad(out_p, xp, do)
+        torch.cuda.synchronize()
+        counted[dt] = (fa.flash_mha_packed.launches,
+                       fa.packed_dropout_fwd.launches,
+                       fa.packed_dropout_bwd.launches)
+        if counted[dt] != (1, 1, 1):
+            raise AssertionError(f"phase 24: launches (B10, B11 forward, "
+                                 f"B11 backward) {counted[dt]}, want one "
+                                 f"each")
+        ferr = (out_k.float() - out_p.float()).abs().max().item()
+        grel = max(rel_err(a, c) for a, c in zip(gk, gp))
+        berr = max((a.float() - c.float()).abs().max().item()
+                   for a, c in zip(gk, gp))
+        again = fa.flash_mha_packed_dropout(q, k, v, seed, heads, RATE)
+        other = fa.flash_mha_packed_dropout(q, k, v, seed + 1, heads, RATE)
+        print(f"phase 24: ({b}, {l}, {heads * dh}) {dt}: B10 max abs err "
+              f"{ten:.3e}; B11 forward max abs err {ferr:.3e}, dq/dk/dv max "
+              f"rel {grel:.3e} (max abs {berr:.3e}); same seed "
+              f"bit-identical: {torch.equal(again, out_k)}, another seed "
+              f"differs: {not torch.equal(other, again)} [{gpu}]")
+        if not (torch.isfinite(out_k).all()
+                and all(torch.isfinite(g).all() for g in gk)):
+            raise AssertionError("B11 kernels' output not finite")
+        if ferr > ATTN_ATOL[dt] or grel > GRAD_REL[dt]:
+            raise AssertionError(f"B11 kernels disagree ({dt})")
+        if not torch.equal(again, out_k) or torch.equal(other, again):
+            raise AssertionError("the seed does not decide B11's output")
+        del out_k, out_p, gk, gp, again, other
+
+        p10_ms, p10p_ms = in_turns(
+            lambda: fa.flash_mha_packed(q, k, v, heads),
+            lambda: fa.flash_mha_packed_reference(q, k, v, heads), 5)
+        qh, kh, vh = (t.unflatten(-1, (heads, dh)).transpose(1, 2)
+                      for t in (q, k, v))
+        lib10 = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 5)
+        o, lse = fa.packed_dropout_fwd(q, k, v, seed, heads, RATE)
+        og = fa.flash_mha_packed_dropout_reference(*xp, seed, heads, RATE)
+        f_ms, fp_ms = in_turns(
+            lambda: fa.flash_mha_packed_dropout(q, k, v, seed, heads, RATE),
+            lambda: fa.flash_mha_packed_dropout_reference(q, k, v, seed,
+                                                          heads, RATE), 5)
+        b_ms, bp_ms = in_turns(
+            lambda: fa.packed_dropout_bwd(q, k, v, o, do, lse, seed, heads,
+                                          RATE),
+            lambda: torch.autograd.grad(og, xp, do, retain_graph=True), 5)
+        # the yardstick: SDPA with dropout 0.1 on the (B, H, L, dh) views (it
+        # draws another mask; timed only)
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        sh = [t.unflatten(-1, (heads, dh)).transpose(1, 2) for t in xs]
+        sdpa = lambda: F.scaled_dot_product_attention(*sh, dropout_p=RATE)
+        lib_f = cuda_ms(sdpa, 5)
+        so = sdpa().transpose(1, 2).reshape(b, l, heads * dh)
+        lib_b = cuda_ms(lambda: torch.autograd.grad(so, xs, do,
+                                                    retain_graph=True), 5)
+        es = torch.finfo(dt).bits // 8
+        n = b * l * heads * dh
+        fb = attn_bound(b, heads, l, l, dh, dt,
+                        extra_bytes=b * heads * l * 4)
+        # backward: 5 products; q, k, v, o, dO, lse read, dq, dk, dv written
+        bb = bound(10 * b * heads * l * l * dh, 8 * n * es + b * heads * l * 4,
+                   dt)
+        tb = attn_bound(b, heads, l, l, dh, dt)
+        print(f"phase 24: ({b}, {l}, {heads * dh}) {dt}: B10 kernel "
+              f"{p10_ms:.4f} ms, plain {p10p_ms:.4f} ms, SDPA {lib10:.4f} "
+              f"ms, bound {tb['bound_ms']:.4f} ms ({tb['bound_by']}); B11 "
+              f"forward kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms, SDPA "
+              f"{lib_f:.4f} ms, bound {fb['bound_ms']:.4f} ms; backward "
+              f"kernel {b_ms:.4f} ms, plain {bp_ms:.4f} ms, SDPA "
+              f"{lib_b:.4f} ms, bound {bb['bound_ms']:.4f} ms "
+              f"({bb['bound_by']}) [{gpu}]")
+        rows[dt] = (
+            {"max_abs_err": ten, "ms": p10_ms, "plain_ms": p10p_ms, **tb,
+             "library_ms": lib10},
+            {"max_abs_err": ferr, "ms": f_ms, "plain_ms": fp_ms, **fb,
+             "library_ms": lib_f},
+            {"max_abs_err": berr, "ms": b_ms, "plain_ms": bp_ms, **bb,
+             "library_ms": lib_b})
+        del q, k, v, do, xk, xp, o, lse, og, xs, sh, so
+        torch.cuda.empty_cache()
+    return rows[torch.float32], counted[torch.float32]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a "
@@ -1979,9 +2269,14 @@ def main() -> int:
     b3_n = phase18(dev, gpu, pipe, lr)
     b8 = phase19(dev, gpu)
     b8_n = phase20(dev, gpu, pipe.rec_apply, lr)
-    del pipe, lr
     torch.cuda.empty_cache()
     phase21(dev, gpu)
+    torch.cuda.empty_cache()
+    b9 = phase22(dev, gpu)
+    b9_n = phase23(dev, gpu, pipe, lr)
+    del pipe, lr
+    torch.cuda.empty_cache()
+    (b10, b11_fwd, b11_bwd), (b10_n, b11_fwd_n, b11_bwd_n) = phase24(dev, gpu)
     attn_src = "fudanocr_tpu_torch/csrc/flash_attention_dropout.cu"
     seg_src = "fudanocr_tpu_torch/csrc/unmasked_attention.cu"
     print(json.dumps({"kernels": [
@@ -2027,7 +2322,22 @@ def main() -> int:
         {"name": "fused_bigru", "route": "cuda",
          "source": "fudanocr_tpu_torch/csrc/fused_gru.cu",
          "replaces": "fudanocr_tpu/ops/fused_gru.py:80",
-         "launches": b8_n, **b8}]}))
+         "launches": b8_n, **b8},
+        {"name": "fused_srb", "route": "cuda",
+         "source": "fudanocr_tpu_torch/csrc/fused_srb.cu",
+         "replaces": "fudanocr_tpu/ops/fused_srb.py:124",
+         "launches": b9_n, **b9},
+        {"name": "flash_mha_packed", "route": "cuda", "source": seg_src,
+         "replaces": "fudanocr_tpu/ops/flash_attention.py:164",
+         "launches": b10_n, **b10},
+        {"name": "packed_dropout_attention_fwd", "route": "cuda",
+         "source": attn_src,
+         "replaces": "fudanocr_tpu/ops/flash_attention.py:373",
+         "launches": b11_fwd_n, **b11_fwd},
+        {"name": "packed_dropout_attention_bwd", "route": "cuda",
+         "source": attn_src,
+         "replaces": "fudanocr_tpu/ops/flash_attention.py:401",
+         "launches": b11_bwd_n, **b11_bwd}]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,39 @@
+// bf16 tensor-core helpers shared by the hand-written Hopper kernels
+// (csrc/fused_enhancer.cu, csrc/fused_srb.cu): mma.sync m16n8k16 with fp32
+// accumulators, and the fragment loads that feed it from shared memory.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+// d += a b on the tensor cores: bf16 A (16x16, row), B (16x8, col), fp32 D
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two adjacent bf16 values as one 32-bit register (an A or B fragment half)
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// B fragments of two adjacent n-tiles from a row-major (k, n) bf16 tile in
+// shared memory: lane L points at row k0 + (L & 15), columns n0 + (L >> 4)*8;
+// r[0], r[1] are b0, b1 of columns n0..n0+7 and r[2], r[3] of n0+8..n0+15.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const __nv_bfloat16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+}  // namespace

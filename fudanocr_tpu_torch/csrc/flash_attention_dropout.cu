@@ -1,12 +1,20 @@
-// Self-attention with hash dropout on the probabilities, straight off the
-// fused (B, L, 3D) [q | k | v] projection: forward and backward, hand-written
-// for Hopper (sm_90a), bound to Python through a plain C interface (ctypes).
+// Self-attention with hash dropout on the probabilities over packed
+// (B, L, H*dh) q, k and v: forward and backward, hand-written for Hopper
+// (sm_90a), bound to Python through a plain C interface (ctypes). Each of
+// q, k, v (and dq, dk, dv) has its own base pointer and row stride, so one
+// pair of kernels serves two layouts:
+//   * the fused (B, L, 3D) [q | k | v] projection (B4): q, k, v at columns
+//     0, D, 2D of one buffer with row stride 3D, the gradient into the
+//     column slices of one dqkv;
+//   * separate q, k, v buffers (B11).
 //
 // Replaces the Pallas TPU kernels of fudanocr_tpu/ops/flash_attention.py
 // `flash_mha_qkv_packed_dropout`: `_qkv_dropout_fwd` (:505, pallas_call
 // :511, body `_qkv_dropout_fwd_kernel`) and `_qkv_dropout_bwd` (:528,
-// pallas_call :534, body `_qkv_dropout_bwd_kernel`). The Python wrappers,
-// the autograd Function and the plain PyTorch version live in
+// pallas_call :534, body `_qkv_dropout_bwd_kernel`); and of
+// `flash_mha_packed_dropout`: `_packed_dropout_fwd` (:373, pallas_call
+// :378) and `_packed_dropout_bwd` (:401, pallas_call :407). The Python
+// wrappers, the autograd Functions and the plain PyTorch versions live in
 // fudanocr_tpu_torch/ops/flash_attention.py.
 //
 // Per image b and head h (dh = 32, scale = 1/sqrt(dh)):
@@ -138,9 +146,16 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ src,
     dst[i] = to_f(src[(int64_t)(r0 + i / DH) * stride + i % DH]);
 }
 
+// An operand's base pointer and row stride (elements); an image's rows
+// follow one another (batch stride L * row).
+struct Operand {
+  const void* p;
+  int64_t row;
+};
+
 template <typename T, int DH>
 __global__ void __launch_bounds__(kRows)
-attn_dropout_fwd_kernel(const T* __restrict__ qkv,
+attn_dropout_fwd_kernel(Operand q_op, Operand k_op, Operand v_op,
                         const int64_t* __restrict__ seed, T* __restrict__ out,
                         float* __restrict__ lse, int L, int H, float scale,
                         float inv_keep, uint32_t thresh) {
@@ -149,20 +164,21 @@ attn_dropout_fwd_kernel(const T* __restrict__ qkv,
   const int b = blockIdx.z, h = blockIdx.y;
   const int q = blockIdx.x * kRows + threadIdx.x;
   const int D = H * DH;
-  const int64_t stride = 3 * (int64_t)D;
-  const T* base = qkv + (int64_t)b * L * stride;
+  const T* qb = (const T*)q_op.p + (int64_t)b * L * q_op.row + h * DH;
+  const T* kb = (const T*)k_op.p + (int64_t)b * L * k_op.row + h * DH;
+  const T* vb = (const T*)v_op.p + (int64_t)b * L * v_op.row + h * DH;
   const uint32_t sbh = bh_seed((uint32_t)seed[0], b, h, H);
 
   float qr[DH], acc[DH];
-  load_row<T, DH>(base + q * stride + h * DH, qr);
+  load_row<T, DH>(qb + q * q_op.row, qr);
 #pragma unroll
   for (int i = 0; i < DH; ++i) acc[i] = 0.f;
   float m = -INFINITY, l = 0.f;
 
   for (int k0 = 0; k0 < L; k0 += kTile) {
     __syncthreads();
-    stage_tile<T, DH>(base + D + h * DH, stride, k0, ks);
-    stage_tile<T, DH>(base + 2 * D + h * DH, stride, k0, vs);
+    stage_tile<T, DH>(kb, k_op.row, k0, ks);
+    stage_tile<T, DH>(vb, v_op.row, k0, vs);
     __syncthreads();
 #pragma unroll 1
     for (int c0 = 0; c0 < kTile; c0 += kChunk) {
@@ -196,13 +212,19 @@ attn_dropout_fwd_kernel(const T* __restrict__ qkv,
   lse[((int64_t)b * H + h) * L + q] = m + logf(l);
 }
 
+// A gradient's base pointer and row stride, as Operand.
+struct Grad {
+  void* p;
+  int64_t row;
+};
+
 template <typename T, int DH>
 __global__ void __launch_bounds__(kRows)
-attn_dropout_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ out,
-                        const T* __restrict__ dout,
+attn_dropout_bwd_kernel(Operand q_op, Operand k_op, Operand v_op,
+                        const T* __restrict__ out, const T* __restrict__ dout,
                         const float* __restrict__ lse,
-                        const int64_t* __restrict__ seed,
-                        T* __restrict__ dqkv, int L, int H, float scale,
+                        const int64_t* __restrict__ seed, Grad dq_g,
+                        Grad dk_g, Grad dv_g, int L, int H, float scale,
                         float inv_keep, uint32_t thresh) {
   __shared__ __align__(16) float sa[kTile * DH];
   __shared__ __align__(16) float sb[kTile * DH];
@@ -210,11 +232,11 @@ attn_dropout_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ out,
   const int b = blockIdx.z, h = blockIdx.y;
   const int nq = L / kRows;
   const int D = H * DH;
-  const int64_t stride = 3 * (int64_t)D;
-  const T* base = qkv + (int64_t)b * L * stride;
+  const T* qb = (const T*)q_op.p + (int64_t)b * L * q_op.row + h * DH;
+  const T* kb = (const T*)k_op.p + (int64_t)b * L * k_op.row + h * DH;
+  const T* vb = (const T*)v_op.p + (int64_t)b * L * v_op.row + h * DH;
   const T* obase = out + (int64_t)b * L * D + h * DH;
   const T* dobase = dout + (int64_t)b * L * D + h * DH;
-  T* dbase = dqkv + (int64_t)b * L * stride;
   const float* lse_bh = lse + ((int64_t)b * H + h) * L;
   const uint32_t sbh = bh_seed((uint32_t)seed[0], b, h, H);
 
@@ -222,7 +244,7 @@ attn_dropout_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ out,
     // dQ role: this thread's q row against every key
     const int q = blockIdx.x * kRows + threadIdx.x;
     float qr[DH], dor[DH], dq[DH];
-    load_row<T, DH>(base + q * stride + h * DH, qr);
+    load_row<T, DH>(qb + q * q_op.row, qr);
     load_row<T, DH>(dobase + (int64_t)q * D, dor);
     load_row<T, DH>(obase + (int64_t)q * D, dq);   // o, to form D_q
     float di = 0.f;
@@ -234,8 +256,8 @@ attn_dropout_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ out,
     const float lq = lse_bh[q];
     for (int k0 = 0; k0 < L; k0 += kTile) {
       __syncthreads();
-      stage_tile<T, DH>(base + D + h * DH, stride, k0, sa);
-      stage_tile<T, DH>(base + 2 * D + h * DH, stride, k0, sb);
+      stage_tile<T, DH>(kb, k_op.row, k0, sa);
+      stage_tile<T, DH>(vb, v_op.row, k0, sb);
       __syncthreads();
       const uint32_t ctr = (uint32_t)q * (uint32_t)L + (uint32_t)k0;
 #pragma unroll 2
@@ -248,20 +270,20 @@ attn_dropout_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ out,
         axpy_sm<DH>(dq, p * (dp - di), sa + j * DH);
       }
     }
-    T* dst = dbase + q * stride + h * DH;
+    T* dst = (T*)dq_g.p + ((int64_t)b * L + q) * dq_g.row + h * DH;
 #pragma unroll
     for (int i = 0; i < DH; ++i) store_f(dst + i, dq[i] * scale);
   } else {
     // dK/dV role: this thread's key against every q row
     const int k = (blockIdx.x - nq) * kRows + threadIdx.x;
     float kr[DH], vr[DH], dk[DH], dv[DH];
-    load_row<T, DH>(base + k * stride + D + h * DH, kr);
-    load_row<T, DH>(base + k * stride + 2 * D + h * DH, vr);
+    load_row<T, DH>(kb + k * k_op.row, kr);
+    load_row<T, DH>(vb + k * v_op.row, vr);
 #pragma unroll
     for (int i = 0; i < DH; ++i) dk[i] = dv[i] = 0.f;
     for (int q0 = 0; q0 < L; q0 += kTile) {
       __syncthreads();
-      stage_tile<T, DH>(base + h * DH, stride, q0, sa);
+      stage_tile<T, DH>(qb, q_op.row, q0, sa);
       stage_tile<T, DH>(dobase, D, q0, sb);
       if (threadIdx.x < kTile) {
         const int64_t r = (int64_t)(q0 + threadIdx.x) * D;
@@ -286,11 +308,12 @@ attn_dropout_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ out,
         axpy_sm<DH>(dk, p * (dp - s_di[i]), sa + i * DH);
       }
     }
-    T* dst = dbase + k * stride + D + h * DH;
+    T* dkd = (T*)dk_g.p + ((int64_t)b * L + k) * dk_g.row + h * DH;
+    T* dvd = (T*)dv_g.p + ((int64_t)b * L + k) * dv_g.row + h * DH;
 #pragma unroll
     for (int i = 0; i < DH; ++i) {
-      store_f(dst + i, dk[i] * scale);
-      store_f(dst + D + i, dv[i]);
+      store_f(dkd + i, dk[i] * scale);
+      store_f(dvd + i, dv[i]);
     }
   }
 }
@@ -319,45 +342,57 @@ bool shape_ok(int B, int L, int H, int dh) {
 }  // namespace
 
 // Each entry returns cudaGetLastError() after its launch (0 = success).
-// qkv (B, L, 3*H*dh), out (B, L, H*dh), lse (B, H, L) fp32; seed points at
-// one int64 on the device holding the uint32 seed; bf16 selects the element
-// type of qkv/out/dout/dqkv (fp32 otherwise).
-extern "C" int attn_dropout_fwd(const void* qkv, const void* seed, void* out,
-                                void* lse, int B, int L, int H, int dh,
-                                float scale, float inv_keep,
-                                unsigned int thresh, int bf16, void* stream) {
+// q, k, v (B, L, H*dh) with row strides q_row, k_row, v_row (feature stride
+// 1, an image's rows one after another): the fused layout (B4) passes the
+// column slices of one (B, L, 3*H*dh) qkv, row stride 3*H*dh, the split
+// layout (B11) three buffers. out (B, L, H*dh) and dout contiguous, lse
+// (B, H, L) fp32; seed points at one int64 on the device holding the uint32
+// seed; bf16 selects the element type of q/k/v/out/dout and the gradients
+// (fp32 otherwise); dh must be 32 and L a multiple of 128.
+extern "C" int attn_dropout_fwd(const void* q, const void* k, const void* v,
+                                const void* seed, void* out, void* lse, int B,
+                                int L, int H, int dh, int64_t q_row,
+                                int64_t k_row, int64_t v_row, float scale,
+                                float inv_keep, unsigned int thresh, int bf16,
+                                void* stream) {
   if (!shape_ok(B, L, H, dh)) return (int)cudaErrorInvalidValue;
   const dim3 grid(L / kRows, H, B);
+  const Operand qo{q, q_row}, ko{k, k_row}, vo{v, v_row};
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
     attn_dropout_fwd_kernel<__nv_bfloat16, 32><<<grid, kRows, 0, s>>>(
-        (const __nv_bfloat16*)qkv, (const int64_t*)seed,
-        (__nv_bfloat16*)out, (float*)lse, L, H, scale, inv_keep, thresh);
+        qo, ko, vo, (const int64_t*)seed, (__nv_bfloat16*)out, (float*)lse, L,
+        H, scale, inv_keep, thresh);
   else
     attn_dropout_fwd_kernel<float, 32><<<grid, kRows, 0, s>>>(
-        (const float*)qkv, (const int64_t*)seed, (float*)out, (float*)lse, L,
-        H, scale, inv_keep, thresh);
+        qo, ko, vo, (const int64_t*)seed, (float*)out, (float*)lse, L, H,
+        scale, inv_keep, thresh);
   return (int)cudaGetLastError();
 }
 
-extern "C" int attn_dropout_bwd(const void* qkv, const void* out,
-                                const void* dout, const void* lse,
-                                const void* seed, void* dqkv, int B, int L,
-                                int H, int dh, float scale, float inv_keep,
-                                unsigned int thresh, int bf16, void* stream) {
+// The gradients dq, dk, dv (B, L, H*dh) with their own row strides (the
+// column slices of one dqkv for B4).
+extern "C" int attn_dropout_bwd(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const void* lse, const void* seed, void* dq, void* dk,
+    void* dv, int B, int L, int H, int dh, int64_t q_row, int64_t k_row,
+    int64_t v_row, int64_t dq_row, int64_t dk_row, int64_t dv_row,
+    float scale, float inv_keep, unsigned int thresh, int bf16,
+    void* stream) {
   if (!shape_ok(B, L, H, dh)) return (int)cudaErrorInvalidValue;
   const dim3 grid(2 * (L / kRows), H, B);
+  const Operand qo{q, q_row}, ko{k, k_row}, vo{v, v_row};
+  const Grad dqg{dq, dq_row}, dkg{dk, dk_row}, dvg{dv, dv_row};
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
     attn_dropout_bwd_kernel<__nv_bfloat16, 32><<<grid, kRows, 0, s>>>(
-        (const __nv_bfloat16*)qkv, (const __nv_bfloat16*)out,
-        (const __nv_bfloat16*)dout, (const float*)lse, (const int64_t*)seed,
-        (__nv_bfloat16*)dqkv, L, H, scale, inv_keep, thresh);
+        qo, ko, vo, (const __nv_bfloat16*)out, (const __nv_bfloat16*)dout,
+        (const float*)lse, (const int64_t*)seed, dqg, dkg, dvg, L, H, scale,
+        inv_keep, thresh);
   else
     attn_dropout_bwd_kernel<float, 32><<<grid, kRows, 0, s>>>(
-        (const float*)qkv, (const float*)out, (const float*)dout,
-        (const float*)lse, (const int64_t*)seed, (float*)dqkv, L, H, scale,
-        inv_keep, thresh);
+        qo, ko, vo, (const float*)out, (const float*)dout, (const float*)lse,
+        (const int64_t*)seed, dqg, dkg, dvg, L, H, scale, inv_keep, thresh);
   return (int)cudaGetLastError();
 }
 

@@ -55,6 +55,8 @@
 
 #include <type_traits>
 
+#include "bf16_mma.cuh"
+
 namespace {
 
 constexpr int kD = 128;        // model width: 64 token + 64 PE channels
@@ -82,35 +84,9 @@ template <typename T> __device__ __forceinline__ float rnd(float x) {
   return to_f(from_f<T>(x));
 }
 
-// d += a b on the tensor cores: bf16 A (16x16, row), B (16x8, col), fp32 D
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// B fragments of two adjacent n-tiles from a row-major (k, n) bf16 tile in
-// shared memory: lane L points at row k0 + (L & 15), columns n0 + (L >> 4)*8;
-// r[0], r[1] are b0, b1 of columns n0..n0+7 and r[2], r[3] of n0+8..n0+15.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
 }
 
 // sum / max over the 16 lanes of a half warp (one row group)
@@ -665,8 +641,8 @@ attn_epilogue_kernel(const T* __restrict__ qkv, const T* __restrict__ tokens,
                      const float* __restrict__ b2,
                      const float* __restrict__ ln2s,
                      const float* __restrict__ ln2b, const T* __restrict__ wp,
-                     const float* __restrict__ bp, T* __restrict__ out, int L,
-                     float eps) {
+                     const float* __restrict__ bp, const T* __restrict__ res,
+                     T* __restrict__ out, int L, float eps) {
   extern __shared__ float smem[];
   float* bufA = smem;                 // (64, 128) working tile
   float* scratch = smem + kT * kSA;   // attention tiles, later bufB + wst
@@ -702,9 +678,13 @@ attn_epilogue_kernel(const T* __restrict__ qkv, const T* __restrict__ tokens,
   // x2 = LN2(x1 + y) into bufA
   layer_norm_rows<T>(nullptr, nullptr, bufB, bufA, ln2s, ln2b, eps, bufA,
                      nullptr, q0, L, 0);
-  // out = x2 @ Wp + bp
+  // out = x2 @ Wp + bp, or with a residual res + (x2 @ Wp + bp) in fp32,
+  // rounded once (the whole-SRB kernel's epilogue, fused_srb.py:119)
   tile_matmul<T, kC>(bufA, wp, wst, [&](int r, int c, float v) {
-    if (q0 + r < L) out[(img + q0 + r) * kC + c] = from_f<T>(v + bp[c]);
+    if (q0 + r >= L) return;
+    const size_t i = (img + q0 + r) * kC + c;
+    out[i] = from_f<T>(res != nullptr ? to_f(res[i]) + (v + bp[c])
+                                      : v + bp[c]);
   });
 }
 
@@ -739,7 +719,7 @@ int launch_attn(const void* const* p, void* out, int B, int L, float eps,
       (const float*)p[4], (const float*)p[5], (const float*)p[6],
       (const T*)p[7], (const float*)p[8], (const T*)p[9], (const float*)p[10],
       (const float*)p[11], (const float*)p[12], (const T*)p[13],
-      (const float*)p[14], (T*)out, L, eps);
+      (const float*)p[14], (const T*)p[15], (T*)out, L, eps);
   return (int)cudaGetLastError();
 }
 
@@ -760,15 +740,18 @@ extern "C" int fe_qkv_proj(const void* tokens, const void* wtop,
               : launch_qkv<float>(tokens, wtop, peqkv, qkv, rows, L, s);
 }
 
-// returns cudaErrorInvalidValue for a head width other than 32 or 64
+// `res` is null for the enhancer alone (B1); the whole-SRB kernel (B9,
+// csrc/fused_srb.cu) passes its block input, (B, L, 64) at T, and gets
+// T(res + x2 @ Wp + bp). Returns cudaErrorInvalidValue for a head width
+// other than 32 or 64.
 extern "C" int fe_attn_epilogue(
     const void* qkv, const void* tokens, const void* pe, const void* wout,
     const void* bout, const void* ln1s, const void* ln1b, const void* w1,
     const void* b1, const void* w2, const void* b2, const void* ln2s,
-    const void* ln2b, const void* wp, const void* bp, void* out, int B, int L,
-    int dh, float eps, int bf16, void* stream) {
-  const void* p[15] = {qkv, tokens, pe,  wout, bout, ln1s, ln1b, w1,
-                       b1,  w2,     b2,  ln2s, ln2b, wp,   bp};
+    const void* ln2b, const void* wp, const void* bp, const void* res,
+    void* out, int B, int L, int dh, float eps, int bf16, void* stream) {
+  const void* p[16] = {qkv, tokens, pe,  wout, bout, ln1s, ln1b, w1,
+                       b1,  w2,     b2,  ln2s, ln2b, wp,   bp,   res};
   cudaStream_t s = (cudaStream_t)stream;
   if (dh == 32)
     return bf16 ? launch_attn<__nv_bfloat16, 32>(p, out, B, L, eps, s)

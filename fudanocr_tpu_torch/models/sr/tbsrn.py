@@ -17,12 +17,16 @@ the STN is not run, as in the JAX package, and each enhancer is one call
 of the fused-enhancer kernel when `fused_enhancer` is on (JAX's flag,
 tbsrn.py:176) and the token count passes JAX's `fused_enhancer_supported`;
 otherwise it runs unfused, its attention through the `use_flash` route of
-nn/attention.py (the packed-qkv kernel at 512 <= L <= 2048).
+nn/attention.py (the packed-qkv kernel at 512 <= L <= 2048). With
+`fused_srb` on (JAX's flag, tbsrn.py:180, off by default) each whole
+residual block is one call of the whole-SRB kernels (ops/fused_srb.py,
+BN folded into the convs) where the map passes JAX's `fused_srb_supported`;
+the enhancer flag then does not matter for the blocks.
 
 `kernels=False` runs the plain PyTorch version of every kernel of the
-model instead (fused enhancer, residual LayerNorm, the attention kernels),
-on any device and on the same routes: the path the kernels are compared
-with.
+model instead (whole SRB, fused enhancer, residual LayerNorm, the attention
+kernels), on any device and on the same routes: the path the kernels are
+compared with.
 
 Input and output are NHWC, as in the JAX package; the convolutions run on
 an NCHW view of it (channels_last memory, which cuDNN takes directly and
@@ -49,6 +53,9 @@ from fudanocr_tpu_torch.ops.fused_enhancer import (enhancer_operands,
                                                    fused_enhancer,
                                                    fused_enhancer_reference,
                                                    fused_enhancer_supported)
+from fudanocr_tpu_torch.ops.fused_srb import (fused_srb, fused_srb_reference,
+                                              fused_srb_supported,
+                                              srb_operands)
 
 
 class FeatureEnhancer(nn.Module):
@@ -154,26 +161,75 @@ class FeatureEnhancer(nn.Module):
 class TransformerResidualBlock(nn.Module):
     """conv-BN-mish-conv-BN then FeatureEnhancer, residual (the reference's
     RecurrentResidualBlock, tbsrn.py:229-257, without the two GRU blocks it
-    builds and never calls)."""
+    builds and never calls).
+
+    At inference with `fused_srb` on and a map that `fused_srb_supported`
+    takes (JAX tbsrn.py:128-131), the whole block runs through
+    `ops.fused_srb.fused_srb` (the CUDA kernels on CUDA tensors, the plain
+    version on CPU tensors; `kernels=False`: the plain version on any
+    device), on the NHWC view of the channels_last map. Training ignores
+    the flag."""
 
     def __init__(self, channels: int, kernels: bool = True,
-                 fused_enhancer: bool = True):
+                 fused_enhancer: bool = True, fused_srb: bool = False):
         super().__init__()
+        self.kernels, self.fused_srb = kernels, fused_srb
         self.conv1 = nn.Conv2d(channels, channels, 3, padding=1)
         self.bn1 = nn.BatchNorm2d(channels)
         self.conv2 = nn.Conv2d(channels, channels, 3, padding=1)
         self.bn2 = nn.BatchNorm2d(channels)
         self.feature_enhancer = FeatureEnhancer(kernels=kernels,
                                                 fused=fused_enhancer)
+        self._conv_ops: Dict[tuple, Dict[str, torch.Tensor]] = {}
+
+    def srb_operands(self, h: int, w: int, dtype: torch.dtype,
+                     device: torch.device) -> Dict[str, torch.Tensor]:
+        """`fused_srb` operands for an (h, w) map: the enhancer's (cached by
+        `FeatureEnhancer.operands`) and the BN-folded conv weights, cached
+        per dtype and device until a conv or BN parameter or a BN running
+        statistic changes (training moves the statistics in place, which
+        bumps their version counters). Tensors made under inference_mode
+        have no version counter: the fold is then redone every call."""
+        convs = (self.conv1, self.bn1, self.conv2, self.bn2)
+        state = [t for m in convs for t in (*m.parameters(), *m.buffers())]
+
+        def fold():
+            return srb_operands(
+                (self.conv1.weight, self.conv1.bias), _bn(self.bn1),
+                (self.conv2.weight, self.conv2.bias), _bn(self.bn2), {},
+                dtype, self.bn1.eps)
+
+        enh = self.feature_enhancer.operands(h, w, dtype, device)
+        if any(t.is_inference() for t in state):
+            return {**enh, **fold()}
+        key = (dtype, device, tuple((t.data_ptr(), t._version)
+                                    for t in state))
+        if key not in self._conv_ops:
+            self._conv_ops = {k: v for k, v in self._conv_ops.items()
+                              if k[2] == key[2]}
+            with torch.no_grad():
+                self._conv_ops[key] = fold()
+        return {**enh, **self._conv_ops[key]}
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        b, c, h, w = x.shape
+        if not train and self.fused_srb and fused_srb_supported(h, w, c, 4):
+            ops = self.srb_operands(h, w, x.dtype, x.device)
+            run = fused_srb if self.kernels else fused_srb_reference
+            return run(x.permute(0, 2, 3, 1).contiguous(), ops,
+                       heads=4).permute(0, 3, 1, 2)
         r = mish(batch_norm(self.bn1, conv2d(self.conv1, x), train))
         r = batch_norm(self.bn2, conv2d(self.conv2, r), train)
         b, c, h, w = r.shape
         tokens = r.permute(0, 2, 3, 1).reshape(b, h * w, c)
         tokens = self.feature_enhancer(tokens, h, w, train, generator)
         return x + tokens.view(b, h, w, c).permute(0, 3, 1, 2)
+
+
+def _bn(m: nn.BatchNorm2d) -> Dict[str, torch.Tensor]:
+    return {"scale": m.weight, "bias": m.bias, "mean": m.running_mean,
+            "var": m.running_var}
 
 
 class TBSRN(SRGenerator):
@@ -184,12 +240,14 @@ class TBSRN(SRGenerator):
                  height: int = 32, stn: bool = True, srb_nums: int = 5,
                  mask: bool = False, hidden_units: int = 32,
                  kernels: bool = True, fused_enhancer: bool = True,
+                 fused_srb: bool = False,
                  dtype: torch.dtype = torch.float32):
         if hidden_units != 32:
             raise ValueError("the FeatureEnhancer takes 64 trunk channels "
                              "(hidden_units=32), as the reference hardcodes")
         super().__init__(
             lambda feats: TransformerResidualBlock(
-                feats, kernels=kernels, fused_enhancer=fused_enhancer),
+                feats, kernels=kernels, fused_enhancer=fused_enhancer,
+                fused_srb=fused_srb),
             scale_factor, width, height, stn, srb_nums, mask, hidden_units,
             dtype)

@@ -102,10 +102,13 @@ def load_library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     i64, u32 = ctypes.c_longlong, ctypes.c_uint
     lib.fe_qkv_proj.argtypes = [p, p, p, p, i, i, i, p]
-    lib.fe_attn_epilogue.argtypes = [p] * 16 + [i, i, i, f, i, p]
+    lib.fe_attn_epilogue.argtypes = [p] * 17 + [i, i, i, f, i, p]
+    lib.srb_conv3x3.argtypes = [p] * 4 + [i] * 5 + [p]
     lib.ln_residual_fwd.argtypes = [p] * 5 + [i64, i, f, i, p]
-    lib.attn_dropout_fwd.argtypes = [p] * 4 + [i] * 4 + [f, f, u32, i, p]
-    lib.attn_dropout_bwd.argtypes = [p] * 6 + [i] * 4 + [f, f, u32, i, p]
+    lib.attn_dropout_fwd.argtypes = [p] * 6 + [i] * 4 + [i64] * 3 \
+        + [f, f, u32, i, p]
+    lib.attn_dropout_bwd.argtypes = [p] * 10 + [i] * 4 + [i64] * 6 \
+        + [f, f, u32, i, p]
     lib.attn_dropout_keep.argtypes = [p, p, i, i, i, u32, p]
     lib.attn_unmasked_packed_fwd.argtypes = [p] * 4 + [i] * 5 + [i64] * 4 \
         + [f, i, p]
@@ -118,9 +121,10 @@ def load_library() -> ctypes.CDLL:
     lib.attn_packed_bwd.argtypes = [p] * 15 + [i] * 5 + [i64] * 3 \
         + [i, f, i, p]
     lib.gru_bidir_fwd.argtypes = [p] * 7 + [i] * 3 + [p]
-    for fn in (lib.fe_qkv_proj, lib.fe_attn_epilogue, lib.ln_residual_fwd,
-               lib.attn_dropout_fwd, lib.attn_dropout_bwd,
-               lib.attn_dropout_keep, lib.attn_unmasked_packed_fwd,
+    for fn in (lib.fe_qkv_proj, lib.fe_attn_epilogue, lib.srb_conv3x3,
+               lib.ln_residual_fwd, lib.attn_dropout_fwd,
+               lib.attn_dropout_bwd, lib.attn_dropout_keep,
+               lib.attn_unmasked_packed_fwd,
                lib.attn_unmasked_bhld_fwd, lib.attn_region_packed_fwd,
                lib.attn_packed_fwd_stats, lib.attn_packed_bwd,
                lib.gru_bidir_fwd):

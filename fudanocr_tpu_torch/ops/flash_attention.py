@@ -1,11 +1,13 @@
 """Attention kernels' wrappers and plain twins: self-attention with hash
-dropout off the fused [q|k|v] buffer (Hopper kernels, forward and
-backward), and unmasked (B, H, L, dh) attention `flash_mha` (Hopper kernel
-forward, plain backward; at the end of this module).
+dropout off the fused [q|k|v] buffer (B4) and off separate q, k, v buffers
+(B11; Hopper kernels, forward and backward), unmasked (B, H, L, dh)
+attention `flash_mha` (Hopper kernel forward, plain backward), and the
+unmasked packed routes B3 and B10 (at the end of this module).
 
-Port of the packed-qkv dropout part of fudanocr_tpu/ops/flash_attention.py
-(`flash_mha_qkv_packed_dropout` and its hash helpers). For (B, L, 3D) qkv
-with H heads of width dh = D / H, per image and head:
+Port of the dropout part of fudanocr_tpu/ops/flash_attention.py
+(`flash_mha_qkv_packed_dropout`, `flash_mha_packed_dropout` and their hash
+helpers). For (B, L, 3D) qkv, or q, k, v of (B, L, D) each, with H heads
+of width dh = D / H, per image and head:
 
     s    = q k^T / sqrt(dh)                        (float32)
     p    = exp(s - rowmax(s)),  denom = rowsum(p)
@@ -124,110 +126,155 @@ def dropout_keep_oracle(b: int, heads: int, l: int, seed: Seed,
 def flash_mha_qkv_packed_dropout_reference(qkv: torch.Tensor, seed: Seed,
                                            heads: int,
                                            rate: float) -> torch.Tensor:
-    """The plain PyTorch version, (B, L, 3D) -> (B, L, D) at qkv's dtype.
+    """The plain PyTorch version, (B, L, 3D) -> (B, L, D) at qkv's dtype:
+    `flash_mha_packed_dropout_reference` on qkv's column slices."""
+    d = qkv.shape[-1] // 3
+    return flash_mha_packed_dropout_reference(
+        qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], seed, heads, rate)
 
-    Same math and rounding points as the JAX kernel: fp32 scores and
-    softmax, probabilities rounded to qkv's dtype for the value product
-    with fp32 accumulation. One head at a time bounds the (B, L, L)
-    temporaries; gradients come from autograd (the row max is detached,
-    which is exact: the output does not depend on the shift)."""
-    b, l, d3 = qkv.shape
-    d = d3 // 3
+
+def flash_mha_packed_dropout_reference(q: torch.Tensor, k: torch.Tensor,
+                                       v: torch.Tensor, seed: Seed,
+                                       heads: int,
+                                       rate: float) -> torch.Tensor:
+    """The plain PyTorch version of B11, q, k, v (B, L, D) -> (B, L, D) at
+    q's dtype.
+
+    Same math and rounding points as the JAX kernels: fp32 scores and
+    softmax, probabilities rounded to the input dtype for the value
+    product with fp32 accumulation. One head at a time bounds the
+    (B, L, L) temporaries; gradients come from autograd (the row max is
+    detached, which is exact: the output does not depend on the shift)."""
+    b, l, d = q.shape
     dh = d // heads
-    dt = qkv.dtype
+    dt = q.dtype
     scale = 1.0 / math.sqrt(dh)
     inv_keep = 1.0 / (1.0 - rate)
-    seed = _seed_tensor(seed, qkv.device)
-    bidx = torch.arange(b, dtype=torch.int64, device=qkv.device)
+    seed = _seed_tensor(seed, q.device)
+    bidx = torch.arange(b, dtype=torch.int64, device=q.device)
     outs = []
     for h in range(heads):
-        q, k, v = (qkv[..., i * d + h * dh:i * d + (h + 1) * dh].float()
-                   for i in range(3))
-        s = (q @ k.transpose(1, 2)) * scale
+        qh, kh, vh = (t[..., h * dh:(h + 1) * dh].float() for t in (q, k, v))
+        s = (qh @ kh.transpose(1, 2)) * scale
         p = torch.exp(s - s.amax(-1, keepdim=True).detach())
         denom = p.sum(-1, keepdim=True)
         keep = keep_mask(bh_seed(seed, bidx, h, heads), 0, l, l,
                          thresh(rate))
         p = torch.where(keep, p, torch.zeros((), device=p.device))
-        o = (p.to(dt).float() @ v) * (inv_keep / denom)
+        o = (p.to(dt).float() @ vh) * (inv_keep / denom)
         outs.append(o.to(dt))
     return torch.cat(outs, dim=-1)
 
 
-def _check_qkv(qkv: torch.Tensor, heads: int, rate: float) -> Tuple[int, ...]:
-    if qkv.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"qkv dropout attention takes float32 or bfloat16 "
-                        f"qkv, got {qkv.dtype}")
-    if qkv.dim() != 3 or not qkv.is_contiguous() or qkv.data_ptr() % 16:
-        raise ValueError(f"qkv dropout attention needs a contiguous, 16-byte "
-                         f"aligned (B, L, 3D) qkv, got {tuple(qkv.shape)} "
-                         f"strides {qkv.stride()}")
-    b, l, d3 = qkv.shape
-    d = d3 // 3
-    if d3 % 3 or heads < 1 or d % heads or d // heads != KERNEL_HEAD_WIDTH:
-        raise ValueError(f"the qkv dropout attention kernel needs head width "
-                         f"{KERNEL_HEAD_WIDTH}, got 3D={d3} over {heads} "
-                         f"heads")
-    if l < KERNEL_ROW_TILE or l % KERNEL_ROW_TILE or b < 1:
-        raise ValueError(f"the qkv dropout attention kernel needs L a "
-                         f"multiple of {KERNEL_ROW_TILE}, got "
+def _columns(qkv: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The q, k, v column slices of a (B, L, 3D) buffer (views)."""
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv dropout attention takes a (B, L, 3D) qkv, got "
                          f"{tuple(qkv.shape)}")
+    d = qkv.shape[-1] // 3
+    return qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+
+
+def _check_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   heads: int, rate: float) -> Tuple[int, ...]:
+    """Raise on q, k, v the dropout kernels do not take; (B, L, D)."""
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in (torch.float32,
+                                                            torch.bfloat16):
+        raise TypeError(f"dropout attention takes float32 or bfloat16 q, k, "
+                        f"v of one dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape \
+            or not q.device == k.device == v.device:
+        raise ValueError(f"dropout attention takes q, k, v of one (B, L, D) "
+                         f"shape on one device, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, l, d = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(2) != 1 or (b > 1 and t.stride(0) != l * t.stride(1)):
+            raise ValueError(f"dropout attention: {name} needs unit feature "
+                             f"stride and its images one after another, got "
+                             f"strides {t.stride()}")
+    if heads < 1 or d % heads or d // heads != KERNEL_HEAD_WIDTH:
+        raise ValueError(f"the dropout attention kernels need head width "
+                         f"{KERNEL_HEAD_WIDTH}, got D={d} over {heads} heads")
+    if l < KERNEL_ROW_TILE or l % KERNEL_ROW_TILE or not 1 <= b <= 65535:
+        raise ValueError(f"the dropout attention kernels need L a multiple "
+                         f"of {KERNEL_ROW_TILE}, got {tuple(q.shape)}")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
     return b, l, d
 
 
-def qkv_dropout_fwd(qkv: torch.Tensor, seed: torch.Tensor, heads: int,
-                    rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel: (o (B, L, D), lse (B, H, L) fp32).
-    `qkv_dropout_fwd.launches` counts launches."""
+def _dropout_fwd(q, k, v, seed, heads: int, rate: float, counter):
+    """Check, count on `counter` and launch the forward kernel on q, k, v
+    read in place at their row strides: (o (B, L, D), lse (B, H, L) fp32)."""
     from fudanocr_tpu_torch.ops._build import check, load_library
 
-    b, l, d = _check_qkv(qkv, heads, rate)
-    seed = _seed_tensor(seed, qkv.device)
+    b, l, d = _check_dropout(q, k, v, heads, rate)
+    seed = _seed_tensor(seed, q.device)
     lib = load_library()
-    with torch.cuda.device(qkv.device):
-        out = torch.empty((b, l, d), dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(q.device):
+        out = torch.empty((b, l, d), dtype=q.dtype, device=q.device)
         lse = torch.empty((b, heads, l), dtype=torch.float32,
-                          device=qkv.device)
-        qkv_dropout_fwd.launches += 1
+                          device=q.device)
+        counter.launches += 1
         check(lib.attn_dropout_fwd(
-            qkv.data_ptr(), seed.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            b, l, heads, d // heads, 1.0 / math.sqrt(d // heads),
-            1.0 / (1.0 - rate), thresh(rate),
-            int(qkv.dtype == torch.bfloat16),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), seed.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, l, heads, d // heads,
+            q.stride(1), k.stride(1), v.stride(1),
+            1.0 / math.sqrt(d // heads), 1.0 / (1.0 - rate), thresh(rate),
+            int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream), "attn_dropout_fwd")
     return out, lse
+
+
+def _dropout_bwd(q, k, v, out, dout, lse, seed, grads, heads: int,
+                 rate: float, counter) -> None:
+    """Check, count on `counter` and launch the backward kernel, writing
+    dq, dk, dv into `grads` (three (B, L, D) tensors or views with unit
+    feature stride)."""
+    from fudanocr_tpu_torch.ops._build import check, load_library
+
+    b, l, d = _check_dropout(q, k, v, heads, rate)
+    for name, t, shape, dtype in (("out", out, (b, l, d), q.dtype),
+                                  ("dout", dout, (b, l, d), q.dtype),
+                                  ("lse", lse, (b, heads, l), torch.float32)):
+        if (tuple(t.shape) != shape or t.dtype != dtype
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"dropout attention backward: {name} "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device} does "
+                             f"not fit q {tuple(q.shape)} {q.dtype}")
+    seed = _seed_tensor(seed, q.device)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        counter.launches += 1
+        check(lib.attn_dropout_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), seed.data_ptr(),
+            *(g.data_ptr() for g in grads), b, l, heads, d // heads,
+            q.stride(1), k.stride(1), v.stride(1),
+            *(g.stride(1) for g in grads), 1.0 / math.sqrt(d // heads),
+            1.0 / (1.0 - rate), thresh(rate), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream), "attn_dropout_bwd")
+
+
+def qkv_dropout_fwd(qkv: torch.Tensor, seed: torch.Tensor, heads: int,
+                    rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward kernel on qkv's column slices: (o (B, L, D), lse
+    (B, H, L) fp32). `qkv_dropout_fwd.launches` counts launches."""
+    return _dropout_fwd(*_columns(qkv), seed, heads, rate, qkv_dropout_fwd)
 
 
 def qkv_dropout_bwd(qkv: torch.Tensor, out: torch.Tensor,
                     dout: torch.Tensor, lse: torch.Tensor,
                     seed: torch.Tensor, heads: int,
                     rate: float) -> torch.Tensor:
-    """Launch the backward kernel: dqkv (B, L, 3D) at qkv's dtype.
-    `qkv_dropout_bwd.launches` counts launches."""
-    from fudanocr_tpu_torch.ops._build import check, load_library
-
-    b, l, d = _check_qkv(qkv, heads, rate)
-    for name, t, shape, dtype in (("out", out, (b, l, d), qkv.dtype),
-                                  ("dout", dout, (b, l, d), qkv.dtype),
-                                  ("lse", lse, (b, heads, l), torch.float32)):
-        if (tuple(t.shape) != shape or t.dtype != dtype
-                or t.device != qkv.device or not t.is_contiguous()):
-            raise ValueError(f"qkv dropout attention backward: {name} "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device} does "
-                             f"not fit qkv {tuple(qkv.shape)} {qkv.dtype}")
-    seed = _seed_tensor(seed, qkv.device)
-    lib = load_library()
-    with torch.cuda.device(qkv.device):
-        dqkv = torch.empty_like(qkv)
-        qkv_dropout_bwd.launches += 1
-        check(lib.attn_dropout_bwd(
-            qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            seed.data_ptr(), dqkv.data_ptr(), b, l, heads, d // heads,
-            1.0 / math.sqrt(d // heads), 1.0 / (1.0 - rate), thresh(rate),
-            int(qkv.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream), "attn_dropout_bwd")
+    """Launch the backward kernel: dqkv (B, L, 3D) at qkv's dtype, written
+    through its column slices. `qkv_dropout_bwd.launches` counts
+    launches."""
+    dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+    _dropout_bwd(*_columns(qkv), out, dout, lse, seed, _columns(dqkv), heads,
+                 rate, qkv_dropout_bwd)
     return dqkv
 
 
@@ -278,8 +325,9 @@ def flash_mha_qkv_packed_dropout(qkv: torch.Tensor, seed: Seed, heads: int,
 
     CPU tensors run the plain version. CUDA tensors run the kernels (built
     at first use, see ops/_build.py) and raise on what they do not take:
-    dtype other than float32/bfloat16, a non-contiguous or misaligned qkv,
-    a head width other than 32, or L not a multiple of 128."""
+    dtype other than float32/bfloat16, a feature stride other than 1 or
+    images not one after another, a head width other than 32, or L not a
+    multiple of 128."""
     if qkv.device.type == "cpu":
         return flash_mha_qkv_packed_dropout_reference(qkv, seed, heads, rate)
     if qkv.device.type != "cuda":
@@ -287,6 +335,80 @@ def flash_mha_qkv_packed_dropout(qkv: torch.Tensor, seed: Seed, heads: int,
                          f"{qkv.device}")
     return _QKVDropoutAttention.apply(qkv, _seed_tensor(seed, qkv.device),
                                       heads, rate)
+
+
+# -- dropout attention off separate q, k, v buffers (B11) --------------------
+#
+# The port of `flash_mha_packed_dropout` (flash_attention.py:575-600, Pallas
+# `_packed_dropout_fwd` :373 and `_packed_dropout_bwd` :401): the same
+# function as B4 with q, k and v in buffers of their own. It runs B4's two
+# kernels, which take each operand's base pointer and row stride, and its
+# backward returns dq, dk and dv. No path of the system reaches it, as in
+# JAX.
+
+
+def packed_dropout_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       seed: torch.Tensor, heads: int,
+                       rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward kernel on separate q, k, v: (o (B, L, D), lse
+    (B, H, L) fp32). `packed_dropout_fwd.launches` counts launches."""
+    return _dropout_fwd(q, k, v, seed, heads, rate, packed_dropout_fwd)
+
+
+def packed_dropout_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       out: torch.Tensor, dout: torch.Tensor,
+                       lse: torch.Tensor, seed: torch.Tensor, heads: int,
+                       rate: float) -> Tuple[torch.Tensor, ...]:
+    """Launch the backward kernel: (dq, dk, dv), contiguous, at q's dtype.
+    `packed_dropout_bwd.launches` counts launches."""
+    grads = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    _dropout_bwd(q, k, v, out, dout, lse, seed, grads, heads, rate,
+                 packed_dropout_bwd)
+    return grads
+
+
+packed_dropout_fwd.launches = 0
+packed_dropout_bwd.launches = 0
+
+
+class _PackedDropoutAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, seed, heads, rate):
+        out, lse = packed_dropout_fwd(q, k, v, seed, heads, rate)
+        ctx.heads, ctx.rate = heads, rate
+        ctx.save_for_backward(q, k, v, seed, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, seed, out, lse = ctx.saved_tensors
+        dq, dk, dv = packed_dropout_bwd(q, k, v, out, dout.contiguous(), lse,
+                                        seed, ctx.heads, ctx.rate)
+        return dq, dk, dv, None, None, None
+
+
+def flash_mha_packed_dropout(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, seed: Seed, heads: int,
+                             rate: float) -> torch.Tensor:
+    """Dropout attention over separate (B, L, D) q, k, v -> (B, L, D),
+    differentiable in q, k and v (the train-mode counterpart of
+    `flash_mha_packed`).
+
+    CPU tensors run the plain version. CUDA tensors run the kernels (built
+    at first use, see ops/_build.py) and raise on what they do not take: a
+    dtype other than float32/bfloat16, shapes that differ, a feature
+    stride other than 1, a head width other than 32, or L not a multiple
+    of 128."""
+    if q.device.type == "cpu":
+        return flash_mha_packed_dropout_reference(q, k, v, seed, heads, rate)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_mha_packed_dropout: no kernel for "
+                         f"{q.device}")
+    return _PackedDropoutAttention.apply(q, k, v,
+                                         _seed_tensor(seed, q.device), heads,
+                                         rate)
 
 
 # -- unmasked attention (CascadeMiT) ----------------------------------------
@@ -463,19 +585,29 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor,
 # kernels (`ops/region_attention.packed_flash_mha`).
 
 
+def flash_mha_packed_reference(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, heads: int) -> torch.Tensor:
+    """The plain PyTorch version of B10, q (B, Lq, D) and k, v (B, Lkv, D)
+    -> (B, Lq, D) at q's dtype, at the rounding points of the JAX
+    `_packed_kernel` (`flash_mha_reference` on the (B, H, L, dh) views).
+    Autograd differentiates it."""
+    b, lq, d = q.shape
+    q, k, v = (t.unflatten(-1, (heads, d // heads)).transpose(1, 2)
+               for t in (q, k, v))
+    return flash_mha_reference(q, k, v).transpose(1, 2).reshape(b, lq, d)
+
+
 def flash_mha_qkv_packed_reference(qkv: torch.Tensor,
                                    heads: int) -> torch.Tensor:
     """The plain PyTorch version, (B, L, 3D) -> (B, L, D) at qkv's dtype,
     at the rounding points of the JAX `_qkv_kernel`: fp32 scores times
     1/sqrt(dh), the row max subtracted, exp, the unnormalised
     probabilities rounded to v's dtype for the value product with fp32
-    accumulation, divided by the fp32 row sum. Autograd differentiates
-    it."""
-    b, l, d3 = qkv.shape
-    d = d3 // 3
-    q, k, v = (qkv[..., i * d:(i + 1) * d].unflatten(-1, (heads, d // heads))
-               .transpose(1, 2) for i in range(3))
-    return flash_mha_reference(q, k, v).transpose(1, 2).reshape(b, l, d)
+    accumulation, divided by the fp32 row sum (`flash_mha_packed_reference`
+    on qkv's column slices)."""
+    d = qkv.shape[-1] // 3
+    return flash_mha_packed_reference(qkv[..., :d], qkv[..., d:2 * d],
+                                      qkv[..., 2 * d:], heads)
 
 
 def flash_mha_qkv_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
@@ -505,3 +637,35 @@ def flash_mha_qkv_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
 
 
 flash_mha_qkv_packed.launches = 0
+
+
+# -- unmasked attention off separate q, k, v buffers (B10) -------------------
+#
+# The port of `flash_mha_packed` (flash_attention.py:164, Pallas
+# `_packed_kernel`): B7's forward kernel (`ops/region_attention.
+# packed_flash_mha`) on q, k and v read in place at their own row strides.
+# No path of the system reaches it, as in JAX; its gate is
+# `flash_packed_supported`.
+
+
+def flash_mha_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     heads: int) -> torch.Tensor:
+    """Unmasked multi-head attention over packed q (B, Lq, D) and k, v
+    (B, Lkv, D) -> (B, Lq, D), differentiable in q, k and v.
+
+    CPU tensors run the plain version. CUDA tensors run B7's kernels and
+    raise on what they do not take (see `packed_flash_mha`).
+    `flash_mha_packed.launches` counts calls that launched the kernel (each
+    also counts as one `unmasked_packed_fwd` launch)."""
+    if q.device.type == "cpu":
+        return flash_mha_packed_reference(q, k, v, heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_mha_packed: no kernel for {q.device}")
+    from fudanocr_tpu_torch.ops.region_attention import packed_flash_mha
+
+    out = packed_flash_mha(q, k, v, heads)
+    flash_mha_packed.launches += 1
+    return out
+
+
+flash_mha_packed.launches = 0

@@ -37,6 +37,10 @@ import torch
 from fudanocr_tpu_torch.ops.fused_layernorm import torch_layer_norm
 
 D_MODEL = 128   # the kernel's model width: 64 token + 64 PE channels
+# the operands of `fe_attn_epilogue`, in its argument order, and all of them
+EPILOGUE_OPERANDS = ("pe", "wout", "bout", "ln1_scale", "ln1_bias", "w1", "b1",
+                     "w2", "b2", "ln2_scale", "ln2_bias", "wp", "bp")
+ENHANCER_OPERANDS = ("peqkv", "wtop") + EPILOGUE_OPERANDS
 
 
 def fused_enhancer_supported(l: int, d_model: int, heads: int) -> bool:
@@ -82,6 +86,15 @@ def fused_enhancer_reference(tokens: torch.Tensor, ops: Dict[str, torch.Tensor],
     """The plain PyTorch version of the kernel: same math, unfused, with a
     max-shifted softmax. Works on any device; the CPU tests and the CPU
     path of FeatureEnhancer use it."""
+    return enhancer_reference_fp32(tokens, ops, heads, eps).to(tokens.dtype)
+
+
+def enhancer_reference_fp32(tokens: torch.Tensor,
+                            ops: Dict[str, torch.Tensor], heads: int = 4,
+                            eps: float = 1e-6) -> torch.Tensor:
+    """`fused_enhancer_reference` with the final projection left in fp32,
+    unrounded: the whole-SRB kernel adds its residual to it before it
+    rounds (ops/fused_srb.py)."""
     dt = tokens.dtype
     b, l, _ = tokens.shape
     d = ops["wout"].shape[0]
@@ -101,11 +114,12 @@ def fused_enhancer_reference(tokens: torch.Tensor, ops: Dict[str, torch.Tensor],
     y = _dense(y, ops["w2"], ops["b2"]).to(dt)
     x2 = torch_layer_norm(x1.float() + y.float(), ops["ln2_scale"],
                           ops["ln2_bias"], eps).to(dt)
-    return _dense(x2, ops["wp"], ops["bp"]).to(dt)
+    return _dense(x2, ops["wp"], ops["bp"])
 
 
-def _check_cuda_operands(tokens: torch.Tensor, ops: Dict[str, torch.Tensor],
-                         heads: int) -> None:
+def check_cuda_operands(tokens: torch.Tensor, ops: Dict[str, torch.Tensor],
+                        heads: int) -> None:
+    """Raise on tokens or enhancer operands the kernel does not take."""
     if tokens.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_enhancer takes float32 or bfloat16 tokens, "
                         f"got {tokens.dtype}")
@@ -125,7 +139,8 @@ def _check_cuda_operands(tokens: torch.Tensor, ops: Dict[str, torch.Tensor],
         raise ValueError(f"empty tokens {tuple(tokens.shape)}")
     want = {"pe": (l, d - c), "peqkv": (l, 3 * d), "wtop": (c, 3 * d),
             "wout": (d, d), "w1": (d, d), "w2": (d, d), "wp": (d, c)}
-    for k, t in ops.items():
+    for k in ENHANCER_OPERANDS:
+        t = ops[k]
         fp32 = k not in ("pe", "wtop", "wout", "w1", "w2", "wp")
         if (t.device != tokens.device or not t.is_contiguous()
                 or t.dtype != (torch.float32 if fp32 else tokens.dtype)
@@ -153,7 +168,7 @@ def fused_enhancer(tokens: torch.Tensor, ops: Dict[str, torch.Tensor],
         raise ValueError(f"fused_enhancer: no kernel for {tokens.device}")
     from fudanocr_tpu_torch.ops._build import check, load_library
 
-    _check_cuda_operands(tokens, ops, heads)
+    check_cuda_operands(tokens, ops, heads)
     lib = load_library()
     b, l, c = tokens.shape
     d = ops["wout"].shape[0]
@@ -171,10 +186,8 @@ def fused_enhancer(tokens: torch.Tensor, ops: Dict[str, torch.Tensor],
         fused_enhancer.launches += 1
         check(lib.fe_attn_epilogue(
             qkv.data_ptr(), tokens.data_ptr(),
-            *(ops[k].data_ptr() for k in (
-                "pe", "wout", "bout", "ln1_scale", "ln1_bias", "w1", "b1",
-                "w2", "b2", "ln2_scale", "ln2_bias", "wp", "bp")),
-            out.data_ptr(), b, l, d // heads, eps, bf16, stream),
+            *(ops[k].data_ptr() for k in EPILOGUE_OPERANDS),
+            None, out.data_ptr(), b, l, d // heads, eps, bf16, stream),
             "fe_attn_epilogue")
     return out
 
