@@ -50,7 +50,9 @@ Phases:
      (B, H, L, dh) route (B5) at (1, 8, 512, 32) and at the 2048² whole-
      image stage 0 (1, 1, 262144, 32) over 4096 keys; kernel, plain and
      `F.scaled_dot_product_attention` ms (timed only; the port never calls
-     it) beside the bound;
+     it) beside the bound. For each route and type a torch.profiler trace
+     names the kernel: bf16 must run the tensor-core forward
+     (`attn_fwd_mma_kernel`), fp32 the CUDA-core one (`attn_fwd_kernel`);
   8. segmentation at full width: `init_segmentor` on
      configs/seg/textformer_b0_textseg.yaml (CascadeMiT-b0 + SegformerHead,
      weights from a seed, non-trivial BN and LN statistics), then
@@ -106,7 +108,8 @@ Phases:
      kernel of csrc/unmasked_attention.cu on column slices of one
      (B, L, 384) buffer, 4 heads) against its plain version at L 1024
      (B 64 and 256), L 512 and 2048 (B 64), fp32 and bf16; kernel, plain
-     and SDPA ms (timed only) beside the bound;
+     and SDPA ms (timed only) beside the bound; the kernel's name checked
+     as in phase 7;
  18. phase 2's TBSRN with `fused_enhancer=False` at batch 256 bf16:
      exactly 5 B3, 0 fused-enhancer and 10 residual-LayerNorm launches
      per forward; SR and CRNN logits at phase 2's bars against the fused
@@ -151,8 +154,9 @@ Phases:
      and B11 (`flash_mha_packed_dropout`, B4's kernels at per-operand row
      strides, rate 0.1: the keep mask bit for bit, seed determinism, the
      output, dq, dk and dv); kernel, plain and SDPA ms (timed only) beside
-     the bound. No path of the system reaches B10 or B11, as in JAX: their
-     launches are those of this phase's checks.
+     the bound; B10's kernel name checked as in phase 7. No path of the
+     system reaches B10 or B11, as in JAX: their launches are those of
+     this phase's checks.
 
 Phases 8 and 11 end with a torch.profiler breakdown of one more canvas
 (device time by name, the device's busy time against the wall time).
@@ -227,8 +231,10 @@ FP32_RTOL, FP32_ATOL = 2e-4, 2e-5
 # phases 4-5, kernel vs plain on the same inputs. fp32: the same math in
 # another summation order (measured max errors 1e-6 .. 3e-6); bf16: the
 # outputs are rounded to bf16 (8 mantissa bits), and the plain attention
-# rounds its probabilities to bf16 for the value product while the kernel
-# keeps them fp32 (measured 2e-3 forward, 3e-3 relative dqkv)
+# rounds its probabilities to bf16 for the value product. The unmasked bf16
+# inference forward of csrc/unmasked_attention.cu (phases 7, 17, 24) rounds
+# them there too; its MASKED and STATS forwards and the dropout kernels
+# keep them fp32 (measured 2e-3 forward, 3e-3 relative dqkv)
 LN_ATOL = {torch.float32: 1e-5, torch.bfloat16: 0.04}
 ATTN_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
@@ -324,6 +330,41 @@ def device_ms(fn, iters: int) -> float:
         torch.cuda.synchronize()
     return sum(e.device_time_total for e in prof.key_averages()
                if e.device_type.name == "CUDA") / 1e3 / iters
+
+
+def attn_kernel_name(phase: str, what: str, fn, dt) -> None:
+    """Print the attention forward kernels that ten calls of `fn` (after a
+    warm-up call) launch, by name in a torch.profiler trace of host and
+    device, as `profile_step` takes it; fail unless bf16 runs only the
+    tensor-core kernel and fp32 only the CUDA-core one
+    (csrc/unmasked_attention.cu). The profiler on the card's machine now
+    and then delivers no device event at all for a short trace (seen
+    right after another trace); such a trace is taken again, at most
+    twice."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        kernels = {re.split(r"[<(]", re.sub(
+            r"^void |\(anonymous namespace\)::", "", e.key))[0]
+            for e in prof.key_averages() if e.device_time_total > 0}
+        if kernels:
+            break
+        print(f"phase {phase}: {what} {dt}: the profiler trace held no "
+              "device event; taking it again")
+    names = sorted(n for n in kernels if n.startswith("attn_fwd"))
+    want = ("attn_fwd_mma_kernel" if dt == torch.bfloat16
+            else "attn_fwd_kernel")
+    print(f"phase {phase}: {what} {dt} ran {names}")
+    if names != [want]:
+        raise AssertionError(f"phase {phase}: {what} {dt} ran {names} of "
+                             f"{sorted(kernels)}, want {want}")
 
 
 def in_turns(a, b, iters: int):
@@ -935,6 +976,10 @@ def phase7(dev, gpu: str) -> tuple:
                               ra.packed_flash_mha(q, k, v, heads),
                               ra.packed_flash_mha_reference(q, k, v, heads),
                               dt)
+            if lq == B7_SHAPES[0][1]:
+                attn_kernel_name("7", "packed (B7)",
+                                 lambda: ra.packed_flash_mha(q, k, v, heads),
+                                 dt)
             k_ms, p_ms = in_turns(lambda: ra.packed_flash_mha(q, k, v, heads),
                                   lambda: ra.packed_flash_mha_reference(
                                       q, k, v, heads), 5)
@@ -956,6 +1001,9 @@ def phase7(dev, gpu: str) -> tuple:
                        _attn_operands(gen, dev, dt, b, lq, lk, h * dh))
             err = _attn_check("flash_mha", fa.flash_mha(q, k, v),
                               fa.flash_mha_reference(q, k, v), dt)
+            if lq == B5_SHAPES[0][2]:
+                attn_kernel_name("7", "head-major (B5)",
+                                 lambda: fa.flash_mha(q, k, v), dt)
             k_ms, p_ms = in_turns(lambda: fa.flash_mha(q, k, v),
                                   lambda: fa.flash_mha_reference(q, k, v), 3)
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v),
@@ -1634,6 +1682,10 @@ def phase17(dev, gpu: str) -> dict:
                               fa.flash_mha_qkv_packed(qkv, HEADS),
                               fa.flash_mha_qkv_packed_reference(qkv, HEADS),
                               dt)
+            if (b, l) == B3_SHAPES[0]:
+                attn_kernel_name("17", "packed qkv (B3)",
+                                 lambda: fa.flash_mha_qkv_packed(qkv, HEADS),
+                                 dt)
             k_ms, p_ms = in_turns(
                 lambda: fa.flash_mha_qkv_packed(qkv, HEADS),
                 lambda: fa.flash_mha_qkv_packed_reference(qkv, HEADS), 5)
@@ -2155,6 +2207,8 @@ def phase24(dev, gpu: str) -> tuple:
             raise AssertionError(f"phase 24: launches (B10, B11 forward, "
                                  f"B11 backward) {counted[dt]}, want one "
                                  f"each")
+        attn_kernel_name("24", "B10",
+                         lambda: fa.flash_mha_packed(q, k, v, heads), dt)
         ferr = (out_k.float() - out_p.float()).abs().max().item()
         grel = max(rel_err(a, c) for a, c in zip(gk, gp))
         berr = max((a.float() - c.float()).abs().max().item()
@@ -2210,7 +2264,8 @@ def phase24(dev, gpu: str) -> tuple:
         tb = attn_bound(b, heads, l, l, dh, dt)
         print(f"phase 24: ({b}, {l}, {heads * dh}) {dt}: B10 kernel "
               f"{p10_ms:.4f} ms, plain {p10p_ms:.4f} ms, SDPA {lib10:.4f} "
-              f"ms, bound {tb['bound_ms']:.4f} ms ({tb['bound_by']}); B11 "
+              f"ms, bound {tb['bound_ms']:.4f} ms ({tb['bound_by']}), "
+              f"{4 * b * l * l * heads * dh / p10_ms / 1e9:.1f} TFLOP/s; B11 "
               f"forward kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms, SDPA "
               f"{lib_f:.4f} ms, bound {fb['bound_ms']:.4f} ms; backward "
               f"kernel {b_ms:.4f} ms, plain {bp_ms:.4f} ms, SDPA "

@@ -1,6 +1,7 @@
 // bf16 tensor-core helpers shared by the hand-written Hopper kernels
-// (csrc/fused_enhancer.cu, csrc/fused_srb.cu): mma.sync m16n8k16 with fp32
-// accumulators, and the fragment loads that feed it from shared memory.
+// (csrc/fused_enhancer.cu, csrc/fused_srb.cu, csrc/unmasked_attention.cu):
+// mma.sync m16n8k16 with fp32 accumulators, the fragment loads that feed it
+// from shared memory, and the packing of fp32 pairs into bf16 fragments.
 
 #pragma once
 
@@ -22,6 +23,12 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 // two adjacent bf16 values as one 32-bit register (an A or B fragment half)
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// two fp32 values rounded to bf16 in one 32-bit register, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // B fragments of two adjacent n-tiles from a row-major (k, n) bf16 tile in

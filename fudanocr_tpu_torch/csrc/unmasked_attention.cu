@@ -15,6 +15,10 @@
 //     online-softmax `_flash_mha_impl` (:653, pallas_call :682), reached
 //     through `flash_mha` (:620): (B, H, L, dh) operands (forward only: the
 //     JAX VJP of `flash_mha` is plain XLA).
+// The same forward also serves `flash_mha_qkv_packed` (flash_attention.py
+// :220, B3: column slices of one (B, L, 3*H*dh) qkv) and `flash_mha_packed`
+// (:164, B10: separate q, k, v) through the wrappers of
+// fudanocr_tpu_torch/ops/flash_attention.py.
 // They compute one function and differ only in layout and the mask, so one
 // kernel family takes batch, head and row strides (in elements; the
 // feature stride is 1) for each operand and a compile-time MASKED flag. The
@@ -26,7 +30,8 @@
 // Per (image b, head h), with scale = 1/sqrt(dh):
 //   s = q k^T * scale (fp32),  o = softmax_rows(s) v,
 // row max subtracted, fp32 statistics and accumulation, o in the input type
-// (fp32 or bf16; bf16 inputs are widened on load). MASKED adds the det-
+// (fp32 or bf16; the CUDA-core kernels widen bf16 inputs on load, the
+// tensor-core kernel below multiplies them as bf16). MASKED adds the det-
 // guided suppression of the reference (cascade_mit.py calculate_mask):
 //   s_ij = (q_i . k_j * scale) + (rq_i == rkv_j ? -1e10 : 0),
 // rounded after the product and again after the sum, before the row max,
@@ -36,11 +41,11 @@
 // The kernels never skip a suppressed key and start the running max at
 // -inf, so such a row comes out as the plain version computes it.
 //
-// Forward design: one block of 128 threads per (128-row q tile, head,
-// image), one thread per q row holding its q row and its output
-// accumulator in registers. K and V of one head do not fit in shared
-// memory at the segmentation shapes (Lkv = 1024, dh = 32, fp32: 256 KB;
-// 1 MB at Lkv = 4096), so they stream through it in tiles of 64 keys
+// Forward design (fp32, MASKED, STATS): one block of 128 threads per
+// (128-row q tile, head, image), one thread per q row holding its q row and
+// its output accumulator in registers. K and V of one head do not fit in
+// shared memory at the segmentation shapes (Lkv = 1024, dh = 32, fp32: 256
+// KB; 1 MB at Lkv = 4096), so they stream through it in tiles of 64 keys
 // (16 KB at dh = 32, 32 KB at dh = 64) with an online softmax: per chunk of
 // keys the running max, the running denominator and the accumulator are
 // rescaled once. Nothing of size Lq x Lkv touches device memory. The
@@ -48,6 +53,46 @@
 // max m and 1/l (l the denominator), and o in fp32. One log-sum-exp would
 // not do: for a fully suppressed row m = -1e10, and m + log(l) rounds back
 // to -1e10 in fp32, so exp(s - lse) would give 1 where the answer is 1/Lkv.
+// This kernel keeps p in fp32 for the value product.
+//
+// The bf16 inference forward, unmasked (`attn_fwd_mma_kernel`: B7, B3 and
+// B10 on the packed layout, B5 on the head-major one): every bf16 call
+// without region ids and without STATS runs it, and nothing else does. It
+// computes the JAX kernels' function at their rounding points
+// (region_attention.py `_fwd_body` :63-81, flash_attention.py
+// `_packed_kernel` :136-160 and the online `_flash_kernel` :46-79):
+//   s = fp32(q k^T) * scale, m the running row max, p = exp(s - m) in fp32,
+//   l = sum p in fp32, the rescale exp(m_old - m_new),
+//   o = (bf16(p) v, accumulated in fp32) / l, rounded to bf16.
+// What bounds it: 4*B*H*Lq*Lkv*dh flops on the tensor cores (989 TFLOP/s
+// bf16) against 2 bytes per q, k, v and o element; at TBSRN's shape (B 256,
+// L 1024, 4 heads of 32) 137 GFLOP take 0.139 ms, the bytes 0.03 ms. At
+// dh = 32 each score costs 4*dh = 128 tensor-core flops but also a scale,
+// a max, a subtraction, an exponential and an add on the CUDA cores, so the
+// softmax, not the products, is what the design has to keep lean. The
+// design is FlashAttention-2's forward on mma.sync m16n8k16 (bf16 in, fp32
+// accumulators), B1's attention loop (csrc/fused_enhancer.cu
+// `attention_mma`) on strided operands:
+//   * one block of 8 warps per (128-row q tile, head, image), the grid of
+//     the CUDA-core kernel; each warp owns 16 q rows and keeps their A
+//     fragments in registers for the whole key loop;
+//   * 64-key tiles of K and V stay bf16 in shared memory, rows padded by 8
+//     elements so the fragment loads are free of bank conflicts, double-
+//     buffered with 16-byte cp.async copies: tile j + 1 loads while tile j
+//     is computed. The q tile is staged once through the second buffer.
+//     Where a base pointer or a stride rules out 16-byte copies (a column
+//     slice at an odd element offset), a compile-time variant of the same
+//     kernel copies 2 bytes at a time, synchronously;
+//   * S = Q K^T as dh/16 k-steps x 8 n-tiles per warp, K's B fragments as
+//     32-bit loads from the row-major (key, d) tile;
+//   * the online softmax on the accumulator fragments: a row's values sit
+//     in the 4 lanes of a quad and reduce with two xor shuffles;
+//   * P rounded to bf16 and repacked in registers: the m16n8 C layout of
+//     two adjacent key n-tiles is the m16n8k16 A layout, so P never goes
+//     through shared memory; V's B fragments come through ldmatrix.trans;
+//   * o / l rounded to bf16 and stored through the output's own strides.
+// No wgmma and no TMA: mma.sync at 8 warps per block is the proven base
+// (B1); warp-group products are later work.
 //
 // Backward design (the JAX `_bwd_body`: probs = softmax(s + M),
 // dv = probs^T dO, dp = dO v^T, ds = probs * (dp - rowsum(dp * probs)),
@@ -70,15 +115,17 @@
 // dq, dk), against each operand read once and each result written once.
 // At the det recipe's stage 0 (B = 2, Lq = 65,536, Lkv = 1024, dh = 32,
 // fp32) the backward's 42.9 GFLOP take 0.64 ms at 67 TFLOP/s against
-// ~0.01 ms for its bytes: fp32 FMA sets the bound. The design spends its
-// registers on FMAs: each shared-memory row is read as a broadcast (every
-// thread of the warp reads the same 16 bytes) and feeds one FMA per feature
-// per thread. The mask costs one compare and one add per score: the thread
-// keeps its own row's id in a register, and each tile stages the other
-// side's ids into shared memory. fp32 stays on CUDA cores because TF32
-// misses the fp32 bar; bf16 on tensor cores (mma.sync / wgmma, TMA-fed
-// tiles) is later work, as is keeping fewer than 4*dh values a thread in
-// the dK/dV pass (at dh = 64 it spills to local memory).
+// ~0.01 ms for its bytes: fp32 FMA sets the bound. The CUDA-core kernels
+// spend their registers on FMAs: each shared-memory row is read as a
+// broadcast (every thread of the warp reads the same 16 bytes) and feeds
+// one FMA per feature per thread. The mask costs one compare and one add
+// per score: the thread keeps its own row's id in a register, and each tile
+// stages the other side's ids into shared memory. fp32 stays on CUDA cores
+// because TF32 misses the fp32 bar. Only the unmasked bf16 inference
+// forward runs on the tensor cores; the MASKED forward, the STATS forward
+// and the backward in bf16 still widen to fp32 on the CUDA cores (later
+// work), as does keeping fewer than 4*dh values a thread in the dK/dV pass
+// (at dh = 64 it spills to local memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,6 +133,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "bf16_mma.cuh"
 
 namespace {
 
@@ -238,6 +287,195 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t r = ((int64_t)b * gridDim.y + h) * Lq + row;
     stat_m[r] = m;
     stat_inv[r] = inv;
+  }
+}
+
+// ---- the bf16 inference forward on the tensor cores (see the top) --------
+constexpr int kMmaWarps = kRows / 16;        // 16 q rows per warp
+constexpr int kMmaThreads = 32 * kMmaWarps;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy `rows` rows of DH bf16 features, row r at src + r * stride, into the
+// shared tile dst with row pitch DH + 8. VEC16: 16-byte cp.async copies (in
+// flight until cp_async_wait); otherwise 2-byte loads and stores.
+template <int DH, bool VEC16>
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          int64_t stride, int rows) {
+  constexpr int P = DH + 8;
+  if (VEC16) {
+    constexpr int C = DH / 8;   // 16-byte chunks per row
+    for (int e = threadIdx.x; e < rows * C; e += kMmaThreads) {
+      const int r = e / C, c = e % C;
+      cp_async16(dst + r * P + c * 8, src + r * stride + c * 8);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * DH; e += kMmaThreads) {
+      const int r = e / DH, c = e % DH;
+      dst[r * P + c] = src[r * stride + c];
+    }
+  }
+}
+
+template <int DH, bool VEC16>
+__global__ void __launch_bounds__(kMmaThreads)
+attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    __nv_bfloat16* __restrict__ o, int Lkv, Strides sq,
+                    Strides sk, Strides sv, Strides so, float scale) {
+  constexpr int P = DH + 8;        // row pitch of the shared tiles
+  constexpr int KS = DH / 16;      // k-steps of Q K^T
+  constexpr int NS = kTile / 8;    // key n-tiles of S
+  constexpr int NO = DH / 8;       // feature n-tiles of O
+  // two stages of [K tile | V tile]; stage 1 first holds the q tile
+  __shared__ __align__(16) __nv_bfloat16 kv[2][2 * kTile * P];
+  static_assert(2 * kTile >= kRows, "the q tile must fit in one stage");
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;       // mma group and lane in it
+  const int64_t row0 = (int64_t)blockIdx.x * kRows;
+  const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
+  const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
+
+  copy_rows<DH, VEC16>(kv[1], q + b * sq.b + h * sq.h + row0 * sq.r, sq.r,
+                       kRows);
+  cp_async_commit();
+  copy_rows<DH, VEC16>(kv[0], kb, sk.r, kTile);
+  copy_rows<DH, VEC16>(kv[0] + kTile * P, vb, sv.r, kTile);
+  cp_async_commit();
+  cp_async_wait<1>();   // the q tile is in
+  __syncthreads();
+  uint32_t qa[KS][4];    // this warp's 16 q rows as A fragments
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const __nv_bfloat16* p = kv[1] + (warp * 16 + g) * P + kk * 16 + 2 * t;
+    qa[kk][0] = ld32(p);
+    qa[kk][1] = ld32(p + 8 * P);
+    qa[kk][2] = ld32(p + 8);
+    qa[kk][3] = ld32(p + 8 * P + 8);
+  }
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+  // this lane's rows g (c = 0, 1) and g + 8 (c = 2, 3), key columns
+  // n*8 + 2t + {0, 1}
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  // one barrier per tile: after it, tile j is in from every thread's
+  // copies, and every warp is done with tile j - 1 (and, at j = 0, with
+  // the q tile), so tile j + 1 may load into that buffer while tile j is
+  // computed
+  const int tiles = Lkv / kTile;
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait<0>();   // tile j is in, from this thread's copies
+    __syncthreads();
+    if (j + 1 < tiles) {
+      __nv_bfloat16* nxt = kv[(j + 1) & 1];
+      const int64_t k0 = (int64_t)(j + 1) * kTile;
+      copy_rows<DH, VEC16>(nxt, kb + k0 * sk.r, sk.r, kTile);
+      copy_rows<DH, VEC16>(nxt + kTile * P, vb + k0 * sv.r, sv.r, kTile);
+      cp_async_commit();
+    }
+    const __nv_bfloat16* kt = kv[j & 1];
+    const __nv_bfloat16* vt = kt + kTile * P;
+
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const __nv_bfloat16* kp = kt + (n * 8 + g) * P + kk * 16 + 2 * t;
+        mma_bf16(s[n], qa[kk], ld32(kp), ld32(kp + 8));
+      }
+    }
+    // the scaled fp32 scores (rounded once, not contracted into the
+    // exponent's argument), the running max over the quad
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[n][c] = __fmul_rn(s[n][c], scale);
+        mx[c >> 1] = fmaxf(mx[c >> 1], s[n][c]);
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      const float m_new = fmaxf(m[rr], mx[rr]);   // finite: no masking
+      alpha[rr] = __expf(m[rr] - m_new);          // 0 on the first tile
+      m[rr] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[n][c] = __expf(s[n][c] - m[c >> 1]);
+        sum[c >> 1] += s[n][c];
+      }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      sum[rr] += __shfl_xor_sync(0xffffffffu, sum[rr], 1);
+      sum[rr] += __shfl_xor_sync(0xffffffffu, sum[rr], 2);
+      l[rr] = l[rr] * alpha[rr] + sum[rr];
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[n][c] *= alpha[c >> 1];
+    // O += bf16(P) V: the accumulators of key n-tiles 2kk, 2kk + 1 are the
+    // A fragment of k-step kk
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, vt + (kk * 16 + (lane & 15)) * P + n * 8 +
+                                  (lane >> 4) * 8);
+        mma_bf16(acc[n], pa, bf[0], bf[1]);
+        mma_bf16(acc[n + 1], pa, bf[2], bf[3]);
+      }
+    }
+  }
+  __nv_bfloat16* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    __nv_bfloat16* orow = ob + (row0 + warp * 16 + g + 8 * hr) * so.r;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const float lo = acc[n][2 * hr] / l[hr];
+      const float hi = acc[n][2 * hr + 1] / l[hr];
+      __nv_bfloat16* dst = orow + n * 8 + 2 * t;
+      if (VEC16) {
+        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(lo, hi);
+      } else {
+        dst[0] = __float2bfloat16(lo);
+        dst[1] = __float2bfloat16(hi);
+      }
+    }
   }
 }
 
@@ -426,23 +664,41 @@ void launch_fwd_stats(const FwdArgs& a, int dh, bool stats, dim3 grid,
     launch_fwd_dh<T, MASKED, false>(a, dh, grid, s);
 }
 
-template <typename T>
-void launch_fwd_masked(const FwdArgs& a, int dh, bool stats, dim3 grid,
-                       cudaStream_t s) {
-  if (a.rq)
-    launch_fwd_stats<T, true>(a, dh, stats, grid, s);
-  else
-    launch_fwd_stats<T, false>(a, dh, stats, grid, s);
-}
-
 bool shape_ok(int B, int H, int Lq, int Lkv, int dh) {
   return B >= 1 && H >= 1 && B <= 65535 && H <= 65535 && Lq >= kRows &&
          Lq % kRows == 0 && Lkv >= kTile && Lkv % kTile == 0 &&
          (dh == 32 || dh == 64);
 }
 
+// 16-byte copies need a 16-byte aligned base and strides of 8 elements
+bool aligned16(const void* p, const Strides& s) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && s.b % 8 == 0 &&
+         s.h % 8 == 0 && s.r % 8 == 0;
+}
+
+template <int DH, bool VEC16>
+void launch_mma(const FwdArgs& a, dim3 grid, cudaStream_t s) {
+  using T = __nv_bfloat16;
+  attn_fwd_mma_kernel<DH, VEC16><<<grid, kMmaThreads, 0, s>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, a.Lkv, a.sq,
+      a.sk, a.sv, a.so, a.scale);
+}
+
+// the bf16 unmasked inference forward: the tensor-core kernel, its 16-byte
+// copy variant wherever every operand allows it
+void launch_mma_dh(const FwdArgs& a, int dh, dim3 grid, cudaStream_t s) {
+  const bool v16 = aligned16(a.q, a.sq) && aligned16(a.k, a.sk) &&
+                   aligned16(a.v, a.sv) && aligned16(a.o, a.so);
+  if (dh == 32)
+    v16 ? launch_mma<32, true>(a, grid, s) : launch_mma<32, false>(a, grid, s);
+  else
+    v16 ? launch_mma<64, true>(a, grid, s) : launch_mma<64, false>(a, grid, s);
+}
+
 // rq == rkv == nullptr: unmasked; both set: region-masked. stats: the
-// training forward (o fp32, stat_m and stat_inv written).
+// training forward (o fp32, stat_m and stat_inv written). A bf16 unmasked
+// call without stats runs the tensor-core kernel, every other call the
+// CUDA-core one (no bf16 instantiation of it for that case is built).
 int launch(const FwdArgs& a, int B, int H, int dh, bool stats, int bf16,
            void* stream) {
   if (!shape_ok(B, H, a.Lq, a.Lkv, dh) || (a.rq == nullptr) != (a.rkv ==
@@ -450,10 +706,15 @@ int launch(const FwdArgs& a, int B, int H, int dh, bool stats, int bf16,
     return (int)cudaErrorInvalidValue;
   const dim3 grid(a.Lq / kRows, H, B);
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    launch_fwd_masked<__nv_bfloat16>(a, dh, stats, grid, s);
+  if (a.rq)
+    bf16 ? launch_fwd_stats<__nv_bfloat16, true>(a, dh, stats, grid, s)
+         : launch_fwd_stats<float, true>(a, dh, stats, grid, s);
+  else if (!bf16)
+    launch_fwd_stats<float, false>(a, dh, stats, grid, s);
+  else if (stats)
+    launch_fwd_dh<__nv_bfloat16, false, true>(a, dh, grid, s);
   else
-    launch_fwd_masked<float>(a, dh, stats, grid, s);
+    launch_mma_dh(a, dh, grid, s);
   return (int)cudaGetLastError();
 }
 

@@ -15,7 +15,8 @@ the same seeded numpy inputs:
 * the port's gate `flash_packed_supported` equals JAX's.
 
 Tests marked `cuda` hold both kernels against their plain versions on the
-card, and B4 (the same kernels on the fused buffer) against B11 bit for
+card (B10's bf16 tensor-core forward also at its edge cases, tests/
+torch_attention_cases.py), and B4 (the same kernels on the fused buffer) against B11 bit for
 bit; they skip where there is no card and import no jax:
 
     python -m pytest tests/test_torch_packed_attention.py -m cuda --noconftest
@@ -29,6 +30,7 @@ import torch
 
 from fudanocr_tpu_torch.ops import flash_attention as fa
 from fudanocr_tpu_torch.ops import region_attention as ra
+from torch_attention_cases import CASES, edge_qkv
 from torch_threads import one_torch_thread  # noqa: F401
 
 HEADS, D, RATE = 4, 128, 0.1
@@ -145,6 +147,24 @@ def test_packed_kernel_matches_twin(cuda, dtype, b, l, lk):
     want = fa.flash_mha_packed_reference(q, k, v, HEADS)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("b,l,lk", [(2, 128, 64), (2, 1024, 512)])
+def test_bf16_packed_kernel_edge_cases(cuda, b, l, lk, case):
+    """B10's tensor-core forward on separate q, k, v (one q block over
+    one key tile, and a longer run of tiles) against the twin at the bf16
+    bar."""
+    q, k, v = edge_qkv(case, b, l, lk, D, cuda, seed=l + lk)
+    n0 = fa.flash_mha_packed.launches
+    got = fa.flash_mha_packed(q, k, v, HEADS)
+    torch.cuda.synchronize()
+    assert fa.flash_mha_packed.launches == n0 + 1
+    want = fa.flash_mha_packed_reference(q, k, v, HEADS)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=TOL[torch.bfloat16],
+                               atol=TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda

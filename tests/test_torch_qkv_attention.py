@@ -7,7 +7,7 @@ against the JAX package on the CPU, on the same seeded numpy inputs:
   interpret mode at L 512, D 128, 4 heads: fp32 atol 1e-5, and bf16 with
   the same bf16 operands at 2e-2 (both sides round the probabilities to
   bf16 for the value product and the output to bf16: a few bf16 ulps of
-  outputs of magnitude ~1);
+  outputs of magnitude ~1), also at 2 heads of 64;
 * the port's gates equal the JAX gates (`flash_attention_supported`,
   `fused_enhancer_supported`) on a grid of shapes;
 * the routes: a module without `use_flash` reaches no kernel wrapper
@@ -18,8 +18,9 @@ against the JAX package on the CPU, on the same seeded numpy inputs:
 * TBSRN with `fused_enhancer=False` equals the JAX TBSRN with the same
   flag at LR 16x32 (L = 512) in fp32, atol 2e-4, through B3's twin.
 
-Tests marked `cuda` hold the kernel against the twin on the card and skip
-where there is none; they import no jax:
+Tests marked `cuda` hold the kernel against the twin on the card, the bf16
+tensor-core forward also at its edge cases (tests/torch_attention_cases.py),
+and skip where there is none; they import no jax:
 
     python -m pytest tests/test_torch_qkv_attention.py -m cuda --noconftest
 """
@@ -35,6 +36,7 @@ from fudanocr_tpu_torch.nn.attention import MultiHeadAttention
 from fudanocr_tpu_torch.ops import flash_attention as fa
 from fudanocr_tpu_torch.ops import region_attention as ra
 from fudanocr_tpu_torch.ops.fused_enhancer import fused_enhancer_supported
+from torch_attention_cases import CASES, edge_qkv_fused
 from torch_threads import one_torch_thread  # noqa: F401
 
 HEADS, D = 4, 128
@@ -49,16 +51,19 @@ def jx():
     return jax, jax.numpy, jfa
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_qkv_twin_matches_jax_kernel(jx, dtype):
+@pytest.mark.parametrize("dtype,heads", [
+    pytest.param(torch.float32, HEADS, id="dtype0"),
+    pytest.param(torch.bfloat16, HEADS, id="dtype1"),
+    pytest.param(torch.bfloat16, 2, id="bf16-dh64")])
+def test_qkv_twin_matches_jax_kernel(jx, dtype, heads):
     _, jnp, jfa = jx
     rng = np.random.default_rng(0)
     qkv = rng.standard_normal((2, 512, 3 * D)).astype(np.float32)
     t = torch.from_numpy(qkv).to(dtype)
     j = jnp.asarray(t.float().numpy()).astype(
         jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
-    want = np.asarray(jfa.flash_mha_qkv_packed(j, HEADS).astype(jnp.float32))
-    got = fa.flash_mha_qkv_packed(t, HEADS)
+    want = np.asarray(jfa.flash_mha_qkv_packed(j, heads).astype(jnp.float32))
+    got = fa.flash_mha_qkv_packed(t, heads)
     assert got.dtype == dtype and got.shape == (2, 512, D)
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
                                atol=TOL[dtype])
@@ -218,6 +223,21 @@ def test_qkv_kernel_matches_twin(cuda, dtype, b, l):
     want = fa.flash_mha_qkv_packed_reference(qkv, HEADS)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("b,l,heads", [(2, 1024, HEADS), (1, 512, 2)])
+def test_bf16_qkv_kernel_edge_cases(cuda, b, l, heads, case):
+    """The tensor-core forward on column slices of one qkv (dh 32 and
+    64), against the twin at the bf16 bar."""
+    qkv = edge_qkv_fused(case, b, l, D, cuda, seed=l + heads)
+    got = fa.flash_mha_qkv_packed(qkv, heads)
+    torch.cuda.synchronize()
+    want = fa.flash_mha_qkv_packed_reference(qkv, heads)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=TOL[torch.bfloat16],
+                               atol=TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda

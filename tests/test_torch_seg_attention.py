@@ -6,13 +6,18 @@ package on the CPU, on the same seeded numpy inputs:
   as tests/test_region_attention.py runs it, fp32, atol 1e-5;
 * `flash_mha` equals the JAX `flash_mha` at a full-K shape (`_mha_full`)
   and at an online-softmax shape (`_flash_mha_impl`), fp32, atol 1e-5;
+* both again in bf16 on the same bf16 operands, atol 2e-2 (about one bf16
+  ulp at |o| <= 4): the plain versions, which the card's kernels are held
+  against, round where the JAX kernels round;
 * the routing gates equal the JAX gates on a grid of shapes under the JAX
   gates' CPU bound (2^24 score entries), where their CPU and device
   conditions coincide.
 
-Tests marked `cuda` hold the hand-written kernel (csrc/
-unmasked_attention.cu) against the plain version on the card and skip
-where there is none. The JAX package is imported inside the tests that use
+Tests marked `cuda` hold the hand-written kernels (csrc/
+unmasked_attention.cu) against the plain version on the card, the bf16
+tensor-core forward also at its edge cases (tests/torch_attention_cases.py),
+check by torch.profiler which kernel a call runs, and skip where there is
+no card. The JAX package is imported inside the tests that use
 it, so the `cuda` tests also run where jax is not installed:
 
     python -m pytest tests/test_torch_seg_attention.py -m cuda --noconftest
@@ -27,8 +32,10 @@ import torch
 from fudanocr_tpu_torch.models.seg import cascade_mit as pcm
 from fudanocr_tpu_torch.ops import flash_attention as fa
 from fudanocr_tpu_torch.ops import region_attention as ra
+from torch_attention_cases import CASES, edge_qkv, heads_view
 
 ATOL = 1e-5   # fp32, the same math in another summation order
+BF16_ATOL = 2e-2   # bf16 outputs: about one bf16 ulp at |o| <= 4
 
 
 @pytest.fixture
@@ -47,34 +54,56 @@ def _randn(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
 
 
-@pytest.mark.parametrize("b,lq,lkv,d,heads", [(2, 1024, 128, 32, 1),
-                                              (2, 1024, 256, 64, 2)])
-def test_packed_flash_mha_matches_jax(jx, b, lq, lkv, d, heads):
+def _both(jnp, arrays, dtype):
+    """The same operands for both packages: torch tensors of `dtype` and
+    the jax arrays of their exact values."""
+    ts = [torch.from_numpy(a).to(dtype) for a in arrays]
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    return ts, [jnp.asarray(t.float().numpy(), jdt) for t in ts]
+
+
+def _cases(rows, ids):
+    """fp32 rows under their old ids, then each row again in bf16."""
+    return ([pytest.param(*r, torch.float32, id=i) for r, i in zip(rows, ids)]
+            + [pytest.param(*r, torch.bfloat16, id="bf16-" + i)
+               for r, i in zip(rows, ids)])
+
+
+def _assert_close(got, want, dtype):
+    atol = BF16_ATOL if dtype == torch.bfloat16 else ATOL
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want).astype(np.float32), rtol=0,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("b,lq,lkv,d,heads,dtype", _cases(
+    [(2, 1024, 128, 32, 1), (2, 1024, 256, 64, 2)],
+    ["2-1024-128-32-1", "2-1024-256-64-2"]))
+def test_packed_flash_mha_matches_jax(jx, b, lq, lkv, d, heads, dtype):
     jnp, jra, _, _ = jx
     rng = np.random.default_rng(lq + lkv + d)
-    q, k, v = _randn(rng, b, lq, d), _randn(rng, b, lkv, d), \
-        _randn(rng, b, lkv, d)
-    want = np.asarray(jra.packed_flash_mha(jnp.asarray(q), jnp.asarray(k),
-                                           jnp.asarray(v), heads))
-    got = ra.packed_flash_mha(torch.from_numpy(q), torch.from_numpy(k),
-                              torch.from_numpy(v), heads)
-    assert got.shape == (b, lq, d) and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+    (q, k, v), jargs = _both(jnp, [_randn(rng, b, lq, d),
+                                   _randn(rng, b, lkv, d),
+                                   _randn(rng, b, lkv, d)], dtype)
+    want = jra.packed_flash_mha(*jargs, heads)
+    got = ra.packed_flash_mha(q, k, v, heads)
+    assert got.shape == (b, lq, d)
+    _assert_close(got, want, dtype)
 
 
-@pytest.mark.parametrize("q_shape,lk", [((1, 2, 512, 32), 512),     # full-K
-                                        ((1, 1, 1024, 32), 2048)])  # online
-def test_flash_mha_matches_jax(jx, q_shape, lk):
+@pytest.mark.parametrize("q_shape,lk,dtype", _cases(
+    [((1, 2, 512, 32), 512),       # full-K
+     ((1, 1, 1024, 32), 2048)],    # online
+    ["q_shape0-512", "q_shape1-2048"]))
+def test_flash_mha_matches_jax(jx, q_shape, lk, dtype):
     jnp, _, jfa, _ = jx
     rng = np.random.default_rng(lk)
     b, h, _, dh = q_shape
-    q, k, v = _randn(rng, *q_shape), _randn(rng, b, h, lk, dh), \
-        _randn(rng, b, h, lk, dh)
-    want = np.asarray(jfa.flash_mha(jnp.asarray(q), jnp.asarray(k),
-                                    jnp.asarray(v)))
-    got = fa.flash_mha(torch.from_numpy(q), torch.from_numpy(k),
-                       torch.from_numpy(v))
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+    (q, k, v), jargs = _both(jnp, [_randn(rng, *q_shape),
+                                   _randn(rng, b, h, lk, dh),
+                                   _randn(rng, b, h, lk, dh)], dtype)
+    _assert_close(fa.flash_mha(q, k, v), jfa.flash_mha(*jargs), dtype)
 
 
 def test_plain_versions_take_strided_views():
@@ -199,3 +228,103 @@ def test_kernel_wrappers_reject_what_they_cannot_take(cuda):
     qh = torch.randn(1, 2, 512, 128, device=cuda)
     with pytest.raises(ValueError):
         fa.flash_mha(qh, qh, qh)                             # head width 128
+
+
+# the bf16 tensor-core forward at its edge cases, packed (B7) and head-major
+# (B5): (B, Lq, Lkv, D, heads, case)
+MMA_CASES = [(2, 128, 64, 32, 1, "plain"),      # one q block, one key tile
+             (2, 1024, 1024, 512, 8, "plain"),  # dh 64, 8 heads
+             *((2, 512, 256, 64, 2, c) for c in CASES if c != "plain")]
+
+
+def _check_rising(q, k, heads):
+    """Most rows' max lies in the last key tile (the case's premise)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float().unflatten(-1, (heads, -1)),
+                     k.float().unflatten(-1, (heads, -1)))
+    last = s.argmax(-1) >= k.shape[1] - fa.UNMASKED_KEY_TILE
+    assert last.float().mean() > 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lkv,d,heads,case", MMA_CASES)
+def test_bf16_packed_kernel_edge_cases(cuda, b, lq, lkv, d, heads, case):
+    q, k, v = edge_qkv(case, b, lq, lkv, d, cuda, seed=lq + d)
+    if case == "rising":
+        _check_rising(q, k, heads)
+    got = ra.packed_flash_mha(q, k, v, heads)
+    torch.cuda.synchronize()
+    want = ra.packed_flash_mha_reference(q, k, v, heads)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=TOL[torch.bfloat16],
+                               atol=TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lkv,d,heads,case", MMA_CASES)
+def test_bf16_head_major_kernel_edge_cases(cuda, b, lq, lkv, d, heads,
+                                           case):
+    """B5 on strided (B, H, L, dh) views of packed buffers."""
+    q, k, v = (heads_view(t, heads)
+               for t in edge_qkv(case, b, lq, lkv, d, cuda, seed=lq + d))
+    got = fa.flash_mha(q, k, v)
+    torch.cuda.synchronize()
+    assert got.stride() == q.stride() or case == "odd"
+    want = fa.flash_mha_reference(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=TOL[torch.bfloat16],
+                               atol=TOL[torch.bfloat16])
+
+
+def _attn_fwd_kernels(fn) -> list:
+    """Names of the attention forward kernels that calls of `fn` launch,
+    from a torch.profiler trace of ten calls after a warm-up call; a
+    trace that holds no device event at all is taken again (at most
+    twice), as chip_smoke.py's `attn_kernel_name` does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        events = [e.key for e in prof.key_averages()
+                  if e.device_time_total > 0]
+        if events:
+            break
+    return [k for k in events if "attn_fwd" in k]
+
+
+@pytest.mark.cuda
+def test_only_bf16_unmasked_inference_runs_the_tensor_core_kernel(cuda):
+    q, k, v = edge_qkv("plain", 1, 256, 128, 64, cuda)
+    odd = edge_qkv("odd", 1, 256, 128, 64, cuda)
+    f32 = [t.float() for t in (q, k, v)]
+    rq = torch.zeros(1, 256, device=cuda)
+    rkv = torch.arange(128, device=cuda, dtype=torch.float32)[None] % 2
+    trained = [t.clone().requires_grad_() for t in (q, k, v)]
+    runs = {
+        "packed bf16": (lambda: ra.packed_flash_mha(q, k, v, 2),
+                        "attn_fwd_mma_kernel<32, true>"),
+        "packed bf16, odd offsets": (lambda: ra.packed_flash_mha(*odd, 2),
+                                     "attn_fwd_mma_kernel<32, false>"),
+        "head-major bf16": (lambda: fa.flash_mha(
+            *(heads_view(t, 2) for t in (q, k, v))),
+            "attn_fwd_mma_kernel<32, true>"),
+        "packed fp32": (lambda: ra.packed_flash_mha(*f32, 2),
+                        "attn_fwd_kernel<float, float, 32, false, false>"),
+        "head-major fp32": (lambda: fa.flash_mha(
+            *(heads_view(t, 2) for t in f32)),
+            "attn_fwd_kernel<float, float, 32, false, false>"),
+        "region bf16": (lambda: ra.region_flash_mha(q, k, v, rq, rkv, 2),
+                        "attn_fwd_kernel<__nv_bfloat16, __nv_bfloat16, 32, "
+                        "true, false>"),
+        "training forward bf16": (lambda: ra.packed_flash_mha(*trained, 2),
+                                  "attn_fwd_kernel<__nv_bfloat16, float, "
+                                  "32, false, true>"),
+    }
+    for what, (fn, want) in runs.items():
+        names = _attn_fwd_kernels(fn)
+        assert len(names) == 1 and want in names[0], (what, names)
