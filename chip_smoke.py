@@ -1,6 +1,8 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 5,24,25   (only phases that need no
+                                             earlier one; no result line)
 
 Drives the port's main paths (fudanocr_tpu_torch) once on the card and
 fails loudly: it exits non-zero, and prints no result line, when there is
@@ -24,13 +26,20 @@ Phases:
      concurrent single-image requests; results equal the direct batched
      call; p50 / p99 latency;
   4. the fused residual-LayerNorm kernel against its plain version at the
-     training slice's shapes ((64*1024, 128) for TBSRN, (64*32, 1024) for
-     the oracle) in fp32 and bf16: forward, and the gradients through its
+     training slices' shapes ((64*1024, 128) for TBSRN, (64*32, 1024) for
+     the oracle) in fp32 and bf16, and at the bf16 step's ((128*1024, 128),
+     (128*32, 1024)) in bf16: forward, and the gradients through its
      autograd Function against plain autograd; kernel and plain ms;
   5. the hash-dropout attention kernels (forward and backward) against
      the plain version at (64, 1024, 384), 4 heads, rate 0.1, fp32 and
-     bf16: the keep mask bit for bit, seed determinism, the output and
-     dqkv; kernel and plain ms of the forward, the backward and both;
+     bf16, and at the bf16 step's (128, 1024, 384): the keep mask bit for
+     bit, seed determinism, the output and dqkv; kernel, plain and SDPA
+     (timed only) ms of the forward and the backward beside the bound
+     (products and the keep hash's integer operations); a profiler trace
+     names the kernels: bf16 must run the tensor-core ones
+     (`attn_dropout_fwd_mma_kernel`, and `attn_dropout_dsum_mma_kernel`
+     with `attn_dropout_bwd_mma_kernel` for the backward), fp32 the
+     CUDA-core pair;
   6. the training slice at full width: `SRTrainer` over TBSRN x2 (32x128
      HR, STN + TPS, 5 SRBs, hidden 32, fp32) with the text-focus loss of
      the frozen OCRTransformer(37, 1 channel, (1, 2, 5, 3), 16 heads,
@@ -154,9 +163,18 @@ Phases:
      and B11 (`flash_mha_packed_dropout`, B4's kernels at per-operand row
      strides, rate 0.1: the keep mask bit for bit, seed determinism, the
      output, dq, dk and dv); kernel, plain and SDPA ms (timed only) beside
-     the bound; B10's kernel name checked as in phase 7. No path of the
-     system reaches B10 or B11, as in JAX: their launches are those of
-     this phase's checks.
+     the bound, also at (128, 1024, 128) in bf16; B10's kernel names
+     checked as in phase 7, B11's as in phase 5. No path of the system
+     reaches B10 or B11, as in JAX: their launches are those of this
+     phase's checks;
+ 25. the JAX package's benched training configuration (bench_train.py):
+     TBSRN x2 + STN (5 SRBs, hidden 32) and the frozen OCRTransformer(37,
+     1, (1, 2, 5, 3), 16 heads), both in bf16, at batch 128, label length
+     16, text-focus loss, Adam after the 0.25 clip: (a) one step of the
+     kernel path against `kernels=False` and the plain fp32 step on the
+     same weights (bars BF16_STEP_LOSS_REL, BF16_STEP_GRAD_REL); (b) 5 B4
+     forwards and 5 backwards per step; (c) ms per step and img/s of both
+     paths, and B4's device time in a profiled step.
 
 Phases 8 and 11 end with a torch.profiler breakdown of one more canvas
 (device time by name, the device's busy time against the wall time).
@@ -185,7 +203,8 @@ import torch
 import torch.nn.functional as F
 
 from fudanocr_tpu_torch.eval.ctc import CTCLabelConverter
-from fudanocr_tpu_torch.losses.sr_losses import LOSS_VOCAB, TextFocusLoss
+from fudanocr_tpu_torch.losses.sr_losses import (LOSS_VOCAB, TextFocusLoss,
+                                                 encode_text_labels)
 from fudanocr_tpu_torch.losses.stroke_focus import StrokeFocusLoss
 from fudanocr_tpu_torch.models.rec.crnn import CRNN, parse_crnn_input
 from fudanocr_tpu_torch.models.rec.ocr_transformer import OCRTransformer
@@ -232,15 +251,26 @@ FP32_RTOL, FP32_ATOL = 2e-4, 2e-5
 # another summation order (measured max errors 1e-6 .. 3e-6); bf16: the
 # outputs are rounded to bf16 (8 mantissa bits), and the plain attention
 # rounds its probabilities to bf16 for the value product. The unmasked bf16
-# inference forward of csrc/unmasked_attention.cu (phases 7, 17, 24) rounds
-# them there too; its MASKED and STATS forwards and the dropout kernels
-# keep them fp32 (measured 2e-3 forward, 3e-3 relative dqkv)
+# inference forward of csrc/unmasked_attention.cu (phases 7, 17, 24) and
+# the bf16 dropout kernels (phases 5, 24; their backward also rounds keep P
+# and dS for dV and dK, tests/test_torch_dropout_rounding.py) round them
+# there too; the
+# MASKED and STATS forwards keep them fp32
 LN_ATOL = {torch.float32: 1e-5, torch.bfloat16: 0.04}
 ATTN_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # phase 6: the full train step, kernel path vs plain path
 STEP_LOSS_REL, STEP_GRAD_REL = 1e-5, 1e-3
 TRAIN_B, LABEL_LEN, HEADS, RATE = 64, 32, 4, 0.1
+# phases 5 and 24: the dropout kernels' cases (dtype, batch) at L = 1024;
+# batch 128 is the bf16 train step's (phase 25)
+DROPOUT_CASES = ((torch.float32, TRAIN_B), (torch.bfloat16, TRAIN_B),
+                 (torch.bfloat16, 128))
+# the keep hash per score and pass, from the kernels' code: a counter add, 2
+# multiplies, 3 shift-xors (the seed xor folded in) and the compare; the
+# H100 SXM's int32 rate: 64 int32 lanes per SM x 132 SMs x 1.98 GHz (the
+# Hopper architecture white paper)
+HASH_OPS, INT32_OPS_PER_S = 10, 64 * 132 * 1.98e9
 TRAIN_BATCHES, EPOCHS, EVAL_BATCHES = 4, 8, 2
 # phases 7-9: the segmentation slice
 SEG_CONFIG = "configs/seg/textformer_b0_textseg.yaml"
@@ -332,15 +362,14 @@ def device_ms(fn, iters: int) -> float:
                if e.device_type.name == "CUDA") / 1e3 / iters
 
 
-def attn_kernel_name(phase: str, what: str, fn, dt) -> None:
-    """Print the attention forward kernels that ten calls of `fn` (after a
+def kernel_names(phase: str, what: str, fn, dt, prefix: str,
+                 want: list) -> None:
+    """Print the kernels named `prefix`... that ten calls of `fn` (after a
     warm-up call) launch, by name in a torch.profiler trace of host and
-    device, as `profile_step` takes it; fail unless bf16 runs only the
-    tensor-core kernel and fp32 only the CUDA-core one
-    (csrc/unmasked_attention.cu). The profiler on the card's machine now
-    and then delivers no device event at all for a short trace (seen
-    right after another trace); such a trace is taken again, at most
-    twice."""
+    device, as `profile_step` takes it; fail unless they are `want`. The
+    profiler on the card's machine now and then delivers no device event
+    at all for a short trace (seen right after another trace); such a
+    trace is taken again, at most twice."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -358,13 +387,20 @@ def attn_kernel_name(phase: str, what: str, fn, dt) -> None:
             break
         print(f"phase {phase}: {what} {dt}: the profiler trace held no "
               "device event; taking it again")
-    names = sorted(n for n in kernels if n.startswith("attn_fwd"))
-    want = ("attn_fwd_mma_kernel" if dt == torch.bfloat16
-            else "attn_fwd_kernel")
+    names = sorted(n for n in kernels if n.startswith(prefix))
     print(f"phase {phase}: {what} {dt} ran {names}")
-    if names != [want]:
+    if names != want:
         raise AssertionError(f"phase {phase}: {what} {dt} ran {names} of "
                              f"{sorted(kernels)}, want {want}")
+
+
+def attn_kernel_name(phase: str, what: str, fn, dt) -> None:
+    """Fail unless the attention forward that `fn` runs is the tensor-core
+    kernel in bf16 and the CUDA-core one in fp32
+    (csrc/unmasked_attention.cu), by name in a profiler trace."""
+    kernel_names(phase, what, fn, dt, "attn_fwd",
+                 ["attn_fwd_mma_kernel" if dt == torch.bfloat16
+                  else "attn_fwd_kernel"])
 
 
 def in_turns(a, b, iters: int):
@@ -599,8 +635,12 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 def phase4(dev, gpu: str) -> dict:
     gen = torch.Generator().manual_seed(SEED + 4)
     result = {}
-    for rows, d in ((64 * 1024, 128), (64 * 32, 1024)):
-        for dt in (torch.float32, torch.bfloat16):
+    both = (torch.float32, torch.bfloat16)
+    for rows, d, dts in ((TRAIN_B * 1024, 128, both),
+                         (TRAIN_B * 32, 1024, both),
+                         (STEP_B * 1024, 128, (torch.bfloat16,)),
+                         (STEP_B * 32, 1024, (torch.bfloat16,))):
+        for dt in dts:
             x, r = (torch.randn(rows, d, generator=gen).to(dev, dt)
                     for _ in range(2))
             s = (1 + 0.2 * torch.randn(d, generator=gen)).to(dev)
@@ -645,25 +685,56 @@ def phase4(dev, gpu: str) -> dict:
                                      **bound(8 * rows * d,
                                              3 * rows * d * es + 8 * d, dt),
                                      "library_ms": None}
-    return result[(64 * 1024, 128, torch.float32)]
+    return (result[(TRAIN_B * 1024, 128, torch.float32)],
+            result[(STEP_B * 1024, 128, torch.bfloat16)])
 
 
-def phase5(dev, gpu: str):
-    b, l = TRAIN_B, 1024
+def dropout_bound(b: int, heads: int, l: int, dt, products: int,
+                  passes: int, nbytes: int) -> tuple:
+    """The least time of the dropout kernels: `products` matrix products
+    of 2*L*L*dh flops per image and head at the peak for `dt`, `passes`
+    evaluations of the keep hash per score (HASH_OPS int32 operations each)
+    at the int32 rate, and `nbytes` over the memory rate; the largest, with
+    (products ms, hash ms) beside it."""
+    scores = b * heads * l * l
+    t_mm = products * 2 * scores * 32 / PEAK_FLOPS[dt] * 1e3
+    t_hash = passes * scores * HASH_OPS / INT32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return ({"bound_ms": max(t_mm, t_hash, t_bytes),
+             "bound_by": "bytes" if t_bytes > max(t_mm, t_hash)
+             else "operations"}, t_mm, t_hash)
+
+
+def dropout_kernel_names(phase: str, what: str, fn, dt) -> None:
+    """Fail unless `fn` (a forward and backward through the dropout
+    wrappers) runs the tensor-core kernels in bf16 and the CUDA-core ones
+    in fp32 (csrc/flash_attention_dropout.cu; the bf16 backward is two
+    kernels, the row terms D' and the gradients), by name in a profiler
+    trace."""
+    if dt == torch.bfloat16:
+        want = ["attn_dropout_bwd_mma_kernel", "attn_dropout_dsum_mma_kernel",
+                "attn_dropout_fwd_mma_kernel"]
+    else:
+        want = ["attn_dropout_bwd_kernel", "attn_dropout_fwd_kernel"]
+    kernel_names(phase, what, fn, dt, "attn_dropout_", want)
+
+
+def phase5(dev, gpu: str) -> dict:
+    l = 1024
     gen = torch.Generator().manual_seed(SEED + 5)
     seed = torch.tensor(20261016, device=dev)
-    keep = fa.dropout_keep_mask_cuda(seed, b, HEADS, l, RATE, dev)
-    same = torch.equal(keep, fa.dropout_keep_oracle(b, HEADS, l, seed, RATE,
-                                                    device=dev))
+    keep = fa.dropout_keep_mask_cuda(seed, TRAIN_B, HEADS, l, RATE, dev)
+    same = torch.equal(keep, fa.dropout_keep_oracle(TRAIN_B, HEADS, l, seed,
+                                                    RATE, device=dev))
     frac = keep.float().mean().item()
-    print(f"phase 5: keep mask ({b}, {HEADS}, {l}, {l}) from the kernels' "
-          f"hash equals the plain hash bit for bit: {same}; kept {frac:.5f} "
-          f"(rate {RATE}) [{gpu}]")
+    print(f"phase 5: keep mask ({TRAIN_B}, {HEADS}, {l}, {l}) from the "
+          f"kernels' hash equals the plain hash bit for bit: {same}; kept "
+          f"{frac:.5f} (rate {RATE}) [{gpu}]")
     if not same or abs(frac - (1 - RATE)) > 1e-3:
         raise AssertionError("keep mask differs from the plain hash")
     del keep
-    fwd, bwd = {}, {}
-    for dt in (torch.float32, torch.bfloat16):
+    rows = {}
+    for dt, b in DROPOUT_CASES:
         qkv = torch.randn(b, l, 3 * HEADS * 32, generator=gen).to(dev, dt)
         do = torch.randn(b, l, HEADS * 32, generator=gen).to(dev, dt)
         xk, xp = qkv.clone().requires_grad_(), qkv.clone().requires_grad_()
@@ -678,17 +749,18 @@ def phase5(dev, gpu: str):
         brel = rel_err(dk, dp)
         again = fa.flash_mha_qkv_packed_dropout(qkv, seed, HEADS, RATE)
         other = fa.flash_mha_qkv_packed_dropout(qkv, seed + 1, HEADS, RATE)
-        print(f"phase 5: dropout attention {dt}: forward max abs err "
-              f"{ferr:.3e}; dqkv max abs err {berr:.3e}, rel {brel:.3e}; "
-              f"same seed bit-identical: {torch.equal(again, out_k)}, "
-              f"another seed differs: {not torch.equal(other, again)} "
-              f"[{gpu}]")
+        print(f"phase 5: dropout attention ({b}, {l}, {3 * HEADS * 32}) "
+              f"{dt}: forward max abs err {ferr:.3e}; dqkv max abs err "
+              f"{berr:.3e}, rel {brel:.3e}; same seed bit-identical: "
+              f"{torch.equal(again, out_k)}, another seed differs: "
+              f"{not torch.equal(other, again)} [{gpu}]")
         if not (torch.isfinite(out_k).all() and torch.isfinite(dk).all()):
             raise AssertionError("attention kernels' output not finite")
         if ferr > ATTN_ATOL[dt] or brel > GRAD_REL[dt]:
             raise AssertionError(f"attention kernels disagree ({dt})")
         if not torch.equal(again, out_k) or torch.equal(other, again):
             raise AssertionError("the seed does not decide the output")
+        del out_k, out_p, dk, dp, again, other
         o, lse = fa.qkv_dropout_fwd(qkv, seed, HEADS, RATE)
         og = fa.flash_mha_qkv_packed_dropout_reference(xp, seed, HEADS, RATE)
         f_ms, fp_ms = in_turns(
@@ -698,12 +770,6 @@ def phase5(dev, gpu: str):
         b_ms, bp_ms = in_turns(
             lambda: fa.qkv_dropout_bwd(qkv, o, do, lse, seed, HEADS, RATE),
             lambda: torch.autograd.grad(og, xp, do, retain_graph=True), 5)
-        fb_ms, fbp_ms = in_turns(
-            lambda: torch.autograd.grad(fa.flash_mha_qkv_packed_dropout(
-                xk, seed, HEADS, RATE), xk, do),
-            lambda: torch.autograd.grad(
-                fa.flash_mha_qkv_packed_dropout_reference(
-                    xp, seed, HEADS, RATE), xp, do), 5)
         # the yardstick: SDPA with dropout 0.1 on the same (B, H, L, dh)
         # views (it draws another mask; timed only)
         xs = qkv.clone().requires_grad_()
@@ -718,24 +784,40 @@ def phase5(dev, gpu: str):
                                                     retain_graph=True), 5)
         es = torch.finfo(dt).bits // 8
         n_qkv, n_o = b * l * 3 * HEADS * 32, b * l * HEADS * 32
-        fb = attn_bound(b, HEADS, l, l, 32, dt, extra_bytes=b * HEADS * l * 4)
-        # backward: 5 products (s again, dV, dP, dQ, dK); qkv, o, dO, lse
-        # read, dqkv written
-        bb = bound(10 * b * HEADS * l * l * 32,
-                   (2 * n_qkv + 2 * n_o) * es + b * HEADS * l * 4, dt)
+        # forward: 2 products, one hash pass; qkv read, o and lse written.
+        # backward: 5 products (s again, dV, dP, dQ, dK) and one keep bit
+        # per score, what the function needs (the kernels recompute s, dP
+        # and the bit in each of their three roles); qkv, o, dO, lse read,
+        # dqkv written
+        fb, f_mm, f_hash = dropout_bound(b, HEADS, l, dt, 2, 1,
+                                         (n_qkv + n_o) * es
+                                         + b * HEADS * l * 4)
+        bb, b_mm, b_hash = dropout_bound(b, HEADS, l, dt, 5, 1,
+                                         (2 * n_qkv + 2 * n_o) * es
+                                         + b * HEADS * l * 4)
         print(f"phase 5: ({b}, {l}, {3 * HEADS * 32}) {dt}: forward kernel "
               f"{f_ms:.4f} ms, plain {fp_ms:.4f} ms, SDPA {lib_f:.4f} ms, "
-              f"bound {fb['bound_ms']:.4f} ms ({fb['bound_by']}); backward "
-              f"kernel {b_ms:.4f} ms, plain {bp_ms:.4f} ms, SDPA "
-              f"{lib_b:.4f} ms, bound {bb['bound_ms']:.4f} ms "
-              f"({bb['bound_by']}); forward+backward kernel {fb_ms:.4f} ms, "
-              f"plain {fbp_ms:.4f} ms [{gpu}]")
-        fwd[dt] = {"max_abs_err": ferr, "ms": f_ms, "plain_ms": fp_ms, **fb,
-                   "library_ms": lib_f}
-        bwd[dt] = {"max_abs_err": berr, "ms": b_ms, "plain_ms": bp_ms, **bb,
-                   "library_ms": lib_b}
-        del og, o, lse, so, xs
-    return fwd[torch.float32], bwd[torch.float32]
+              f"bound {fb['bound_ms']:.4f} ms ({fb['bound_by']}; products "
+              f"{f_mm:.4f}, hash {f_hash:.4f}); backward kernel {b_ms:.4f} "
+              f"ms, plain {bp_ms:.4f} ms, SDPA {lib_b:.4f} ms, bound "
+              f"{bb['bound_ms']:.4f} ms ({bb['bound_by']}; products "
+              f"{b_mm:.4f}, hash {b_hash:.4f}) [{gpu}]")
+        rows[(dt, b)] = (
+            {"max_abs_err": ferr, "ms": f_ms, "plain_ms": fp_ms, **fb,
+             "library_ms": lib_f},
+            {"max_abs_err": berr, "ms": b_ms, "plain_ms": bp_ms, **bb,
+             "library_ms": lib_b})
+        del qkv, do, xk, xp, og, o, lse, so, xs, qh, kh, vh
+        torch.cuda.empty_cache()
+    for dt in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(TRAIN_B, l, 3 * HEADS * 32,
+                          generator=gen).to(dev, dt).requires_grad_()
+        do = torch.randn(TRAIN_B, l, HEADS * 32, generator=gen).to(dev, dt)
+        dropout_kernel_names(
+            "5", "B4", lambda: torch.autograd.grad(
+                fa.flash_mha_qkv_packed_dropout(qkv, seed, HEADS, RATE), qkv,
+                do), dt)
+    return rows
 
 
 class SeededTextZoom:
@@ -1511,9 +1593,10 @@ def device_batch(batch: dict, dev) -> dict:
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
 
-def profile_step(step, batch, gen, gpu: str, what: str) -> None:
+def profile_step(step, batch, gen, gpu: str, what: str) -> tuple:
     """torch.profiler over one train step: device time by name and the
-    device's busy share of the wall time."""
+    device's busy share of the wall time; returns (the kernel and copy
+    events, busy ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1535,6 +1618,7 @@ def profile_step(step, batch, gen, gpu: str, what: str) -> None:
     for e in rows[:12]:
         print(f"profile: {e.device_time_total / 1e3:9.3f} ms "
               f"{e.count:5d}x {e.key[:90]}")
+    return rows, busy
 
 
 def train_recipe(config: str, want: tuple, dev, gpu: str) -> tuple:
@@ -2173,19 +2257,19 @@ def phase23(dev, gpu: str, pipe: PixelsToStrings,
 
 
 def phase24(dev, gpu: str) -> tuple:
-    b, l, heads, dh = B10_B, B10_L, HEADS, 32
+    l, heads, dh = B10_L, HEADS, 32
     gen = torch.Generator().manual_seed(SEED + 24)
     seed = torch.tensor(20261017, device=dev)
-    keep = fa.dropout_keep_mask_cuda(seed, b, heads, l, RATE, dev)
-    same = torch.equal(keep, fa.dropout_keep_oracle(b, heads, l, seed, RATE,
-                                                    device=dev))
-    print(f"phase 24: keep mask ({b}, {heads}, {l}, {l}) from the kernels' "
-          f"hash equals the plain hash bit for bit: {same} [{gpu}]")
+    keep = fa.dropout_keep_mask_cuda(seed, B10_B, heads, l, RATE, dev)
+    same = torch.equal(keep, fa.dropout_keep_oracle(B10_B, heads, l, seed,
+                                                    RATE, device=dev))
+    print(f"phase 24: keep mask ({B10_B}, {heads}, {l}, {l}) from the "
+          f"kernels' hash equals the plain hash bit for bit: {same} [{gpu}]")
     if not same:
         raise AssertionError("keep mask differs from the plain hash")
     del keep
     rows, counted = {}, {}
-    for dt in (torch.float32, torch.bfloat16):
+    for dt, b in DROPOUT_CASES:
         q, k, v, do = (torch.randn(b, l, heads * dh, generator=gen)
                        .to(dev, dt) for _ in range(4))
         fa.flash_mha_packed.launches = 0     # the checking run, counted
@@ -2200,13 +2284,13 @@ def phase24(dev, gpu: str) -> tuple:
         out_p = fa.flash_mha_packed_dropout_reference(*xp, seed, heads, RATE)
         gp = torch.autograd.grad(out_p, xp, do)
         torch.cuda.synchronize()
-        counted[dt] = (fa.flash_mha_packed.launches,
-                       fa.packed_dropout_fwd.launches,
-                       fa.packed_dropout_bwd.launches)
-        if counted[dt] != (1, 1, 1):
+        counted[(dt, b)] = (fa.flash_mha_packed.launches,
+                            fa.packed_dropout_fwd.launches,
+                            fa.packed_dropout_bwd.launches)
+        if counted[(dt, b)] != (1, 1, 1):
             raise AssertionError(f"phase 24: launches (B10, B11 forward, "
-                                 f"B11 backward) {counted[dt]}, want one "
-                                 f"each")
+                                 f"B11 backward) {counted[(dt, b)]}, want "
+                                 f"one each")
         attn_kernel_name("24", "B10",
                          lambda: fa.flash_mha_packed(q, k, v, heads), dt)
         ferr = (out_k.float() - out_p.float()).abs().max().item()
@@ -2256,22 +2340,25 @@ def phase24(dev, gpu: str) -> tuple:
                                                     retain_graph=True), 5)
         es = torch.finfo(dt).bits // 8
         n = b * l * heads * dh
-        fb = attn_bound(b, heads, l, l, dh, dt,
-                        extra_bytes=b * heads * l * 4)
-        # backward: 5 products; q, k, v, o, dO, lse read, dq, dk, dv written
-        bb = bound(10 * b * heads * l * l * dh, 8 * n * es + b * heads * l * 4,
-                   dt)
+        # forward: q, k, v read, o and lse written; backward: q, k, v, o,
+        # dO, lse read, dq, dk, dv written (products and hash passes as in
+        # phase 5)
+        fb, f_mm, f_hash = dropout_bound(b, heads, l, dt, 2, 1,
+                                         4 * n * es + b * heads * l * 4)
+        bb, b_mm, b_hash = dropout_bound(b, heads, l, dt, 5, 1,
+                                         8 * n * es + b * heads * l * 4)
         tb = attn_bound(b, heads, l, l, dh, dt)
         print(f"phase 24: ({b}, {l}, {heads * dh}) {dt}: B10 kernel "
               f"{p10_ms:.4f} ms, plain {p10p_ms:.4f} ms, SDPA {lib10:.4f} "
               f"ms, bound {tb['bound_ms']:.4f} ms ({tb['bound_by']}), "
               f"{4 * b * l * l * heads * dh / p10_ms / 1e9:.1f} TFLOP/s; B11 "
               f"forward kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms, SDPA "
-              f"{lib_f:.4f} ms, bound {fb['bound_ms']:.4f} ms; backward "
-              f"kernel {b_ms:.4f} ms, plain {bp_ms:.4f} ms, SDPA "
-              f"{lib_b:.4f} ms, bound {bb['bound_ms']:.4f} ms "
-              f"({bb['bound_by']}) [{gpu}]")
-        rows[dt] = (
+              f"{lib_f:.4f} ms, bound {fb['bound_ms']:.4f} ms (products "
+              f"{f_mm:.4f}, hash {f_hash:.4f}); backward kernel {b_ms:.4f} "
+              f"ms, plain {bp_ms:.4f} ms, SDPA {lib_b:.4f} ms, bound "
+              f"{bb['bound_ms']:.4f} ms ({bb['bound_by']}; products "
+              f"{b_mm:.4f}, hash {b_hash:.4f}) [{gpu}]")
+        rows[(dt, b)] = (
             {"max_abs_err": ten, "ms": p10_ms, "plain_ms": p10p_ms, **tb,
              "library_ms": lib10},
             {"max_abs_err": ferr, "ms": f_ms, "plain_ms": fp_ms, **fb,
@@ -2280,14 +2367,164 @@ def phase24(dev, gpu: str) -> tuple:
              "library_ms": lib_b})
         del q, k, v, do, xk, xp, o, lse, og, xs, sh, so
         torch.cuda.empty_cache()
-    return rows[torch.float32], counted[torch.float32]
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(B10_B, l, heads * dh, generator=gen)
+                   .to(dev, dt).requires_grad_() for _ in range(3))
+        do = torch.randn(B10_B, l, heads * dh, generator=gen).to(dev, dt)
+        dropout_kernel_names(
+            "24", "B11", lambda: torch.autograd.grad(
+                fa.flash_mha_packed_dropout(q, k, v, seed, heads, RATE),
+                (q, k, v), do), dt)
+    return rows, counted
 
 
-def main() -> int:
+# phase 25: the JAX package's benched train step (bench_train.py:20-50):
+# TBSRN x2 + STN, 5 SRBs, hidden 32, and the OCRTransformer oracle, both in
+# bf16, at batch 128, label length 16
+STEP_B, STEP_LABEL_LEN = 128, 16
+# kernel path against plain path in bf16 (the same weights, seeds and keep
+# masks): the two round at other places (B4 rounds P and dS to bf16 for its
+# products; B2 and the plain LayerNorm round their outputs once each), and
+# every such difference is then carried through bf16 activations (8
+# significant bits, 3.9e-3 relative) of 5 SRBs and the oracle. Bars: the
+# loss to 1e-2 relative, all gradients together to 5e-2 norm-relative and
+# within the distance of the plain bf16 step's gradients from the plain
+# fp32 step's on the same weights (what bf16 itself moves them by).
+BF16_STEP_LOSS_REL, BF16_STEP_GRAD_REL = 1e-2, 5e-2
+
+
+def grad_distance(model, other) -> tuple:
+    """(norm-relative distance of all gradients together, the largest
+    per-tensor relative distance among tensors holding 1e-3 or more of the
+    largest gradient norm, that tensor's name), `model` against `other`."""
+    pairs = [(n, pk.grad.float(), pp.grad.float()) for (n, pk), pp in
+             zip(model.named_parameters(), other.parameters())]
+    top = max(gp.norm().item() for _, _, gp in pairs)
+    diff = sum(((gk - gp) ** 2).sum().item() for _, gk, gp in pairs)
+    norm = sum((gp ** 2).sum().item() for _, _, gp in pairs)
+    worst, worst_name = 0.0, ""
+    for name, gk, gp in pairs:
+        if gp.norm().item() >= 1e-3 * top:
+            err = rel_err(gk, gp)
+            if err > worst:
+                worst, worst_name = err, name
+    return (diff / norm) ** 0.5, worst, worst_name
+
+
+def phase25(dev, gpu: str) -> tuple:
+    torch.manual_seed(SEED + 25)
+    sr_kw = dict(scale_factor=2, width=128, height=32, stn=True,
+                 srb_nums=SRB_NUMS, hidden_units=32)
+    oracle_kw = dict(vocab=LOSS_VOCAB, num_in=1, layers=(1, 2, 5, 3),
+                     num_heads=16, d_embed=512, d_model=1024, d_ff=2048)
+    bf = torch.bfloat16
+    model = TBSRN(**sr_kw, dtype=bf).to(dev)
+    plain = TBSRN(**sr_kw, dtype=bf, kernels=False).to(dev)
+    ref = TBSRN(**sr_kw, kernels=False).to(dev)   # fp32, plain
+    oracle = OCRTransformer(**oracle_kw, dtype=bf).to(dev)
+    oracle_plain = OCRTransformer(**oracle_kw, dtype=bf, kernels=False)
+    oracle_ref = OCRTransformer(**oracle_kw, kernels=False)
+    for m in (oracle_plain, oracle_ref):
+        m.to(dev).load_state_dict(oracle.state_dict())
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    for m in (plain, ref):
+        m.load_state_dict(init)
+    hr, lr, labels = next(SeededTextZoom(STEP_B, SEED + 250).batches(STEP_B))
+    ti, tg, ln = encode_text_labels(labels, STEP_LABEL_LEN)
+    batch = {"hr": torch.from_numpy(hr).to(dev),
+             "lr": torch.from_numpy(lr).to(dev),
+             **{k: torch.from_numpy(a).to(dev, torch.int64) for k, a in
+                (("text_input", ti), ("text_gt", tg), ("lengths", ln))}}
+    losses = [TextFocusLoss(o) for o in (oracle, oracle_plain, oracle_ref)]
+    steps = [make_sr_train_step(m, f, adam_with_clip(m.parameters(), 1e-4))
+             for m, f in zip((model, plain, ref), losses)]
+
+    # (a) one step of each path from the same weights and generator seed,
+    # so the three draw the same keep masks; live HR maps
+    torch.cuda.synchronize()
+    reset_counts()
+    out = [steps[0](batch, torch.Generator(dev).manual_seed(7))]
+    torch.cuda.synchronize()
+    live = train_counts()
+    out += [st(batch, torch.Generator(dev).manual_seed(7))
+            for st in steps[1:]]
+    torch.cuda.synchronize()
+    lk, lp, lr32 = (o["loss"].item() for o in out)
+    loss_rel, loss_bf16 = abs(lk - lp) / abs(lp), abs(lp - lr32) / abs(lr32)
+    grel, worst, worst_name = grad_distance(model, plain)
+    grel_bf16, worst_bf16, _ = grad_distance(plain, ref)
+    print(f"phase 25a: one bf16 train step at batch {STEP_B}: loss kernel "
+          f"path {lk:.6f}, plain path {lp:.6f} (rel {loss_rel:.3e}, bar "
+          f"{BF16_STEP_LOSS_REL}), fp32 plain path {lr32:.6f} (bf16 vs fp32 "
+          f"rel {loss_bf16:.3e}); gradients kernel vs plain {grel:.3e} "
+          f"norm-relative (bar {BF16_STEP_GRAD_REL}), worst tensor "
+          f"{worst:.3e} ({worst_name}); plain bf16 vs fp32 {grel_bf16:.3e}, "
+          f"worst tensor {worst_bf16:.3e}; grad norm "
+          f"{out[0]['grad_norm'].item():.4f} vs "
+          f"{out[1]['grad_norm'].item():.4f} [{gpu}]")
+    if not all(np.isfinite(v.item()) for v in out[0].values()):
+        raise AssertionError("bf16 train step metrics are not finite")
+    if loss_rel > BF16_STEP_LOSS_REL or grel > min(BF16_STEP_GRAD_REL,
+                                                   grel_bf16):
+        raise AssertionError("bf16 kernel path train step disagrees with "
+                             "plain")
+    del ref, oracle_ref, steps[2], losses[2]
+    torch.cuda.empty_cache()
+
+    # (b) launches per step, cached HR map as SRTrainer runs from epoch 1
+    batch["hr_map"] = losses[0].hr_oracle_map(batch["hr"],
+                                              batch["text_input"])
+    torch.cuda.synchronize()
+    reset_counts()
+    steps[0](batch, torch.Generator(dev).manual_seed(8))
+    torch.cuda.synchronize()
+    cached = train_counts()
+    want_live = (2 * SRB_NUMS + 2 * 3, SRB_NUMS, SRB_NUMS, 0)
+    want_cached = (2 * SRB_NUMS + 3, SRB_NUMS, SRB_NUMS, 0)
+    print(f"phase 25b: launches per bf16 step (LayerNorm, B4 forward, B4 "
+          f"backward, fused enhancer): live HR map {live} (expected "
+          f"{want_live}), cached {cached} (expected {want_cached}) [{gpu}]")
+    if live != want_live or cached != want_cached:
+        raise AssertionError("the bf16 train step did not run the expected "
+                             "kernel launches")
+
+    # (c) steady-state step time of both paths, and B4's share of a step
+    gk, gp = (torch.Generator(dev).manual_seed(9) for _ in range(2))
+    k_ms, p_ms = in_turns(lambda: steps[0](batch, gk),
+                          lambda: steps[1](batch, gp), 3)
+    for name, ms, st, g in (("kernel", k_ms, steps[0], gk),
+                            ("plain", p_ms, steps[1], gp)):
+        rows, busy = profile_step(st, batch, g, gpu,
+                                  f"phase 25c: {name} path bf16")
+        b4 = sum(e.device_time_total for e in rows
+                 if re.sub(r"^void |\(anonymous namespace\)::", "",
+                           e.key).startswith("attn_dropout_")) / 1e3
+        print(f"phase 25c: {name} path bf16 train step at batch {STEP_B}: "
+              f"{ms:.3f} ms, {STEP_B * 1e3 / ms:.1f} img/s; dropout "
+              f"attention (B4, 5 forwards + 5 backwards) {b4:.3f} ms of "
+              f"{busy:.3f} ms of device time in the profiled step [{gpu}]")
+    print(f"phase 25: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{gpu}]")
+    return live
+
+
+# the phases that need nothing of an earlier one, for `--phases`
+STANDALONE = {"1": phase1, "4": phase4, "5": phase5, "7": phase7,
+              "10": phase10, "13": phase13, "17": phase17, "19": phase19,
+              "22": phase22, "24": phase24, "25": phase25}
+
+
+def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a "
               "GPU", file=sys.stderr)
         return 1
+    only = argv[1].split(",") if len(argv) == 2 and argv[0] == "--phases" \
+        else None
+    if argv and (only is None or not set(only) <= STANDALONE.keys()):
+        print(f"usage: chip_smoke.py [--phases N,...] with N among "
+              f"{sorted(STANDALONE, key=int)}", file=sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -2297,12 +2534,18 @@ def main() -> int:
     _build.load_library()
     print(f"phase 0: built {path.name} in {nvcc_s:.2f} s of nvcc "
           f"({time.perf_counter() - t0:.2f} s with loading)")
+    if only:
+        for n in only:
+            STANDALONE[n](dev, gpu)
+            torch.cuda.empty_cache()
+        print(f"chip_smoke: ran phases {only} only; no result line")
+        return 0
     enh = phase1(dev, gpu)
     pipe, lr, launches = phase2(dev, gpu)
     phase3(pipe, lr, gpu)
     torch.cuda.empty_cache()
-    ln = phase4(dev, gpu)
-    attn_fwd, attn_bwd = phase5(dev, gpu)
+    ln, ln_bf16 = phase4(dev, gpu)
+    b4 = phase5(dev, gpu)
     torch.cuda.empty_cache()
     ln_n, fwd_n, bwd_n, _ = phase6(dev, gpu)
     torch.cuda.empty_cache()
@@ -2331,7 +2574,16 @@ def main() -> int:
     b9_n = phase23(dev, gpu, pipe, lr)
     del pipe, lr
     torch.cuda.empty_cache()
-    (b10, b11_fwd, b11_bwd), (b10_n, b11_fwd_n, b11_bwd_n) = phase24(dev, gpu)
+    b10_b11, b10_b11_n = phase24(dev, gpu)
+    torch.cuda.empty_cache()
+    ln_bf16_n, b4_mma_fwd_n, b4_mma_bwd_n, _ = phase25(dev, gpu)
+    bf16_b = (torch.bfloat16, TRAIN_B)
+    b10, b11_fwd, b11_bwd = b10_b11[(torch.float32, TRAIN_B)]
+    _, b11_mma_fwd, b11_mma_bwd = b10_b11[bf16_b]
+    b10_n, b11_fwd_n, b11_bwd_n = b10_b11_n[(torch.float32, TRAIN_B)]
+    _, b11_mma_fwd_n, b11_mma_bwd_n = b10_b11_n[bf16_b]
+    attn_fwd, attn_bwd = b4[(torch.float32, TRAIN_B)]
+    b4_mma_fwd, b4_mma_bwd = b4[(torch.bfloat16, STEP_B)]
     attn_src = "fudanocr_tpu_torch/csrc/flash_attention_dropout.cu"
     seg_src = "fudanocr_tpu_torch/csrc/unmasked_attention.cu"
     print(json.dumps({"kernels": [
@@ -2343,6 +2595,10 @@ def main() -> int:
          "source": "fudanocr_tpu_torch/csrc/fused_layernorm.cu",
          "replaces": "fudanocr_tpu/ops/fused_layernorm.py:53",
          "launches": ln_n, **ln},
+        {"name": "fused_residual_layernorm_bf16", "route": "cuda",
+         "source": "fudanocr_tpu_torch/csrc/fused_layernorm.cu",
+         "replaces": "fudanocr_tpu/ops/fused_layernorm.py:53",
+         "launches": ln_bf16_n, **ln_bf16},
         {"name": "qkv_dropout_attention_fwd", "route": "cuda",
          "source": attn_src,
          "replaces": "fudanocr_tpu/ops/flash_attention.py:505",
@@ -2392,7 +2648,23 @@ def main() -> int:
         {"name": "packed_dropout_attention_bwd", "route": "cuda",
          "source": attn_src,
          "replaces": "fudanocr_tpu/ops/flash_attention.py:401",
-         "launches": b11_bwd_n, **b11_bwd}]}))
+         "launches": b11_bwd_n, **b11_bwd},
+        {"name": "qkv_dropout_attention_fwd_mma", "route": "cuda",
+         "source": attn_src,
+         "replaces": "fudanocr_tpu/ops/flash_attention.py:505",
+         "launches": b4_mma_fwd_n, **b4_mma_fwd},
+        {"name": "qkv_dropout_attention_bwd_mma", "route": "cuda",
+         "source": attn_src,
+         "replaces": "fudanocr_tpu/ops/flash_attention.py:528",
+         "launches": b4_mma_bwd_n, **b4_mma_bwd},
+        {"name": "packed_dropout_attention_fwd_mma", "route": "cuda",
+         "source": attn_src,
+         "replaces": "fudanocr_tpu/ops/flash_attention.py:373",
+         "launches": b11_mma_fwd_n, **b11_mma_fwd},
+        {"name": "packed_dropout_attention_bwd_mma", "route": "cuda",
+         "source": attn_src,
+         "replaces": "fudanocr_tpu/ops/flash_attention.py:401",
+         "launches": b11_mma_bwd_n, **b11_mma_bwd}]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2401,4 +2673,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

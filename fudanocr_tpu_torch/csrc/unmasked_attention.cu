@@ -294,43 +294,6 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int kMmaWarps = kRows / 16;        // 16 q rows per warp
 constexpr int kMmaThreads = 32 * kMmaWarps;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N committed groups of this thread are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Copy `rows` rows of DH bf16 features, row r at src + r * stride, into the
-// shared tile dst with row pitch DH + 8. VEC16: 16-byte cp.async copies (in
-// flight until cp_async_wait); otherwise 2-byte loads and stores.
-template <int DH, bool VEC16>
-__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          int64_t stride, int rows) {
-  constexpr int P = DH + 8;
-  if (VEC16) {
-    constexpr int C = DH / 8;   // 16-byte chunks per row
-    for (int e = threadIdx.x; e < rows * C; e += kMmaThreads) {
-      const int r = e / C, c = e % C;
-      cp_async16(dst + r * P + c * 8, src + r * stride + c * 8);
-    }
-  } else {
-    for (int e = threadIdx.x; e < rows * DH; e += kMmaThreads) {
-      const int r = e / DH, c = e % DH;
-      dst[r * P + c] = src[r * stride + c];
-    }
-  }
-}
-
 template <int DH, bool VEC16>
 __global__ void __launch_bounds__(kMmaThreads)
 attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -352,11 +315,11 @@ attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
   const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
 
-  copy_rows<DH, VEC16>(kv[1], q + b * sq.b + h * sq.h + row0 * sq.r, sq.r,
-                       kRows);
+  copy_rows<DH, VEC16, kMmaThreads>(
+      kv[1], q + b * sq.b + h * sq.h + row0 * sq.r, sq.r, kRows);
   cp_async_commit();
-  copy_rows<DH, VEC16>(kv[0], kb, sk.r, kTile);
-  copy_rows<DH, VEC16>(kv[0] + kTile * P, vb, sv.r, kTile);
+  copy_rows<DH, VEC16, kMmaThreads>(kv[0], kb, sk.r, kTile);
+  copy_rows<DH, VEC16, kMmaThreads>(kv[0] + kTile * P, vb, sv.r, kTile);
   cp_async_commit();
   cp_async_wait<1>();   // the q tile is in
   __syncthreads();
@@ -389,8 +352,9 @@ attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     if (j + 1 < tiles) {
       __nv_bfloat16* nxt = kv[(j + 1) & 1];
       const int64_t k0 = (int64_t)(j + 1) * kTile;
-      copy_rows<DH, VEC16>(nxt, kb + k0 * sk.r, sk.r, kTile);
-      copy_rows<DH, VEC16>(nxt + kTile * P, vb + k0 * sv.r, sv.r, kTile);
+      copy_rows<DH, VEC16, kMmaThreads>(nxt, kb + k0 * sk.r, sk.r, kTile);
+      copy_rows<DH, VEC16, kMmaThreads>(nxt + kTile * P, vb + k0 * sv.r,
+                                        sv.r, kTile);
       cp_async_commit();
     }
     const __nv_bfloat16* kt = kv[j & 1];

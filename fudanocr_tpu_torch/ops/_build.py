@@ -107,7 +107,7 @@ def load_library() -> ctypes.CDLL:
     lib.ln_residual_fwd.argtypes = [p] * 5 + [i64, i, f, i, p]
     lib.attn_dropout_fwd.argtypes = [p] * 6 + [i] * 4 + [i64] * 3 \
         + [f, f, u32, i, p]
-    lib.attn_dropout_bwd.argtypes = [p] * 10 + [i] * 4 + [i64] * 6 \
+    lib.attn_dropout_bwd.argtypes = [p] * 11 + [i] * 4 + [i64] * 6 \
         + [f, f, u32, i, p]
     lib.attn_dropout_keep.argtypes = [p, p, i, i, i, u32, p]
     lib.attn_unmasked_packed_fwd.argtypes = [p] * 4 + [i] * 5 + [i64] * 4 \

@@ -144,7 +144,11 @@ def flash_mha_packed_dropout_reference(q: torch.Tensor, k: torch.Tensor,
     softmax, probabilities rounded to the input dtype for the value
     product with fp32 accumulation. One head at a time bounds the
     (B, L, L) temporaries; gradients come from autograd (the row max is
-    detached, which is exact: the output does not depend on the shift)."""
+    detached, which is exact: the output does not depend on the shift).
+    The gradient is that of the fp32 probabilities, as JAX's backward
+    kernel forms it: autograd through the rounding would round dP to the
+    input dtype and take D = rowsum(P dP) from the rounded P, and at a
+    peaked softmax dS = P (dP - D) then cancels to ~1e-2 from JAX's."""
     b, l, d = q.shape
     dh = d // heads
     dt = q.dtype
@@ -161,7 +165,10 @@ def flash_mha_packed_dropout_reference(q: torch.Tensor, k: torch.Tensor,
         keep = keep_mask(bh_seed(seed, bidx, h, heads), 0, l, l,
                          thresh(rate))
         p = torch.where(keep, p, torch.zeros((), device=p.device))
-        o = (p.to(dt).float() @ vh) * (inv_keep / denom)
+        o = (p @ vh) * (inv_keep / denom)
+        if dt != torch.float32:   # the value of p rounded to dt
+            o = o + ((p.to(dt).float() @ vh) * (inv_keep / denom)
+                     - o).detach()
         outs.append(o.to(dt))
     return torch.cat(outs, dim=-1)
 
@@ -247,11 +254,15 @@ def _dropout_bwd(q, k, v, out, dout, lse, seed, grads, heads: int,
     seed = _seed_tensor(seed, q.device)
     lib = load_library()
     with torch.cuda.device(q.device):
+        # the bf16 kernels' row terms (D' and lse in base 2; unused in fp32)
+        work = torch.empty((2, b, heads, l), dtype=torch.float32,
+                           device=q.device)
         counter.launches += 1
         check(lib.attn_dropout_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), seed.data_ptr(),
-            *(g.data_ptr() for g in grads), b, l, heads, d // heads,
+            *(g.data_ptr() for g in grads), work.data_ptr(), b, l, heads,
+            d // heads,
             q.stride(1), k.stride(1), v.stride(1),
             *(g.stride(1) for g in grads), 1.0 / math.sqrt(d // heads),
             1.0 / (1.0 - rate), thresh(rate), int(q.dtype == torch.bfloat16),

@@ -10,9 +10,10 @@ against the JAX package on the CPU, on the same seeded numpy inputs:
   module's in fp32, and its train route goes through the dropout op.
 
 Tests marked `cuda` hold the hand-written kernels against the plain
-version on the card and skip where there is none. The JAX package is
-imported inside the tests that use it, so the `cuda` tests also run where
-jax is not installed:
+version on the card (the bf16 tensor-core kernels also at the edge cases
+of tests/torch_attention_cases.py) and skip where there is none. The JAX
+package is imported inside the tests that use it, so the `cuda` tests
+also run where jax is not installed:
 
     python -m pytest tests/test_torch_flash_attention.py -m cuda --noconftest
 """
@@ -23,10 +24,21 @@ import torch
 
 from fudanocr_tpu_torch.nn.attention import MultiHeadAttention
 from fudanocr_tpu_torch.ops import flash_attention as fa
+from torch_attention_cases import (CASES, dropout_rounding_model,
+                                   edge_qkv_fused)
 
 HEADS, RATE = 4, 0.1
 FWD_TOL, GRAD_TOL = 2e-3, 5e-3   # tests/test_flash_attention.py:89,111
 MODULE_ATOL = 2e-5               # fp32 module parity, same math both sides
+# the bf16 kernels against their rounding model: the same rounding points,
+# another summation order, and the card's exponential (2^x of one FMA with
+# scale * log2(e) folded in, where the model rounds s * scale first), so a
+# few bf16 outputs differ by one unit in the last place
+MODEL_REL = 2e-3
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
 @pytest.fixture
@@ -242,6 +254,39 @@ def test_kernels_match_plain_version(cuda, dtype, b, heads, l):
     assert torch.equal(again, got.detach())
     assert not torch.equal(
         fa.flash_mha_qkv_packed_dropout(qkv, 98, heads, RATE), again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("b,heads,l", [(2, 4, 128), (2, 4, 1024),
+                                       (1, 2, 768)])
+def test_bf16_kernels_edge_cases(cuda, b, heads, l, case):
+    """The bf16 tensor-core kernels, forward and backward, at the edge
+    cases of tests/torch_attention_cases.py: against their rounding model
+    (`dropout_rounding_model`) to MODEL_REL, the output against the plain
+    version at the bf16 bar (2e-2), and dqkv against it at its bar (1e-2
+    norm-relative), also at "rising" and "x16", where the softmax is peaked
+    and dS = P (dP - D) cancels (the kernels form D in fp32, as JAX and the
+    plain version do). For "odd" qkv is a view at an odd offset of a leaf
+    buffer, which rules out 16-byte copies in both kernels."""
+    x = edge_qkv_fused(case, b, l, heads * 32, cuda, seed=l + heads)
+    do = torch.randn(b, l, heads * 32, generator=torch.Generator()
+                     .manual_seed(l)).to(cuda, torch.bfloat16)
+    buf = torch.cat([torch.zeros_like(x[..., :1]), x], -1).requires_grad_()
+    xk = buf[..., 1:] if case == "odd" else x.detach().clone()
+    xk = xk if case == "odd" else xk.requires_grad_()
+    xp = x.detach().clone().requires_grad_()
+    got = fa.flash_mha_qkv_packed_dropout(xk, 7, heads, RATE)
+    (dk,) = torch.autograd.grad(got, buf if case == "odd" else xk, do)
+    dk = dk[..., 1:] if case == "odd" else dk
+    want = fa.flash_mha_qkv_packed_dropout_reference(xp, 7, heads, RATE)
+    (dp,) = torch.autograd.grad(want, xp, do)
+    o, *grads = dropout_rounding_model(*fa._columns(x), do, 7, heads, RATE)
+    assert _rel(got, o) <= MODEL_REL, _rel(got, o)
+    assert _rel(dk, torch.cat(grads, -1)) <= MODEL_REL
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert _rel(dk, dp) < 1e-2, _rel(dk, dp)
 
 
 @pytest.mark.cuda

@@ -15,9 +15,10 @@ the same seeded numpy inputs:
 * the port's gate `flash_packed_supported` equals JAX's.
 
 Tests marked `cuda` hold both kernels against their plain versions on the
-card (B10's bf16 tensor-core forward also at its edge cases, tests/
-torch_attention_cases.py), and B4 (the same kernels on the fused buffer) against B11 bit for
-bit; they skip where there is no card and import no jax:
+card (B10's bf16 tensor-core forward and B11's bf16 tensor-core kernels
+also at their edge cases, tests/torch_attention_cases.py), and B4 (the
+same kernels on the fused buffer) against B11 bit for bit; they skip
+where there is no card and import no jax:
 
     python -m pytest tests/test_torch_packed_attention.py -m cuda --noconftest
 """
@@ -30,11 +31,12 @@ import torch
 
 from fudanocr_tpu_torch.ops import flash_attention as fa
 from fudanocr_tpu_torch.ops import region_attention as ra
-from torch_attention_cases import CASES, edge_qkv
+from torch_attention_cases import CASES, dropout_rounding_model, edge_qkv
 from torch_threads import one_torch_thread  # noqa: F401
 
 HEADS, D, RATE = 4, 128, 0.1
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+MODEL_REL = 2e-3   # as tests/test_torch_flash_attention.py, and why
 
 
 @pytest.fixture(scope="module")
@@ -206,6 +208,44 @@ def test_packed_dropout_kernels_match_twin(cuda, dtype, b, l):
     assert torch.equal(again, got.detach())
     assert not torch.equal(fa.flash_mha_packed_dropout(*ts, 98, HEADS, RATE),
                            again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("b,l", [(2, 128), (2, 1024)])
+def test_bf16_packed_dropout_kernels_edge_cases(cuda, b, l, case):
+    """B11's bf16 tensor-core kernels, forward and backward, at the edge
+    cases of tests/torch_attention_cases.py (one q block over two key
+    tiles, and a longer run): against their rounding model to MODEL_REL,
+    and against the twin at the bf16 bars (dq, dk and dv each 1e-2
+    norm-relative), peaked softmax ("rising", "x16") included. For
+    "odd" the operands are views at odd offsets of one leaf buffer, so the
+    backward runs the 2-byte copy variant too."""
+    ts = edge_qkv(case, b, l, l, D, cuda, seed=l + 3)
+    do = torch.randn(b, l, D, generator=torch.Generator().manual_seed(l)).to(
+        cuda, torch.bfloat16)
+    buf = torch.cat([torch.zeros_like(ts[0][..., :1]), *ts],
+                    -1).requires_grad_()
+    xk = [buf[..., 1 + i * D:1 + (i + 1) * D] for i in range(3)]
+    if case != "odd":
+        xk = [t.detach().clone().requires_grad_() for t in ts]
+    xp = [t.detach().clone().requires_grad_() for t in ts]
+    got = fa.flash_mha_packed_dropout(*xk, 7, HEADS, RATE)
+    gk = torch.autograd.grad(got, buf if case == "odd" else xk, do)
+    if case == "odd":
+        gk = [gk[0][..., 1 + i * D:1 + (i + 1) * D] for i in range(3)]
+    want = fa.flash_mha_packed_dropout_reference(*xp, 7, HEADS, RATE)
+    gp = torch.autograd.grad(want, xp, do)
+    o, *gm = dropout_rounding_model(*ts, do, 7, HEADS, RATE)
+    for a, c in zip((got, *gk), (o, *gm)):
+        rel = (a.float() - c.float()).norm() / c.float().norm()
+        assert rel <= MODEL_REL, rel
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=TOL[torch.bfloat16],
+                               atol=TOL[torch.bfloat16])
+    for a, c in zip(gk, gp):
+        rel = (a.float() - c.float()).norm() / c.float().norm()
+        assert rel < 1e-2, rel
 
 
 @pytest.mark.cuda
