@@ -14,7 +14,11 @@ Phases:
      nvcc per source, in parallel);
   1. the fused-enhancer kernel against its plain version at the main-path
      shape (L=1024, C=64; B=64 in fp32 and bf16, B=256 in bf16), with
-     random weights and non-trivial LayerNorm scales; kernel and plain ms;
+     random weights and non-trivial LayerNorm scales; kernel and plain ms,
+     the kernel's device ms by kernel (`qkv_proj_mma_kernel`,
+     `attn_epilogue_kernel`) from a profiler trace, and, at B=256 bf16,
+     SDPA on B1's attention part alone, (256, 4, 1024, 32), as the
+     yardstick (timed only; the port never calls it);
   2. the full slice, LR pixels -> TBSRN (full width: x2, 32x128 HR,
      STN built, 5 SRBs, hidden 32) -> bicubic 32x100 gray -> CRNN(37, 256)
      -> greedy CTC -> strings, through `PixelsToStrings`, on a (256, 16, 64,
@@ -454,15 +458,26 @@ def phase1(dev, gpu: str) -> dict:
         if dt == torch.bfloat16:
             k_ms, p_ms = in_turns(lambda: fused_enhancer(x, ops),
                                   lambda: fused_enhancer_reference(x, ops), 10)
+            split = kernel_split(lambda: fused_enhancer(x, ops), 10)
+            # the yardstick covers the attention part only: no one PyTorch
+            # call computes the whole enhancer
+            q, k, v = (torch.randn(b, HEADS, h * w, 32, generator=gen)
+                       .to(dev, dt) for _ in range(3))
+            lib_ms = cuda_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v), 10)
+            del q, k, v
             print(f"phase 1: B={b} L={h * w} bf16 enhancer: kernel "
-                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms [{gpu}]")
+                  f"{k_ms:.4f} ms (device ms by kernel {split}), plain "
+                  f"{p_ms:.4f} ms; SDPA on its attention part alone "
+                  f"({b}, {HEADS}, {h * w}, 32) {lib_ms:.4f} ms [{gpu}]")
             # per token: qkv 2*64*384, attention 4*L*128, out 2*128*128, FFN
             # 2*2*128*128, proj 2*128*64; tokens in and out, the PE terms
             flops = b * h * w * (2 * 64 * 384 + 4 * h * w * 128
                                  + 6 * 128 * 128 + 2 * 128 * 64)
             nbytes = 2 * b * h * w * 64 * 2 + h * w * (64 * 2 + 384 * 4)
             result[b] = {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-                         **bound(flops, nbytes, dt), "library_ms": None}
+                         **bound(flops, nbytes, dt), "library_ms": lib_ms,
+                         "library": "SDPA on the attention part only"}
     return result[BATCH]
 
 
@@ -1547,7 +1562,7 @@ def trainer_kwargs(cfg) -> dict:
     """SegTrainer's kwargs as fudanocr_tpu/apps/seg/train.py:118-134 builds
     them from the config, for data that is not a directory of images
     (whole-image evaluation) and without `ckpt_dir` (checkpoints wait for
-    ROADMAP A11)."""
+    ROADMAP A4)."""
     tc = cfg.get("train_cfg", {})
     return dict(num_classes=cfg.model.decode_head.num_classes,
                 batch_size=cfg.data.batch_size, lr=cfg.optimizer.lr,

@@ -11,7 +11,7 @@ model with `gt_det` in the batch, det_loss_ratio x the det loss on the det
 logits bilinearly upsampled to the label size; then backward and one
 `SegAdam` update (train/state.py). Everything runs eagerly on the model's
 device, one process, one device. Checkpoints, resume and the metrics
-logger of the JAX trainer are not ported yet (ROADMAP Queue A11): a
+logger of the JAX trainer are not ported yet (ROADMAP Queue A4): a
 trainer given a `ckpt_dir` raises.
 """
 
@@ -163,7 +163,7 @@ class SegTrainer:
                  gt_guided_masks: bool = False, lovasz_impl: str = "sort"):
         if ckpt_dir is not None:
             raise NotImplementedError("SegTrainer: checkpoints and resume "
-                                      "are not ported yet (ROADMAP A11); "
+                                      "are not ported yet (ROADMAP A4); "
                                       "pass ckpt_dir=None")
         self.model = model
         self.train_data = train_data

@@ -187,12 +187,18 @@ def _random_ops(gen, dtype, h, w, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,w,heads", [(2, 5, 7, 4), (3, 16, 50, 2),
-                                         (4, 16, 64, 4)])
-def test_kernel_matches_plain_version(cuda, dtype, b, h, w, heads):
+@pytest.mark.parametrize("b,h,w,heads", [
+    (2, 5, 7, 4), (3, 16, 50, 2), (4, 16, 64, 4),
+    # L = 1000: a partial last K/V tile (1000 = 15 * 64 + 40)
+    (2, 20, 50, 4), (2, 20, 50, 2)])
+@pytest.mark.parametrize("peaked", [False, True])
+def test_kernel_matches_plain_version(cuda, dtype, b, h, w, heads, peaked):
+    """`peaked`: the tokens scaled x4, so that the scores are large and a
+    row's max moves from K/V tile to tile (the online rescale by alpha)."""
     gen = torch.Generator().manual_seed(b * h * w)
     ops = _random_ops(gen, dtype, h, w, cuda)
-    x = (torch.randn(b, h * w, C, generator=gen) * 0.5).to(cuda, dtype)
+    x = (torch.randn(b, h * w, C, generator=gen) * (2.0 if peaked else 0.5)
+         ).to(cuda, dtype)
     n0 = fused_enhancer.launches
     got = fused_enhancer(x, ops, heads=heads).float()
     torch.cuda.synchronize()

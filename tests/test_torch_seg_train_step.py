@@ -45,5 +45,5 @@ def test_seg_trainer_trains_and_evaluates_on_the_model_device():
     g = lambda it: torch.rand(4, generator=pseg.iteration_generator(3, it,
                                                                     "cpu"))
     assert torch.equal(g(2), g(2)) and not torch.equal(g(1), g(2))
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         pseg.SegTrainer(model, _Blobs(2, 1), _Blobs(2, 2), ckpt_dir="ckpt")
