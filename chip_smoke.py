@@ -63,9 +63,12 @@ Phases:
      (B, H, L, dh) route (B5) at (1, 8, 512, 32) and at the 2048² whole-
      image stage 0 (1, 1, 262144, 32) over 4096 keys; kernel, plain and
      `F.scaled_dot_product_attention` ms (timed only; the port never calls
-     it) beside the bound. For each route and type a torch.profiler trace
-     names the kernel: bf16 must run the tensor-core forward
-     (`attn_fwd_mma_kernel`), fp32 the CUDA-core one (`attn_fwd_kernel`);
+     it) beside the bound (in fp32 two floors: three TF32 products at the
+     495 TFLOP/s TF32 peak, and fp32 FMA at 67; calls under 0.3 ms in fp32
+     also print the kernel's and SDPA's device ms). For each route and
+     type a torch.profiler trace names the kernel: bf16 must run the
+     tensor-core forward (`attn_fwd_mma_kernel`), fp32 the split-TF32 one
+     (`attn_fwd_tf32x3_kernel`);
   8. segmentation at full width: `init_segmentor` on
      configs/seg/textformer_b0_textseg.yaml (CascadeMiT-b0 + SegformerHead,
      weights from a seed, non-trivial BN and LN statistics), then
@@ -84,7 +87,8 @@ Phases:
      batch 3, with seeded blob ids (0, 1 and 0.5 ids, instance ids, an
      all-background image): max error, fully suppressed rows equal to the
      mean of v; kernel, plain and masked-SDPA ms (timed only) beside the
-     bound;
+     bound, as in phase 7; the kernel's name: fp32 the split-TF32 forward,
+     bf16 the CUDA-core one (`attn_fwd_kernel`);
  11. det-guided segmentation at full width: `init_segmentor` on
      configs/seg/textformer_b0_textseg_det.yaml (CascadeMiTDetGuided-b0 +
      SegformerHead, weights from a seed, non-trivial BN and LN statistics;
@@ -102,7 +106,10 @@ Phases:
      level shapes at batch 2 and the plain recipe's stage 0 (B7 only; B6
      with the phase-10 ids of an instance map and an all-background image,
      fully suppressed rows checked on their own): dq/dk/dv relative error,
-     kernel, plain and SDPA-backward ms (timed only) beside the bound;
+     kernel, plain and SDPA-backward ms (timed only) beside the bound, as
+     in phase 7; at level 0 the kernels by name: fp32 the split-TF32
+     training forward and `attn_bwd_dq_tf32x3_kernel`,
+     `attn_bwd_dkv_tf32x3_kernel` and the reduce, bf16 the CUDA-core ones;
  14. one train step of each seg recipe at full b0 width and depth, fp32:
      configs/seg/textformer_b0_textseg.yaml (512², batch 8, CE) and
      textformer_b0_textseg_det.yaml (1024², batch 2, CE + Lovász + 0.1 det
@@ -309,6 +316,9 @@ TRAIN_ITERS, TRAJ_STEPS, TRAJ_START = 8, 16, 1500
 # published H100 SXM peaks (dense fp32 / bf16 tensor core, HBM3), 700 W
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 HBM_BYTES_PER_S = 3.35e12
+# the dense TF32 tensor-core peak; the fp32 attention kernels of
+# csrc/unmasked_attention.cu run each product as three TF32 products
+TF32_FLOPS, TF32X3_PRODUCTS = 495e12, 3
 
 
 def card() -> str:
@@ -341,13 +351,51 @@ def bound(flops: float, nbytes: float, dtype) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def seg_attn_bound(flops: float, nbytes: float, dtype) -> dict:
+    """The bound of a csrc/unmasked_attention.cu kernel: in fp32 the split-
+    TF32 floor, three TF32 products per product at the tensor cores' TF32
+    peak (`bound_ms`), beside the CUDA cores' fp32 floor
+    (`cuda_core_bound_ms`); in bf16 `bound`."""
+    if dtype != torch.float32:
+        return bound(flops, nbytes, dtype)
+    t_ops = TF32X3_PRODUCTS * flops / TF32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "cuda_core_bound_ms": bound(flops, nbytes, dtype)["bound_ms"]}
+
+
 def attn_bound(b: int, h: int, lq: int, lk: int, dh: int, dtype,
                extra_bytes: int = 0) -> dict:
     """Softmax attention forward: two products of 2*Lq*Lkv*dh flops per
     head; q, k, v read and o written once."""
     es = torch.finfo(dtype).bits // 8
-    return bound(4 * b * h * lq * lk * dh,
-                 es * b * h * dh * (2 * lq + 2 * lk) + extra_bytes, dtype)
+    return seg_attn_bound(4 * b * h * lq * lk * dh,
+                          es * b * h * dh * (2 * lq + 2 * lk) + extra_bytes,
+                          dtype)
+
+
+def bound_note(bd: dict) -> str:
+    """The bound as the phases print it: both floors in fp32."""
+    note = f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}"
+    if "cuda_core_bound_ms" in bd:
+        note += (f", 3xTF32; CUDA-core fp32 floor "
+                 f"{bd['cuda_core_bound_ms']:.4f} ms")
+    return note + ")"
+
+
+# fp32 calls faster than this also print device time: their CUDA-event time
+# reads the host's launch rate
+SHORT_MS = 0.3
+
+
+def short_note(fn, lib, ms: float, dt, iters: int = 20) -> str:
+    """Device ms of `fn` and of the library call `lib` (torch.profiler),
+    for fp32 calls under SHORT_MS."""
+    if dt != torch.float32 or ms >= SHORT_MS:
+        return ""
+    return (f", device ms: kernel {device_ms(fn, iters):.4f}, library "
+            f"{device_ms(lib, iters):.4f}")
 
 
 def device_ms(fn, iters: int) -> float:
@@ -398,13 +446,15 @@ def kernel_names(phase: str, what: str, fn, dt, prefix: str,
                              f"{sorted(kernels)}, want {want}")
 
 
-def attn_kernel_name(phase: str, what: str, fn, dt) -> None:
-    """Fail unless the attention forward that `fn` runs is the tensor-core
-    kernel in bf16 and the CUDA-core one in fp32
-    (csrc/unmasked_attention.cu), by name in a profiler trace."""
+def attn_kernel_name(phase: str, what: str, fn, dt,
+                     bf16_kernel: str = "attn_fwd_mma_kernel") -> None:
+    """Fail unless the attention forward that `fn` runs is the split-TF32
+    kernel in fp32 and `bf16_kernel` in bf16 (csrc/unmasked_attention.cu:
+    the tensor-core forward for unmasked inference, the CUDA-core one for
+    the MASKED and STATS forwards), by name in a profiler trace."""
     kernel_names(phase, what, fn, dt, "attn_fwd",
-                 ["attn_fwd_mma_kernel" if dt == torch.bfloat16
-                  else "attn_fwd_kernel"])
+                 [bf16_kernel if dt == torch.bfloat16
+                  else "attn_fwd_tf32x3_kernel"])
 
 
 def in_turns(a, b, iters: int):
@@ -1082,13 +1132,15 @@ def phase7(dev, gpu: str) -> tuple:
                                       q, k, v, heads), 5)
             qh, kh, vh = (t.unflatten(-1, (heads, d // heads)).transpose(1, 2)
                           for t in (q, k, v))
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh,
-                                                                    vh), 5)
+            sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh)
+            lib_ms = cuda_ms(sdpa, 5)
             bd = attn_bound(b, heads, lq, lk, d // heads, dt)
+            short = short_note(lambda: ra.packed_flash_mha(q, k, v, heads),
+                               sdpa, k_ms, dt)
             print(f"phase 7: packed (B7) q ({b}, {lq}, {d}), k/v ({b}, {lk}, "
                   f"{d}), {heads} heads, {dt}: max abs err {err:.3e}; kernel "
                   f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
-                  f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}); "
+                  f"{bound_note(bd)}{short}; "
                   f"{4 * b * lq * lk * d / k_ms / 1e9:.1f} TFLOP/s [{gpu}]")
             b7[(lq, dt)] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                             **bd, "library_ms": lib_ms}
@@ -1103,13 +1155,14 @@ def phase7(dev, gpu: str) -> tuple:
                                  lambda: fa.flash_mha(q, k, v), dt)
             k_ms, p_ms = in_turns(lambda: fa.flash_mha(q, k, v),
                                   lambda: fa.flash_mha_reference(q, k, v), 3)
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v),
-                             3)
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v)
+            lib_ms = cuda_ms(sdpa, 3)
             bd = attn_bound(b, h, lq, lk, dh, dt)
+            short = short_note(lambda: fa.flash_mha(q, k, v), sdpa, k_ms, dt)
             print(f"phase 7: head-major (B5) q ({b}, {h}, {lq}, {dh}), "
                   f"{lk} keys, {dt}: max abs err {err:.3e}; kernel "
                   f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
-                  f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}); "
+                  f"{bound_note(bd)}{short}; "
                   f"{4 * b * h * lq * lk * dh / k_ms / 1e9:.1f} TFLOP/s "
                   f"[{gpu}]")
             b5[(lq, dt)] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
@@ -1274,6 +1327,11 @@ def phase10(dev, gpu: str) -> dict:
             err = _attn_check("region_flash_mha", got,
                               ra.region_flash_mha_reference(q, k, v, rq, rkv,
                                                             heads), dt)
+            if lq == B6_SHAPES[0][1]:
+                attn_kernel_name(
+                    "10", "region (B6)",
+                    lambda: ra.region_flash_mha(q, k, v, rq, rkv, heads), dt,
+                    "attn_fwd_kernel")
             # rows whose every pair is suppressed are the mean of v
             full = (rq[:, :, None] == rkv[:, None, :]).all(-1)
             free = ~(rq[:, :, None] == rkv[:, None, :]).any(-1)
@@ -1293,17 +1351,21 @@ def phase10(dev, gpu: str) -> dict:
             qh, kh, vh = (t.unflatten(-1, (heads, d // heads)).transpose(1, 2)
                           for t in (q, k, v))
             mask = ra.region_mask(rq, rkv)[:, None].to(dt)
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask), 5)
+            sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                          attn_mask=mask)
+            lib_ms = cuda_ms(sdpa, 5)
             bd = attn_bound(b, heads, lq, lk, d // heads, dt,
                             extra_bytes=4 * b * (lq + lk))
+            short = short_note(
+                lambda: ra.region_flash_mha(q, k, v, rq, rkv, heads), sdpa,
+                k_ms, dt)
             print(f"phase 10: region (B6) q ({b}, {lq}, {d}), k/v ({b}, {lk}, "
                   f"{d}), {heads} heads, {dt}: max abs err {err:.3e}; "
                   f"{n_full} fully suppressed rows (max err to the mean of v "
                   f"{full_err:.3e}), {n_free} rows with no suppressed pair; "
                   f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA with the "
-                  f"float mask {lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
-                  f"({bd['bound_by']}); {4 * b * lq * lk * d / k_ms / 1e9:.1f}"
+                  f"float mask {lib_ms:.4f} ms, {bound_note(bd)}{short}; "
+                  f"{4 * b * lq * lk * d / k_ms / 1e9:.1f}"
                   f" TFLOP/s [{gpu}]")
             b6[(lq, dt)] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                             **bd, "library_ms": lib_ms}
@@ -1415,6 +1477,13 @@ def phase11_12(dev, gpu: str) -> int:
 # -- phases 13-16: the segmentation training slice ---------------------------
 
 BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# the backward's launches by name: fp32 the split-TF32 passes, bf16 the
+# CUDA-core ones, then the reduce
+BWD_KERNELS = {
+    torch.float32: ["attn_bwd_dkv_tf32x3_kernel", "attn_bwd_dq_tf32x3_kernel",
+                    "attn_bwd_reduce_kernel"],
+    torch.bfloat16: ["attn_bwd_dkv_kernel", "attn_bwd_dq_kernel",
+                     "attn_bwd_reduce_kernel"]}
 
 
 def train_seg_counts() -> tuple:
@@ -1435,14 +1504,15 @@ def bwd_bound(b: int, h: int, lq: int, lk: int, dh: int, dt) -> dict:
     es = torch.finfo(dt).bits // 8
     d = h * dh
     nbytes = es * b * (3 * lq * d + 4 * lk * d) + 4 * b * (lq * d + 2 * h * lq)
-    return bound(10 * b * h * lq * lk * dh, nbytes, dt)
+    return seg_attn_bound(10 * b * h * lq * lk * dh, nbytes, dt)
 
 
-def bwd_check(q, k, v, do, ids, heads: int, dt, gpu: str) -> dict:
+def bwd_check(q, k, v, do, ids, heads: int, dt, gpu: str,
+              names: bool = False) -> dict:
     """The training forward and the backward kernel on strided packed
     operands (as the model gives them) against the plain backward; the
     fully suppressed rows' dq on their own; kernel, plain and SDPA-backward
-    ms."""
+    ms; with `names`, the kernels both launch, by name."""
     b, lq, d = q.shape
     lk, dh = k.shape[1], d // heads
     if ids is None:
@@ -1459,6 +1529,11 @@ def bwd_check(q, k, v, do, ids, heads: int, dt, gpu: str) -> dict:
                                            heads)
         plain = lambda: ra.region_flash_mha_bwd_reference(q, k, v, *ids, do,
                                                           heads)
+    if names:
+        attn_kernel_name("13", f"{name} training forward", fwd, dt,
+                         "attn_fwd_kernel")
+        kernel_names("13", f"{name} backward", bwd, dt, "attn_bwd",
+                     BWD_KERNELS[dt])
     got, want = bwd(), plain()
     torch.cuda.synchronize()
     if not all(torch.isfinite(g).all() for g in got):
@@ -1490,15 +1565,16 @@ def bwd_check(q, k, v, do, ids, heads: int, dt, gpu: str) -> dict:
     mask = None if ids is None else ra.region_mask(*ids)[:, None].to(dt)
     so = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
     doh = do.unflatten(-1, (heads, dh)).transpose(1, 2)
-    lib_ms = cuda_ms(lambda: torch.autograd.grad(so, leaves, doh,
-                                                 retain_graph=True), 3)
+    sdpa = lambda: torch.autograd.grad(so, leaves, doh, retain_graph=True)
+    lib_ms = cuda_ms(sdpa, 3)
     bd = bwd_bound(b, heads, lq, lk, dh, dt)
+    short = short_note(bwd, sdpa, k_ms, dt)
     print(f"phase 13: {name} backward q ({b}, {lq}, {d}), k/v ({b}, {lk}, "
           f"{d}), {heads} heads, {dt}: dq/dk/dv rel err "
           f"{rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e}, max abs {err:.3e}"
           f"{full_note}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
-          f"backward {lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
-          f"({bd['bound_by']}); training forward {f_ms:.4f} ms; "
+          f"backward {lib_ms:.4f} ms, {bound_note(bd)}{short}; training "
+          f"forward {f_ms:.4f} ms; "
           f"{10 * b * lq * lk * d / k_ms / 1e9:.1f} TFLOP/s [{gpu}]")
     return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **bd,
             "library_ms": lib_ms}
@@ -1514,13 +1590,14 @@ def phase13(dev, gpu: str) -> tuple:
         for b, lq, lk, d, heads, side, sr in BWD_SHAPES:
             q, k, v = _attn_operands(gen, dev, dt, b, lq, lk, d)
             do = torch.randn(b, lq, d, generator=gen).to(dev, dt)
+            first = lq == BWD_SHAPES[0][1]
             rows[(False, lq, b, dt)] = bwd_check(q, k, v, do, None, heads,
-                                                 dt, gpu)
+                                                 dt, gpu, first)
             if b == len(regions):
                 ids = tuple(r.contiguous() for r in
                             region_vectors(regions, (side, side), sr))
                 rows[(True, lq, b, dt)] = bwd_check(q, k, v, do, ids, heads,
-                                                    dt, gpu)
+                                                    dt, gpu, first)
             del q, k, v, do
             torch.cuda.empty_cache()
     # the JSON rows: the det recipe's level 0, fp32
@@ -1791,13 +1868,15 @@ def phase17(dev, gpu: str) -> dict:
             qh, kh, vh = (qkv[..., i * HEADS * 32:(i + 1) * HEADS * 32]
                           .unflatten(-1, (HEADS, 32)).transpose(1, 2)
                           for i in range(3))
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh,
-                                                                    vh), 5)
+            sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh)
+            lib_ms = cuda_ms(sdpa, 5)
             bd = attn_bound(b, HEADS, l, l, 32, dt)
+            short = short_note(lambda: fa.flash_mha_qkv_packed(qkv, HEADS),
+                               sdpa, k_ms, dt)
             print(f"phase 17: packed qkv (B3) ({b}, {l}, {3 * HEADS * 32}), "
                   f"{HEADS} heads, {dt}: max abs err {err:.3e}; kernel "
                   f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
-                  f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}); "
+                  f"{bound_note(bd)}{short}; "
                   f"{4 * b * l * l * HEADS * 32 / k_ms / 1e9:.1f} TFLOP/s "
                   f"[{gpu}]")
             result[(b, l, dt)] = {"max_abs_err": err, "ms": k_ms,
@@ -2333,7 +2412,8 @@ def phase24(dev, gpu: str) -> tuple:
             lambda: fa.flash_mha_packed_reference(q, k, v, heads), 5)
         qh, kh, vh = (t.unflatten(-1, (heads, dh)).transpose(1, 2)
                       for t in (q, k, v))
-        lib10 = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 5)
+        sdpa10 = lambda: F.scaled_dot_product_attention(qh, kh, vh)
+        lib10 = cuda_ms(sdpa10, 5)
         o, lse = fa.packed_dropout_fwd(q, k, v, seed, heads, RATE)
         og = fa.flash_mha_packed_dropout_reference(*xp, seed, heads, RATE)
         f_ms, fp_ms = in_turns(
@@ -2363,9 +2443,11 @@ def phase24(dev, gpu: str) -> tuple:
         bb, b_mm, b_hash = dropout_bound(b, heads, l, dt, 5, 1,
                                          8 * n * es + b * heads * l * 4)
         tb = attn_bound(b, heads, l, l, dh, dt)
+        short10 = short_note(lambda: fa.flash_mha_packed(q, k, v, heads),
+                             sdpa10, p10_ms, dt)
         print(f"phase 24: ({b}, {l}, {heads * dh}) {dt}: B10 kernel "
               f"{p10_ms:.4f} ms, plain {p10p_ms:.4f} ms, SDPA {lib10:.4f} "
-              f"ms, bound {tb['bound_ms']:.4f} ms ({tb['bound_by']}), "
+              f"ms, {bound_note(tb)}{short10}, "
               f"{4 * b * l * l * heads * dh / p10_ms / 1e9:.1f} TFLOP/s; B11 "
               f"forward kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms, SDPA "
               f"{lib_f:.4f} ms, bound {fb['bound_ms']:.4f} ms (products "
@@ -2601,7 +2683,16 @@ def main(argv: list) -> int:
     b4_mma_fwd, b4_mma_bwd = b4[(torch.bfloat16, STEP_B)]
     attn_src = "fudanocr_tpu_torch/csrc/flash_attention_dropout.cu"
     seg_src = "fudanocr_tpu_torch/csrc/unmasked_attention.cu"
-    print(json.dumps({"kernels": [
+    # the sources and CUDA kernels of the fp32 seg attention rows (phases 7,
+    # 10, 13, 24; the backward's reduce is in seg_src) and of B3's bf16 row
+    # (phase 17)
+    fwd32 = {"source": "fudanocr_tpu_torch/csrc/"
+                       "unmasked_attention_fwd_tf32x3.cu",
+             "cuda_kernels": ["attn_fwd_tf32x3_kernel"]}
+    bwd32 = {"source": "fudanocr_tpu_torch/csrc/"
+                       "unmasked_attention_bwd_tf32x3.cu",
+             "cuda_kernels": BWD_KERNELS[torch.float32]}
+    rows = [
         {"name": "fused_enhancer", "route": "cuda",
          "source": "fudanocr_tpu_torch/csrc/fused_enhancer.cu",
          "replaces": "fudanocr_tpu/ops/fused_enhancer.py:188",
@@ -2622,27 +2713,23 @@ def main(argv: list) -> int:
          "source": attn_src,
          "replaces": "fudanocr_tpu/ops/flash_attention.py:528",
          "launches": bwd_n, **attn_bwd},
-        {"name": "unmasked_attention_packed", "route": "cuda",
-         "source": seg_src,
+        {"name": "unmasked_attention_packed", "route": "cuda", **fwd32,
          "replaces": "fudanocr_tpu/ops/region_attention.py:280",
          "launches": b7_n, **b7},
-        {"name": "unmasked_attention_bhld", "route": "cuda",
-         "source": seg_src,
+        {"name": "unmasked_attention_bhld", "route": "cuda", **fwd32,
          "replaces": "fudanocr_tpu/ops/flash_attention.py:653",
          "launches": b5_n, **b5},
-        {"name": "region_attention_packed", "route": "cuda",
-         "source": seg_src,
+        {"name": "region_attention_packed", "route": "cuda", **fwd32,
          "replaces": "fudanocr_tpu/ops/region_attention.py:167",
          "launches": b6_n, **b6},
-        {"name": "unmasked_attention_packed_bwd", "route": "cuda",
-         "source": seg_src,
+        {"name": "unmasked_attention_packed_bwd", "route": "cuda", **bwd32,
          "replaces": "fudanocr_tpu/ops/region_attention.py:306",
          "launches": b7_bwd_n, **b7_bwd},
-        {"name": "region_attention_packed_bwd", "route": "cuda",
-         "source": seg_src,
+        {"name": "region_attention_packed_bwd", "route": "cuda", **bwd32,
          "replaces": "fudanocr_tpu/ops/region_attention.py:201",
          "launches": b6_bwd_n, **b6_bwd},
         {"name": "flash_mha_qkv_packed", "route": "cuda", "source": seg_src,
+         "cuda_kernels": ["attn_fwd_mma_kernel"],
          "replaces": "fudanocr_tpu/ops/flash_attention.py:220",
          "launches": b3_n, **b3},
         {"name": "fused_bigru", "route": "cuda",
@@ -2653,7 +2740,7 @@ def main(argv: list) -> int:
          "source": "fudanocr_tpu_torch/csrc/fused_srb.cu",
          "replaces": "fudanocr_tpu/ops/fused_srb.py:124",
          "launches": b9_n, **b9},
-        {"name": "flash_mha_packed", "route": "cuda", "source": seg_src,
+        {"name": "flash_mha_packed", "route": "cuda", **fwd32,
          "replaces": "fudanocr_tpu/ops/flash_attention.py:164",
          "launches": b10_n, **b10},
         {"name": "packed_dropout_attention_fwd", "route": "cuda",
@@ -2679,7 +2766,12 @@ def main(argv: list) -> int:
         {"name": "packed_dropout_attention_bwd_mma", "route": "cuda",
          "source": attn_src,
          "replaces": "fudanocr_tpu/ops/flash_attention.py:401",
-         "launches": b11_mma_bwd_n, **b11_mma_bwd}]}))
+         "launches": b11_mma_bwd_n, **b11_mma_bwd}]
+    # the CUDA-core floor is computed, not measured: the phase lines print
+    # it, the kernels line carries only `bound_ms`
+    for row in rows:
+        row.pop("cuda_core_bound_ms", None)
+    print(json.dumps({"kernels": rows}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,9 +30,8 @@
 // Per (image b, head h), with scale = 1/sqrt(dh):
 //   s = q k^T * scale (fp32),  o = softmax_rows(s) v,
 // row max subtracted, fp32 statistics and accumulation, o in the input type
-// (fp32 or bf16; the CUDA-core kernels widen bf16 inputs on load, the
-// tensor-core kernel below multiplies them as bf16). MASKED adds the det-
-// guided suppression of the reference (cascade_mit.py calculate_mask):
+// (fp32 or bf16). MASKED adds the det-guided suppression of the reference
+// (cascade_mit.py calculate_mask):
 //   s_ij = (q_i . k_j * scale) + (rq_i == rkv_j ? -1e10 : 0),
 // rounded after the product and again after the sum, before the row max,
 // as the JAX kernel does. In fp32 the spacing near 1e10 is 1024, so every
@@ -41,23 +40,109 @@
 // The kernels never skip a suppressed key and start the running max at
 // -inf, so such a row comes out as the plain version computes it.
 //
-// Forward design (fp32, MASKED, STATS): one block of 128 threads per
-// (128-row q tile, head, image), one thread per q row holding its q row and
-// its output accumulator in registers. K and V of one head do not fit in
-// shared memory at the segmentation shapes (Lkv = 1024, dh = 32, fp32: 256
-// KB; 1 MB at Lkv = 4096), so they stream through it in tiles of 64 keys
-// (16 KB at dh = 32, 32 KB at dh = 64) with an online softmax: per chunk of
-// keys the running max, the running denominator and the accumulator are
-// rescaled once. Nothing of size Lq x Lkv touches device memory. The
-// training forward (STATS) also writes, per (image, head, q row), the row
-// max m and 1/l (l the denominator), and o in fp32. One log-sum-exp would
-// not do: for a fully suppressed row m = -1e10, and m + log(l) rounds back
-// to -1e10 in fp32, so exp(s - lse) would give 1 where the answer is 1/Lkv.
-// This kernel keeps p in fp32 for the value product.
+// Every kernel streams the other side through shared memory in tiles of 64
+// rows: K and V of one head do not fit there at the segmentation shapes
+// (Lkv = 1024, dh = 32, fp32: 256 KB; 1 MB at Lkv = 4096). The forward keeps
+// an online softmax (per tile the running max, the running denominator and
+// the accumulator are rescaled once), so nothing of size Lq x Lkv touches
+// device memory. The training forward (STATS) also writes, per (image,
+// head, q row), the row max m and 1/l (l the denominator), and o in fp32.
+// One log-sum-exp would not do: for a fully suppressed row m = -1e10, and
+// m + log(l) rounds back to -1e10 in fp32, so exp(s - lse) would give 1
+// where the answer is 1/Lkv.
 //
-// The bf16 inference forward, unmasked (`attn_fwd_mma_kernel`: B7, B3 and
-// B10 on the packed layout, B5 on the head-major one): every bf16 call
-// without region ids and without STATS runs it, and nothing else does. It
+// The backward (the JAX `_bwd_body`: probs = softmax(s + M),
+// dv = probs^T dO, dp = dO v^T, ds = probs * (dp - rowsum(dp * probs)),
+// dq = ds k * scale, dk = ds^T q * scale) is FlashAttention-2's split:
+// p_ij = exp(s_ij - m_i) / l_i is recomputed from the saved statistics with
+// the forward's rounding, and rowsum(dp * probs) = D_i = dO_i . o_i from the
+// saved fp32 o. Three launches, no atomics, deterministic:
+//   1. dQ: the q rows against every key (K/V tiles in shared memory); it
+//      also writes D_i for launch 2;
+//   2. dK/dV partials: the keys against a slice of the q rows (Q/dO tiles
+//      in shared memory). One pass over all of Lq would give B*H*Lkv/128
+//      blocks, 16 at stage 0 of both seg recipes against 132 SMs, so Lq is
+//      split across blocks (about 528 blocks in all) and each slice writes
+//      fp32 partial sums;
+//   3. the partials summed in a fixed order, dk scaled, both rounded to the
+//      input type.
+//
+// What bounds it on this card: the forward does 4*B*H*Lq*Lkv*dh flops (two
+// products), the backward 10*B*H*Lq*Lkv*dh (the JAX CostEstimate: s, dv, dp,
+// dq, dk), against each operand read once and each result written once. At
+// the det recipe's stage 0 (B = 2, Lq = 65,536, Lkv = 1024, dh = 32, fp32)
+// the backward's 42.9 GFLOP take 0.64 ms at the CUDA cores' 67 TFLOP/s and
+// 0.26 ms as three TF32 products at the tensor cores' 495 TFLOP/s, against
+// ~0.01 ms for its bytes: the products set the bound.
+//
+// fp32: the tensor cores in split TF32 (3xTF32). Every fp32 call runs
+// `attn_fwd_tf32x3_kernel` (csrc/unmasked_attention_fwd_tf32x3.cu;
+// unmasked, MASKED and STATS; B5, B6, B7 and, through B7's wrappers, B3 and
+// B10) or, for the backward, `attn_bwd_dq_tf32x3_kernel` and
+// `attn_bwd_dkv_tf32x3_kernel` (csrc/unmasked_attention_bwd_tf32x3.cu),
+// then this file's reduce; their helpers are csrc/tf32x3.cuh. No fp32
+// instantiation of the CUDA-core kernels below is built. (Three sources,
+// so that nvcc compiles them in parallel.) One TF32 product
+// (mma.sync m16n8k8 .tf32: 10 explicit mantissa bits, products exact,
+// fp32 sums) misses the fp32 bar by two orders: its operands carry 2^-11
+// relative error, ~5e-4 in o at standard-normal inputs against the 1e-5
+// bar. The split keeps fp32's precision: each operand x becomes hi =
+// tf32(x) (cvt.rna) plus lo = tf32(x - hi), so x - hi - lo is below 2^-22 |x|,
+// and
+//   a b ~ hi_a hi_b + hi_a lo_b + lo_a hi_b
+// drops only lo_a lo_b (< 2^-22 |a b|): three TF32 products, ~165 TFLOP/s
+// of fp32-accurate product at the 495 TFLOP/s TF32 peak, 2.5x the CUDA
+// cores' 67. The CPU rounding model (tests/torch_attention_cases.py
+// `tf32x3_attention_model`, held against the JAX kernels in
+// tests/test_torch_tf32x3_rounding.py) stays within the fp32 bar where
+// one product does not. What the tensor cores add, and the design answers:
+// they round each mma's sum toward zero (about -0.3 ulp per mma on
+// average on an H100, scripts/tf32_mma_rounding.py), a bias that grows
+// with the number of mmas summed into one accumulator. So every sum starts
+// afresh for each 64-row tile and is added to the running fp32 sum on the
+// CUDA cores (rounded to nearest), and within a tile the two small
+// products of every k-step are summed before the large ones: S takes dh/8
+// truncations of its own size, never one per tile of Lkv.
+// The rounding points are the CUDA-core kernels': s = fp32 product times
+// scale with __fmul_rn, MASKED adds -1e10 with __fadd_rn, the running max
+// from -inf, p = exp(s - m) in fp32, l in fp32, o = acc * (1/l); STATS
+// writes m, 1/l and o in fp32. The design is B1's and the bf16 forward's
+// mma.sync loop (below) on fp32 tiles:
+//   * one block of 8 warps per 128 rows; each warp owns 16 rows (q rows,
+//     or keys in the dK/dV pass) and keeps their A fragments in registers
+//     for the whole loop, split into hi and lo once (the forward's Q, the
+//     dQ pass's Q and dO, the dK/dV pass's K and V). Where 128-row blocks
+//     would number fewer than two per SM (stage and level 3, B 3: 192),
+//     the forward takes blocks of 4 warps and 64 rows: ~10 % faster there
+//     (scripts/time_seg_attention.py, variant rows128). At dh = 32 every
+//     kernel is held to 128 registers, 2 blocks an SM (ptxas spills up to
+//     172 bytes in the dK/dV pass): against 1 block (variant one_block)
+//     the forward is ~11 % faster at stage 0 and ~9 % slower at stage 3,
+//     the backward within 3 %; at dh = 64, off every path, one block
+//     takes 253-255 registers (the backward passes spill up to 52 bytes);
+//   * the other side's 64-row tiles arrive fp32 through 16-byte cp.async
+//     copies (4-byte ones where a pointer or stride rules those out),
+//     double-buffered, and are split into hi and lo once per block, in
+//     place, not once per warp: eight warps splitting the same tile would
+//     add ~12 CUDA-core operations a score at dh = 32, twice the softmax.
+//     Rows are padded to a pitch of dh + 4 floats (4 mod 32), so every
+//     fragment load below is free of bank conflicts; two barriers a tile
+//     (the tile is in; it is split);
+//   * P (or dS) as the A operand straight from the accumulators: the m16n8
+//     C fragment holds keys 2t and 2t + 1 of its 8, the m16n8k8 A fragment
+//     wants k = t and t + 4, so the keys are relabelled (a0 = c0, a1 = c2,
+//     a2 = c1, a3 = c3) and the B fragment of V (or K, Q, dO) is read from
+//     tile rows 2t and 2t + 1; the product sums over keys, so the order is
+//     free;
+//   * the backward passes take the 64-row tile in chunks of 16 rows (S and
+//     dP of a chunk in 16 registers: the statistics are known, so no row
+//     reduction spans the tile) and keep their running sums (dQ; dK and
+//     dV) in shared memory, each element owned by one lane, added to once
+//     per tile.
+//
+// bf16: the unmasked inference forward (`attn_fwd_mma_kernel`: B7, B3 and
+// B10 on the packed layout, B5 on the head-major one) runs on the tensor
+// cores; every bf16 call without region ids and without STATS runs it. It
 // computes the JAX kernels' function at their rounding points
 // (region_attention.py `_fwd_body` :63-81, flash_attention.py
 // `_packed_kernel` :136-160 and the online `_flash_kernel` :46-79):
@@ -73,9 +158,9 @@
 // design is FlashAttention-2's forward on mma.sync m16n8k16 (bf16 in, fp32
 // accumulators), B1's attention loop (csrc/fused_enhancer.cu
 // `attention_mma`) on strided operands:
-//   * one block of 8 warps per (128-row q tile, head, image), the grid of
-//     the CUDA-core kernel; each warp owns 16 q rows and keeps their A
-//     fragments in registers for the whole key loop;
+//   * one block of 8 warps per (128-row q tile, head, image); each warp
+//     owns 16 q rows and keeps their A fragments in registers for the whole
+//     key loop;
 //   * 64-key tiles of K and V stay bf16 in shared memory, rows padded by 8
 //     elements so the fragment loads are free of bank conflicts, double-
 //     buffered with 16-byte cp.async copies: tile j + 1 loads while tile j
@@ -93,39 +178,15 @@
 //   * o / l rounded to bf16 and stored through the output's own strides.
 // No wgmma and no TMA: mma.sync at 8 warps per block is the proven base
 // (B1); warp-group products are later work.
-//
-// Backward design (the JAX `_bwd_body`: probs = softmax(s + M),
-// dv = probs^T dO, dp = dO v^T, ds = probs * (dp - rowsum(dp * probs)),
-// dq = ds k * scale, dk = ds^T q * scale), FlashAttention-2's split:
-// p_ij = exp(s_ij - m_i) / l_i is recomputed from the saved statistics with
-// the forward's rounding, and rowsum(dp * probs) = D_i = dO_i . o_i from the
-// saved fp32 o. Three launches, no atomics, deterministic:
-//   1. dQ: one thread per q row against every key (K/V tiles in shared
-//      memory); it also writes D_i for launch 2;
-//   2. dK/dV partials: one thread per key row against a slice of the q
-//      rows (Q/dO tiles in shared memory). One pass over all of Lq would
-//      give B*H*Lkv/128 blocks, 16 at stage 0 of both seg recipes against
-//      132 SMs, so Lq is split across blocks (about 528 blocks in all) and
-//      each slice writes fp32 partial sums;
-//   3. the partials summed in a fixed order, dk scaled, both rounded to the
-//      input type.
-//
-// What bounds it on this card: the forward does 4*B*H*Lq*Lkv*dh flops (two
-// products), the backward 10*B*H*Lq*Lkv*dh (the JAX CostEstimate: s, dv, dp,
-// dq, dk), against each operand read once and each result written once.
-// At the det recipe's stage 0 (B = 2, Lq = 65,536, Lkv = 1024, dh = 32,
-// fp32) the backward's 42.9 GFLOP take 0.64 ms at 67 TFLOP/s against
-// ~0.01 ms for its bytes: fp32 FMA sets the bound. The CUDA-core kernels
-// spend their registers on FMAs: each shared-memory row is read as a
-// broadcast (every thread of the warp reads the same 16 bytes) and feeds
-// one FMA per feature per thread. The mask costs one compare and one add
-// per score: the thread keeps its own row's id in a register, and each tile
-// stages the other side's ids into shared memory. fp32 stays on CUDA cores
-// because TF32 misses the fp32 bar. Only the unmasked bf16 inference
-// forward runs on the tensor cores; the MASKED forward, the STATS forward
-// and the backward in bf16 still widen to fp32 on the CUDA cores (later
-// work), as does keeping fewer than 4*dh values a thread in the dK/dV pass
-// (at dh = 64 it spills to local memory).
+// The bf16 MASKED forward, STATS forward and backward, which no path
+// reaches in bf16, still widen bf16 to fp32 on the CUDA cores
+// (`attn_fwd_kernel`, `attn_bwd_dq_kernel`, `attn_bwd_dkv_kernel`): one
+// block of 128 threads per 128 rows, one thread per q row (or key) holding
+// its row and its accumulator in registers, each shared-memory row read as
+// a broadcast feeding one FMA per feature, tiles staged element by element.
+// A bf16 value is exact in TF32 (its low part is zero), so these calls can
+// move to the tf32x3 kernels with one product each at today's bf16
+// semantics (ROADMAP B-R2).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -135,16 +196,11 @@
 #include <type_traits>
 
 #include "bf16_mma.cuh"
+#include "unmasked_attention.cuh"
 
 namespace {
 
-constexpr int kRows = 128;   // q rows (or keys) per block = threads per block
-constexpr int kTile = 64;    // rows per K/V (or Q/dO) tile in shared memory
-constexpr float kNeg = -1e10f;   // the reference's suppression constant
-
-struct Strides {   // element strides of one operand
-  int64_t b, h, r;
-};
+using namespace seg_attn;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -291,9 +347,6 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---- the bf16 inference forward on the tensor cores (see the top) --------
-constexpr int kMmaWarps = kRows / 16;        // 16 q rows per warp
-constexpr int kMmaThreads = 32 * kMmaWarps;
-
 template <int DH, bool VEC16>
 __global__ void __launch_bounds__(kMmaThreads)
 attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -443,9 +496,10 @@ attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// Backward launch 1: dq (B, Lq, H*DH) contiguous, and D_i = dO_i . o_i into
-// delta, for this thread's q row against every key. dout (input type) and
-// o (fp32) are contiguous (B, Lq, H*DH).
+// Backward launch 1 in bf16 on the CUDA cores: dq (B, Lq, H*DH)
+// contiguous, and D_i = dO_i . o_i into delta, for this thread's q row
+// against every key. dout (input type) and o (fp32) are contiguous
+// (B, Lq, H*DH).
 template <typename T, int DH, bool MASKED>
 __global__ void __launch_bounds__(kRows)
 attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -502,7 +556,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < DH; ++i) store_f(dst + i, acc[i] * scale);
 }
 
-// Backward launch 2: this thread's key row against q rows
+// Backward launch 2 in bf16: this thread's key row against q rows
 // [split * q_chunk, min(Lq, (split + 1) * q_chunk)), block x = split *
 // (Lkv / kRows) + key block. Writes unscaled fp32 partial dk and dv at
 // ((split * B + b) * Lkv + key) * H*DH + h*DH.
@@ -574,8 +628,8 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Backward launch 3: dk = scale * sum over splits, dv = sum over splits, in
-// split order, each of n = B * Lkv * H*DH elements.
+// Backward launch 3 (both types): dk = scale * sum over splits, dv = sum
+// over splits, in split order, each of n = B * Lkv * H*DH elements.
 template <typename T>
 __global__ void attn_bwd_reduce_kernel(const float* __restrict__ dk_part,
                                        const float* __restrict__ dv_part,
@@ -593,39 +647,23 @@ __global__ void attn_bwd_reduce_kernel(const float* __restrict__ dk_part,
   }
 }
 
-struct FwdArgs {
-  const void *q, *k, *v;
-  void* o;
-  const float *rq, *rkv;
-  float *stat_m, *stat_inv;
-  int Lq, Lkv;
-  Strides sq, sk, sv, so;
-  float scale;
-};
-
-template <typename T, int DH, bool MASKED, bool STATS>
-void launch_fwd(const FwdArgs& a, dim3 grid, cudaStream_t s) {
+// the bf16 MASKED or STATS forward on the CUDA cores
+template <int DH, bool MASKED, bool STATS>
+void launch_fwd_bf16(const FwdArgs& a, dim3 grid, cudaStream_t s) {
+  using T = __nv_bfloat16;
   using TO = typename std::conditional<STATS, float, T>::type;
   attn_fwd_kernel<T, TO, DH, MASKED, STATS><<<grid, kRows, 0, s>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (TO*)a.o, a.rq, a.rkv,
       a.stat_m, a.stat_inv, a.Lq, a.Lkv, a.sq, a.sk, a.sv, a.so, a.scale);
 }
 
-template <typename T, bool MASKED, bool STATS>
-void launch_fwd_dh(const FwdArgs& a, int dh, dim3 grid, cudaStream_t s) {
+template <bool MASKED, bool STATS>
+void launch_fwd_bf16_dh(const FwdArgs& a, int dh, dim3 grid,
+                        cudaStream_t s) {
   if (dh == 32)
-    launch_fwd<T, 32, MASKED, STATS>(a, grid, s);
+    launch_fwd_bf16<32, MASKED, STATS>(a, grid, s);
   else
-    launch_fwd<T, 64, MASKED, STATS>(a, grid, s);
-}
-
-template <typename T, bool MASKED>
-void launch_fwd_stats(const FwdArgs& a, int dh, bool stats, dim3 grid,
-                      cudaStream_t s) {
-  if (stats)
-    launch_fwd_dh<T, MASKED, true>(a, dh, grid, s);
-  else
-    launch_fwd_dh<T, MASKED, false>(a, dh, grid, s);
+    launch_fwd_bf16<64, MASKED, STATS>(a, grid, s);
 }
 
 bool shape_ok(int B, int H, int Lq, int Lkv, int dh) {
@@ -660,9 +698,9 @@ void launch_mma_dh(const FwdArgs& a, int dh, dim3 grid, cudaStream_t s) {
 }
 
 // rq == rkv == nullptr: unmasked; both set: region-masked. stats: the
-// training forward (o fp32, stat_m and stat_inv written). A bf16 unmasked
-// call without stats runs the tensor-core kernel, every other call the
-// CUDA-core one (no bf16 instantiation of it for that case is built).
+// training forward (o fp32, stat_m and stat_inv written). Every fp32 call
+// runs the split-TF32 kernel; in bf16 an unmasked call without stats runs
+// the tensor-core kernel, every other call the CUDA-core one.
 int launch(const FwdArgs& a, int B, int H, int dh, bool stats, int bf16,
            void* stream) {
   if (!shape_ok(B, H, a.Lq, a.Lkv, dh) || (a.rq == nullptr) != (a.rkv ==
@@ -670,46 +708,23 @@ int launch(const FwdArgs& a, int B, int H, int dh, bool stats, int bf16,
     return (int)cudaErrorInvalidValue;
   const dim3 grid(a.Lq / kRows, H, B);
   cudaStream_t s = (cudaStream_t)stream;
-  if (a.rq)
-    bf16 ? launch_fwd_stats<__nv_bfloat16, true>(a, dh, stats, grid, s)
-         : launch_fwd_stats<float, true>(a, dh, stats, grid, s);
-  else if (!bf16)
-    launch_fwd_stats<float, false>(a, dh, stats, grid, s);
+  if (!bf16)
+    return launch_fwd_tf32x3(a, dh, stats, grid, s);
+  if (a.rq && stats)
+    launch_fwd_bf16_dh<true, true>(a, dh, grid, s);
+  else if (a.rq)
+    launch_fwd_bf16_dh<true, false>(a, dh, grid, s);
   else if (stats)
-    launch_fwd_dh<__nv_bfloat16, false, true>(a, dh, grid, s);
+    launch_fwd_bf16_dh<false, true>(a, dh, grid, s);
   else
     launch_mma_dh(a, dh, grid, s);
   return (int)cudaGetLastError();
 }
 
-struct BwdArgs {
-  const void *q, *k, *v, *dout;
-  const float *o, *rq, *rkv, *stat_m, *stat_inv;
-  float *delta, *dk_part, *dv_part;
-  void *dq, *dk, *dv;
-  int B, H, Lq, Lkv, q_chunk;
-  Strides sq, sk, sv;
-  float scale;
-};
-
-template <typename T, int DH, bool MASKED>
-int launch_bwd_typed(const BwdArgs& a, cudaStream_t s) {
-  attn_bwd_dq_kernel<T, DH, MASKED><<<dim3(a.Lq / kRows, a.H, a.B), kRows, 0,
-                                      s>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.o, (const T*)a.dout,
-      a.rq, a.rkv, a.stat_m, a.stat_inv, a.delta, (T*)a.dq, a.Lq, a.Lkv,
-      a.sq, a.sk, a.sv, a.scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int splits = (a.Lq + a.q_chunk - 1) / a.q_chunk;
-  attn_bwd_dkv_kernel<T, DH, MASKED><<<dim3(splits * (a.Lkv / kRows), a.H,
-                                            a.B), kRows, 0, s>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, a.rq,
-      a.rkv, a.stat_m, a.stat_inv, a.delta, a.dk_part, a.dv_part, a.Lq,
-      a.Lkv, a.q_chunk, a.sq, a.sk, a.sv, a.scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int64_t n = (int64_t)a.B * a.Lkv * a.H * DH;
+// launch 3: the partials summed, dk scaled, both in the input type
+template <typename T>
+int launch_reduce(const BwdArgs& a, int dh, int splits, cudaStream_t s) {
+  const int64_t n = (int64_t)a.B * a.Lkv * a.H * dh;
   const int64_t blocks = (n + 255) / 256;
   attn_bwd_reduce_kernel<T><<<(int)(blocks < 4096 ? blocks : 4096), 256, 0,
                               s>>>(a.dk_part, a.dv_part, (T*)a.dk, (T*)a.dv,
@@ -717,16 +732,43 @@ int launch_bwd_typed(const BwdArgs& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool MASKED>
-int launch_bwd_dh(const BwdArgs& a, int dh, cudaStream_t s) {
-  return dh == 32 ? launch_bwd_typed<T, 32, MASKED>(a, s)
-                  : launch_bwd_typed<T, 64, MASKED>(a, s);
+int q_splits(const BwdArgs& a) {
+  return (a.Lq + a.q_chunk - 1) / a.q_chunk;
 }
 
-template <typename T>
-int launch_bwd_masked(const BwdArgs& a, int dh, cudaStream_t s) {
-  return a.rq ? launch_bwd_dh<T, true>(a, dh, s)
-              : launch_bwd_dh<T, false>(a, dh, s);
+// the bf16 backward on the CUDA cores
+template <int DH, bool MASKED>
+int launch_bwd_bf16(const BwdArgs& a, cudaStream_t s) {
+  using T = __nv_bfloat16;
+  attn_bwd_dq_kernel<T, DH, MASKED><<<dim3(a.Lq / kRows, a.H, a.B), kRows, 0,
+                                      s>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.o, (const T*)a.dout,
+      a.rq, a.rkv, a.stat_m, a.stat_inv, a.delta, (T*)a.dq, a.Lq, a.Lkv,
+      a.sq, a.sk, a.sv, a.scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int splits = q_splits(a);
+  attn_bwd_dkv_kernel<T, DH, MASKED><<<dim3(splits * (a.Lkv / kRows), a.H,
+                                            a.B), kRows, 0, s>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, a.rq,
+      a.rkv, a.stat_m, a.stat_inv, a.delta, a.dk_part, a.dv_part, a.Lq,
+      a.Lkv, a.q_chunk, a.sq, a.sk, a.sv, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_reduce<T>(a, DH, splits, s);
+}
+
+int launch_bwd(const BwdArgs& a, int dh, bool bf16, cudaStream_t s) {
+  if (bf16) {
+    if (a.rq)
+      return dh == 32 ? launch_bwd_bf16<32, true>(a, s)
+                      : launch_bwd_bf16<64, true>(a, s);
+    return dh == 32 ? launch_bwd_bf16<32, false>(a, s)
+                    : launch_bwd_bf16<64, false>(a, s);
+  }
+  const int splits = q_splits(a);
+  const int err = launch_bwd_tf32x3(a, dh, splits, s);
+  return err ? err : launch_reduce<float>(a, dh, splits, s);
 }
 
 }  // namespace
@@ -813,9 +855,7 @@ extern "C" int attn_packed_bwd(const void* q, const void* k, const void* v,
                   dk_part, dv_part, dq, dk, dv, B, H, Lq, Lkv, q_chunk,
                   {Lq * q_row, hs, q_row}, {Lkv * k_row, hs, k_row},
                   {Lkv * v_row, hs, v_row}, scale};
-  cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? launch_bwd_masked<__nv_bfloat16>(a, dh, s)
-              : launch_bwd_masked<float>(a, dh, s);
+  return launch_bwd(a, dh, bf16 != 0, (cudaStream_t)stream);
 }
 
 // Head-major layout (B5): q/o (B, H, Lq, dh) and k/v (B, H, Lkv, dh), each

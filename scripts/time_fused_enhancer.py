@@ -13,6 +13,7 @@ kernel (torch.profiler) and the error against the plain version, with the
 card's name and power limit. The package timed is the one on the import
 path, so the same file times a parent checkout beside this one.
 
+The harness is scripts/kernel_timing.py's.
 `--variants` copies the package into build/enhancer_variants/<name>/ with
 one edit to csrc/fused_enhancer.cu each, builds the copies in parallel,
 and times B1 at (256, 1024) bf16 in each, in the order listed and then
@@ -29,23 +30,23 @@ Needs a CUDA device; exits non-zero without one.
 
 from __future__ import annotations
 
-import os
 import re
-import shutil
-import subprocess
 import sys
-import tempfile
 from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
+from kernel_timing import (ROOT, card, cuda_ms, device_ms_by_kernel,
+                           ptxas_report, variants)
+
 sys.path.append(str(ROOT))   # after PYTHONPATH: another tree's package wins
 SHAPES = ((64, torch.float32), (64, torch.bfloat16), (256, torch.bfloat16))
 LR_HW = (16, 64)
 ITERS = 20
+SOURCE = "fused_enhancer.cu"
 VARIANTS = {
     "attention_only": (
+        SOURCE,
         "    attention_mma<DH>(qkv, img, q0, L, sm, wout, ws, bufA);\n",
         "    attention_mma<DH>(qkv, img, q0, L, sm, wout, ws, bufA);\n"
         "    if (L > 0) {\n"
@@ -56,48 +57,11 @@ VARIANTS = {
         "      return;\n"
         "    }\n"),
     "no_register_cap": (
+        SOURCE,
         "constexpr int kMinBlocks = std::is_same<T, __nv_bfloat16>::value"
         " ? 2 : 1;",
         "constexpr int kMinBlocks = 1;"),
 }
-
-
-def card() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int) -> float:
-    fn()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(iters):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / iters
-
-
-def device_ms_by_kernel(fn, iters: int) -> dict:
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    split = {}
-    for e in prof.key_averages():
-        if e.device_type.name == "CUDA" and e.device_time_total > 0:
-            name = re.split(r"[<(]", re.sub(
-                r"^void |\(anonymous namespace\)::", "", e.key))[0]
-            split[name] = round(split.get(name, 0.0)
-                                + e.device_time_total / 1e3 / iters, 4)
-    return split
 
 
 def time_b1(tag: str, shapes) -> None:
@@ -137,60 +101,13 @@ def time_b1(tag: str, shapes) -> None:
               f"{err.mean().item():.3e} [{gpu}]", flush=True)
 
 
-def ptxas_report() -> None:
-    from fudanocr_tpu_torch.ops import _build
-
-    src = _build.CSRC / "fused_enhancer.cu"
-    with tempfile.TemporaryDirectory() as tmp:
-        r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas",
-                            "-v", "-c", str(src), "-o",
-                            os.path.join(tmp, "fe.o")],
-                           capture_output=True, text=True, check=True)
-    kernel = None
-    for line in (r.stdout + r.stderr).splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = re.search(r"(qkv_proj_mma_kernel|qkv_proj_kernel|"
-                             r"attn_epilogue_kernel)(I\w*?Li(\d+)E)?",
-                             m.group(1))
-            kernel = name.group(1) + (
-                f"<{'bf16' if 'bfloat16' in name.group(2) else 'fp32'}, "
-                f"{name.group(3)}>" if name.group(2) else "")
-        elif kernel and ("Used" in line or "spill" in line):
-            print(f"ptxas: {kernel}: {line.split(' : ')[-1].strip()}")
-
-
-def variants() -> int:
-    out = ROOT / "build" / "enhancer_variants"
-    env = dict(os.environ)
-    builds = []
-    for name, (old, new) in VARIANTS.items():
-        tree = out / name
-        shutil.rmtree(tree, ignore_errors=True)
-        shutil.copytree(ROOT / "fudanocr_tpu_torch",
-                        tree / "fudanocr_tpu_torch",
-                        ignore=shutil.ignore_patterns("__pycache__"))
-        src = tree / "fudanocr_tpu_torch" / "csrc" / "fused_enhancer.cu"
-        text = src.read_text()
-        if text.count(old) != 1:
-            raise SystemExit(f"variant {name}: its anchor is not in the "
-                             f"source once")
-        src.write_text(text.replace(old, new))
-        env_v = {**env, "PYTHONPATH": str(tree)}
-        builds.append(subprocess.Popen(
-            [sys.executable, "-c",
-             "from fudanocr_tpu_torch.ops import _build; _build.build()"],
-            env=env_v))
-    if any([p.wait() for p in builds]):   # wait for every build
-        raise SystemExit("a variant did not build")
-    order = list(VARIANTS)
-    for name in order + order[::-1]:
-        rc = subprocess.call(
-            [sys.executable, __file__, "--as", name],
-            env={**env, "PYTHONPATH": str(out / name)})
-        if rc:
-            return rc
-    return 0
+def kernel_name(mangled: str) -> str:
+    """`kernel<fp32|bf16, dh>` (or the bare name) of a mangled name."""
+    name = re.search(r"(qkv_proj_mma_kernel|qkv_proj_kernel|"
+                     r"attn_epilogue_kernel)(I\w*?Li(\d+)E)?", mangled)
+    return name.group(1) + (
+        f"<{'bf16' if 'bfloat16' in name.group(2) else 'fp32'}, "
+        f"{name.group(3)}>" if name.group(2) else "")
 
 
 def main(argv: list) -> int:
@@ -204,10 +121,11 @@ def main(argv: list) -> int:
 
     _build.build()
     if "--ptxas" in argv:
-        ptxas_report()
+        ptxas_report((SOURCE,), kernel_name)
     tree = Path(_build.__file__).resolve().parents[2]
     time_b1(f"tree {tree.name or tree}", SHAPES)
-    return variants() if "--variants" in argv else 0
+    return (variants(__file__, "enhancer_variants", VARIANTS,
+                     list(VARIANTS)) if "--variants" in argv else 0)
 
 
 if __name__ == "__main__":

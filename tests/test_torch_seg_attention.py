@@ -15,10 +15,11 @@ package on the CPU, on the same seeded numpy inputs:
 
 Tests marked `cuda` hold the hand-written kernels (csrc/
 unmasked_attention.cu) against the plain version on the card, the bf16
-tensor-core forward also at its edge cases (tests/torch_attention_cases.py),
-check by torch.profiler which kernel a call runs, and skip where there is
-no card. The JAX package is imported inside the tests that use
-it, so the `cuda` tests also run where jax is not installed:
+tensor-core forward and the fp32 split-TF32 forward also at their edge
+cases (tests/torch_attention_cases.py), check by torch.profiler which
+kernel a call runs, and skip where there is no card. The JAX package is
+imported inside the tests that use it, so the `cuda` tests also run where
+jax is not installed:
 
     python -m pytest tests/test_torch_seg_attention.py -m cuda --noconftest
 """
@@ -32,7 +33,7 @@ import torch
 from fudanocr_tpu_torch.models.seg import cascade_mit as pcm
 from fudanocr_tpu_torch.ops import flash_attention as fa
 from fudanocr_tpu_torch.ops import region_attention as ra
-from torch_attention_cases import CASES, edge_qkv, heads_view
+from torch_attention_cases import CASES, FP32_CASES, edge_qkv, heads_view
 
 ATOL = 1e-5   # fp32, the same math in another summation order
 BF16_ATOL = 2e-2   # bf16 outputs: about one bf16 ulp at |o| <= 4
@@ -299,6 +300,9 @@ def _attn_fwd_kernels(fn) -> list:
 
 @pytest.mark.cuda
 def test_only_bf16_unmasked_inference_runs_the_tensor_core_kernel(cuda):
+    """Which forward each call runs: bf16 unmasked inference the bf16
+    tensor-core kernel, every fp32 call the split-TF32 one (also on the
+    tensor cores), the other bf16 calls the CUDA-core one."""
     q, k, v = edge_qkv("plain", 1, 256, 128, 64, cuda)
     odd = edge_qkv("odd", 1, 256, 128, 64, cuda)
     f32 = [t.float() for t in (q, k, v)]
@@ -314,10 +318,15 @@ def test_only_bf16_unmasked_inference_runs_the_tensor_core_kernel(cuda):
             *(heads_view(t, 2) for t in (q, k, v))),
             "attn_fwd_mma_kernel<32, true>"),
         "packed fp32": (lambda: ra.packed_flash_mha(*f32, 2),
-                        "attn_fwd_kernel<float, float, 32, false, false>"),
+                        "attn_fwd_tf32x3_kernel<32, false, false>"),
         "head-major fp32": (lambda: fa.flash_mha(
             *(heads_view(t, 2) for t in f32)),
-            "attn_fwd_kernel<float, float, 32, false, false>"),
+            "attn_fwd_tf32x3_kernel<32, false, false>"),
+        "region fp32": (lambda: ra.region_flash_mha(*f32, rq, rkv, 2),
+                        "attn_fwd_tf32x3_kernel<32, true, false>"),
+        "training forward fp32": (lambda: ra.packed_flash_mha(
+            *(t.clone().requires_grad_() for t in f32), 2),
+            "attn_fwd_tf32x3_kernel<32, false, true>"),
         "region bf16": (lambda: ra.region_flash_mha(q, k, v, rq, rkv, 2),
                         "attn_fwd_kernel<__nv_bfloat16, __nv_bfloat16, 32, "
                         "true, false>"),
@@ -328,3 +337,64 @@ def test_only_bf16_unmasked_inference_runs_the_tensor_core_kernel(cuda):
     for what, (fn, want) in runs.items():
         names = _attn_fwd_kernels(fn)
         assert len(names) == 1 and want in names[0], (what, names)
+
+
+# the fp32 split-TF32 forward at its edge cases, packed (B7, B6) and
+# head-major (B5), against the plain version at the fp32 bar:
+# (B, Lq, Lkv, D, heads, case)
+FP32_EDGE = [(2, 128, 64, 32, 1, "plain"),      # one q block, one key tile
+             (2, 1024, 1024, 512, 8, "plain"),  # dh 64, 8 heads
+             *((2, 512, 256, 64, 2, c) for c in FP32_CASES if c != "plain"),
+             (2, 512, 256, 128, 2, "peaked"),   # dh 64
+             (2, 512, 256, 128, 2, "large")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lkv,d,heads,case", FP32_EDGE)
+def test_fp32_packed_kernel_edge_cases(cuda, b, lq, lkv, d, heads, case):
+    q, k, v = edge_qkv(case, b, lq, lkv, d, cuda, seed=lq + d,
+                       dtype=torch.float32)
+    if case == "rising":
+        _check_rising(q, k, heads)
+    got = ra.packed_flash_mha(q, k, v, heads)
+    torch.cuda.synchronize()
+    want = ra.packed_flash_mha_reference(q, k, v, heads)
+    torch.testing.assert_close(got, want, rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lkv,d,heads,case", FP32_EDGE)
+def test_fp32_head_major_kernel_edge_cases(cuda, b, lq, lkv, d, heads,
+                                           case):
+    q, k, v = (heads_view(t, heads) for t in edge_qkv(
+        case, b, lq, lkv, d, cuda, seed=lq + d, dtype=torch.float32))
+    got = fa.flash_mha(q, k, v)
+    torch.cuda.synchronize()
+    want = fa.flash_mha_reference(q, k, v)
+    torch.testing.assert_close(got, want, rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lkv,d,heads,case", FP32_EDGE)
+def test_fp32_region_kernel_edge_cases(cuda, b, lq, lkv, d, heads, case):
+    """B6 with ids that suppress every pair of the second image's first
+    half of q rows (their output is the mean of v) and some pairs
+    elsewhere."""
+    q, k, v = edge_qkv(case, b, lq, lkv, d, cuda, seed=lq + d,
+                       dtype=torch.float32)
+    gen = torch.Generator().manual_seed(lq)
+    rq = torch.randint(0, 3, (b, lq), generator=gen).float()
+    rkv = torch.randint(0, 3, (b, lkv), generator=gen).float()
+    rkv[1], rq[1, :lq // 2] = 1.0, 1.0
+    rq, rkv = rq.to(cuda), rkv.to(cuda)
+    got = ra.region_flash_mha(q, k, v, rq, rkv, heads)
+    torch.cuda.synchronize()
+    want = ra.region_flash_mha_reference(q, k, v, rq, rkv, heads)
+    torch.testing.assert_close(got, want, rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32])
+    mean_v = v[1].mean(0).expand(lq // 2, -1)
+    torch.testing.assert_close(got[1, :lq // 2], mean_v,
+                               rtol=TOL[torch.float32],
+                               atol=TOL[torch.float32])

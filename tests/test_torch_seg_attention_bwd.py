@@ -17,11 +17,15 @@ on the same seeded numpy inputs, fp32:
 Tolerance: atol 1e-5 on gradients of magnitude ~1 (the same math in
 another summation order; measured ~1e-6).
 
-Tests marked `cuda` hold the backward kernel of csrc/unmasked_attention.cu
-against the plain backward on the card and skip where there is none:
+Tests marked `cuda` hold the backward kernels of csrc/unmasked_attention.cu
+against the plain backward on the card (the fp32 split-TF32 kernels also at
+the edge cases of tests/torch_attention_cases.py) and skip where there is
+none:
 
     python -m pytest tests/test_torch_seg_attention_bwd.py -m cuda --noconftest
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -29,6 +33,7 @@ import torch
 
 from fudanocr_tpu_torch.ops import flash_attention as fa
 from fudanocr_tpu_torch.ops import region_attention as ra
+from torch_attention_cases import FP32_CASES, edge_qkv
 
 ATOL = 1e-5
 B, LQ, LKV, D, HEADS = 2, 1024, 128, 64, 2
@@ -221,3 +226,99 @@ def test_flash_mha_gradient_on_the_card(cuda):
     want = fa.flash_mha_bwd_reference(q.detach(), k.detach(), v.detach(), do)
     for g, w in zip(got, want):
         assert _rel(g, w) <= 1e-5
+
+
+# the fp32 split-TF32 backward at its edge cases: (B, Lq, Lkv, D, heads,
+# case); the ids of `_inputs` (fully suppressed rows in image 1)
+FP32_BWD_EDGE = [(2, 1024, 128, 32, 1, "plain"),   # one key block
+                 *((2, 1024, 256, 64, 2, c) for c in FP32_CASES
+                   if c != "plain"),
+                 (2, 1024, 256, 128, 2, "peaked"),   # dh 64
+                 (2, 1024, 256, 128, 2, "large")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("b,lq,lkv,d,heads,case", FP32_BWD_EDGE)
+def test_fp32_backward_kernel_edge_cases(cuda, masked, b, lq, lkv, d, heads,
+                                         case):
+    q, k, v = edge_qkv(case, b, lq, lkv, d, cuda, seed=lq + d,
+                       dtype=torch.float32)
+    _, _, _, do, rq, rkv = (torch.from_numpy(a).to(cuda) for a in
+                            _inputs(lq + d, b, lq, lkv, d))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = (ra.region_flash_mha(*leaves, rq, rkv, heads) if masked
+         else ra.packed_flash_mha(*leaves, heads))
+    got = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    want = (ra.region_flash_mha_bwd_reference(q, k, v, rq, rkv, do, heads)
+            if masked else ra.packed_flash_mha_bwd_reference(q, k, v, do,
+                                                             heads))
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _rel(g, w) <= REL[torch.float32]
+    if masked:   # the fully suppressed rows' dq on its own
+        full = (rq[:, :, None] == rkv[:, None, :]).all(-1)
+        assert full.any() and _rel(got[0][full], want[0][full]) <= \
+            REL[torch.float32]
+
+
+@pytest.mark.cuda
+def test_fp32_backward_runs_the_tf32x3_kernels(cuda):
+    """The fp32 backward's launches by name in a torch.profiler trace: the
+    split-TF32 dQ and dK/dV passes and the reduce; bf16 the CUDA-core
+    ones."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for dtype, want in ((torch.float32, ["attn_bwd_dkv_tf32x3_kernel",
+                                         "attn_bwd_dq_tf32x3_kernel",
+                                         "attn_bwd_reduce_kernel"]),
+                        (torch.bfloat16, ["attn_bwd_dkv_kernel",
+                                          "attn_bwd_dq_kernel",
+                                          "attn_bwd_reduce_kernel"])):
+        q, k, v, do = (torch.from_numpy(a).to(cuda, dtype) for a in
+                       _inputs(0, 2, 1024, 128, 64)[:4])
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+        o = ra.packed_flash_mha(*leaves, 2)
+        torch.autograd.grad(o, leaves, do, retain_graph=True)
+        torch.cuda.synchronize()
+        for _ in range(3):   # a trace now and then holds no device event
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.autograd.grad(o, leaves, do, retain_graph=True)
+                torch.cuda.synchronize()
+            names = sorted({re.split(r"[<(]", re.sub(
+                r"^void |\(anonymous namespace\)::", "", e.key))[0]
+                for e in prof.key_averages()
+                if e.device_time_total > 0 and "attn_bwd" in e.key})
+            if names:
+                break
+        assert names == want, (dtype, names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d,heads", [(32, 1), (128, 2)])
+def test_fp32_backward_with_do_off_16_bytes(cuda, masked, d, heads):
+    """A contiguous dO whose base is one float past a 16-byte boundary: the
+    dK/dV pass stages it with 4-byte copies."""
+    q, k, v, do, rq, rkv = (torch.from_numpy(a).to(cuda) for a in
+                            _inputs(d, 2, 1024, 256, d))
+    buf = torch.empty(do.numel() + 1, device=cuda)
+    do_off = buf[1:].view(do.shape)
+    do_off.copy_(do)
+    assert do_off.is_contiguous() and do_off.data_ptr() % 16 == 4
+    if masked:
+        _, o32, m, inv = ra.region_packed_fwd(q, k, v, rq, rkv, heads,
+                                              stats=True)
+        got = ra.region_packed_bwd(q, k, v, rq, rkv, o32, do_off, m, inv,
+                                   heads)
+        want = ra.region_flash_mha_bwd_reference(q, k, v, rq, rkv, do,
+                                                 heads)
+    else:
+        _, o32, m, inv = ra.unmasked_packed_fwd(q, k, v, heads, stats=True)
+        got = ra.unmasked_packed_bwd(q, k, v, o32, do_off, m, inv, heads)
+        want = ra.packed_flash_mha_bwd_reference(q, k, v, do, heads)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= REL[torch.float32]

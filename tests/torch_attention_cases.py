@@ -1,20 +1,27 @@
-"""Operands for the edge cases of the bf16 tensor-core attention kernels
-(fudanocr_tpu_torch/csrc/unmasked_attention.cu `attn_fwd_mma_kernel`, and
-the dropout kernels of csrc/flash_attention_dropout.cu), shared by the
-`cuda` tests of tests/test_torch_seg_attention.py,
+"""Operands for the edge cases of the tensor-core attention kernels
+(fudanocr_tpu_torch/csrc/unmasked_attention.cu: the bf16 `attn_fwd_mma_kernel`
+and the fp32 split-TF32 kernels; the dropout kernels of
+csrc/flash_attention_dropout.cu), shared by the `cuda` tests of
+tests/test_torch_seg_attention.py, test_torch_seg_attention_bwd.py,
 test_torch_qkv_attention.py, test_torch_packed_attention.py and
-test_torch_flash_attention.py, and `dropout_rounding_model`, the bf16
-dropout kernels' arithmetic in plain torch. Each case is made on the CPU
-from a seed, then moved to the card in bf16:
+test_torch_flash_attention.py; `dropout_rounding_model`, the bf16 dropout
+kernels' arithmetic in plain torch; and `tf32x3_attention_model`, the fp32
+kernels' arithmetic (tests/test_torch_tf32x3_rounding.py). Each case is made
+on the CPU from a seed, then moved to the card in bf16 (`CASES`) or fp32
+(`FP32_CASES`):
 
 * "plain": standard normals;
 * "odd": the same values as column slices of wider buffers at odd element
-  offsets and odd row strides, which rule out the kernel's 16-byte copies
-  (its 2-byte copy variant runs);
+  offsets and odd row strides, which rule out the kernels' 16-byte copies
+  (their 2-byte (bf16) or 4-byte (fp32) copies run);
 * "rising": positive q and keys whose mean grows with the key index, so the
   running row max rises tile after tile and every row's max lies in the
   last key tile (the online softmax's rescale path);
-* "x16": q scaled by 16, scores of magnitude up to ~60 (large |s|).
+* "x16": q scaled by 16, scores of magnitude up to ~60 (large |s|);
+* "peaked": q scaled by 5.6, scores of magnitude up to ~30, the peaked
+  softmax the fp32 bar still holds at (fp32's own rounding of the scores
+  moves o by about half of 1e-5 there);
+* "large": v uniform in [-8, 8], outputs of magnitude up to ~8.
 """
 
 import math
@@ -24,6 +31,7 @@ import torch
 from fudanocr_tpu_torch.ops import flash_attention as fa
 
 CASES = ("plain", "odd", "rising", "x16")
+FP32_CASES = ("plain", "odd", "rising", "peaked", "large")
 
 
 def _values(case: str, b: int, lq: int, lkv: int, d: int, seed: int):
@@ -34,6 +42,10 @@ def _values(case: str, b: int, lq: int, lkv: int, d: int, seed: int):
         k = 0.3 * k + torch.linspace(0.0, 2.0, lkv)[None, :, None]
     elif case == "x16":
         q = 16 * q
+    elif case == "peaked":
+        q = 5.6 * q
+    elif case == "large":
+        v = 16 * torch.rand(v.shape, generator=gen) - 8
     return q, k, v
 
 
@@ -47,10 +59,9 @@ def _slices(buf: torch.Tensor, widths, offset: int = 1):
 
 
 def edge_qkv(case: str, b: int, lq: int, lkv: int, d: int, device,
-             seed: int = 0):
-    """bf16 q (B, Lq, D) and k, v (B, Lkv, D) on `device`."""
-    q, k, v = (t.to(torch.bfloat16) for t in _values(case, b, lq, lkv, d,
-                                                     seed))
+             seed: int = 0, dtype=torch.bfloat16):
+    """q (B, Lq, D) and k, v (B, Lkv, D) of `dtype` on `device`."""
+    q, k, v = (t.to(dtype) for t in _values(case, b, lq, lkv, d, seed))
     if case == "odd":
         (q,) = _slices(torch.cat([torch.zeros(b, lq, 1, dtype=q.dtype), q],
                                  -1).to(device), (d,))
@@ -137,3 +148,150 @@ def dropout_rounding_model(q, k, v, do, seed, heads: int, rate: float,
         outs[2][..., cols] = scale * inv_keep * (hi.transpose(1, 2) @ qh)
         outs[3][..., cols] = inv_keep * (pk.transpose(1, 2) @ doh)
     return tuple(t.to(torch.bfloat16) for t in outs)
+
+
+# -- the fp32 kernels' arithmetic: split TF32 on the tensor cores ----------
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest,
+    ties away from zero): 0x1000 added to the int32 view, the 13 low bits
+    masked off (0xFFFFE000)."""
+    i = x.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _rz(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32 rounded toward zero, as the tensor cores round the
+    sum of an mma's products and its accumulator (scripts/
+    tf32_mma_rounding.py, on an H100)."""
+    f = x.float()
+    over = f.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _mma(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One m16n8k8 step, c + a b over 8 columns of a: the products exact,
+    their sum with c rounded once, toward zero."""
+    return _rz(c.double() + a.double() @ b.double())
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, products: int,
+        small_first: bool) -> torch.Tensor:
+    """a (..., M, K) @ b (..., K, N) from a zero accumulator, 8 columns of a
+    per mma, in `products` TF32 products per step (3: split TF32, hi hi +
+    hi lo + lo hi; 1: one TF32 product). small_first: the small products of
+    every step before the large ones (S and dP = Q K^T, dO V^T); otherwise
+    small, small, large per step (the products with P or dS)."""
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    c = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=torch.float32,
+                    device=a.device)
+    steps = range(0, a.shape[-1], 8)
+
+    def step(c, x, y, k0):
+        return _mma(c, x[..., k0:k0 + 8], y[..., k0:k0 + 8, :])
+
+    for k0 in steps:
+        if products == 3:
+            c = step(step(c, al, bh, k0), ah, bl, k0)
+        if products == 1 or not small_first:
+            c = step(c, ah, bh, k0)
+    if products == 3 and small_first:
+        for k0 in steps:
+            c = step(c, ah, bh, k0)
+    return c
+
+
+def tf32x3_attention_model(q, k, v, heads: int, rq=None, rkv=None, do=None,
+                           products: int = 3, tile: int = 64):
+    """The fp32 kernels of csrc/unmasked_attention.cu
+    (`attn_fwd_tf32x3_kernel`, `attn_bwd_dq_tf32x3_kernel`,
+    `attn_bwd_dkv_tf32x3_kernel`) in plain torch, at their rounding points,
+    on fp32 packed q (B, Lq, D), k, v (B, Lkv, D), ids rq (B, Lq), rkv
+    (B, Lkv) or None (unmasked), dO (B, Lq, D) or None (forward only).
+    Returns o, or (o, dq, dk, dv).
+
+    Every product is split TF32 (`products`=3: each operand x = hi + lo,
+    hi = tf32(x), lo = tf32(x - hi); hi hi + hi lo + lo hi), one m16n8k8
+    step of 8 columns at a time, each step's sum rounded toward zero, and
+    starts from zero for each `tile` of keys (or q rows): S = Q K^T and
+    dP = dO V^T small products first; P V, dS K, P^T dO, dS^T Q small,
+    small, large per step. `products`=1 is the same with one TF32 product.
+    Forward per key tile: s = fp32(S) * scale (+ -1e10 where the ids are
+    equal), the running max from -inf, alpha = exp(m_old - m_new),
+    p = exp(s - m_new), l = l * alpha + rowsum(p), acc = acc * alpha + P V
+    (one fp32 rounding); o = acc * (1 / l). Backward: P = exp(s - m) *
+    (1 / l) from the forward's statistics, D = rowsum(dO o) in fp32,
+    dS = P (dP - D); dq = scale * (sum over key tiles of dS K), dv and dk
+    the fp32 sums over q tiles of P^T dO and dS^T Q, grouped by the
+    kernels' q slices (`bwd_q_chunk`) and summed over slices in order, dk
+    times scale."""
+    from fudanocr_tpu_torch.ops.region_attention import NEG, bwd_q_chunk
+
+    b, lq, d = q.shape
+    lkv = k.shape[1]
+    dh = d // heads
+    scale = 1.0 / math.sqrt(dh)
+    mm = lambda a, c, first: _mm(a, c, products, first)
+    neg = None
+    if rq is not None:
+        neg = torch.where(rq.float()[:, :, None] == rkv.float()[:, None, :],
+                          torch.tensor(NEG), torch.tensor(0.0)).to(q.device)
+    outs = [torch.empty(b, n, d, device=q.device)
+            for n in (lq, lq, lkv, lkv)]
+
+    def scores(qh, kh, q0, k0, n_q, n_k):
+        s = mm(qh[:, q0:q0 + n_q], kh[:, k0:k0 + n_k].transpose(1, 2),
+               True) * scale
+        if neg is not None:
+            s = s + neg[:, q0:q0 + n_q, k0:k0 + n_k]
+        return s
+
+    chunk = bwd_q_chunk(b, heads, lq, lkv)
+    for h in range(heads):
+        cols = slice(h * dh, (h + 1) * dh)
+        qh, kh, vh = (t[..., cols].float() for t in (q, k, v))
+        m = torch.full((b, lq, 1), -math.inf, device=q.device)
+        l = torch.zeros(b, lq, 1, device=q.device)
+        acc = torch.zeros(b, lq, dh, device=q.device)
+        for k0 in range(0, lkv, tile):
+            s = scores(qh, kh, 0, k0, lq, tile)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            part = mm(p, vh[:, k0:k0 + tile], False)
+            acc = (acc.double() * alpha.double() + part.double()).float()
+            m = m_new
+        inv = 1.0 / l
+        o = acc * inv
+        outs[0][..., cols] = o
+        if do is None:
+            continue
+        doh = do[..., cols].float()
+        dsum = (doh * o).sum(-1, keepdim=True)
+        dq = torch.zeros(b, lq, dh, device=q.device)
+        for k0 in range(0, lkv, tile):
+            p = torch.exp(scores(qh, kh, 0, k0, lq, tile) - m) * inv
+            ds = p * (mm(doh, vh[:, k0:k0 + tile].transpose(1, 2), True)
+                      - dsum)
+            dq = dq + mm(ds, kh[:, k0:k0 + tile], False)
+        outs[1][..., cols] = dq * scale
+        dk = torch.zeros(b, lkv, dh, device=q.device)
+        dv = torch.zeros_like(dk)
+        for c0 in range(0, lq, chunk):
+            dk_s = torch.zeros_like(dk)
+            dv_s = torch.zeros_like(dv)
+            for q0 in range(c0, min(lq, c0 + chunk), tile):
+                rows = slice(q0, q0 + tile)
+                st = scores(qh, kh, q0, 0, tile, lkv).transpose(1, 2)
+                pt = torch.exp(st - m[:, rows].transpose(1, 2)) \
+                    * inv[:, rows].transpose(1, 2)
+                dpt = mm(vh, doh[:, rows].transpose(1, 2), True)
+                dst = pt * (dpt - dsum[:, rows].transpose(1, 2))
+                dv_s = dv_s + mm(pt, doh[:, rows], False)
+                dk_s = dk_s + mm(dst, qh[:, rows], False)
+            dk, dv = dk + dk_s, dv + dv_s
+        outs[2][..., cols] = dk * scale
+        outs[3][..., cols] = dv
+    return outs[0] if do is None else tuple(outs)
