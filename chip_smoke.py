@@ -1,8 +1,8 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phases 5,24,25   (only phases that need no
-                                             earlier one; no result line)
+    python3 chip_smoke.py --phases 5,6,24   (only phases that need no
+                                            earlier one; no result line)
 
 Drives the port's main paths (fudanocr_tpu_torch) once on the card and
 fails loudly: it exits non-zero, and prints no result line, when there is
@@ -39,11 +39,14 @@ Phases:
      bf16, and at the bf16 step's (128, 1024, 384): the keep mask bit for
      bit, seed determinism, the output and dqkv; kernel, plain and SDPA
      (timed only) ms of the forward and the backward beside the bound
-     (products and the keep hash's integer operations); a profiler trace
-     names the kernels: bf16 must run the tensor-core ones
-     (`attn_dropout_fwd_mma_kernel`, and `attn_dropout_dsum_mma_kernel`
-     with `attn_dropout_bwd_mma_kernel` for the backward), fp32 the
-     CUDA-core pair;
+     (products and the keep hash's integer operations; in fp32 the
+     products as three TF32 products, the CUDA-core floor beside it); a
+     profiler trace names the kernels, all on the tensor cores: bf16
+     `attn_dropout_fwd_mma_kernel`, and `attn_dropout_dsum_mma_kernel`
+     with `attn_dropout_bwd_mma_kernel` for the backward; fp32 the split-
+     TF32 `attn_dropout_fwd_tf32x3_kernel`, and
+     `attn_dropout_bwd_dq_tf32x3_kernel` with
+     `attn_dropout_bwd_dkv_tf32x3_kernel`;
   6. the training slice at full width: `SRTrainer` over TBSRN x2 (32x128
      HR, STN + TPS, 5 SRBs, hidden 32, fp32) with the text-focus loss of
      the frozen OCRTransformer(37, 1 channel, (1, 2, 5, 3), 16 heads,
@@ -316,8 +319,9 @@ TRAIN_ITERS, TRAJ_STEPS, TRAJ_START = 8, 16, 1500
 # published H100 SXM peaks (dense fp32 / bf16 tensor core, HBM3), 700 W
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 HBM_BYTES_PER_S = 3.35e12
-# the dense TF32 tensor-core peak; the fp32 attention kernels of
-# csrc/unmasked_attention.cu run each product as three TF32 products
+# the dense TF32 tensor-core peak; the fp32 attention kernels (csrc/
+# unmasked_attention.cu, csrc/flash_attention_dropout.cu) run each product
+# as three TF32 products
 TF32_FLOPS, TF32X3_PRODUCTS = 495e12, 3
 
 
@@ -757,31 +761,54 @@ def phase4(dev, gpu: str) -> dict:
 def dropout_bound(b: int, heads: int, l: int, dt, products: int,
                   passes: int, nbytes: int) -> tuple:
     """The least time of the dropout kernels: `products` matrix products
-    of 2*L*L*dh flops per image and head at the peak for `dt`, `passes`
+    of 2*L*L*dh flops per image and head (bf16 at its peak; fp32 as three
+    TF32 products each at the TF32 peak, the kernels' split TF32, with the
+    CUDA cores' fp32 floor beside it as `cuda_core_bound_ms`), `passes`
     evaluations of the keep hash per score (HASH_OPS int32 operations each)
     at the int32 rate, and `nbytes` over the memory rate; the largest, with
     (products ms, hash ms) beside it."""
     scores = b * heads * l * l
-    t_mm = products * 2 * scores * 32 / PEAK_FLOPS[dt] * 1e3
+    flops = products * 2 * scores * 32
+    t_fma = flops / PEAK_FLOPS[dt] * 1e3
+    t_mm = (TF32X3_PRODUCTS * flops / TF32_FLOPS * 1e3
+            if dt == torch.float32 else t_fma)
     t_hash = passes * scores * HASH_OPS / INT32_OPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return ({"bound_ms": max(t_mm, t_hash, t_bytes),
-             "bound_by": "bytes" if t_bytes > max(t_mm, t_hash)
-             else "operations"}, t_mm, t_hash)
+    bd = {"bound_ms": max(t_mm, t_hash, t_bytes),
+          "bound_by": "bytes" if t_bytes > max(t_mm, t_hash)
+          else "operations"}
+    if dt == torch.float32:
+        bd["cuda_core_bound_ms"] = max(t_fma, t_hash, t_bytes)
+    return bd, t_mm, t_hash
+
+
+def dropout_note(bd: dict, t_mm: float, t_hash: float) -> str:
+    """A dropout kernel's bound as phases 5 and 24 print it."""
+    note = (f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}; products "
+            f"{t_mm:.4f}, hash {t_hash:.4f}")
+    if "cuda_core_bound_ms" in bd:
+        note += (f"; 3xTF32; CUDA-core fp32 floor "
+                 f"{bd['cuda_core_bound_ms']:.4f} ms")
+    return note + ")"
+
+
+# the dropout kernels of each type, by name (csrc/flash_attention_dropout.cu
+# in bf16: forward, the row terms D', the gradients; csrc/
+# flash_attention_dropout_tf32x3.cu in fp32: forward, dQ and D, dK and dV)
+DROPOUT_KERNELS = {
+    torch.bfloat16: ["attn_dropout_bwd_mma_kernel",
+                     "attn_dropout_dsum_mma_kernel",
+                     "attn_dropout_fwd_mma_kernel"],
+    torch.float32: ["attn_dropout_bwd_dkv_tf32x3_kernel",
+                    "attn_dropout_bwd_dq_tf32x3_kernel",
+                    "attn_dropout_fwd_tf32x3_kernel"]}
 
 
 def dropout_kernel_names(phase: str, what: str, fn, dt) -> None:
     """Fail unless `fn` (a forward and backward through the dropout
-    wrappers) runs the tensor-core kernels in bf16 and the CUDA-core ones
-    in fp32 (csrc/flash_attention_dropout.cu; the bf16 backward is two
-    kernels, the row terms D' and the gradients), by name in a profiler
-    trace."""
-    if dt == torch.bfloat16:
-        want = ["attn_dropout_bwd_mma_kernel", "attn_dropout_dsum_mma_kernel",
-                "attn_dropout_fwd_mma_kernel"]
-    else:
-        want = ["attn_dropout_bwd_kernel", "attn_dropout_fwd_kernel"]
-    kernel_names(phase, what, fn, dt, "attn_dropout_", want)
+    wrappers) runs the tensor-core kernels of `dt` (DROPOUT_KERNELS), by
+    name in a profiler trace."""
+    kernel_names(phase, what, fn, dt, "attn_dropout_", DROPOUT_KERNELS[dt])
 
 
 def phase5(dev, gpu: str) -> dict:
@@ -862,11 +889,9 @@ def phase5(dev, gpu: str) -> dict:
                                          + b * HEADS * l * 4)
         print(f"phase 5: ({b}, {l}, {3 * HEADS * 32}) {dt}: forward kernel "
               f"{f_ms:.4f} ms, plain {fp_ms:.4f} ms, SDPA {lib_f:.4f} ms, "
-              f"bound {fb['bound_ms']:.4f} ms ({fb['bound_by']}; products "
-              f"{f_mm:.4f}, hash {f_hash:.4f}); backward kernel {b_ms:.4f} "
-              f"ms, plain {bp_ms:.4f} ms, SDPA {lib_b:.4f} ms, bound "
-              f"{bb['bound_ms']:.4f} ms ({bb['bound_by']}; products "
-              f"{b_mm:.4f}, hash {b_hash:.4f}) [{gpu}]")
+              f"{dropout_note(fb, f_mm, f_hash)}; backward kernel "
+              f"{b_ms:.4f} ms, plain {bp_ms:.4f} ms, SDPA {lib_b:.4f} ms, "
+              f"{dropout_note(bb, b_mm, b_hash)} [{gpu}]")
         rows[(dt, b)] = (
             {"max_abs_err": ferr, "ms": f_ms, "plain_ms": fp_ms, **fb,
              "library_ms": lib_f},
@@ -2450,11 +2475,9 @@ def phase24(dev, gpu: str) -> tuple:
               f"ms, {bound_note(tb)}{short10}, "
               f"{4 * b * l * l * heads * dh / p10_ms / 1e9:.1f} TFLOP/s; B11 "
               f"forward kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms, SDPA "
-              f"{lib_f:.4f} ms, bound {fb['bound_ms']:.4f} ms (products "
-              f"{f_mm:.4f}, hash {f_hash:.4f}); backward kernel {b_ms:.4f} "
-              f"ms, plain {bp_ms:.4f} ms, SDPA {lib_b:.4f} ms, bound "
-              f"{bb['bound_ms']:.4f} ms ({bb['bound_by']}; products "
-              f"{b_mm:.4f}, hash {b_hash:.4f}) [{gpu}]")
+              f"{lib_f:.4f} ms, {dropout_note(fb, f_mm, f_hash)}; backward "
+              f"kernel {b_ms:.4f} ms, plain {bp_ms:.4f} ms, SDPA "
+              f"{lib_b:.4f} ms, {dropout_note(bb, b_mm, b_hash)} [{gpu}]")
         rows[(dt, b)] = (
             {"max_abs_err": ten, "ms": p10_ms, "plain_ms": p10p_ms, **tb,
              "library_ms": lib10},
@@ -2606,9 +2629,9 @@ def phase25(dev, gpu: str) -> tuple:
 
 
 # the phases that need nothing of an earlier one, for `--phases`
-STANDALONE = {"1": phase1, "4": phase4, "5": phase5, "7": phase7,
-              "10": phase10, "13": phase13, "17": phase17, "19": phase19,
-              "22": phase22, "24": phase24, "25": phase25}
+STANDALONE = {"1": phase1, "4": phase4, "5": phase5, "6": phase6,
+              "7": phase7, "10": phase10, "13": phase13, "17": phase17,
+              "19": phase19, "22": phase22, "24": phase24, "25": phase25}
 
 
 def main(argv: list) -> int:
@@ -2682,6 +2705,10 @@ def main(argv: list) -> int:
     attn_fwd, attn_bwd = b4[(torch.float32, TRAIN_B)]
     b4_mma_fwd, b4_mma_bwd = b4[(torch.bfloat16, STEP_B)]
     attn_src = "fudanocr_tpu_torch/csrc/flash_attention_dropout.cu"
+    # the source and CUDA kernels of the fp32 dropout rows (phases 5, 24)
+    drop32 = {"source": "fudanocr_tpu_torch/csrc/"
+                        "flash_attention_dropout_tf32x3.cu",
+              "cuda_kernels": DROPOUT_KERNELS[torch.float32]}
     seg_src = "fudanocr_tpu_torch/csrc/unmasked_attention.cu"
     # the sources and CUDA kernels of the fp32 seg attention rows (phases 7,
     # 10, 13, 24; the backward's reduce is in seg_src) and of B3's bf16 row
@@ -2705,12 +2732,10 @@ def main(argv: list) -> int:
          "source": "fudanocr_tpu_torch/csrc/fused_layernorm.cu",
          "replaces": "fudanocr_tpu/ops/fused_layernorm.py:53",
          "launches": ln_bf16_n, **ln_bf16},
-        {"name": "qkv_dropout_attention_fwd", "route": "cuda",
-         "source": attn_src,
+        {"name": "qkv_dropout_attention_fwd", "route": "cuda", **drop32,
          "replaces": "fudanocr_tpu/ops/flash_attention.py:505",
          "launches": fwd_n, **attn_fwd},
-        {"name": "qkv_dropout_attention_bwd", "route": "cuda",
-         "source": attn_src,
+        {"name": "qkv_dropout_attention_bwd", "route": "cuda", **drop32,
          "replaces": "fudanocr_tpu/ops/flash_attention.py:528",
          "launches": bwd_n, **attn_bwd},
         {"name": "unmasked_attention_packed", "route": "cuda", **fwd32,
@@ -2743,12 +2768,10 @@ def main(argv: list) -> int:
         {"name": "flash_mha_packed", "route": "cuda", **fwd32,
          "replaces": "fudanocr_tpu/ops/flash_attention.py:164",
          "launches": b10_n, **b10},
-        {"name": "packed_dropout_attention_fwd", "route": "cuda",
-         "source": attn_src,
+        {"name": "packed_dropout_attention_fwd", "route": "cuda", **drop32,
          "replaces": "fudanocr_tpu/ops/flash_attention.py:373",
          "launches": b11_fwd_n, **b11_fwd},
-        {"name": "packed_dropout_attention_bwd", "route": "cuda",
-         "source": attn_src,
+        {"name": "packed_dropout_attention_bwd", "route": "cuda", **drop32,
          "replaces": "fudanocr_tpu/ops/flash_attention.py:401",
          "launches": b11_bwd_n, **b11_bwd},
         {"name": "qkv_dropout_attention_fwd_mma", "route": "cuda",

@@ -28,29 +28,21 @@
 // (q, k) counter xor a per-(image, head) seed), bit for bit, so the
 // backward regenerates it and nothing of size L x L is ever stored.
 //
-// fp32 (the CUDA-core kernels `attn_dropout_fwd_kernel` and
-// `attn_dropout_bwd_kernel`):
-//
-// Forward: one block per (128-row q tile, head, image), one thread per q
-// row; K/V tiles of 64 keys stream through shared memory with an online
-// softmax that accumulates the denominator over every key and the
-// numerator over the kept keys only. It writes o and the per-row
-// log-sum-exp lse = max + log(denom) (B*H*L fp32, the only residual beside
-// qkv, o and the seed).
-//
-// Backward (fp32), one launch, FlashAttention-2's split with no atomics: with
-// D_i = dO_i . o_i (which equals rowsum(dP' * P) under dropout), blocks
-// [0, L/128) each own 128 q rows and loop over K/V tiles to build dQ; blocks
-// [L/128, L/64) each own 128 keys and loop over Q/dO tiles to build dK and
-// dV. Every dqkv element is written once, by one thread: deterministic.
-// The products run on CUDA cores in fp32: tensor-core TF32 misses the fp32
-// bar.
+// fp32 (every fp32 call; csrc/flash_attention_dropout_tf32x3.cu, whose top
+// has the design): the tensor cores in split TF32 (3xTF32), each fp32
+// operand as TF32 hi + lo and three mma.sync m16n8k8 products, at the fp32
+// bar, with the bf16 kernels' blocks, tiles and keep bits (below):
+// `attn_dropout_fwd_tf32x3_kernel` writes o and the per-row log-sum-exp
+// lse = max + log(denom) (B*H*L fp32, the only residual beside qkv, o and
+// the seed); the backward is `attn_dropout_bwd_dq_tf32x3_kernel` (dQ, and
+// D_i = dO_i . o_i, which equals rowsum(keep dP' P) under dropout) then
+// `attn_dropout_bwd_dkv_tf32x3_kernel` (dK and dV). Every dqkv element is
+// written once: deterministic. No CUDA-core fp32 kernel is built.
 //
 // bf16 (the tensor-core kernels `attn_dropout_fwd_mma_kernel`,
 // `attn_dropout_dsum_mma_kernel` and `attn_dropout_bwd_mma_kernel`; every
-// bf16 call runs them, and no bf16 instantiation of the CUDA-core kernels
-// is built): the same grids and the same split, on mma.sync m16n8k16
-// (bf16 operands, fp32 accumulators), the loop of
+// bf16 call runs them): mma.sync m16n8k16 (bf16 operands, fp32
+// accumulators), the loop of
 // csrc/unmasked_attention.cu `attn_fwd_mma_kernel`. A block is 8
 // warps; each warp owns 16 q rows (forward, dQ role) or 16 keys (dK/dV
 // role) and keeps their A fragments in registers for the whole loop. The
@@ -82,6 +74,9 @@
 //     `dropout_rounding_model`) is ~2.7e-3 norm-relative from JAX's
 //     kernels on standard-normal and peaked inputs, against the bf16 bar
 //     of 1e-2. inv_keep and the scale are applied once to the fp32 sums.
+//     The split is one launch with no atomics: blocks [0, L/128) own 128 q
+//     rows each and build dQ, blocks [L/128, L/64) own 128 keys each and
+//     build dK and dV; every dqkv element is written once.
 //     The dK/dV role stages Q and dO and copies the rows' D' and lse with
 //     them (one barrier per tile).
 //   * The hash: each (q, key) keep bit is computed once per role, in
@@ -94,11 +89,14 @@
 //
 // What bounds it on this card: per (image, head) the forward does
 // 4*L^2*dh flops (2 products) and the backward 10*L^2*dh (5 products, the
-// JAX CostEstimate), against O(L*dh) bytes; on the tensor cores at dh = 32
-// those flops are few beside the per-score work on the CUDA cores: the
-// hash (~10 integer operations per score and role), the exponential and
-// the softmax arithmetic. That integer work, not the products, sets the
-// floor of the bf16 kernels; nothing of size L x L touches memory.
+// JAX CostEstimate), against O(L*dh) bytes. In bf16 at dh = 32 those flops
+// are few beside the per-score work on the CUDA cores: the hash (~10
+// integer operations per score and role), the exponential and the softmax
+// arithmetic. That integer work, not the products, sets the floor of the
+// bf16 kernels. In fp32 each product costs three TF32 products at 495
+// TFLOP/s, and they set the floor (0.208 ms forward, 0.521 backward at
+// (64, 1024, 384), against the hash's 0.161 a pass). Nothing of size L x L
+// touches memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,262 +104,20 @@
 #include <stdint.h>
 
 #include "bf16_mma.cuh"
+#include "flash_attention_dropout.cuh"
 
 namespace {
 
+using namespace dropout_attn;
+
 constexpr int kRows = 128;   // q rows (fwd, dQ role) or keys (dKV role) per block
 constexpr int kTile = 64;    // keys per K/V tile, q rows per Q/dO tile
-constexpr int kChunk = 32;   // scores held in registers per online-softmax step
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-
-// murmur3 fmix32 (fudanocr_tpu/ops/flash_attention.py:256 `_fmix`)
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-// per-(image, head) seed (flash_attention.py:266 `_bh_seed`)
-__device__ __forceinline__ uint32_t bh_seed(uint32_t seed, uint32_t b,
-                                            uint32_t h, uint32_t heads) {
-  return fmix32(seed ^ ((b * heads + h) * 0x9E3779B9u));
-}
 
 // keep decision of (q, k) (flash_attention.py:275 `_keep_mask`)
 __device__ __forceinline__ bool keep_qk(uint32_t seed_bh, uint32_t q,
                                         uint32_t k, uint32_t L,
                                         uint32_t thresh) {
   return fmix32((q * L + k) ^ seed_bh) < thresh;
-}
-
-template <typename T, int DH>
-__device__ __forceinline__ void load_row(const T* __restrict__ p, float* r) {
-#pragma unroll
-  for (int i = 0; i < DH; ++i) r[i] = to_f(p[i]);
-}
-
-// r . row, where row is a 16-byte aligned row of DH floats in shared memory
-// (every thread of the block reads the same row: a broadcast)
-template <int DH>
-__device__ __forceinline__ float dot_sm(const float* r, const float* row) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-  float a0 = 0.f, a1 = 0.f;
-#pragma unroll
-  for (int i = 0; i < DH / 4; i += 2) {
-    const float4 u = r4[i];
-    const float4 w = r4[i + 1];
-    a0 = fmaf(r[4 * i], u.x, a0);
-    a0 = fmaf(r[4 * i + 1], u.y, a0);
-    a0 = fmaf(r[4 * i + 2], u.z, a0);
-    a0 = fmaf(r[4 * i + 3], u.w, a0);
-    a1 = fmaf(r[4 * i + 4], w.x, a1);
-    a1 = fmaf(r[4 * i + 5], w.y, a1);
-    a1 = fmaf(r[4 * i + 6], w.z, a1);
-    a1 = fmaf(r[4 * i + 7], w.w, a1);
-  }
-  return a0 + a1;
-}
-
-// acc += c * row (row in shared memory, as above)
-template <int DH>
-__device__ __forceinline__ void axpy_sm(float* acc, float c,
-                                        const float* row) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int i = 0; i < DH / 4; ++i) {
-    const float4 u = r4[i];
-    acc[4 * i] = fmaf(c, u.x, acc[4 * i]);
-    acc[4 * i + 1] = fmaf(c, u.y, acc[4 * i + 1]);
-    acc[4 * i + 2] = fmaf(c, u.z, acc[4 * i + 2]);
-    acc[4 * i + 3] = fmaf(c, u.w, acc[4 * i + 3]);
-  }
-}
-
-// Copy kTile rows of DH features, starting at row r0 of a row-major
-// matrix with row `stride` at src, into the (kTile, DH) tile dst.
-template <typename T, int DH>
-__device__ __forceinline__ void stage_tile(const T* __restrict__ src,
-                                           int64_t stride, int r0,
-                                           float* dst) {
-  for (int i = threadIdx.x; i < kTile * DH; i += kRows)
-    dst[i] = to_f(src[(int64_t)(r0 + i / DH) * stride + i % DH]);
-}
-
-// An operand's base pointer and row stride (elements); an image's rows
-// follow one another (batch stride L * row).
-struct Operand {
-  const void* p;
-  int64_t row;
-};
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(kRows)
-attn_dropout_fwd_kernel(Operand q_op, Operand k_op, Operand v_op,
-                        const int64_t* __restrict__ seed, T* __restrict__ out,
-                        float* __restrict__ lse, int L, int H, float scale,
-                        float inv_keep, uint32_t thresh) {
-  __shared__ __align__(16) float ks[kTile * DH];
-  __shared__ __align__(16) float vs[kTile * DH];
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q = blockIdx.x * kRows + threadIdx.x;
-  const int D = H * DH;
-  const T* qb = (const T*)q_op.p + (int64_t)b * L * q_op.row + h * DH;
-  const T* kb = (const T*)k_op.p + (int64_t)b * L * k_op.row + h * DH;
-  const T* vb = (const T*)v_op.p + (int64_t)b * L * v_op.row + h * DH;
-  const uint32_t sbh = bh_seed((uint32_t)seed[0], b, h, H);
-
-  float qr[DH], acc[DH];
-  load_row<T, DH>(qb + q * q_op.row, qr);
-#pragma unroll
-  for (int i = 0; i < DH; ++i) acc[i] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += kTile) {
-    __syncthreads();
-    stage_tile<T, DH>(kb, k_op.row, k0, ks);
-    stage_tile<T, DH>(vb, v_op.row, k0, vs);
-    __syncthreads();
-#pragma unroll 1
-    for (int c0 = 0; c0 < kTile; c0 += kChunk) {
-      float s[kChunk];
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        s[j] = dot_sm<DH>(qr, ks + (c0 + j) * DH) * scale;
-        cmax = fmaxf(cmax, s[j]);
-      }
-      const float mnew = fmaxf(m, cmax);
-      const float alpha = __expf(m - mnew);   // 0 on the first chunk
-      l *= alpha;
-#pragma unroll
-      for (int i = 0; i < DH; ++i) acc[i] *= alpha;
-      const uint32_t ctr = (uint32_t)q * (uint32_t)L + (uint32_t)(k0 + c0);
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float p = __expf(s[j] - mnew);
-        l += p;
-        const float pk = fmix32((ctr + j) ^ sbh) < thresh ? p : 0.f;
-        axpy_sm<DH>(acc, pk, vs + (c0 + j) * DH);
-      }
-      m = mnew;
-    }
-  }
-  const float f = inv_keep / l;
-  T* o = out + ((int64_t)b * L + q) * D + h * DH;
-#pragma unroll
-  for (int i = 0; i < DH; ++i) store_f(o + i, acc[i] * f);
-  lse[((int64_t)b * H + h) * L + q] = m + logf(l);
-}
-
-// A gradient's base pointer and row stride, as Operand.
-struct Grad {
-  void* p;
-  int64_t row;
-};
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(kRows)
-attn_dropout_bwd_kernel(Operand q_op, Operand k_op, Operand v_op,
-                        const T* __restrict__ out, const T* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const int64_t* __restrict__ seed, Grad dq_g,
-                        Grad dk_g, Grad dv_g, int L, int H, float scale,
-                        float inv_keep, uint32_t thresh) {
-  __shared__ __align__(16) float sa[kTile * DH];
-  __shared__ __align__(16) float sb[kTile * DH];
-  __shared__ float s_lse[kTile], s_di[kTile];
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int nq = L / kRows;
-  const int D = H * DH;
-  const T* qb = (const T*)q_op.p + (int64_t)b * L * q_op.row + h * DH;
-  const T* kb = (const T*)k_op.p + (int64_t)b * L * k_op.row + h * DH;
-  const T* vb = (const T*)v_op.p + (int64_t)b * L * v_op.row + h * DH;
-  const T* obase = out + (int64_t)b * L * D + h * DH;
-  const T* dobase = dout + (int64_t)b * L * D + h * DH;
-  const float* lse_bh = lse + ((int64_t)b * H + h) * L;
-  const uint32_t sbh = bh_seed((uint32_t)seed[0], b, h, H);
-
-  if ((int)blockIdx.x < nq) {
-    // dQ role: this thread's q row against every key
-    const int q = blockIdx.x * kRows + threadIdx.x;
-    float qr[DH], dor[DH], dq[DH];
-    load_row<T, DH>(qb + q * q_op.row, qr);
-    load_row<T, DH>(dobase + (int64_t)q * D, dor);
-    load_row<T, DH>(obase + (int64_t)q * D, dq);   // o, to form D_q
-    float di = 0.f;
-#pragma unroll
-    for (int i = 0; i < DH; ++i) {
-      di = fmaf(dor[i], dq[i], di);
-      dq[i] = 0.f;
-    }
-    const float lq = lse_bh[q];
-    for (int k0 = 0; k0 < L; k0 += kTile) {
-      __syncthreads();
-      stage_tile<T, DH>(kb, k_op.row, k0, sa);
-      stage_tile<T, DH>(vb, v_op.row, k0, sb);
-      __syncthreads();
-      const uint32_t ctr = (uint32_t)q * (uint32_t)L + (uint32_t)k0;
-#pragma unroll 2
-      for (int j = 0; j < kTile; ++j) {
-        const float s = dot_sm<DH>(qr, sa + j * DH) * scale;
-        const float p = __expf(s - lq);
-        const float dpv = dot_sm<DH>(dor, sb + j * DH);
-        const float dp =
-            fmix32((ctr + j) ^ sbh) < thresh ? dpv * inv_keep : 0.f;
-        axpy_sm<DH>(dq, p * (dp - di), sa + j * DH);
-      }
-    }
-    T* dst = (T*)dq_g.p + ((int64_t)b * L + q) * dq_g.row + h * DH;
-#pragma unroll
-    for (int i = 0; i < DH; ++i) store_f(dst + i, dq[i] * scale);
-  } else {
-    // dK/dV role: this thread's key against every q row
-    const int k = (blockIdx.x - nq) * kRows + threadIdx.x;
-    float kr[DH], vr[DH], dk[DH], dv[DH];
-    load_row<T, DH>(kb + k * k_op.row, kr);
-    load_row<T, DH>(vb + k * v_op.row, vr);
-#pragma unroll
-    for (int i = 0; i < DH; ++i) dk[i] = dv[i] = 0.f;
-    for (int q0 = 0; q0 < L; q0 += kTile) {
-      __syncthreads();
-      stage_tile<T, DH>(qb, q_op.row, q0, sa);
-      stage_tile<T, DH>(dobase, D, q0, sb);
-      if (threadIdx.x < kTile) {
-        const int64_t r = (int64_t)(q0 + threadIdx.x) * D;
-        float di = 0.f;
-#pragma unroll
-        for (int i = 0; i < DH; ++i)
-          di = fmaf(to_f(dobase[r + i]), to_f(obase[r + i]), di);
-        s_di[threadIdx.x] = di;
-        s_lse[threadIdx.x] = lse_bh[q0 + threadIdx.x];
-      }
-      __syncthreads();
-#pragma unroll 2
-      for (int i = 0; i < kTile; ++i) {
-        const float s = dot_sm<DH>(kr, sa + i * DH) * scale;
-        const float p = __expf(s - s_lse[i]);
-        const float dpv = dot_sm<DH>(vr, sb + i * DH);
-        const bool kept =
-            keep_qk(sbh, (uint32_t)(q0 + i), (uint32_t)k, (uint32_t)L,
-                    thresh);
-        axpy_sm<DH>(dv, kept ? p * inv_keep : 0.f, sb + i * DH);
-        const float dp = kept ? dpv * inv_keep : 0.f;
-        axpy_sm<DH>(dk, p * (dp - s_di[i]), sa + i * DH);
-      }
-    }
-    T* dkd = (T*)dk_g.p + ((int64_t)b * L + k) * dk_g.row + h * DH;
-    T* dvd = (T*)dv_g.p + ((int64_t)b * L + k) * dv_g.row + h * DH;
-#pragma unroll
-    for (int i = 0; i < DH; ++i) {
-      store_f(dkd + i, dk[i] * scale);
-      store_f(dvd + i, dv[i]);
-    }
-  }
 }
 
 // ---- bf16 on the tensor cores (see the top) -------------------------------
@@ -671,7 +427,7 @@ attn_dropout_dsum_mma_kernel(Operand q_op, Operand k_op, Operand v_op,
   }
 }
 
-// Backward, FlashAttention-2's split as in the CUDA-core kernel: blocks
+// Backward, FlashAttention-2's split: blocks
 // [0, L/128) own 128 q rows each and build dQ, blocks [L/128, L/64) own 128
 // keys each and build dK and dV; each warp owns 16 of the rows or keys.
 // With P = exp(s - lse) and D' = rowsum(keep P dP) per q row (dsum, from
@@ -894,17 +650,16 @@ extern "C" int attn_dropout_fwd(const void* q, const void* k, const void* v,
     kernel<<<grid, kMmaThreads, 0, s>>>(qo, ko, vo, (const int64_t*)seed,
                                         (__nv_bfloat16*)out, (float*)lse, L, H,
                                         scale, inv_keep, thresh);
-  } else {
-    attn_dropout_fwd_kernel<float, 32><<<grid, kRows, 0, s>>>(
-        qo, ko, vo, (const int64_t*)seed, (float*)out, (float*)lse, L, H,
-        scale, inv_keep, thresh);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  return dropout_attn::launch_fwd_tf32x3(
+      {qo, ko, vo, (const int64_t*)seed, B, L, H, scale, inv_keep, thresh},
+      (float*)out, (float*)lse, s);
 }
 
 // The gradients dq, dk, dv (B, L, H*dh) with their own row strides (the
 // column slices of one dqkv for B4). work: 2*B*H*L fp32 of scratch for the
-// bf16 kernels' row terms (D' and lse in base 2); unused in fp32.
+// row terms: in bf16 D' and lse in base 2, in fp32 D (the first half).
 extern "C" int attn_dropout_bwd(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, const void* seed, void* dq, void* dk,
@@ -937,12 +692,12 @@ extern "C" int attn_dropout_bwd(
     kernel<<<grid, kMmaThreads, 0, s>>>(
         qo, ko, vo, (const __nv_bfloat16*)dout, dsum, lse2,
         (const int64_t*)seed, dqg, dkg, dvg, L, H, scale, inv_keep, thresh);
-  } else {
-    attn_dropout_bwd_kernel<float, 32><<<grid, kRows, 0, s>>>(
-        qo, ko, vo, (const float*)out, (const float*)dout, (const float*)lse,
-        (const int64_t*)seed, dqg, dkg, dvg, L, H, scale, inv_keep, thresh);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  return dropout_attn::launch_bwd_tf32x3(
+      {qo, ko, vo, (const int64_t*)seed, B, L, H, scale, inv_keep, thresh},
+      (const float*)out, (const float*)dout, (const float*)lse, (float*)work,
+      dqg, dkg, dvg, s);
 }
 
 // The (B, H, L, L) uint8 keep mask, from the same __device__ hash the two

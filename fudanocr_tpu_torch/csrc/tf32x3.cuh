@@ -1,9 +1,11 @@
-// Split-TF32 (3xTF32) helpers of the fp32 segmentation attention kernels
-// (csrc/unmasked_attention_fwd_tf32x3.cu and _bwd_tf32x3.cu; why and how:
-// the top of csrc/unmasked_attention.cu): the split of an
-// fp32 value into TF32 hi + lo, mma.sync m16n8k8 on TF32, the A operand
+// Split-TF32 (3xTF32) helpers of the fp32 attention kernels (the
+// segmentation attention, csrc/unmasked_attention_fwd_tf32x3.cu and
+// _bwd_tf32x3.cu, why and how: the top of csrc/unmasked_attention.cu; the
+// dropout attention, csrc/flash_attention_dropout_tf32x3.cu): the split of
+// an fp32 value into TF32 hi + lo, mma.sync m16n8k8 on TF32, the A operand
 // held in registers, the two 3xTF32 products with their fragment loads,
-// and the staging of fp32 tiles into shared memory.
+// the running sums kept in shared memory, and the staging of fp32 tiles
+// into shared memory.
 
 #pragma once
 
@@ -133,6 +135,20 @@ __device__ __forceinline__ void mma3_xb(float (&acc)[NO][4],
     mma_tf32(acc[n], xl, h0, h1);
     mma_tf32(acc[n], xh, ldb(bl + off), ldb(bl + off + P));
     mma_tf32(acc[n], xh, h0, h1);
+  }
+}
+
+// This lane's elements of a warp's 16 x DH running sum kept in shared
+// memory (rows g, g + 8, features n*8 + 2t, + 1; pitch DH + 4), each owned
+// by this lane alone: += the fragments x
+template <int NO, int P>
+__device__ __forceinline__ void add_to(float* mine, const float (&x)[NO][4]) {
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    mine[n * 8] += x[n][0];
+    mine[n * 8 + 1] += x[n][1];
+    mine[8 * P + n * 8] += x[n][2];
+    mine[8 * P + n * 8 + 1] += x[n][3];
   }
 }
 

@@ -17,20 +17,6 @@
 
 namespace {
 
-// This lane's elements of a warp's 16 x DH running sum kept in shared
-// memory (rows g, g + 8, features n*8 + 2t, + 1; pitch DH + 4), each owned
-// by this lane alone: += the fragments x
-template <int NO, int P>
-__device__ __forceinline__ void add_to(float* mine, const float (&x)[NO][4]) {
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    mine[n * 8] += x[n][0];
-    mine[n * 8 + 1] += x[n][1];
-    mine[8 * P + n * 8] += x[n][2];
-    mine[8 * P + n * 8 + 1] += x[n][3];
-  }
-}
-
 // Backward launch 1 in fp32: dq (B, Lq, H*DH) contiguous, and D_i =
 // dO_i . o_i into delta, for this warp's 16 q rows against every key;
 // dout and o (fp32) contiguous (B, Lq, H*DH). The key tile is taken in

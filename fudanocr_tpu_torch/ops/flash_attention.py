@@ -29,9 +29,10 @@ launches the kernel of csrc/flash_attention_dropout.cu through
 `qkv_dropout_bwd`; it raises on what they do not take and never falls
 back. The Function's context saves qkv and the seed, as the JAX VJP does,
 plus the forward's output o and its per-row log-sum-exp (B*H*L float32):
-the backward forms D_i = dO_i . o_i from them instead of a third pass
-over the keys, and o is the tensor the out-projection keeps alive for its
-own backward anyway.
+the fp32 backward forms D_i = dO_i . o_i from them (the bf16 one forms
+JAX's rowsum(keep dP P) in a pass of its own: o's bf16 rounding would
+decide dS at a peaked softmax), and o is the tensor the out-projection
+keeps alive for its own backward anyway.
 
 The seed is a uint32 value held in a 0-d int64 tensor on the device (an
 int is accepted too), so drawing it from a device generator needs no
@@ -254,7 +255,7 @@ def _dropout_bwd(q, k, v, out, dout, lse, seed, grads, heads: int,
     seed = _seed_tensor(seed, q.device)
     lib = load_library()
     with torch.cuda.device(q.device):
-        # the bf16 kernels' row terms (D' and lse in base 2; unused in fp32)
+        # the kernels' row terms (bf16: D' and lse in base 2; fp32: D)
         work = torch.empty((2, b, heads, l), dtype=torch.float32,
                            device=q.device)
         counter.launches += 1

@@ -56,12 +56,13 @@ def run_tree() -> None:
         torch.cuda.empty_cache()
 
 
-def turns(trees: list) -> int:
-    """Run each of `trees` in order; summarise each tree's timing lines."""
+def turns(trees: list, script: str = __file__, timing=TIMING) -> int:
+    """Run `script` in each of `trees` in order; summarise each tree's
+    lines that `timing` matches."""
     runs = {}
     for i, tree in enumerate(trees):
         path = os.path.abspath(os.path.join(ROOT, tree))
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__)],
+        proc = subprocess.run([sys.executable, os.path.abspath(script)],
                               cwd=path, capture_output=True, text=True)
         print(f"turn {i} ({tree}): exit {proc.returncode}", flush=True)
         for line in proc.stdout.splitlines():
@@ -71,7 +72,7 @@ def turns(trees: list) -> int:
             return proc.returncode
         runs.setdefault(tree, []).append(   # without the card's name
             [re.sub(r" \[[^]]*\]$", "", line)
-             for line in proc.stdout.splitlines() if TIMING.search(line)])
+             for line in proc.stdout.splitlines() if timing.search(line)])
     for tree, lines in runs.items():
         for rows in zip(*lines):
             values = [[float(x) for x in NUMBER.findall(r)] for r in rows]

@@ -10,8 +10,9 @@ against the JAX package on the CPU, on the same seeded numpy inputs:
   module's in fp32, and its train route goes through the dropout op.
 
 Tests marked `cuda` hold the hand-written kernels against the plain
-version on the card (the bf16 tensor-core kernels also at the edge cases
-of tests/torch_attention_cases.py) and skip where there is none. The JAX
+version on the card (the bf16 tensor-core kernels and the fp32 split-TF32
+ones also at the edge cases of tests/torch_attention_cases.py) and skip
+where there is none. The JAX
 package is imported inside the tests that use it, so the `cuda` tests
 also run where jax is not installed:
 
@@ -25,7 +26,7 @@ import torch
 from fudanocr_tpu_torch.nn.attention import MultiHeadAttention
 from fudanocr_tpu_torch.ops import flash_attention as fa
 from torch_attention_cases import (CASES, dropout_rounding_model,
-                                   edge_qkv_fused)
+                                   edge_qkv, edge_qkv_fused)
 
 HEADS, RATE = 4, 0.1
 FWD_TOL, GRAD_TOL = 2e-3, 5e-3   # tests/test_flash_attention.py:89,111
@@ -287,6 +288,80 @@ def test_bf16_kernels_edge_cases(cuda, b, heads, l, case):
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
     assert _rel(dk, dp) < 1e-2, _rel(dk, dp)
+
+
+def _fp32_edge_operands(case: str, b: int, heads: int, l: int, dev):
+    """fp32 qkv (B, L, 3D) of the edge case on the CPU, and dO on `dev`
+    (uniform in [-8, 8] for "large", as v)."""
+    d = heads * 32
+    q, k, v = edge_qkv(case, b, l, l, d, "cpu", seed=l + heads,
+                       dtype=torch.float32)
+    gen = torch.Generator().manual_seed(l)
+    do = (16 * torch.rand(b, l, d, generator=gen) - 8 if case == "large"
+          else torch.randn(b, l, d, generator=gen))
+    return torch.cat([q, k, v], -1), do.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["qkv", "qkv_odd", "split_odd"])
+@pytest.mark.parametrize("case", ["plain", "peaked", "large"])
+@pytest.mark.parametrize("b,heads,l", [(2, 4, 128), (2, 4, 1024)])
+def test_fp32_kernels_edge_cases(cuda, b, heads, l, case, layout):
+    """The fp32 split-TF32 kernels, forward and backward, against the plain
+    version at the fp32 bars (1e-5: the output at rtol = atol, dq, dk and dv
+    each norm-relative) on standard normals, a peaked softmax (|s| ~ 30)
+    and v, dO of magnitude up to 8, at L = 128 (the smallest L taken, two
+    key tiles) and 1024. Layouts: B4 on a whole qkv buffer; B4 on qkv as a
+    column slice of a wider buffer at an odd offset; B11 on q, k, v as such
+    slices, each base one float off 16 bytes at an odd row stride (both
+    rule out the 16-byte copies). The kernels' keep mask is the plain
+    hash's, bit for bit."""
+    d = heads * 32
+    qkv, do = _fp32_edge_operands(case, b, heads, l, cuda)
+    n0 = (fa.qkv_dropout_fwd.launches, fa.qkv_dropout_bwd.launches,
+          fa.packed_dropout_fwd.launches, fa.packed_dropout_bwd.launches)
+    if layout == "qkv":
+        x = qkv.to(cuda).requires_grad_()
+        got = fa.flash_mha_qkv_packed_dropout(x, 11, heads, RATE)
+        (g,) = torch.autograd.grad(got, x, do)
+    else:
+        buf = torch.cat([torch.zeros(b, l, 1), qkv], -1).to(cuda)
+        buf.requires_grad_()
+        if layout == "qkv_odd":
+            got = fa.flash_mha_qkv_packed_dropout(buf[..., 1:], 11, heads,
+                                                  RATE)
+        else:
+            xs = [buf[..., 1 + i * d:1 + (i + 1) * d] for i in range(3)]
+            assert all(t.data_ptr() % 16 == 4 for t in xs)
+            got = fa.flash_mha_packed_dropout(*xs, 11, heads, RATE)
+        (g,) = torch.autograd.grad(got, buf, do)
+        g = g[..., 1:]
+    torch.cuda.synchronize()
+    n1 = (fa.qkv_dropout_fwd.launches, fa.qkv_dropout_bwd.launches,
+          fa.packed_dropout_fwd.launches, fa.packed_dropout_bwd.launches)
+    split = layout == "split_odd"
+    assert [b_ - a_ for a_, b_ in zip(n0, n1)] == (
+        [0, 0, 1, 1] if split else [1, 1, 0, 0])
+    xp = qkv.to(cuda).requires_grad_()
+    want = fa.flash_mha_qkv_packed_dropout_reference(xp, 11, heads, RATE)
+    (gp,) = torch.autograd.grad(want, xp, do)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        cols = slice(i * d, (i + 1) * d)
+        assert _rel(g[..., cols], gp[..., cols]) <= 1e-5, name
+    keep = fa.dropout_keep_mask_cuda(11, b, heads, l, RATE, cuda)
+    assert torch.equal(keep.cpu(), fa.dropout_keep_oracle(b, heads, l, 11,
+                                                          RATE))
+
+
+@pytest.mark.cuda
+def test_fp32_split_wrapper_rejects_what_it_cannot_take(cuda):
+    q = torch.randn(2, 512, 128, device=cuda)
+    with pytest.raises(ValueError):
+        fa.flash_mha_packed_dropout(q, q, q, 1, 2, RATE)        # head width 64
+    q = q[:, :200].contiguous()
+    with pytest.raises(ValueError):
+        fa.flash_mha_packed_dropout(q, q, q, 1, 4, RATE)        # L % 128
 
 
 @pytest.mark.cuda

@@ -295,3 +295,77 @@ def tf32x3_attention_model(q, k, v, heads: int, rq=None, rkv=None, do=None,
         outs[2][..., cols] = dk * scale
         outs[3][..., cols] = dv
     return outs[0] if do is None else tuple(outs)
+
+
+def dropout_tf32x3_model(q, k, v, do, seed, heads: int, rate: float,
+                         products: int = 3, dsum: str = "o",
+                         tile: int = 64):
+    """The fp32 hash-dropout kernels of csrc/
+    flash_attention_dropout_tf32x3.cu (`attn_dropout_fwd_tf32x3_kernel`,
+    `attn_dropout_bwd_dq_tf32x3_kernel`, `attn_dropout_bwd_dkv_tf32x3_kernel`)
+    in plain torch, at their rounding points, on fp32 q, k, v, dO (B, L, D):
+    (o, dq, dk, dv), fp32.
+
+    Every product is split TF32 as in `tf32x3_attention_model` (`products`
+    3 or 1, each m16n8k8 step's sum rounded toward zero, every sum started
+    afresh for each `tile` of keys or q rows and added on in fp32).
+    Forward per key tile: s = fp32(S) * scale, the running max from -inf,
+    alpha = exp(m_old - m_new), p = exp(s - m_new), l = l * alpha +
+    rowsum(p) over every key, the dropped p zeroed before the split for
+    P V, acc = acc * alpha + P V; o = acc * (inv_keep / l), lse = m +
+    log(l). Backward: P = exp(s - lse), dP = dO V^T, dP' = keep dP *
+    inv_keep, dS = P (dP' - D), with D = rowsum(dO o) from the fp32 output
+    (`dsum`="o", what the kernels take) or D' = rowsum(dP' P) (`dsum`=
+    "dprime", what JAX forms); dq = scale * (sum over key tiles of dS K),
+    dk = scale * (sum over q tiles of dS^T Q), dv = inv_keep * (sum over q
+    tiles of (keep P)^T dO)."""
+    b, l, d = q.shape
+    dh = d // heads
+    scale, inv_keep = 1.0 / math.sqrt(dh), 1.0 / (1.0 - rate)
+    seed = fa._seed_tensor(seed, q.device)
+    bidx = torch.arange(b, device=q.device)
+    mm = lambda a, c, first: _mm(a, c, products, first)
+    outs = [torch.empty(b, l, d, device=q.device) for _ in range(4)]
+    for h in range(heads):
+        cols = slice(h * dh, (h + 1) * dh)
+        qh, kh, vh, doh = (t[..., cols].float() for t in (q, k, v, do))
+        keep = fa.keep_mask(fa.bh_seed(seed, bidx, h, heads), 0, l, l,
+                            fa.thresh(rate))
+        s = mm(qh, kh.transpose(1, 2), True) * scale
+        m = torch.full((b, l, 1), -math.inf, device=q.device)
+        den = torch.zeros(b, l, 1, device=q.device)
+        acc = torch.zeros(b, l, dh, device=q.device)
+        for k0 in range(0, l, tile):
+            st = s[..., k0:k0 + tile]
+            m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(st - m_new)
+            den = den * alpha + p.sum(-1, keepdim=True)
+            pk = torch.where(keep[..., k0:k0 + tile], p, 0.0)
+            part = mm(pk, vh[:, k0:k0 + tile], False)
+            acc = (acc.double() * alpha.double() + part.double()).float()
+            m = m_new
+        o = acc * (inv_keep / den)
+        outs[0][..., cols] = o
+        p = torch.exp(s - (m + torch.log(den)))
+        dp = mm(doh, vh.transpose(1, 2), True)
+        dpk = torch.where(keep, dp * inv_keep, 0.0)
+        if dsum == "o":
+            dd = (doh * o).sum(-1, keepdim=True)
+        else:
+            dd = (dpk * p).sum(-1, keepdim=True)
+        ds = p * (dpk - dd)
+        pk = torch.where(keep, p, 0.0)
+        dq = torch.zeros(b, l, dh, device=q.device)
+        dk = torch.zeros_like(dq)
+        dv = torch.zeros_like(dq)
+        for k0 in range(0, l, tile):
+            dq = dq + mm(ds[..., k0:k0 + tile], kh[:, k0:k0 + tile], False)
+        for q0 in range(0, l, tile):
+            rows = slice(q0, q0 + tile)
+            dk = dk + mm(ds[:, rows].transpose(1, 2), qh[:, rows], False)
+            dv = dv + mm(pk[:, rows].transpose(1, 2), doh[:, rows], False)
+        outs[1][..., cols] = dq * scale
+        outs[2][..., cols] = dk * scale
+        outs[3][..., cols] = dv * inv_keep
+    return tuple(outs)
