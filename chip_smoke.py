@@ -137,17 +137,27 @@ Phases:
      exactly 5 B3, 0 fused-enhancer and 10 residual-LayerNorm launches
      per forward; SR and CRNN logits at phase 2's bars against the fused
      path and against `kernels=False`; img/s of the three paths;
- 19. the bidirectional GRU kernel (B8, csrc/fused_gru.cu) against its
-     plain version at TSRN's shapes (16384, 16, 96) and (4096, 64, 96),
-     fp32; kernel, plain and cuDNN GRU ms (timed only; alone, and beside
-     the port's projection + kernel) beside the bound;
+ 19. the bidirectional GRU kernel (B8, csrc/fused_gru.cu, every product on
+     the tensor cores in split TF32) against its plain versions at TSRN's
+     shapes, rows x T = (16384, 16) and (4096, 64), H 32: (a) the
+     projection-off entry (`fused_bigru`, JAX's kernel) over fp32
+     projections (rows, T, 96); (b) the x-level entry (`fused_bigru_x`,
+     TSRN's route: projections and recurrence in one launch) on x (rows,
+     T, 64) in fp32 and bf16, its fp32 output within 1e-5 and, on bf16
+     input, its bf16 output the rounding of that; kernel, plain, the
+     BiGRU module call and cuDNN's GRU (timed only, fp32) ms beside both
+     bounds (the tensor cores': 3xTF32, a bf16 x's projection as three
+     bf16 products; the CUDA cores'); (c) the x-level entry at (4096, 64)
+     with saturating gates (W_ih x10, |pre-activation| up to ~50), fp32
+     and bf16 x, at the same bars;
  20. TSRN at full width (x2, 32x128 HR, STN built, 5 SRBs, hidden 32,
      bf16, `fused_gru=True`, non-trivial BN statistics) through
      `PixelsToStrings` with phase 2's CRNN at batch 256: exactly 10 B8
      launches per forward; SR and logits at phase 2's bars against
      `fused_gru=False` (cuDNN) and `kernels=False` (the plain version);
      img/s of the three paths; `InferenceServer(buckets=(1, 8, 32))` as
-     in phase 3, and which buckets pass the GRU's rows % 256 gate;
+     in phase 3, and which buckets pass the GRU's rows % 256 gate (with
+     --phases, on a CRNN and LR batch made from phase 2's seeds);
  21. Text Gestalt's stroke-focus training: `StrokeSRTrainer` over TSRN
      (STN + TPS, 5 SRBs, hidden 32, fp32) with `StrokeFocusLoss`
      (stroke_lambda 50) of the frozen stroke oracle OCRTransformer(10,
@@ -205,6 +215,7 @@ nvidia-smi gives them, and the line before that the kernel table as JSON.
 
 from __future__ import annotations
 
+import itertools
 import json
 import re
 import subprocess
@@ -383,7 +394,7 @@ def bound_note(bd: dict) -> str:
     """The bound as the phases print it: both floors in fp32."""
     note = f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}"
     if "cuda_core_bound_ms" in bd:
-        note += (f", 3xTF32; CUDA-core fp32 floor "
+        note += (f", {bd.get('floor', '3xTF32')}; CUDA-core fp32 floor "
                  f"{bd['cuda_core_bound_ms']:.4f} ms")
     return note + ")"
 
@@ -1989,17 +2000,74 @@ def phase18(dev, gpu: str, pipe: PixelsToStrings,
     return got[0]
 
 
-def gru_bound(rows: int, t: int, h: int) -> dict:
-    """Both directions: per row and step a (H, 3H) product (6H^2 flops)
-    and ~10 operations per gate element; the two projections read, y
-    written, fp32."""
-    return bound(2 * rows * t * (6 * h * h + 30 * h),
-                 4 * rows * t * (2 * 3 * h + 2 * h), torch.float32)
+def gru_bound(rows: int, t: int, h: int, c: int = 0,
+              dt=torch.float32) -> dict:
+    """B8, both directions over rows x t row-steps: per row-step the
+    projection (6HC flops; none for the projection-off entry, c = 0) and
+    the recurrence (6H^2) at the tensor cores' peak (`bound_ms`, beside
+    the bytes: x in `dt`, or the two fp32 projections, the weights and y
+    in `dt` moved once). The recurrence and an fp32 x's projection take
+    three TF32 products; a bf16 x's projection the cheaper of two TF32
+    products (x exact in TF32) and three bf16 ones (W_i split three ways
+    into bf16, 24 significant bits). `cuda_core_bound_ms` adds ~30H gate
+    operations and takes all at the CUDA cores' fp32 peak."""
+    n, es = rows * t, torch.finfo(dt).bits // 8
+    proj, rec, gates = 2 * n * 6 * h * c, 2 * n * 6 * h * h, 2 * n * 30 * h
+    t_proj = (min(2 * proj / TF32_FLOPS, 3 * proj / PEAK_FLOPS[dt])
+              if dt == torch.bfloat16 else TF32X3_PRODUCTS * proj / TF32_FLOPS)
+    t_ops = (t_proj + TF32X3_PRODUCTS * rec / TF32_FLOPS) * 1e3
+    weights = 2 * 4 * (3 * h * (c + h + 2) if c else 3 * h * (h + 1))
+    nbytes = (n * c * es if c else 2 * n * 3 * h * 4) + weights \
+        + n * 2 * h * es
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "floor": ("3xTF32, the projection 3 bf16 products"
+                      if dt == torch.bfloat16 and c else "3xTF32"),
+            "cuda_core_bound_ms": (proj + rec + gates)
+            / PEAK_FLOPS[torch.float32] * 1e3}
+
+
+def gru_params(gen: torch.Generator, c: int, h: int, dev) -> list:
+    """torch's GRU parameters of both directions at torch's init scale,
+    U(-1/sqrt(H), 1/sqrt(H)), in `fused_bigru_x`'s order."""
+    shapes = ((3 * h, c), (3 * h,), (3 * h, h), (3 * h,)) * 2
+    return [((torch.rand(s, generator=gen) * 2 - 1) * h ** -0.5).to(dev)
+            for s in shapes]
+
+
+def bf16_rounding_err(got: torch.Tensor, want32: torch.Tensor,
+                      atol: float) -> float:
+    """The share of bf16 `got` outside the roundings of [want32 - atol,
+    want32 + atol] (0: got is want32 rounded to nearest even after an fp32
+    error of at most atol)."""
+    lo, hi = ((want32 + d).to(torch.bfloat16) for d in (-atol, atol))
+    return 1.0 - ((lo <= got) & (got <= hi)).float().mean().item()
+
+
+def check_gru_x(args: tuple, what: str) -> float:
+    """The x-level B8 entry on `args` against its plain version: the fp32
+    output's max abs error, which must be within GRU_ATOL, and on bf16 x
+    the bf16 output the rounding of that."""
+    got = fgru.fused_bigru_x(*args, out_dtype=torch.float32)
+    want = fgru.fused_bigru_x_reference(*args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError("B8 x-level kernel output not finite")
+    err = (got - want).abs().max().item()
+    off = (bf16_rounding_err(fgru.fused_bigru_x(*args), want, GRU_ATOL)
+           if args[0].dtype == torch.bfloat16 else 0.0)
+    if err > GRU_ATOL or off:
+        raise AssertionError(f"B8 x-level kernel disagrees with the plain "
+                             f"version at {what}: max abs err {err} (bar "
+                             f"{GRU_ATOL}), bf16 output off its rounding "
+                             f"at a share {off}")
+    return err
 
 
 def phase19(dev, gpu: str) -> dict:
     gen = torch.Generator().manual_seed(SEED + 19)
-    result = {}
+    # (a) the projection-off entry (JAX's fused_bigru) over fp32 projections
     for rows, t, h in B8_SHAPES:
         xf, xb = (torch.randn(rows, t, 3 * h, generator=gen).to(dev)
                   for _ in range(2))
@@ -2020,25 +2088,59 @@ def phase19(dev, gpu: str) -> dict:
                                  f"{err} > {GRU_ATOL}")
         k_ms, p_ms = in_turns(lambda: fgru.fused_bigru(*args),
                               lambda: fgru.fused_bigru_reference(*args), 5)
-        # the yardstick: cuDNN's bidirectional GRU on the module input
-        # (it includes the input projection), and the port's projection +
-        # kernel on the same input
-        gru = BiGRU(2 * h, h, fuse=True).to(dev)
-        x = torch.randn(rows, t, 2 * h, generator=gen).to(dev)
-        with torch.no_grad():
-            lib_ms = cuda_ms(lambda: torch.nn.GRU.forward(gru, x), 5)
-            full_ms = cuda_ms(lambda: gru(x), 5)
         bd = gru_bound(rows, t, h)
-        print(f"phase 19: BiGRU (B8) ({rows}, {t}, {3 * h}) fp32: max abs "
-              f"err {err:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}); cuDNN GRU "
-              f"{lib_ms:.4f} ms against projection + kernel {full_ms:.4f} ms "
-              f"[{gpu}]")
-        result[(rows, t)] = {"max_abs_err": err, "ms": k_ms,
-                             "plain_ms": p_ms, **bd, "library_ms": lib_ms}
-        del xf, xb, x, got, want
+        print(f"phase 19a: fused_bigru (B8, projections in) ({rows}, {t}, "
+              f"{3 * h}) fp32: max abs err {err:.3e}; kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, {bound_note(bd)} [{gpu}]")
+        del xf, xb, got, want
+    # (b) the x-level entry, TSRN's route: the projections in the kernel
+    result = {}
+    for (rows, t, h), dt in itertools.product(
+            B8_SHAPES, (torch.float32, torch.bfloat16)):
+        c = 2 * h
+        x = torch.randn(rows, t, c, generator=gen).to(dev, dt)
+        params = gru_params(gen, c, h, dev)
+        args = (x, *params, h)
+        what = f"({rows}, {t}, C {c}, H {h}) {dt}"
+        err = check_gru_x(args, what)
+        k_ms, p_ms = in_turns(lambda: fgru.fused_bigru_x(*args),
+                              lambda: fgru.fused_bigru_x_reference(*args), 5)
+        # the module call (the route TSRN takes) and the yardstick, cuDNN's
+        # bidirectional GRU on the same input and parameters in fp32
+        gru = BiGRU(c, h, fuse=True).to(dev)
+        with torch.no_grad():
+            for dst, src in zip(
+                    (gru.weight_ih_l0, gru.bias_ih_l0, gru.weight_hh_l0,
+                     gru.bias_hh_l0, gru.weight_ih_l0_reverse,
+                     gru.bias_ih_l0_reverse, gru.weight_hh_l0_reverse,
+                     gru.bias_hh_l0_reverse), params):
+                dst.copy_(src)
+            xf = x.float()
+            lib_ms = cuda_ms(lambda: torch.nn.GRU.forward(gru, xf), 5)
+            mod_ms = cuda_ms(lambda: gru(x), 5)
+        bd = gru_bound(rows, t, h, c, dt)
+        print(f"phase 19b: BiGRU (B8, x-level) {what}: max abs err {err:.3e} "
+              f"(fp32 output; bar {GRU_ATOL}); kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, the module call {mod_ms:.4f} ms, cuDNN GRU "
+              f"{lib_ms:.4f} ms, {bound_note(bd)} [{gpu}]")
+        result[(rows, t, dt)] = {"max_abs_err": err, "ms": k_ms,
+                                 "plain_ms": p_ms, **bd,
+                                 "library_ms": lib_ms}
+        del x, xf, gru
+    # (c) saturating gates, where the fast exponential's error is largest:
+    # W_ih x10 puts |pre-activation| ~ 8 on average, up to ~50
+    rows, t, h = B8_SHAPES[1]
+    for dt in (torch.float32, torch.bfloat16):
+        params = gru_params(gen, 2 * h, h, dev)
+        for i in (0, 4):
+            params[i] *= 10
+        x = torch.randn(rows, t, 2 * h, generator=gen).to(dev, dt)
+        what = f"({rows}, {t}, C {2 * h}, H {h}) {dt}, W_ih x10"
+        err = check_gru_x((x, *params, h), what)
+        print(f"phase 19c: BiGRU (B8, x-level) {what}: max abs err "
+              f"{err:.3e} (fp32 output; bar {GRU_ATOL})")
     torch.cuda.empty_cache()
-    return result[B8_SHAPES[0][:2]]
+    return result[(*B8_SHAPES[0][:2], torch.bfloat16)]
 
 
 def tsrn(dev, **kw) -> TSRN:
@@ -2091,6 +2193,17 @@ def phase20(dev, gpu: str, crnn, lr: torch.Tensor) -> int:
           f"rows % 256 gate: {gate}")
     phase3(pipes["kernel"], lr, gpu, phase="20")
     return launches
+
+
+def phase20_alone(dev, gpu: str) -> int:
+    """Phase 20 without phase 2: a CRNN(37, 256) in bf16 with non-trivial
+    BN statistics and an LR batch from phase 2's seeds."""
+    torch.manual_seed(SEED)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    crnn = CRNN(num_classes=37, hidden=256, dtype=torch.bfloat16)
+    randomize_stats(crnn, gen)
+    lr = torch.rand(BATCH, *LR_HW, 3, generator=gen).to(dev)
+    return phase20(dev, gpu, crnn.to(dev).eval(), lr)
 
 
 def phase21(dev, gpu: str) -> int:
@@ -2631,7 +2744,8 @@ def phase25(dev, gpu: str) -> tuple:
 # the phases that need nothing of an earlier one, for `--phases`
 STANDALONE = {"1": phase1, "4": phase4, "5": phase5, "6": phase6,
               "7": phase7, "10": phase10, "13": phase13, "17": phase17,
-              "19": phase19, "22": phase22, "24": phase24, "25": phase25}
+              "19": phase19, "20": phase20_alone, "22": phase22,
+              "24": phase24, "25": phase25}
 
 
 def main(argv: list) -> int:

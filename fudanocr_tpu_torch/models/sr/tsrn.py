@@ -9,11 +9,12 @@ branch, gru2 scans along W over `x + residual`, and its output IS the
 block output (tsrn.py:89-98).
 
 `fused_gru=True` (JAX's flag, tsrn.py:60; off by default, as there)
-runs each GRU's recurrence at inference through the bidirectional GRU
-kernel (`ops/fused_gru.fused_bigru`, two launches per block) where its
-gate holds; training keeps torch's GRU (cuDNN) with autograd, as the JAX
-module keeps its scan. `kernels=False` runs the kernel's plain version
-wherever the kernel would run (the comparison path).
+runs each GRU (input projections and recurrence) at inference through the
+bidirectional GRU kernel (`ops/fused_gru.fused_bigru_x`, two launches per
+block) where its gate holds; training keeps torch's GRU (cuDNN) with
+autograd, as the JAX module keeps its scan. `kernels=False` runs the
+kernel's plain version wherever the kernel would run (the comparison
+path).
 
 `forward(x, train=True)` is the training path: with `stn=True` the STN
 head predicts TPS control points on the LR input and the TPS warp

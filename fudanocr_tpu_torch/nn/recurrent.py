@@ -12,13 +12,13 @@ h' = (1-z)*n + z*h. Their weights carry the names the JAX package's
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from fudanocr_tpu_torch.nn.layers import conv2d
-from fudanocr_tpu_torch.ops.fused_gru import (KERNEL_HIDDEN, fused_bigru,
-                                              fused_bigru_reference,
-                                              fused_gru_supported)
+from fudanocr_tpu_torch.ops.fused_gru import (fused_bigru_x,
+                                              fused_bigru_x_reference,
+                                              fused_gru_supported,
+                                              kernel_takes)
 
 
 class BiLSTM(nn.LSTM):
@@ -41,13 +41,14 @@ class BiGRU(nn.GRU):
     gate math in float32 whatever the input dtype, output cast back.
 
     With `fuse` on, at inference (`train=False`), where
-    `fused_gru_supported(B, T, hidden)` holds and the kernel takes the
-    hidden size, both input projections are computed here (one `F.linear`
-    each over all steps) and the recurrence of both directions runs in
-    `ops.fused_gru.fused_bigru` (the kernel on CUDA tensors, its plain
-    version on CPU tensors; `kernels=False`: the plain version on any
-    device). Everything else, training included, runs torch's GRU (cuDNN
-    on the card) with autograd, as the JAX module keeps its scan."""
+    `fused_gru_supported(B, T, hidden)` (JAX's gate) holds and the kernel
+    takes C and the hidden size (`kernel_takes`), x and this module's own
+    parameters go to `ops.fused_gru.fused_bigru_x`: both input projections
+    and the recurrence of both directions in one kernel launch on CUDA
+    tensors, its plain version on CPU tensors (`kernels=False`: the plain
+    version on any device). Everything else, training included, runs
+    torch's GRU (cuDNN on the card) with autograd, as the JAX module keeps
+    its scan."""
 
     def __init__(self, input_size: int, hidden: int, fuse: bool = False,
                  kernels: bool = True):
@@ -56,20 +57,17 @@ class BiGRU(nn.GRU):
         self.fuse, self.kernels = fuse, kernels
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        b, t, _ = x.shape
+        b, t, c = x.shape
         hidden = self.hidden_size
-        if (self.fuse and not train and hidden in KERNEL_HIDDEN
+        if (self.fuse and not train and kernel_takes(c, hidden)
                 and fused_gru_supported(b, t, hidden)):
-            xf = x.float()
-            run = fused_bigru if self.kernels else fused_bigru_reference
-            y = run(F.linear(xf, self.weight_ih_l0, self.bias_ih_l0),
-                    F.linear(xf, self.weight_ih_l0_reverse,
-                             self.bias_ih_l0_reverse),
-                    self.weight_hh_l0.t().contiguous(), self.bias_hh_l0,
-                    self.weight_hh_l0_reverse.t().contiguous(),
-                    self.bias_hh_l0_reverse, hidden)
-        else:
-            y, _ = super().forward(x.float())
+            run = fused_bigru_x if self.kernels else fused_bigru_x_reference
+            return run(x.contiguous(), self.weight_ih_l0, self.bias_ih_l0,
+                       self.weight_hh_l0, self.bias_hh_l0,
+                       self.weight_ih_l0_reverse, self.bias_ih_l0_reverse,
+                       self.weight_hh_l0_reverse, self.bias_hh_l0_reverse,
+                       hidden)
+        y, _ = super().forward(x.float())
         return y.to(x.dtype)
 
 

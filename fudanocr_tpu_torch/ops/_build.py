@@ -121,13 +121,14 @@ def load_library() -> ctypes.CDLL:
     lib.attn_packed_bwd.argtypes = [p] * 15 + [i] * 5 + [i64] * 3 \
         + [i, f, i, p]
     lib.gru_bidir_fwd.argtypes = [p] * 7 + [i] * 3 + [p]
+    lib.gru_bidir_x_fwd.argtypes = [p] * 10 + [i] * 6 + [p]
     for fn in (lib.fe_qkv_proj, lib.fe_attn_epilogue, lib.srb_conv3x3,
                lib.ln_residual_fwd, lib.attn_dropout_fwd,
                lib.attn_dropout_bwd, lib.attn_dropout_keep,
                lib.attn_unmasked_packed_fwd,
                lib.attn_unmasked_bhld_fwd, lib.attn_region_packed_fwd,
                lib.attn_packed_fwd_stats, lib.attn_packed_bwd,
-               lib.gru_bidir_fwd):
+               lib.gru_bidir_fwd, lib.gru_bidir_x_fwd):
         fn.restype = i
     lib.fe_error_string.argtypes = [i]
     lib.fe_error_string.restype = ctypes.c_char_p

@@ -179,8 +179,8 @@ def test_tsrn_bf16_matches_jax_bf16(lr, monkeypatch):
     bf16 = np.asarray(JaxTSRN(**kw, dtype=jnp.bfloat16).apply(
         v, jnp.asarray(lr)), np.float32)
     calls = []
-    real = recurrent.fused_bigru
-    monkeypatch.setattr(recurrent, "fused_bigru",
+    real = recurrent.fused_bigru_x
+    monkeypatch.setattr(recurrent, "fused_bigru_x",
                         lambda *a: calls.append(a[0].shape) or real(*a))
     m = load_jax_variables(TSRN(**kw, dtype=torch.bfloat16, fused_gru=True),
                            "tsrn", v, srb_nums=SRB, stn=True).eval()

@@ -243,6 +243,29 @@ def test_qkv_attention_and_gru_wrappers_refuse_devices_without_a_kernel():
         fg.fused_bigru(x, x, w, b, w, b, 32)
 
 
+def test_x_level_gru_wrapper_on_cpu_is_the_plain_version():
+    """`fused_bigru_x` (B8 with its projections) on CPU tensors runs its
+    plain version (x's dtype out, or fp32 when asked) and launches
+    nothing; on a device without a kernel it raises."""
+    from fudanocr_tpu_torch.ops import fused_gru as fg
+
+    gen = torch.Generator().manual_seed(4)
+    n0 = fg.fused_bigru.launches
+    params = [torch.randn(*s, generator=gen) * 0.3 for s in (
+        (24, 16), (24,), (24, 8), (24,)) * 2]
+    x = torch.randn(256, 4, 16, generator=gen)
+    for dt in (torch.float32, torch.bfloat16):
+        got = fg.fused_bigru_x(x.to(dt), *params, 8)
+        assert got.dtype == dt and got.shape == (256, 4, 16)
+        assert torch.equal(got, fg.fused_bigru_x_reference(x.to(dt), *params,
+                                                           8))
+    got = fg.fused_bigru_x(x.bfloat16(), *params, 8, out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    assert fg.fused_bigru.launches == n0
+    with pytest.raises(ValueError):
+        fg.fused_bigru_x(x.to("meta"), *(t.to("meta") for t in params), 8)
+
+
 def test_seg_trainer_runs_on_the_model_device():
     """SegTrainer takes its device from the model's parameters (the port's
     entry points put models on the card) and moves each batch there."""

@@ -213,10 +213,11 @@ def test_stroke_trainer_on_synthetic_text_zoom(monkeypatch, oracle):
     assert batches[2]["hr_map"] is batches[0]["hr_map"]
     assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
     calls = []
-    real = recurrent.fused_bigru
-    monkeypatch.setattr(recurrent, "fused_bigru",
+    real = recurrent.fused_bigru_x
+    monkeypatch.setattr(recurrent, "fused_bigru_x",
                         lambda *a: calls.append(a[0].shape) or real(*a))
     res = trainer.evaluate(trainer.step)
     assert res["psnr"] > 5.0 and 0.0 < res["ssim"] <= 1.0
     # gru1 of the one block: 8 images x 64 columns = 512 rows of 16 steps
-    assert calls == [(512, 16, 24)] * 2
+    # of its 16 input features
+    assert calls == [(512, 16, 16)] * 2

@@ -14,12 +14,15 @@ fudanocr_tpu_torch.utils.weights.load_jax_variables), fp32.
 * the B8 twin against the JAX Pallas kernel `fused_bigru` in interpret
   mode at H 32, T 16 and T 64, rtol 1e-5 / atol 1e-6
   (tests/test_fused_gru.py's bar), and `BiGRU` on both routes against
-  the JAX scan;
+  the JAX scan (the fused route is the x-level plain version
+  `fused_bigru_x_reference`, at C 24 / H 16 and at TSRN's C 64 / H 32,
+  also on bf16 input against JAX's bf16 `BiGRU`);
 * the `tsrn` porter against the JAX package's, bit for bit, and the round
   trip through `to_jax_variables`.
 
-Tests marked `cuda` hold the kernel (csrc/fused_gru.cu) against the twin
-on the card and skip where there is none; they import no jax:
+Tests marked `cuda` hold the kernel (csrc/fused_gru.cu, both entries)
+against the twins on the card and skip where there is none; they import
+no jax:
 
     python -m pytest tests/test_torch_tsrn.py -m cuda --noconftest
 """
@@ -94,16 +97,17 @@ def test_tsrn_matches_jax(jx, monkeypatch, stn, hw, batch, fused):
     jnp = jx[1]
     want = np.asarray(jm.apply(v, jnp.asarray(x)))
     calls = []
-    real = recurrent.fused_bigru
-    monkeypatch.setattr(recurrent, "fused_bigru",
+    real = recurrent.fused_bigru_x
+    monkeypatch.setattr(recurrent, "fused_bigru_x",
                         lambda *a: calls.append(a[0].shape) or real(*a))
     m = _port(v, stn, hw, fused_gru=fused)
     with torch.inference_mode():
         got = m(torch.from_numpy(x)).numpy()
     assert got.shape == (batch, 2 * hw[0], 2 * hw[1], 3)
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=ATOL)
-    # gru1 of each block passes the rows gate, gru2 (batch * h rows) not
-    assert calls == ([(batch * hw[1], hw[0], 3 * HIDDEN)] * SRB if fused
+    # gru1 of each block passes the rows gate, gru2 (batch * h rows) not;
+    # the kernel takes the block's input, 2 * HIDDEN features
+    assert calls == ([(batch * hw[1], hw[0], 2 * HIDDEN)] * SRB if fused
                      else [])
 
 
@@ -135,25 +139,51 @@ def test_fused_bigru_twin_matches_jax_kernel(jx, t_len):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("route", ["gru", "twin"])
-def test_bigru_matches_jax_scan(jx, route):
+def bf16_rounding_of(got: torch.Tensor, want32: torch.Tensor,
+                     atol: float) -> None:
+    """Assert that the bf16 `got` is fp32 `want32` rounded to nearest even
+    after an error of at most `atol`: between the roundings of want32 -
+    atol and want32 + atol (rounding is monotone), so equal to
+    bf16(want32) wherever those two agree."""
+    assert got.dtype == torch.bfloat16
+    lo, hi = ((want32 + d).to(torch.bfloat16) for d in (-atol, atol))
+    assert ((lo <= got) & (got <= hi)).all()
+    firm = lo == hi
+    assert firm.float().mean() > 0.9
+    assert torch.equal(got[firm], want32.to(torch.bfloat16)[firm])
+
+
+@pytest.mark.parametrize("route,cin,h,dtype", [
+    pytest.param("gru", 24, 16, "float32", id="gru"),
+    pytest.param("twin", 24, 16, "float32", id="twin"),
+    pytest.param("twin", 64, 32, "float32", id="twin-c64-h32"),
+    pytest.param("twin", 64, 32, "bfloat16", id="twin-c64-h32-bf16")])
+def test_bigru_matches_jax_scan(jx, route, cin, h, dtype):
     """The port's BiGRU on cuDNN's route (torch's GRU on the CPU) and on
-    the fused route (the twin) against the JAX BiGRU's lax.scan."""
+    the fused route (the x-level twin, `fused_bigru_x_reference`) against
+    the JAX BiGRU's lax.scan; bf16 input against JAX's bf16 BiGRU (its
+    output rounded from fp32 within the fp32 bar)."""
     jax, jnp, _ = jx
     from fudanocr_tpu.nn.recurrent import BiGRU as JaxBiGRU
 
-    rows, t_len, cin, h = 256, 12, 24, 16
+    rows, t_len = 256, 12
     x = np.random.default_rng(5).standard_normal(
         (rows, t_len, cin)).astype(np.float32)
+    xj = jnp.asarray(x).astype(dtype)
     jm = JaxBiGRU(h)
-    v = jm.init(jax.random.PRNGKey(6), jnp.asarray(x))
+    v = jm.init(jax.random.PRNGKey(6), xj)
     p = jax.tree_util.tree_map(np.asarray, v["params"])
     rng = np.random.default_rng(6)
     for k in ("bi_fwd", "bh_fwd", "bi_bwd", "bh_bwd"):   # inits are 0
         p[k] = (rng.standard_normal(3 * h) * 0.1).astype(np.float32)
-    want = np.asarray(jm.apply({"params": p}, jnp.asarray(x)))
+    want = np.asarray(JaxBiGRU(h, dtype=jnp.float32).apply({"params": p},
+                                                           xj))
     m = BiGRU(cin, h, fuse=route == "twin")
-    with torch.no_grad():
+    calls = []
+    real = recurrent.fused_bigru_x
+    with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(recurrent, "fused_bigru_x",
+                   lambda *a: calls.append(a[0].dtype) or real(*a))
         for d, sfx in (("fwd", ""), ("bwd", "_reverse")):
             getattr(m, f"weight_ih_l0{sfx}").copy_(torch.from_numpy(
                 p[f"wi_{d}"].T.copy()))
@@ -163,8 +193,17 @@ def test_bigru_matches_jax_scan(jx, route):
                 p[f"bi_{d}"]))
             getattr(m, f"bias_hh_l0{sfx}").copy_(torch.from_numpy(
                 p[f"bh_{d}"]))
-        got = m(torch.from_numpy(x)).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        got = m(torch.from_numpy(x).to(getattr(torch, dtype)))
+    assert calls == ([getattr(torch, dtype)] if route == "twin" else [])
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    else:
+        want_bf16 = np.asarray(jm.apply({"params": p}, xj).astype(
+            jnp.float32))
+        want32 = torch.from_numpy(want)
+        bf16_rounding_of(got, want32, 1e-5)
+        bf16_rounding_of(torch.from_numpy(want_bf16).to(torch.bfloat16),
+                         want32, 0.0)
 
 
 def test_tsrn_porter_round_trip(jx):
@@ -205,12 +244,25 @@ def test_bigru_route_gate(monkeypatch, fuse, train, rows, hidden, want):
     <= 128) and a hidden size the kernel takes (40 is JAX's, not the
     kernel's)."""
     calls = []
-    real = recurrent.fused_bigru
-    monkeypatch.setattr(recurrent, "fused_bigru",
+    real = recurrent.fused_bigru_x
+    monkeypatch.setattr(recurrent, "fused_bigru_x",
                         lambda *a: calls.append(a[0].shape) or real(*a))
     with torch.no_grad():
         BiGRU(8, hidden, fuse=fuse)(torch.randn(rows, 4, 8), train)
     assert len(calls) == want
+
+
+@pytest.mark.parametrize("cin,want", [(8, 1), (64, 1), (12, 0), (72, 0)])
+def test_bigru_route_gate_input_width(monkeypatch, cin, want):
+    """The fused route also needs an input width the kernel's projection
+    takes: a multiple of 8 up to 64."""
+    calls = []
+    real = recurrent.fused_bigru_x
+    monkeypatch.setattr(recurrent, "fused_bigru_x",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    with torch.no_grad():
+        y = BiGRU(cin, 8, fuse=True)(torch.randn(256, 4, cin))
+    assert len(calls) == want and y.shape == (256, 4, 16)
 
 
 # -- on the card --------------------------------------------------------
@@ -258,3 +310,81 @@ def test_fused_bigru_rejects_what_it_cannot_take(cuda):
     b40 = torch.randn(120, device=cuda)
     with pytest.raises(ValueError):
         fg.fused_bigru(x40, x40, w40, b40, w40, b40, 40)    # hidden 40
+
+
+def _gru_params(gen, c: int, hidden: int, device) -> list:
+    """torch's GRU parameters of both directions at torch's init scale,
+    U(-1/sqrt(H), 1/sqrt(H)), in `fused_bigru_x`'s order."""
+    shapes = ((3 * hidden, c), (3 * hidden,), (3 * hidden, hidden),
+              (3 * hidden,)) * 2
+    return [((torch.rand(s, generator=gen) * 2 - 1) * hidden ** -0.5)
+            .to(device) for s in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,t_len,c,hidden", [
+    (4096, 64, 64, 32), (16384, 16, 64, 32), (1000, 16, 64, 32),
+    (256, 8, 16, 8), (512, 3, 48, 24)])
+def test_fused_bigru_x_kernel_matches_twin(cuda, rows, t_len, c, hidden,
+                                           dtype):
+    """The x-level kernel (projections and recurrence) against its plain
+    version: fp32 output within 1e-5 (the kernel's fp32 arithmetic, also
+    on bf16 input), and on bf16 input the bf16 output that fp32 rounds to
+    after an error of at most 1e-5."""
+    gen = torch.Generator().manual_seed(rows + t_len + c)
+    x = torch.randn(rows, t_len, c, generator=gen).to(cuda,
+                                                      getattr(torch, dtype))
+    _x_kernel_matches_twin(x, _gru_params(gen, c, hidden, cuda), hidden)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,t_len", [(4096, 64), (16384, 16)])
+def test_fused_bigru_x_kernel_saturating(cuda, rows, t_len, dtype):
+    """As `test_fused_bigru_x_kernel_matches_twin` at TSRN's shapes with
+    W_ih x10: |gate pre-activation| ~ 6.5 on average, up to ~50, where the
+    kernel's fast exponential and division are furthest from the plain
+    version's (tests/test_torch_gru_tf32x3_rounding.py models the rest)."""
+    gen = torch.Generator().manual_seed(rows + t_len + 10)
+    x = torch.randn(rows, t_len, 64, generator=gen).to(cuda,
+                                                       getattr(torch, dtype))
+    params = _gru_params(gen, 64, 32, cuda)
+    for i in (0, 4):
+        params[i] *= 10
+    pre = (x.float().reshape(-1, 64) @ params[0].t()).abs()
+    assert pre.mean() > 5 and pre.max() > 30
+    _x_kernel_matches_twin(x, params, 32)
+
+
+def _x_kernel_matches_twin(x, params, hidden: int) -> None:
+    n0 = fg.fused_bigru.launches
+    got = fg.fused_bigru_x(x, *params, hidden, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fg.fused_bigru.launches == n0 + 1
+    want = fg.fused_bigru_x_reference(x, *params, hidden,
+                                      out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    if x.dtype == torch.bfloat16:
+        bf16_rounding_of(fg.fused_bigru_x(x, *params, hidden), want, 1e-5)
+
+
+@pytest.mark.cuda
+def test_fused_bigru_x_rejects_what_it_cannot_take(cuda):
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(256, 8, 64, device=cuda)
+    params = _gru_params(gen, 64, 32, cuda)
+    for bad in (x.half(), x.double(), x[:, ::2], x[..., :60],
+                x.transpose(0, 1)):
+        with pytest.raises(ValueError):
+            fg.fused_bigru_x(bad, *params, 32)         # dtype, layout, C
+    with pytest.raises(ValueError):                    # C 72
+        fg.fused_bigru_x(torch.randn(256, 8, 72, device=cuda),
+                         *_gru_params(gen, 72, 32, cuda), 32)
+    with pytest.raises(ValueError):                    # hidden 40
+        fg.fused_bigru_x(x, *_gru_params(gen, 64, 40, cuda), 40)
+    with pytest.raises(ValueError):                    # a transposed W_hh
+        fg.fused_bigru_x(x, *params[:2], params[2].t(), *params[3:], 32)
+    for out in (torch.float16, torch.bfloat16):         # fp16, bf16 of fp32
+        with pytest.raises(ValueError):
+            fg.fused_bigru_x(x, *params, 32, out_dtype=out)
