@@ -167,14 +167,22 @@ Phases:
      B8 launches; (b) 32 steps over 4 repeated batches, the loss
      falling; (c) `evaluate()` through the fused-GRU inference path (10
      B8 launches per forward); (d) step ms and img/s of both paths;
- 22. the whole-SRB kernel (B9: csrc/fused_srb.cu's two convolutions, then
-     the fused enhancer's two kernels with the block residual in their
-     epilogue) against its plain version at (64, 16, 64, 64) in fp32 and
-     bf16 and (256, 16, 64, 64) in bf16, on a TransformerResidualBlock with
-     weights from a seed and non-trivial BN statistics and LN scales, at
-     phase 1's bars; kernel, plain and module-path ms (cuDNN convs, BN,
-     mish, B1, add; timed only) beside the bound, and the device ms of
-     each of its four launches;
+ 22. the whole-SRB kernel (B9) against its plain version at (64, 16, 64,
+     64) in fp32 and bf16 and (256, 16, 64, 64) in bf16, on a
+     TransformerResidualBlock with weights from a seed and non-trivial BN
+     statistics and LN scales, at phase 1's bars. In bf16 a call is three
+     launches (csrc/fused_srb.cu's two wgmma convolutions, the second with
+     the enhancer's qkv projection in its epilogue, then B1's attention
+     epilogue with the block residual), in fp32 four (two CUDA-core
+     convolutions, B1's two kernels): the kernels are read from a profiler
+     trace (the launches a call it holds are printed; the card test
+     `test_a_call_runs_its_kernels` holds their count), and each conv
+     launch is held against its plain twin on the same input (bf16 r1, r
+     and qkv within one bf16 ulp).
+     Kernel, plain and module-path ms (cuDNN convs, BN, mish, B1, add;
+     timed only) beside the bound, the device ms of each launch beside its
+     own bound, and cuDNN's two convs with their biases (channels-last,
+     mish left out) as the yardstick (`library_ms`);
  23. phase 2's TBSRN with `fused_srb=True` through `PixelsToStrings` at
      batch 256 bf16: exactly 5 B9 calls and 0 standalone B1 launches per
      forward; SR and logits at phase 2's bars against the fused-enhancer
@@ -246,7 +254,9 @@ from fudanocr_tpu_torch.ops.fused_enhancer import (enhancer_operands,
                                                    fused_enhancer_reference)
 from fudanocr_tpu_torch.ops.fused_layernorm import (
     fused_residual_layernorm, fused_residual_layernorm_reference)
-from fudanocr_tpu_torch.ops.fused_srb import fused_srb, fused_srb_reference
+from fudanocr_tpu_torch.ops import fused_srb as fsrb
+from fudanocr_tpu_torch.ops.fused_srb import (fused_srb, fused_srb_reference,
+                                              srb_conv_mish, srb_conv_qkv)
 from fudanocr_tpu_torch.ops import region_attention as ra
 from fudanocr_tpu_torch.apps.seg.inference import (inference_segmentor,
                                                    init_segmentor)
@@ -2349,24 +2359,118 @@ def srb_bound(b: int, h: int, w: int, dt) -> dict:
     return bound(conv + enh, 2 * b * l * c * torch.finfo(dt).bits // 8, dt)
 
 
-def kernel_split(fn, iters: int) -> dict:
-    """Device ms per call of `fn` by kernel name, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+def srb_launch_bounds(b: int, h: int, w: int, dt) -> dict:
+    """The bound of each of B9's bf16 launches, each launch's inputs read
+    and outputs written once: conv1 (+ mish) reads x and writes r1; conv2
+    (+ qkv) reads r1 and writes r and the (B, L, 384) qkv; the attention
+    epilogue reads qkv, r and x and writes out."""
+    l, c, d = h * w, 64, 128
+    es = torch.finfo(dt).bits // 8
+    conv = 2 * b * l * 9 * c * c
+    attn = 2 * b * l * (4 * 2 * l * (d // 4) + 3 * d * d + d * c)
+    return {"conv1": bound(conv, es * b * l * 2 * c, dt)["bound_ms"],
+            "conv2+qkv": bound(conv + 2 * b * l * c * 3 * d,
+                               es * b * l * (2 * c + 3 * d), dt)["bound_ms"],
+            "epilogue": bound(attn, es * b * l * (3 * d + 3 * c),
+                              dt)["bound_ms"]}
+
+
+def profile_kernels(fn, iters: int) -> dict:
+    """{kernel name: (device ms, launches)} per call of `fn`, from
+    torch.profiler over `iters` calls after a warm-up call. The calls run
+    in the active step of a profiler schedule whose warm-up step runs one
+    more call: on the card's machine a trace begun straight away has
+    missed the first few kernels after many earlier traces."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    split = {}
+
+    def ready(prof):
+        for e in prof.key_averages():
+            if e.device_type.name == "CUDA" and e.device_time_total > 0:
+                name = re.sub(r"^void |\(anonymous namespace\)::", "",
+                              e.key)
+                name = re.split(r"[<(]", name)[0][:40]
+                ms, n = split.get(name, (0.0, 0.0))
+                split[name] = (ms + e.device_time_total / 1e3 / iters,
+                               n + e.count / iters)
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=ready) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    split = {}
-    for e in prof.key_averages():
-        if e.device_type.name == "CUDA" and e.device_time_total > 0:
-            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
-            name = re.split(r"[<(]", name)[0][:40]
-            split[name] = round(split.get(name, 0.0)
-                                + e.device_time_total / 1e3 / iters, 4)
+        prof.step()
     return split
+
+
+def kernel_split(fn, iters: int) -> dict:
+    """Device ms per call of `fn` by kernel name, from torch.profiler."""
+    return {k: round(ms, 4) for k, (ms, _) in profile_kernels(fn,
+                                                              iters).items()}
+
+
+# the kernels of one B9 call and their launches, by dtype: bf16 on the
+# tensor cores (csrc/fused_srb.cu's two wgmma convs, the second with the
+# enhancer's qkv projection; then B1's attention epilogue), fp32 on the
+# CUDA cores (two convs, B1's qkv projection and epilogue)
+B9_KERNELS = {torch.bfloat16: {"conv3x3_mish_wgmma_kernel": 1,
+                               "conv3x3_qkv_wgmma_kernel": 1,
+                               "attn_epilogue_kernel": 1},
+              torch.float32: {"conv3x3_fma_kernel": 2, "qkv_proj_kernel": 1,
+                              "attn_epilogue_kernel": 1}}
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of |v| (8 significant bits), |v| floored at 2^-8."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp(min=2.0 ** -8)))
+                      - 7)
+
+
+def check_srb_launches(x: torch.Tensor, ops: dict, what: str) -> str:
+    """B9's conv launches alone against their plain twins on the same
+    inputs: r1 (`srb_conv_mish`), r and qkv (`srb_conv_qkv`) within one
+    bf16 ulp of the twin's fp32 value before it rounds (fp32: 1e-5)."""
+    b, h, w, c = x.shape
+    r1 = srb_conv_mish(x, ops)
+    r, qkv = srb_conv_qkv(r1, ops)
+    c1 = fsrb._conv_reference(x, ops["conv1_w"], ops["conv1_b"])
+    wants = {"r1": (r1, c1 * torch.tanh(F.softplus(c1))),
+             "r": (r, fsrb._conv_reference(r1, ops["conv2_w"],
+                                           ops["conv2_b"])),
+             "qkv": (qkv, r.reshape(b, h * w, c).float()
+                     @ ops["wtop"].float() + ops["peqkv"])}
+    notes = []
+    for name, (got, want) in wants.items():
+        err = (got.float() - want).abs()
+        bar = (bf16_ulp(want) if x.dtype == torch.bfloat16
+               else torch.full_like(want, 1e-5) + 1e-5 * want.abs())
+        worst = (err / bar).max().item()
+        notes.append(f"{name} max err {err.max().item():.3e} "
+                     f"({worst:.3f} of its bar)")
+        if not torch.isfinite(got).all() or worst > 1:
+            raise AssertionError(f"phase 22: {what}: the {name} launch "
+                                 f"disagrees with its plain twin: "
+                                 f"{notes[-1]}")
+    return ", ".join(notes)
+
+
+def cudnn_convs(x: torch.Tensor, ops: dict):
+    """cuDNN's two 3x3 convs with their biases on x's channels-last memory
+    at x's dtype, mish left out: the yardstick of B9's front half (timed
+    only)."""
+    xc = x.permute(0, 3, 1, 2)
+    ws = [ops[f"conv{i}_w"].reshape(3, 3, 64, 64).permute(3, 2, 0, 1)
+          .contiguous(memory_format=torch.channels_last) for i in (1, 2)]
+    bs = [ops[f"conv{i}_b"].to(x.dtype) for i in (1, 2)]
+    return lambda: F.conv2d(F.conv2d(xc, ws[0], bs[0], padding=1), ws[1],
+                            bs[1], padding=1)
 
 
 def phase22(dev, gpu: str) -> dict:
@@ -2394,6 +2498,8 @@ def phase22(dev, gpu: str) -> dict:
                                  f"{BF16_ATOL} or mean {mean_err} > "
                                  f"{BF16_MEAN}")
         del got, want
+        shape = f"({b}, {h}, {w}, 64) {dt}"
+        launches = check_srb_launches(x, ops, shape)
         k_ms, p_ms = in_turns(lambda: fused_srb(x, ops),
                               lambda: fused_srb_reference(x, ops), 5)
         # the module path on the same block and map: cuDNN convs, BN, mish,
@@ -2403,15 +2509,39 @@ def phase22(dev, gpu: str) -> dict:
         with torch.inference_mode():
             m_ms = cuda_ms(lambda: blk(xm), 5)
         blk.fused_srb = True
-        split = kernel_split(lambda: fused_srb(x, ops), 5)
+        lib = cudnn_convs(x, ops)
+        lib_ms = cuda_ms(lib, 10)
+        lib_dev = device_ms(lib, 10)
+        # the kernels a call runs, by name; in this long process the
+        # profiler drops some of a trace's device events (an fp32 trace of
+        # 5 calls held 7 or 9 of its 10 conv launches), so the launches a
+        # call are printed, and tests/test_torch_fused_srb.py
+        # `test_a_call_runs_its_kernels` holds them in a fresh process
+        prof = profile_kernels(lambda: fused_srb(x, ops), 5)
+        ran = {k: n for k, (_, n) in prof.items()}
+        if sorted(ran) != sorted(B9_KERNELS[dt]):
+            raise AssertionError(f"phase 22: a B9 call {shape} ran {ran}, "
+                                 f"want {B9_KERNELS[dt]}")
+        # device ms a launch, which the dropped events do not bias
+        split = {k: round(v / n, 4) for k, (v, n) in prof.items()}
         bd = srb_bound(b, h, w, dt)
-        print(f"phase 22: whole SRB (B9) ({b}, {h}, {w}, 64) {dt}: max abs "
-              f"err {max_err:.3e}, mean {mean_err:.3e}; kernel {k_ms:.4f} ms "
-              f"(4 launches, device ms by kernel {split}), plain {p_ms:.4f} "
-              f"ms, module path {m_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+        lb = {k: round(v, 4) for k, v in srb_launch_bounds(b, h, w,
+                                                           dt).items()}
+        front = sum(v * B9_KERNELS[dt][k] for k, v in split.items()
+                    if k.startswith("conv3x3") or k == "qkv_proj_kernel")
+        print(f"phase 22: whole SRB (B9) {shape}: max abs err {max_err:.3e}, "
+              f"mean {mean_err:.3e}; launches against their twins: "
+              f"{launches}")
+        print(f"phase 22: B9 {shape}: kernel {k_ms:.4f} ms "
+              f"(launches a call in the trace {ran}, device ms a launch "
+              f"by kernel {split}; front half (convs and qkv) {front:.4f} "
+              f"ms), "
+              f"bounds by launch {lb}, plain {p_ms:.4f} ms, module path "
+              f"{m_ms:.4f} ms, cuDNN's two convs {lib_ms:.4f} ms (device "
+              f"{lib_dev:.4f}), bound {bd['bound_ms']:.4f} ms "
               f"({bd['bound_by']}) [{gpu}]")
         result[(b, dt)] = {"max_abs_err": max_err, "ms": k_ms,
-                           "plain_ms": p_ms, **bd, "library_ms": None}
+                           "plain_ms": p_ms, **bd, "library_ms": lib_ms}
         del x
     torch.cuda.empty_cache()
     return result[(BATCH, torch.bfloat16)]
@@ -2877,6 +3007,7 @@ def main(argv: list) -> int:
          "launches": b8_n, **b8},
         {"name": "fused_srb", "route": "cuda",
          "source": "fudanocr_tpu_torch/csrc/fused_srb.cu",
+         "cuda_kernels": sorted(B9_KERNELS[torch.bfloat16]),
          "replaces": "fudanocr_tpu/ops/fused_srb.py:124",
          "launches": b9_n, **b9},
         {"name": "flash_mha_packed", "route": "cuda", **fwd32,

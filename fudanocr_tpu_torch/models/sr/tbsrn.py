@@ -185,21 +185,24 @@ class TransformerResidualBlock(nn.Module):
     def srb_operands(self, h: int, w: int, dtype: torch.dtype,
                      device: torch.device) -> Dict[str, torch.Tensor]:
         """`fused_srb` operands for an (h, w) map: the enhancer's (cached by
-        `FeatureEnhancer.operands`) and the BN-folded conv weights, cached
-        per dtype and device until a conv or BN parameter or a BN running
-        statistic changes (training moves the statistics in place, which
-        bumps their version counters). Tensors made under inference_mode
-        have no version counter: the fold is then redone every call."""
+        `FeatureEnhancer.operands`), the BN-folded conv weights and, in
+        bf16, the bf16 kernels' packed conv weights and wtop, cached per
+        dtype and device until a conv, BN or enhancer parameter or a BN
+        running statistic changes (training moves the statistics in place,
+        which bumps their version counters). Tensors made under
+        inference_mode have no version counter: the fold is then redone
+        every call."""
         convs = (self.conv1, self.bn1, self.conv2, self.bn2)
         state = [t for m in convs for t in (*m.parameters(), *m.buffers())]
+        state += list(self.feature_enhancer.parameters())
+        enh = self.feature_enhancer.operands(h, w, dtype, device)
 
         def fold():
             return srb_operands(
                 (self.conv1.weight, self.conv1.bias), _bn(self.bn1),
-                (self.conv2.weight, self.conv2.bias), _bn(self.bn2), {},
-                dtype, self.bn1.eps)
+                (self.conv2.weight, self.conv2.bias), _bn(self.bn2),
+                {"wtop": enh["wtop"]}, dtype, self.bn1.eps)
 
-        enh = self.feature_enhancer.operands(h, w, dtype, device)
         if any(t.is_inference() for t in state):
             return {**enh, **fold()}
         key = (dtype, device, tuple((t.data_ptr(), t._version)

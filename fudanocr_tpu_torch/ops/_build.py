@@ -103,7 +103,9 @@ def load_library() -> ctypes.CDLL:
     i64, u32 = ctypes.c_longlong, ctypes.c_uint
     lib.fe_qkv_proj.argtypes = [p, p, p, p, i, i, i, p]
     lib.fe_attn_epilogue.argtypes = [p] * 17 + [i, i, i, f, i, p]
-    lib.srb_conv3x3.argtypes = [p] * 4 + [i] * 5 + [p]
+    lib.srb_conv3x3.argtypes = [p] * 4 + [i] * 4 + [p]
+    lib.srb_conv3x3_mish_bf16.argtypes = [p] * 4 + [i] * 3 + [p]
+    lib.srb_conv3x3_qkv_bf16.argtypes = [p] * 7 + [i] * 3 + [p]
     lib.ln_residual_fwd.argtypes = [p] * 5 + [i64, i, f, i, p]
     lib.attn_dropout_fwd.argtypes = [p] * 6 + [i] * 4 + [i64] * 3 \
         + [f, f, u32, i, p]
@@ -123,6 +125,7 @@ def load_library() -> ctypes.CDLL:
     lib.gru_bidir_fwd.argtypes = [p] * 7 + [i] * 3 + [p]
     lib.gru_bidir_x_fwd.argtypes = [p] * 10 + [i] * 6 + [p]
     for fn in (lib.fe_qkv_proj, lib.fe_attn_epilogue, lib.srb_conv3x3,
+               lib.srb_conv3x3_mish_bf16, lib.srb_conv3x3_qkv_bf16,
                lib.ln_residual_fwd, lib.attn_dropout_fwd,
                lib.attn_dropout_bwd, lib.attn_dropout_keep,
                lib.attn_unmasked_packed_fwd,

@@ -5,10 +5,10 @@ in copies of the package. Each script keeps its shapes, its variants'
 edits and its kernels' names.
 
 A variant is (source in fudanocr_tpu_torch/csrc/, the text it holds once,
-the text that replaces it). `variants` copies the package into
-build/<out>/<name>/ with that one edit, builds the copies in parallel,
-then runs `<script> --as <name>` from each copy, in the order given and
-then reversed.
+the text that replaces it), or a list of such edits. `variants` copies the
+package into build/<out>/<name>/ with its edits, builds the copies in
+parallel, then runs `<script> --as <name>` from each copy, in the order
+given and then reversed.
 """
 
 from __future__ import annotations
@@ -103,18 +103,19 @@ def variants(script: str, out: str, edits: dict, names: list) -> int:
     env = dict(os.environ)
     builds = []
     for name in names:
-        path, old, new = edits[name]
         tree = base / name
         shutil.rmtree(tree, ignore_errors=True)
         shutil.copytree(ROOT / "fudanocr_tpu_torch",
                         tree / "fudanocr_tpu_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
-        src = tree / "fudanocr_tpu_torch" / "csrc" / path
-        text = src.read_text()
-        if text.count(old) != 1:
-            raise SystemExit(f"variant {name}: its anchor is not in the "
-                             f"source once")
-        src.write_text(text.replace(old, new))
+        edit = edits[name]
+        for path, old, new in (edit if isinstance(edit, list) else [edit]):
+            src = tree / "fudanocr_tpu_torch" / "csrc" / path
+            text = src.read_text()
+            if text.count(old) != 1:
+                raise SystemExit(f"variant {name}: its anchor is not in the "
+                                 f"source once")
+            src.write_text(text.replace(old, new))
         builds.append(subprocess.Popen(
             [sys.executable, "-c",
              "from fudanocr_tpu_torch.ops import _build; _build.build()"],

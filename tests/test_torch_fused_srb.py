@@ -18,12 +18,17 @@ seeded numpy inputs and weights:
 * the port's gate equals the JAX gate on a grid of (h, w, c, heads).
 
 Tests marked `cuda` hold the kernels against the plain version on the card
-and skip where there is none; they import no jax:
+and skip where there is none; they import no jax. Each launch is also held
+against its plain twin on the same input: in bf16 r1 (`srb_conv_mish`), r
+and qkv (`srb_conv_qkv`) each within one bf16 ulp of the fp32 value the
+twin computes before it rounds (`bf16_ulp`), and a call runs three kernels
+in bf16 and four in fp32 (by the profiler's kernel launches):
 
     python -m pytest tests/test_torch_fused_srb.py -m cuda --noconftest
 """
 
 import itertools
+import re
 
 import numpy as np
 import pytest
@@ -35,9 +40,11 @@ from fudanocr_tpu_torch.models.sr.tbsrn import TBSRN
 from fudanocr_tpu_torch.nn.attention import positional_encoding_2d
 from fudanocr_tpu_torch.ops.fused_enhancer import (enhancer_operands,
                                                    fused_enhancer)
+from fudanocr_tpu_torch.ops import fused_srb as fs
 from fudanocr_tpu_torch.ops.fused_srb import (fold_bn, fused_srb,
                                               fused_srb_reference,
                                               fused_srb_supported,
+                                              srb_conv_mish, srb_conv_qkv,
                                               srb_operands)
 from fudanocr_tpu_torch.train.sr import make_sr_train_step
 from fudanocr_tpu_torch.train.state import adam_with_clip
@@ -314,6 +321,96 @@ def test_kernel_matches_plain_version(cuda, dtype, b, h, w):
     else:
         err = (got - want).abs()
         assert err.max() <= BF16_ATOL and err.mean() < BF16_MEAN
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of |v| (8 significant bits), |v| floored at 2^-8: below
+    that the bar stays 2^-15, far above the fp32 reordering of the sums."""
+    m = v.abs().clamp(min=2.0 ** -8)
+    return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def _within_ulp(got: torch.Tensor, want32: torch.Tensor, what: str) -> None:
+    err = (got.float() - want32).abs()
+    bad = err > bf16_ulp(want32)
+    assert not bad.any(), (f"{what}: {int(bad.sum())} elements beyond one "
+                           f"bf16 ulp, max err {err.max().item():.3e}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w", [(2, 8, 64), (3, 16, 64), (2, 32, 32),
+                                   (1, 2, 1024)])
+def test_launches_match_their_plain_twins(cuda, dtype, b, h, w):
+    _, ops = _block_ops(cuda, dtype, h, w)
+    gen = torch.Generator().manual_seed(b * h + 1)
+    x = (0.5 * torch.randn(b, h, w, C, generator=gen)).to(cuda, dtype)
+    n0 = srb_conv_mish.launches, srb_conv_qkv.launches
+    r1 = srb_conv_mish(x, ops)
+    r, qkv = srb_conv_qkv(r1, ops)
+    torch.cuda.synchronize()
+    assert (srb_conv_mish.launches, srb_conv_qkv.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    assert r1.dtype == r.dtype == qkv.dtype == dtype
+    assert qkv.shape == (b, h * w, 384)
+    # the twins' fp32 values before they round, on the launches' inputs
+    c1 = fs._conv_reference(x, ops["conv1_w"], ops["conv1_b"])
+    r1_32 = c1 * torch.tanh(F.softplus(c1))
+    r_32 = fs._conv_reference(r1, ops["conv2_w"], ops["conv2_b"])
+    qkv_32 = r.reshape(b, h * w, C).float() @ ops["wtop"].float() \
+        + ops["peqkv"]
+    for got, want, what in ((r1, r1_32, "r1"), (r, r_32, "r"),
+                            (qkv, qkv_32, "qkv")):
+        assert torch.isfinite(got).all(), what
+        if dtype == torch.bfloat16:
+            _within_ulp(got, want, what)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _launches_per_call(fn, want: dict, calls: int = 3) -> dict:
+    """Kernel launches per call of `fn` by kernel name (torch.profiler),
+    the calls in the active step of a schedule after a warm-up step (as
+    chip_smoke.py `profile_kernels` takes them); a trace that differs from
+    `want` is taken again, at most twice."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def ready(prof):
+        names.clear()
+        for e in prof.key_averages():
+            if e.device_type.name == "CUDA" and e.device_time_total > 0:
+                name = re.split(r"[<(]", re.sub(
+                    r"^void |\(anonymous namespace\)::", "", e.key))[0]
+                names[name] = names.get(name, 0) + e.count / calls
+
+    names = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=ready) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        if names == want:
+            break
+    return names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,want", [
+    (torch.bfloat16, {"conv3x3_mish_wgmma_kernel": 1,
+                      "conv3x3_qkv_wgmma_kernel": 1,
+                      "attn_epilogue_kernel": 1}),
+    (torch.float32, {"conv3x3_fma_kernel": 2, "qkv_proj_kernel": 1,
+                     "attn_epilogue_kernel": 1})])
+def test_a_call_runs_its_kernels(cuda, dtype, want):
+    _, ops = _block_ops(cuda, dtype, 16, 64)
+    x = torch.randn(2, 16, 64, C, device=cuda).to(dtype)
+    assert _launches_per_call(lambda: fused_srb(x, ops), want) == want
 
 
 @pytest.mark.cuda
