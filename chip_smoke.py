@@ -206,7 +206,17 @@ Phases:
      kernel path against `kernels=False` and the plain fp32 step on the
      same weights (bars BF16_STEP_LOSS_REL, BF16_STEP_GRAD_REL); (b) 5 B4
      forwards and 5 backwards per step; (c) ms per step and img/s of both
-     paths, and B4's device time in a profiled step.
+     paths, and B4's device time in a profiled step;
+ 26. LMDB -> strings: the port's `create_dataset` writes 1343 seeded crops
+     (TextZoom's hard test split's count; HR 32x128, LR redrawn at heights
+     8-40 and widths 20-200) as a JPEG q95 LMDB in a temporary directory;
+     `LMDBToStrings` serves it with phase 2's bf16 pipe at batch 256 (the
+     last batch 63 images): 10 B1 launches per batch, every string equal
+     to the pipe on the same collated uint8 batches and to the plain path
+     under phase 2's top-2-margin rule; img/s with 0 and min(cpu count,
+     16) workers, the host's decode + resize ms per image on one worker,
+     the device's busy share (CUDA-event time of the `ids_fn` calls over
+     the wall), and whether the toolkit has libnvjpeg (not used).
 
 Phases 8 and 11 end with a torch.profiler breakdown of one more canvas
 (device time by name, the device's busy time against the wall time).
@@ -223,11 +233,15 @@ nvidia-smi gives them, and the line before that the kernel table as JSON.
 
 from __future__ import annotations
 
+import gc
+import glob
 import itertools
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -235,6 +249,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fudanocr_tpu_torch.data.collate import normalize_uint8
+from fudanocr_tpu_torch.data.image import resize_bicubic
+from fudanocr_tpu_torch.data.lmdb_dataset import (LRServingLMDBDataset,
+                                                  create_dataset)
 from fudanocr_tpu_torch.eval.ctc import CTCLabelConverter
 from fudanocr_tpu_torch.losses.sr_losses import (LOSS_VOCAB, TextFocusLoss,
                                                  encode_text_labels)
@@ -266,7 +284,8 @@ from fudanocr_tpu_torch.models.seg.det_guided import (instance_labels,
                                                       soft_argmax)
 from fudanocr_tpu_torch.models.seg.encoder_decoder import crop_grid
 from fudanocr_tpu_torch.data.seg_dataset import batches_from
-from fudanocr_tpu_torch.serving import InferenceServer, PixelsToStrings
+from fudanocr_tpu_torch.serving import (InferenceServer, LMDBToStrings,
+                                        PixelsToStrings)
 from fudanocr_tpu_torch.train.seg import (SegTrainer, make_seg_optimizer,
                                           make_seg_train_step, poly_schedule)
 from fudanocr_tpu_torch.train.sr import (SRTrainer, StrokeSRTrainer,
@@ -582,7 +601,9 @@ def top2_margin(logits: torch.Tensor) -> torch.Tensor:
     return top[..., 0] - top[..., 1]
 
 
-def phase2(dev, gpu: str):
+def ocr_models(dev) -> tuple:
+    """Phase 2's bf16 TBSRN, its `kernels=False` twin and CRNN(37, 256),
+    weights and BN statistics from the seeds -> (sr, sr_plain, crnn, gen)."""
     torch.manual_seed(SEED)
     gen = torch.Generator().manual_seed(SEED + 1)
     bf16 = torch.bfloat16
@@ -596,6 +617,11 @@ def phase2(dev, gpu: str):
     crnn = CRNN(num_classes=37, hidden=256, dtype=bf16)
     randomize_stats(crnn, gen)
     sr, sr_plain, crnn = (m.to(dev).eval() for m in (sr, sr_plain, crnn))
+    return sr, sr_plain, crnn, gen
+
+
+def phase2(dev, gpu: str):
+    sr, sr_plain, crnn, gen = ocr_models(dev)
     conv = CTCLabelConverter(ALPHABET)
     pipe = PixelsToStrings(sr, crnn, conv, device=dev)
     pipe_plain = PixelsToStrings(sr_plain, crnn, conv, device=dev)
@@ -2872,10 +2898,267 @@ def phase25(dev, gpu: str) -> tuple:
 
 
 # the phases that need nothing of an earlier one, for `--phases`
+# phase 26: as many crops as TextZoom's hard test split; 1343 % 256 = 63
+# images in the last batch
+LMDB_IMAGES = 1343
+LMDB_WORKERS = min(os.cpu_count() or 1, 16)
+
+
+def lmdb_crops(n: int, seed: int, noise: float = 6.0):
+    """n (hr, lr, label) crops from a seed: a light background, dark
+    vertical strokes, Gaussian noise of sigma `noise`; HR 32x128, the LR
+    redrawn from it at heights 8-40 and widths 20-200, so the collate both
+    shrinks and enlarges. A synthetic mix with no published source: the
+    noise fills the high frequencies, so the decoder meets more nonzero
+    coefficients than in a blurry crop."""
+    rng = np.random.default_rng(seed)
+    h, w = 2 * LR_HW[0], 2 * LR_HW[1]
+    for _ in range(n):
+        img = np.empty((h, w, 3))
+        img[:] = rng.integers(120, 256, 3)
+        fg = rng.integers(0, 100, 3)
+        for _ in range(int(rng.integers(3, 10))):
+            x0, y0 = int(rng.integers(2, w - 8)), int(rng.integers(2, 10))
+            img[y0:int(rng.integers(20, 30)),
+                x0:x0 + int(rng.integers(2, 6))] = fg
+        img += rng.normal(0, noise, img.shape) if noise else 0.0
+        hr = np.clip(img, 0, 255).astype(np.uint8)
+        lr = resize_bicubic(hr, (int(rng.integers(20, 201)),
+                                 int(rng.integers(8, 41))))
+        label = "".join(rng.choice(list(ALPHABET), int(rng.integers(3, 9))))
+        yield hr, lr, label
+
+
+def host_pass(ds: LRServingLMDBDataset, n: int) -> tuple:
+    """The host's work on one worker, read + decode + resize + collate of
+    the first n images -> (uint8 batches, ms per image)."""
+    t0 = time.perf_counter()
+    batches = [ds.collate(ds.fetch_items(range(s, min(s + BATCH, n))))
+               for s in range(0, n, BATCH)]
+    return batches, (time.perf_counter() - t0) * 1e3 / n
+
+
+def host_probe_ms() -> float:
+    """ms of a fixed pure-Python loop that allocates no tracked object:
+    it follows the host core's speed and the GIL's contention, and not the
+    process's heap or its garbage collector."""
+    t0 = time.perf_counter()
+    acc = 0
+    for i in range(3_000_000):
+        acc ^= i
+    return (time.perf_counter() - t0) * 1e3
+
+
+def host_state() -> str:
+    """The process state that can slow the host's Python: OS threads and
+    the Python threads among them, objects the garbage collector tracks,
+    resident memory."""
+    status = dict(line.split(":", 1) for line in
+                  open("/proc/self/status").read().splitlines()
+                  if ":" in line)
+    names = sorted(t.name for t in threading.enumerate())
+    return (f"{status['Threads'].strip()} OS threads, Python threads "
+            f"{names}, "
+            f"{len(gc.get_objects())} gc-tracked objects, "
+            f"{status['VmRSS'].strip()} resident")
+
+
+class EventTimedPipe:
+    """A pipe whose `ids_fn` calls are bracketed by CUDA events. Their
+    summed time is the `ids_fn` device span: it also holds the time the
+    device waits while the launching thread waits for the GIL, so it
+    overstates the device's work (that comes from `served_device_ms`)."""
+
+    def __init__(self, pipe: PixelsToStrings):
+        self.pipe, self.device, self.spans = pipe, pipe.device, []
+
+    def ids_fn(self, x):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        ids = self.pipe.ids_fn(x)
+        e1.record()
+        self.spans.append((e0, e1))
+        return ids
+
+    def decode_ids(self, ids):
+        return self.pipe.decode_ids(ids)
+
+    def span_ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.spans)
+
+
+def serve_lmdb(pipe: PixelsToStrings, path: str, workers: int) -> tuple:
+    """One LMDBToStrings pass -> (strings, wall s, `ids_fn` span ms)."""
+    timed = EventTimedPipe(pipe)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    texts = [t for batch in LMDBToStrings(timed, path, batch_size=BATCH,
+                                          num_workers=workers)
+             for t in batch]
+    torch.cuda.synchronize()
+    return texts, time.perf_counter() - t0, timed.span_ms()
+
+
+def served_device_ms(pipe: PixelsToStrings, path: str) -> dict:
+    """The device's work in one LMDBToStrings pass at 0 workers, from a
+    scheduled torch.profiler trace (a warm-up step of one batch first, as
+    in `profile_kernels`): summed kernel ms, summed copy ms, B1's
+    kernels seen in the trace and B1's launches counted. The
+    workers are left out: their forks would copy a process that is
+    tracing the card; the device's work is the same batches either way."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    got = {"kernel_ms": 0.0, "copy_ms": 0.0, "b1_traced": 0}
+
+    def ready(prof):
+        for e in prof.key_averages():
+            if e.device_type.name != "CUDA" or e.device_time_total <= 0:
+                continue
+            copy = e.key.startswith(("Memcpy", "Memset"))
+            got["copy_ms" if copy else "kernel_ms"] += \
+                e.device_time_total / 1e3
+            if re.search(r"qkv_proj(_mma)?_kernel|attn_epilogue_kernel",
+                         e.key):
+                got["b1_traced"] += e.count
+
+    warm = torch.zeros(BATCH, *LR_HW, 3, dtype=torch.uint8,
+                       device=pipe.device)
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=ready) as prof:
+        pipe.ids_fn(normalize_uint8(warm))
+        torch.cuda.synchronize()
+        prof.step()
+        before = fused_enhancer.launches
+        serve_lmdb(pipe, path, 0)
+        got["b1_counted"] = fused_enhancer.launches - before
+        prof.step()
+    return got
+
+
+def phase26(dev, gpu: str, pipe: PixelsToStrings) -> int:
+    """LMDB -> strings through `LMDBToStrings` with phase 2's bf16 pipe."""
+    n, batches_n = LMDB_IMAGES, -(-LMDB_IMAGES // BATCH)
+    sub = 2 * BATCH          # the host's diagnostics run on 512 images
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lmdb_") as tmp:
+        path, smooth = os.path.join(tmp, "db"), os.path.join(tmp, "smooth")
+        t0 = time.perf_counter()
+        create_dataset(path, lmdb_crops(n, SEED + 26))
+        mb = os.path.getsize(os.path.join(path, "data.mdb")) / 2 ** 20
+        print(f"phase 26: wrote {n} seeded crops (HR 32x128, LR heights "
+              f"8-40, widths 20-200; a synthetic mix, noise sigma 6) as "
+              f"JPEG q95 with the port's create_dataset: {mb:.1f} MiB in "
+              f"{time.perf_counter() - t0:.2f} s [{gpu}]")
+        create_dataset(smooth, lmdb_crops(sub, SEED + 26, noise=0.0))
+        # the host alone on one worker: read, decode, resize, collate
+        ds = LRServingLMDBDataset(path)
+        probe = [host_probe_ms()]
+        host, host_ms = host_pass(ds, n)
+        probe.append(host_probe_ms())
+        _, again_ms = host_pass(ds, sub)
+        gc.disable()
+        try:
+            _, no_gc_ms = host_pass(ds, sub)
+        finally:
+            gc.enable()
+        _, smooth_ms = host_pass(LRServingLMDBDataset(smooth), sub)
+        probe.append(host_probe_ms())
+        print(f"phase 26: host decode + resize + collate on one worker: "
+              f"{host_ms:.4f} ms per image over {n}; the first {sub} again "
+              f"{again_ms:.4f}, with the garbage collector off "
+              f"{no_gc_ms:.4f}; {sub} noise-free crops {smooth_ms:.4f}; "
+              f"host probe (a fixed Python loop) "
+              f"{', '.join(f'{p:.2f}' for p in probe)} ms; "
+              f"{host_state()} [{gpu}]")
+
+        fused_enhancer.launches = 0      # the main path's run, counted
+        texts, _, _ = serve_lmdb(pipe, path, LMDB_WORKERS)
+        launches = fused_enhancer.launches
+        print(f"phase 26: LMDBToStrings over {n} images at batch {BATCH} "
+              f"({batches_n} batches, the last of {n % BATCH}) with "
+              f"{LMDB_WORKERS} workers ran {launches} B1 launches (expected "
+              f"{2 * SRB_NUMS * batches_n}) and returned {len(texts)} "
+              "strings")
+        if launches != 2 * SRB_NUMS * batches_n or len(texts) != n:
+            raise AssertionError("phase 26: LMDBToStrings did not serve "
+                                 "every image through B1")
+        runs = {w: serve_lmdb(pipe, path, w) for w in (0, LMDB_WORKERS)}
+        device = served_device_ms(pipe, path)
+
+    # the same collated uint8 batches through the pipe, and the plain pipe
+    sr_plain = TBSRN(scale_factor=2, width=128, height=32, stn=True,
+                     srb_nums=SRB_NUMS, hidden_units=32, kernels=False,
+                     dtype=torch.bfloat16)
+    sr_plain.load_state_dict(pipe.sr_apply.state_dict())
+    sr_plain = sr_plain.to(dev).eval()
+    want, ids, ids_ref, margin, err = [], [], [], [], 0.0
+    with torch.inference_mode():
+        for b in host:
+            x = normalize_uint8(torch.from_numpy(b).to(dev))
+            want += pipe(x)
+            logits = pipe.rec_apply(parse_crnn_input(pipe.sr_apply(x)))
+            ref = pipe.rec_apply(parse_crnn_input(sr_plain(x)))
+            err = max(err, (logits.float() - ref.float()).abs().max().item())
+            ids.append(logits.argmax(-1).cpu().numpy())
+            ids_ref.append(ref.argmax(-1).cpu().numpy())
+            margin.append(top2_margin(ref).cpu().numpy())
+    texts_ref = pipe.decode_ids(np.concatenate(ids_ref))
+    ids, ids_ref = np.concatenate(ids), np.concatenate(ids_ref)
+    sure_step = np.concatenate(margin) > 2 * err
+    sure = sure_step.all(axis=1)
+    bad = [i for i in np.flatnonzero(sure) if texts[i] != texts_ref[i]]
+    same = [t == texts for t, _, _ in runs.values()]
+    print(f"phase 26: all {n} strings equal to the pipe on the same collated "
+          f"uint8 batches: {texts == want} (both timed runs: {all(same)}); "
+          f"against the plain path (logits max abs err {err:.3e}): ids equal "
+          f"at all {int(sure_step.sum())} of {sure_step.size} CTC steps with "
+          f"a top-2 margin above {2 * err:.3e}: "
+          f"{bool((ids == ids_ref)[sure_step].all())}; strings equal at "
+          f"all {int(sure.sum())} images confident at every step (random "
+          f"weights: few or none are): {not bad}")
+    if texts != want or not all(same):
+        raise AssertionError("phase 26: LMDBToStrings disagrees with the "
+                             "pipe on the same batches")
+    if bad or not (ids == ids_ref)[sure_step].all():
+        raise AssertionError("phase 26: the kernel path decodes other ids "
+                             "than the plain path at steps with a clear "
+                             "top-2 margin")
+    busy = device["kernel_ms"] + device["copy_ms"]
+    print(f"phase 26: device work of one served pass (torch.profiler, 0 "
+          f"workers): kernels {device['kernel_ms']:.3f} ms, copies "
+          f"{device['copy_ms']:.3f} ms (summed over both streams, so at "
+          f"most {busy:.3f} ms busy); B1 kernels in the trace "
+          f"{device['b1_traced']} of {device['b1_counted']} launched "
+          f"[{gpu}]")
+    for w, (_, wall, span) in runs.items():
+        print(f"phase 26: LMDB->strings at batch {BATCH} bf16, {w} "
+              f"workers: {n / wall:.1f} img/s ({wall:.3f} s for {n} "
+              f"images); device busy at most {busy:.3f} ms = "
+              f"{100 * busy / (wall * 1e3):.2f} % of the wall; ids_fn "
+              f"device span (CUDA events, GIL waits included) {span:.3f} "
+              f"ms = {100 * span / (wall * 1e3):.2f} %; host "
+              f"decode + resize {host_ms:.4f} ms per image on one worker; "
+              f"os.cpu_count() {os.cpu_count()} [{gpu}]")
+    lib = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                       "lib64")
+    found = sorted(os.path.basename(p)
+                   for p in glob.glob(os.path.join(lib, "libnvjpeg.so*")))
+    print(f"phase 26: libnvjpeg.so* in {lib}: {found or 'none'}")
+    return launches
+
+
+def phase26_alone(dev, gpu: str) -> int:
+    """Phase 26 without phase 2: its pipe from phase 2's seeds."""
+    sr, _, crnn, _ = ocr_models(dev)
+    return phase26(dev, gpu, PixelsToStrings(
+        sr, crnn, CTCLabelConverter(ALPHABET), device=dev))
+
+
 STANDALONE = {"1": phase1, "4": phase4, "5": phase5, "6": phase6,
               "7": phase7, "10": phase10, "13": phase13, "17": phase17,
               "19": phase19, "20": phase20_alone, "22": phase22,
-              "24": phase24, "25": phase25}
+              "24": phase24, "25": phase25, "26": phase26_alone}
 
 
 def main(argv: list) -> int:
@@ -2936,6 +3219,7 @@ def main(argv: list) -> int:
     torch.cuda.empty_cache()
     b9 = phase22(dev, gpu)
     b9_n = phase23(dev, gpu, pipe, lr)
+    phase26(dev, gpu, pipe)
     del pipe, lr
     torch.cuda.empty_cache()
     b10_b11, b10_b11_n = phase24(dev, gpu)

@@ -1,0 +1,126 @@
+"""LMDB-backed paired SR datasets (TextZoom layout), without PIL (port of
+fudanocr_tpu/data/lmdb_dataset.py: `PairedLMDBDataset`,
+`LRServingLMDBDataset`, `create_dataset`).
+
+Keys follow the reference layout: 'image_hr-%09d', 'image_lr-%09d' and
+'label-%09d' with 1-based indices, and 'num-samples'. Images decode with
+data/image.py (JPEG or PNG, byte-equal to PIL's decode) into uint8 (H, W,
+3) arrays; batches are fixed-shape NHWC numpy arrays. Nothing here calls
+torch, so the datasets run inside forked worker processes.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List, Optional, Sequence
+
+import numpy as np
+
+from fudanocr_tpu_torch.data.collate import resize_normalize, sr_collate
+from fudanocr_tpu_torch.data.image import decode_image
+from fudanocr_tpu_torch.data.jpeg import encode_jpeg
+from fudanocr_tpu_torch.data.lmdb_store import LMDBReader, LMDBWriter
+from fudanocr_tpu_torch.eval.metrics import str_filt
+
+
+class _LMDBBase:
+    def __init__(self, roots, voc_type: str = "upper", batch_hw=(32, 128),
+                 scale: int = 2):
+        if isinstance(roots, str):
+            roots = [roots]
+        self.readers = [LMDBReader(r) for r in roots]
+        self.counts = [int(r.get(b"num-samples") or 0) for r in self.readers]
+        self.voc_type = voc_type
+        self.batch_hw = batch_hw
+        self.scale = scale
+
+    def __len__(self):
+        return sum(self.counts)
+
+    def _locate(self, index: int):
+        for reader, count in zip(self.readers, self.counts):
+            if index < count:
+                return reader, index + 1  # keys are 1-based
+            index -= count
+        raise IndexError(index)
+
+    def _label(self, raw: Optional[bytes]) -> str:
+        return str_filt((raw or b"").decode(), self.voc_type)
+
+    def _lookup(self, indices: Sequence[int], kinds: Sequence[bytes]):
+        """The values of `kinds` (key prefixes) for each index, one
+        `get_many` per reader -> [[value per kind] per index]."""
+        located = [self._locate(i) for i in indices]
+        by_reader: dict = {}
+        for pos, (reader, i) in enumerate(located):
+            by_reader.setdefault(id(reader), (reader, []))[1].append((pos, i))
+        out: List = [None] * len(indices)
+        n = len(kinds)
+        for reader, entries in by_reader.values():
+            got = reader.get_many([k + b"-%09d" % i for _, i in entries
+                                   for k in kinds])
+            for j, (pos, _) in enumerate(entries):
+                out[pos] = got[n * j:n * j + n]
+        return out
+
+    def collate(self, items, **collate_kw):
+        kw = dict(img_h=self.batch_hw[0], img_w=self.batch_hw[1],
+                  down_sample_scale=self.scale)
+        kw.update(collate_kw)
+        return sr_collate(items, **kw)
+
+    def batches(self, batch_size: int, drop_last: bool = True,
+                **collate_kw) -> Iterator:
+        """Collated batches in index order; the last partial batch too
+        when `drop_last` is False."""
+        stop = len(self) - batch_size + 1 if drop_last else len(self)
+        for start in range(0, max(stop, 0), batch_size):
+            end = min(start + batch_size, len(self))
+            yield self.collate(self.fetch_items(range(start, end)),
+                               **collate_kw)
+
+
+class PairedLMDBDataset(_LMDBBase):
+    """Real paired HR/LR LMDB (lmdbDataset_real): items (hr, lr, label)."""
+
+    def __getitem__(self, index: int):
+        return self.fetch_items([index])[0]
+
+    def fetch_items(self, indices: Sequence[int]) -> List:
+        kinds = (b"image_hr", b"image_lr", b"label")
+        return [(decode_image(hr), decode_image(lr), self._label(label))
+                for hr, lr, label in self._lookup(indices, kinds)]
+
+
+class LRServingLMDBDataset(_LMDBBase):
+    """LR-only view of a paired LMDB for serving: items are the decoded
+    LR images. It reads neither the HR image nor the 'label-' key.
+    `collate` makes ONE (B, h, w, 3) batch, uint8 by default
+    (normalisation runs on the device, `normalize_uint8`)."""
+
+    def fetch_items(self, indices: Sequence[int]) -> List:
+        return [decode_image(lr)
+                for lr, in self._lookup(indices, (b"image_lr",))]
+
+    def collate(self, items, dtype=None):
+        dtype = np.uint8 if dtype is None else dtype
+        h, w = self.batch_hw
+        lr_size = (w // self.scale, h // self.scale)
+        return np.stack([resize_normalize(img, lr_size, dtype=dtype)
+                         for img in items])
+
+
+def create_dataset(out_path: str, samples, quality: int = 95) -> int:
+    """createDataset (create_lmdb.py:184-233): write (hr, lr or None,
+    label) triples of uint8 (H, W, 3) images into a new LMDB as JPEG at
+    `quality` (data/jpeg.encode_jpeg). Returns the sample count."""
+    writer = LMDBWriter(out_path)
+    n = 0
+    for hr, lr, label in samples:
+        n += 1
+        writer.put(b"image_hr-%09d" % n, encode_jpeg(hr, quality))
+        if lr is not None:
+            writer.put(b"image_lr-%09d" % n, encode_jpeg(lr, quality))
+        writer.put(b"label-%09d" % n, label.encode())
+    writer.put(b"num-samples", str(n).encode())
+    writer.write()
+    return n

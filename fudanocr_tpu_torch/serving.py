@@ -2,7 +2,9 @@
 
 `PixelsToStrings` composes LR pixels -> SR -> bicubic 32x100 -> gray ->
 CRNN -> greedy CTC argmax on the device; only the [B, T] ids cross to the
-host, which joins the strings. `InferenceServer` coalesces concurrent
+host, which joins the strings. `LMDBToStrings` serves a whole LMDB through
+it: LR-only decode and resize on host workers, uint8 batches staged on the
+card, normalisation there, strings out. `InferenceServer` coalesces concurrent
 single-image requests into fixed-bucket batches, pads the tail, and
 scatters results to per-request futures, with the JAX server's bucket,
 padding, deadline and close semantics.
@@ -12,6 +14,8 @@ Usage:
     crnn = CRNN(37, 256, dtype=torch.bfloat16).to(dev).eval()
     pipe = PixelsToStrings(sr, crnn, CTCLabelConverter(alphabet), device=dev)
     texts = pipe(lr_batch)              # list[str], len B
+    for texts in LMDBToStrings(pipe, "/data/textzoom_test", batch_size=256):
+        ...                             # list[str] per batch, in order
     srv = InferenceServer(pipe.ids_fn, buckets=(1, 8, 32), device=dev)
     ids = srv.submit(lr_image).result() # (T,) ids; pipe.decode_ids(ids[None])
     srv.close()
@@ -32,15 +36,20 @@ work (ROADMAP.md).
 from __future__ import annotations
 
 import collections
+import functools
 import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Callable, List, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from fudanocr_tpu_torch.data.collate import normalize_uint8
+from fudanocr_tpu_torch.data.lmdb_dataset import LRServingLMDBDataset
+from fudanocr_tpu_torch.data.prefetch import PrefetchIterator
+from fudanocr_tpu_torch.data.workers import WorkerBatches
 from fudanocr_tpu_torch.eval.ctc import ctc_greedy_decode
 from fudanocr_tpu_torch.models.rec.crnn import parse_crnn_input
 
@@ -69,7 +78,8 @@ class PixelsToStrings:
         self.device = torch.device(device)
 
     def ids_and_sr(self, lr) -> Tuple[torch.Tensor, torch.Tensor]:
-        """LR batch (array or tensor) -> ([B, T] ids, SR) on the device."""
+        """LR batch -> ([B, T] ids, SR) on the device. A tensor already on
+        the device is used as it is; an array is copied there first."""
         with torch.inference_mode():
             lr = torch.as_tensor(lr, device=self.device)
             sr = self.sr_apply(lr)
@@ -91,6 +101,72 @@ class PixelsToStrings:
     def decode_ids(self, ids) -> List[str]:
         """Host join for [B, T] ids (a tensor or an array from a server)."""
         return self.converter.decode_ids(_to_numpy(ids))
+
+
+class LMDBToStrings:
+    """The serving journey over one LMDB: LR-only decode and resize on
+    host workers (uint8) -> pinned copy to the device on a side stream ->
+    `normalize_uint8` -> `pixels_to_strings.ids_fn` -> host string join.
+
+    Every image is served, the last partial batch included, and no label
+    is read. Batch i's work and the copy of its ids to the host are
+    queued on the device before batch i-1's strings are joined, so the
+    join and the next decodes overlap the device's work. Errors are not absorbed: a decode
+    error, an unknown image format or a worker failure raises.
+
+    Usage:
+        for texts in LMDBToStrings(pipe, "/data/textzoom_test",
+                                   batch_size=256, num_workers=8):
+            ...                     # list[str] per batch, in order
+    """
+
+    BUFFER = 3    # batches staged on the device ahead of the consumer
+
+    def __init__(self, pixels_to_strings: PixelsToStrings, db_path: str,
+                 batch_size: int = 512,
+                 batch_hw: Tuple[int, int] = (32, 128), scale: int = 2,
+                 num_workers: int = 0, device: Optional[Device] = None):
+        self._p2s = pixels_to_strings
+        self.device = torch.device(pixels_to_strings.device if device is None
+                                   else device)
+        self._loader = WorkerBatches(
+            functools.partial(LRServingLMDBDataset, db_path,
+                              batch_hw=batch_hw, scale=scale),
+            batch_size, num_workers=num_workers, drop_last=False)
+
+    def _dispatch(self, lr: torch.Tensor):
+        """Queue batch lr's ids and their copy to the host -> (host ids,
+        event that marks the copy done, or None on the CPU)."""
+        with torch.inference_mode():
+            ids = self._p2s.ids_fn(normalize_uint8(lr))
+            if self.device.type != "cuda":
+                return ids, None
+            host = torch.empty(ids.shape, dtype=ids.dtype, pin_memory=True)
+            host.copy_(ids, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        return host, done
+
+    def _join(self, pending) -> List[str]:
+        host, done = pending
+        if done is not None:
+            done.synchronize()
+        return self._p2s.decode_ids(host)
+
+    def __iter__(self):
+        stream = PrefetchIterator(iter(self._loader), device=self.device,
+                                  buffer_size=self.BUFFER)
+        pending = None
+        try:
+            for lr in stream:
+                queued = self._dispatch(lr)
+                if pending is not None:
+                    yield self._join(pending)
+                pending = queued
+            if pending is not None:
+                yield self._join(pending)
+        finally:
+            stream.close()
 
 
 class InferenceServer:

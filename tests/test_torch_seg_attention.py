@@ -34,6 +34,7 @@ from fudanocr_tpu_torch.models.seg import cascade_mit as pcm
 from fudanocr_tpu_torch.ops import flash_attention as fa
 from fudanocr_tpu_torch.ops import region_attention as ra
 from torch_attention_cases import CASES, FP32_CASES, edge_qkv, heads_view
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5   # fp32, the same math in another summation order
 BF16_ATOL = 2e-2   # bf16 outputs: about one bf16 ulp at |o| <= 4
@@ -57,10 +58,22 @@ def _randn(rng, *shape):
 
 def _both(jnp, arrays, dtype):
     """The same operands for both packages: torch tensors of `dtype` and
-    the jax arrays of their exact values."""
+    the jax arrays of their exact values, in buffers of JAX's own (on the
+    CPU `jnp.asarray` may alias a large numpy buffer, which would leave the
+    two packages sharing memory while JAX computes asynchronously)."""
     ts = [torch.from_numpy(a).to(dtype) for a in arrays]
     jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
-    return ts, [jnp.asarray(t.float().numpy(), jdt) for t in ts]
+    return ts, [jnp.asarray(t.float().numpy().copy(), jdt) for t in ts]
+
+
+def _attention_f64(q, k, v, heads):
+    """softmax(q k^T / sqrt(dh)) v in float64 over (B, L, H*dh) operands:
+    the yardstick that says which side moved when the two disagree."""
+    q, k, v = (t.double().unflatten(-1, (heads, -1)).transpose(1, 2)
+               for t in (q, k, v))
+    s = q @ k.transpose(-1, -2) / q.shape[-1] ** 0.5
+    o = torch.softmax(s, -1) @ v
+    return o.transpose(1, 2).flatten(2).numpy()
 
 
 def _cases(rows, ids):
@@ -70,12 +83,16 @@ def _cases(rows, ids):
                for r, i in zip(rows, ids)])
 
 
-def _assert_close(got, want, dtype):
+def _assert_close(got, want, dtype, exact=None):
+    """got (torch) against want (JAX); `exact`, a float64 result, names
+    the side that moved in the failure message."""
     atol = BF16_ATOL if dtype == torch.bfloat16 else ATOL
     assert got.dtype == dtype
-    np.testing.assert_allclose(got.float().numpy(),
-                               np.asarray(want).astype(np.float32), rtol=0,
-                               atol=atol)
+    got, want = got.float().numpy(), np.asarray(want).astype(np.float32)
+    msg = "" if exact is None else (
+        f"port vs float64 {np.abs(got - exact).max():.3e}, "
+        f"JAX vs float64 {np.abs(want - exact).max():.3e}")
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol, err_msg=msg)
 
 
 @pytest.mark.parametrize("b,lq,lkv,d,heads,dtype", _cases(
@@ -87,10 +104,10 @@ def test_packed_flash_mha_matches_jax(jx, b, lq, lkv, d, heads, dtype):
     (q, k, v), jargs = _both(jnp, [_randn(rng, b, lq, d),
                                    _randn(rng, b, lkv, d),
                                    _randn(rng, b, lkv, d)], dtype)
-    want = jra.packed_flash_mha(*jargs, heads)
+    want = np.asarray(jra.packed_flash_mha(*jargs, heads))
     got = ra.packed_flash_mha(q, k, v, heads)
     assert got.shape == (b, lq, d)
-    _assert_close(got, want, dtype)
+    _assert_close(got, want, dtype, _attention_f64(q, k, v, heads))
 
 
 @pytest.mark.parametrize("q_shape,lk,dtype", _cases(
