@@ -16,7 +16,8 @@ Phases:
      shape (L=1024, C=64; B=64 in fp32 and bf16, B=256 in bf16), with
      random weights and non-trivial LayerNorm scales; kernel and plain ms,
      the kernel's device ms by kernel (`qkv_proj_mma_kernel`,
-     `attn_epilogue_kernel`) from a profiler trace, and, at B=256 bf16,
+     `attn_epilogue_kernel`) from a profiler trace (bf16), the fp32 call's
+     ms and bound (the SR apps' evaluation runs it), and, at B=256 bf16,
      SDPA on B1's attention part alone, (256, 4, 1024, 32), as the
      yardstick (timed only; the port never calls it);
   2. the full slice, LR pixels -> TBSRN (full width: x2, 32x128 HR,
@@ -216,7 +217,31 @@ Phases:
      under phase 2's top-2-margin rule; img/s with 0 and min(cpu count,
      16) workers, the host's decode + resize ms per image on one worker,
      the device's busy share (CUDA-event time of the `ids_fn` calls over
-     the wall), and whether the toolkit has libnvjpeg (not used).
+     the wall), and whether the toolkit has libnvjpeg (not used);
+ 27. the SR training journey through the apps, from LMDBs the port's
+     `create_dataset` writes (512 phase-26 crops, three 128-crop val
+     buckets): (a) `apps.scene_text_telescope.main --arch tbsrn --STN
+     --text_focus` from a YAML config, batch 64 fp32, 2 epochs (16
+     steps), evaluation at 16: launches (13, 5, 5, 0) per step (LayerNorm,
+     B4 fwd, B4 bwd, B1) as phase 6b's and 60 B1 launches per evaluation
+     as phase 6d's; `best.pt`, `--test --resume auto` giving the same
+     evaluation, `--demo` writing 10 PNG strips; the app's step ms on the
+     device timeline against phase 6e's, the host's ms per batch and the
+     device busy share of 4 fed steps (profiler kernel + copy time over
+     the wall); the app's feed (TRAIN.workers = 8 forked processes into
+     the prefetch thread) against the same host work in the main thread
+     and on the prefetch thread, in turns; (b) `SRTrainer` over
+     `LMDBDataset` (an HR-only LMDB) and `MixLMDBDataset`, 2 steps each;
+     (c) `apps.text_gestalt.main --arch tsrn --STN --text_focus`, 2 steps
+     and one evaluation: B2 3 per step in the stroke oracle, B8 0;
+ 28. the seg training journey: `apps.seg.train` on
+     configs/seg/textformer_b0_textseg.yaml over 16 JPEG photos (1024x768
+     and 768x1024, `encode_jpeg`) with TextSeg PNG annotations and 2 val
+     photos: the full train pipeline, crop 512², batch 8, (6, 6, 0, 0)
+     launches per step, slide evaluation, `iter_4/` and `best/` written;
+     then `--auto-resume` to 6 iterations starts at 4 and takes 2 steps;
+     the iteration's ms against phase 16's, the host pipeline's ms per
+     sample and the device busy share of the resumed run.
 
 Phases 8 and 11 end with a torch.profiler breakdown of one more canvas
 (device time by name, the device's busy time against the wall time).
@@ -233,11 +258,14 @@ nvidia-smi gives them, and the line before that the kernel table as JSON.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import gc
 import glob
 import itertools
 import json
 import os
+import random
 import re
 import subprocess
 import sys
@@ -251,8 +279,14 @@ import torch.nn.functional as F
 
 from fudanocr_tpu_torch.data.collate import normalize_uint8
 from fudanocr_tpu_torch.data.image import resize_bicubic
-from fudanocr_tpu_torch.data.lmdb_dataset import (LRServingLMDBDataset,
+from fudanocr_tpu_torch.core.config import dump_yaml
+from fudanocr_tpu_torch.data.jpeg import encode_jpeg
+from fudanocr_tpu_torch.data.lmdb_dataset import (LMDBDataset,
+                                                  LRServingLMDBDataset,
+                                                  MixLMDBDataset,
                                                   create_dataset)
+from fudanocr_tpu_torch.data.png import decode_png, encode_png
+from fudanocr_tpu_torch.data.prefetch import PrefetchIterator
 from fudanocr_tpu_torch.eval.ctc import CTCLabelConverter
 from fudanocr_tpu_torch.losses.sr_losses import (LOSS_VOCAB, TextFocusLoss,
                                                  encode_text_labels)
@@ -286,6 +320,8 @@ from fudanocr_tpu_torch.models.seg.encoder_decoder import crop_grid
 from fudanocr_tpu_torch.data.seg_dataset import batches_from
 from fudanocr_tpu_torch.serving import (InferenceServer, LMDBToStrings,
                                         PixelsToStrings)
+from fudanocr_tpu_torch.train import seg as train_seg
+from fudanocr_tpu_torch.train import sr as train_sr
 from fudanocr_tpu_torch.train.seg import (SegTrainer, make_seg_optimizer,
                                           make_seg_train_step, poly_schedule)
 from fudanocr_tpu_torch.train.sr import (SRTrainer, StrokeSRTrainer,
@@ -549,6 +585,22 @@ def phase1(dev, gpu: str) -> dict:
             raise AssertionError(f"bf16 kernel disagrees: max {max_err} > "
                                  f"{BF16_ATOL} or mean {mean_err} > "
                                  f"{BF16_MEAN}")
+        # per token: qkv 2*64*384, attention 4*L*128, out 2*128*128, FFN
+        # 2*2*128*128, proj 2*128*64; tokens in and out, the PE terms
+        es = torch.finfo(dt).bits // 8
+        flops = b * h * w * (2 * 64 * 384 + 4 * h * w * 128
+                             + 6 * 128 * 128 + 2 * 128 * 64)
+        nbytes = 2 * b * h * w * 64 * es + h * w * (64 * es + 384 * 4)
+        if dt == torch.float32:
+            # fp32 as every fp32 kernel of the port: the 3xTF32 floor, the
+            # CUDA-core floor (where this kernel runs today) beside it
+            k_ms, p_ms = in_turns(lambda: fused_enhancer(x, ops),
+                                  lambda: fused_enhancer_reference(x, ops),
+                                  10)
+            print(f"phase 1: B={b} L={h * w} fp32 enhancer (the SR apps' "
+                  f"evaluation): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
+                  f"{bound_note(seg_attn_bound(flops, nbytes, dt))} "
+                  f"[{gpu}]")
         if dt == torch.bfloat16:
             k_ms, p_ms = in_turns(lambda: fused_enhancer(x, ops),
                                   lambda: fused_enhancer_reference(x, ops), 10)
@@ -564,11 +616,6 @@ def phase1(dev, gpu: str) -> dict:
                   f"{k_ms:.4f} ms (device ms by kernel {split}), plain "
                   f"{p_ms:.4f} ms; SDPA on its attention part alone "
                   f"({b}, {HEADS}, {h * w}, 32) {lib_ms:.4f} ms [{gpu}]")
-            # per token: qkv 2*64*384, attention 4*L*128, out 2*128*128, FFN
-            # 2*2*128*128, proj 2*128*64; tokens in and out, the PE terms
-            flops = b * h * w * (2 * 64 * 384 + 4 * h * w * 128
-                                 + 6 * 128 * 128 + 2 * 128 * 64)
-            nbytes = 2 * b * h * w * 64 * 2 + h * w * (64 * 2 + 384 * 4)
             result[b] = {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
                          **bound(flops, nbytes, dt), "library_ms": lib_ms,
                          "library": "SDPA on the attention part only"}
@@ -1159,7 +1206,7 @@ def phase6(dev, gpu: str) -> tuple:
               f"forward+backward {orc:.3f} ms [{gpu}]")
     print(f"phase 6: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{gpu}]")
-    return counts
+    return counts, k_ms
 
 
 def _attn_operands(gen, dev, dt, b, lq, lk, d):
@@ -1710,8 +1757,8 @@ class SeededTextSeg:
 def trainer_kwargs(cfg) -> dict:
     """SegTrainer's kwargs as fudanocr_tpu/apps/seg/train.py:118-134 builds
     them from the config, for data that is not a directory of images
-    (whole-image evaluation) and without `ckpt_dir` (checkpoints wait for
-    ROADMAP A4)."""
+    (whole-image evaluation) and without `ckpt_dir` (phase 28 drives the
+    checkpoints through the app)."""
     tc = cfg.get("train_cfg", {})
     return dict(num_classes=cfg.model.decode_head.num_classes,
                 batch_size=cfg.data.batch_size, lr=cfg.optimizer.lr,
@@ -1786,7 +1833,8 @@ def profile_step(step, batch, gen, gpu: str, what: str) -> tuple:
 
 
 def train_recipe(config: str, want: tuple, dev, gpu: str) -> tuple:
-    """Phases 14-16 for one recipe; returns phase 14's launches per step."""
+    """Phases 14-16 for one recipe; returns phase 14's launches per step
+    and phase 16's kernel path ms per step."""
     gen = torch.Generator().manual_seed(SEED + 14)
     model, cfg = init_segmentor(config, device=dev, seed=SEED + 14)
     randomize_stats(model, gen)
@@ -1906,7 +1954,7 @@ def train_recipe(config: str, want: tuple, dev, gpu: str) -> tuple:
     profile_step(step_k, batch, gk, gpu, tag)
     del model, plain, trainer, batches, batch, data
     torch.cuda.empty_cache()
-    return counts
+    return counts, k_ms
 
 
 # -- phases 17-21: TBSRN's packed-qkv route and the TSRN / Text Gestalt slice
@@ -3155,10 +3203,483 @@ def phase26_alone(dev, gpu: str) -> int:
         sr, crnn, CTCLabelConverter(ALPHABET), device=dev))
 
 
+# -- phases 27-28: the training journeys through the apps, fed from files
+
+SR_APP_CROPS, SR_APP_VAL = 512, 128    # train crops; crops per val bucket
+SR_APP_EPOCHS = 2                      # 512 / 64 x 2 = 16 steps
+# phase 28: photos (w, h), 8 of each orientation, and 2 val images of one
+# size (an evaluation batch stacks images of one size)
+SEG_APP_SHAPES = ((1024, 768),) * 8 + ((768, 1024),) * 8
+SEG_APP_VAL_SHAPES = ((1024, 768),) * 2
+# 4 + 2 iterations: at 6 + 2 phases 27-28 took 139 s (PERF.md §6, PR 17)
+SEG_APP_ITERS, SEG_APP_MORE = 4, 2
+SR_HOST_BATCHES, SEG_HOST_SAMPLES = 4, 2   # the host's timed share
+
+
+@contextlib.contextmanager
+def recording(module, maker: str, cls, counts):
+    """While open, every train step that `module.<maker>` builds records
+    its metrics, its own launches by `counts()` and a CUDA event at its
+    start; `cls.train` records its trainer (and, in `rec["profile"]`,
+    the kernel and copy ms of a torch.profiler trace over it and its wall
+    ms, when `rec["profile"]` is set to {}); `cls.evaluate` records its
+    result and its launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rec = {"steps": [], "trainers": [], "evals": [], "profile": None}
+    make, train, evaluate = getattr(module, maker), cls.train, cls.evaluate
+
+    def delta(before):
+        return tuple(b - a for a, b in zip(before, counts()))
+
+    def make_recorded(*args, **kw):
+        step = make(*args, **kw)
+
+        def recorded(batch, generator=None):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            before = counts()
+            out = step(batch, generator)
+            rec["steps"].append((out, delta(before), ev))
+            return out
+        return recorded
+
+    def train_recorded(self, *args, **kw):
+        rec["trainers"].append(self)
+        if rec["profile"] is None:
+            return train(self, *args, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = train(self, *args, **kw)
+            torch.cuda.synchronize()
+            rec["profile"]["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["profile"]["busy_ms"] = device_busy_ms(prof)
+        return out
+
+    def evaluate_recorded(self, *args, **kw):
+        before = counts()
+        res = evaluate(self, *args, **kw)
+        torch.cuda.synchronize()
+        rec["evals"].append((res, delta(before)))
+        return res
+
+    setattr(module, maker, make_recorded)
+    cls.train, cls.evaluate = train_recorded, evaluate_recorded
+    try:
+        yield rec
+    finally:
+        setattr(module, maker, make)
+        cls.train, cls.evaluate = train, evaluate
+
+
+def device_busy_ms(prof) -> float:
+    """Kernel and copy ms of a torch.profiler trace, summed over streams
+    (user annotations left out: they span kernels already counted)."""
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_time_total > 0 and e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False)) / 1e3
+
+
+def finite_losses(rec) -> list:
+    losses = [out["loss"].item() for out, _, _ in rec["steps"]]
+    if not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"losses {losses} are not finite")
+    return losses
+
+
+def sr_app_config(tmp: str, name: str, train: list, val: list,
+                  epochs: int, val_every: int) -> tuple:
+    """A YAML config of the SR apps (phase 6's recipe, batch 64) -> (its
+    path, the checkpoint dir, the demo dir)."""
+    ckpt, demo = (os.path.join(tmp, name, d) for d in ("ckpt", "demo"))
+    cfg = {"TRAIN": {
+        "train_data_dir": train, "batch_size": TRAIN_B, "width": 128,
+        "height": 32, "epochs": epochs, "lr": 1e-4, "beta1": 0.5,
+        "manualSeed": SEED + 27, "max_len": 100, "down_sample_scale": 2,
+        "ckpt_dir": ckpt, "synthetic_samples": 512, "voc_type": "all",
+        "VAL": {"val_data_dir": val, "valInterval": val_every, "n_vis": 10,
+                "vis_dir": demo}}}
+    path = os.path.join(tmp, f"{name}.yaml")
+    with open(path, "w") as f:
+        f.write(dump_yaml(cfg))
+    return path, ckpt, demo
+
+
+SR_FEED_STEPS, SR_FEED_WARM = 8, 2   # steps a feed turn (an epoch), warm-up
+
+
+def sr_feed_turns(trainer) -> dict:
+    """Wall ms per step of `trainer`'s steps (HR maps cached) fed three
+    ways over its train set: "workers", its own feed (`num_workers`
+    forked processes, the prefetch thread stages each batch); "main", the
+    feed with no workers (the host work and copy in the main thread before
+    each step); "thread", the host work of no workers and the copy on the
+    prefetch thread (JAX's feed). In turns workers, main, thread, thread,
+    main, workers; per turn (ms per step over all SR_FEED_STEPS steps, ms
+    per step after SR_FEED_WARM)."""
+    data, workers = trainer.train_data, trainer.num_workers
+
+    def feed(n: int, thread: bool = False):
+        trainer.num_workers = n
+        if thread:
+            return PrefetchIterator(trainer.host_batches(data),
+                                    trainer.device, buffer_size=1)
+        return trainer.feed(data)
+
+    feeds = {"workers": lambda: feed(workers), "main": lambda: feed(0),
+             "thread": lambda: feed(0, thread=True)}
+    walls = {k: [] for k in feeds}
+    try:
+        for name in ("workers", "main", "thread", "thread", "main",
+                     "workers"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batches = feeds[name]()
+            for bi, batch in zip(range(SR_FEED_STEPS), batches):
+                batch["hr_map"] = trainer._hr_map(bi, batch)
+                trainer.train_step(batch, trainer.generator)
+                if bi + 1 == SR_FEED_WARM:
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            batches.close()
+            walls[name].append(
+                (round((t2 - t0) * 1e3 / SR_FEED_STEPS, 1),
+                 round((t2 - t1) * 1e3 / (SR_FEED_STEPS - SR_FEED_WARM),
+                       1)))
+    finally:
+        trainer.num_workers = workers
+    return walls
+
+
+def phase27(dev, gpu: str, step6_ms=None) -> None:
+    """The SR training journey through the apps, fed from LMDBs on disk."""
+    from fudanocr_tpu_torch.apps.scene_text_telescope import main as stt
+    from fudanocr_tpu_torch.apps.text_gestalt import main as gestalt
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sr_app_") as tmp:
+        t0 = time.perf_counter()
+        train = os.path.join(tmp, "train")
+        create_dataset(train, lmdb_crops(SR_APP_CROPS, SEED + 27))
+        vals = []
+        for k, name in enumerate(("easy", "medium", "hard")):
+            vals.append(os.path.join(tmp, name))
+            create_dataset(vals[-1], lmdb_crops(SR_APP_VAL, SEED + 270 + k))
+        crops = list(lmdb_crops(2 * TRAIN_B, SEED + 274))
+        stores = {k: os.path.join(tmp, k) for k in ("hr_only", "mix",
+                                                    "small")}
+        create_dataset(stores["hr_only"], [(hr, None, t) for hr, _, t in
+                                           crops])
+        create_dataset(stores["mix"], [(hr, lr if i % 2 else None, t)
+                                       for i, (hr, lr, t) in
+                                       enumerate(crops)])
+        create_dataset(stores["small"], crops)
+        print(f"phase 27: wrote a train LMDB of {SR_APP_CROPS} crops, three "
+              f"val LMDBs of {SR_APP_VAL} (easy/medium/hard) and three of "
+              f"{2 * TRAIN_B} (HR only, mixed, paired) with the port's "
+              f"create_dataset in {time.perf_counter() - t0:.2f} s [{gpu}]")
+
+        # (a) scene_text_telescope.main: 2 epochs, 16 steps, eval at 16
+        cfg, ckpt, demo = sr_app_config(tmp, "stt", [train], vals,
+                                        SR_APP_EPOCHS, 16)
+        argv = ["--config", cfg, "--arch", "tbsrn", "--STN", "--text_focus"]
+        torch.cuda.synchronize()
+        reset_counts()                  # the journey's run, counted
+        with recording(train_sr, "make_sr_train_step", SRTrainer,
+                       train_counts) as rec:
+            t0 = time.perf_counter()
+            res = stt.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        total = train_counts()
+        steps = SR_APP_CROPS // TRAIN_B * SR_APP_EPOCHS
+        losses = finite_losses(rec)
+        per_step = {d for _, d, _ in rec["steps"]}
+        want_step = (2 * SRB_NUMS + 3, SRB_NUMS, SRB_NUMS, 0)
+        eval_b1 = [d[3] for _, d in rec["evals"]]
+        want_eval = 3 * SR_APP_VAL // TRAIN_B * 2 * SRB_NUMS
+        want_total = (steps * want_step[0] + 3 * SR_APP_CROPS // TRAIN_B,
+                      steps * SRB_NUMS, steps * SRB_NUMS,
+                      len(eval_b1) * want_eval)
+        print(f"phase 27a: scene_text_telescope.main --arch tbsrn --STN "
+              f"--text_focus, batch {TRAIN_B} fp32: {len(losses)} steps in "
+              f"{wall:.3f} s (the whole app), losses first {losses[0]:.4f}, "
+              f"last {losses[-1]:.4f}; launches per step (LayerNorm, "
+              f"attention forward, attention backward, fused enhancer) "
+              f"{sorted(per_step)} (expected [{want_step}], phase 6b's "
+              f"cached-map step), B1 launches per evaluation {eval_b1} "
+              f"(expected {want_eval} each: 6 batches, phase 6d's 10 a "
+              f"batch), app total {total} (expected {want_total}, the "
+              f"epoch-0 HR maps' 3 LayerNorms each outside the steps); "
+              f"final evaluation {res} [{gpu}]")
+        if (len(losses) != steps or per_step != {want_step}
+                or eval_b1 != [want_eval] * 2 or total != want_total):
+            raise AssertionError("phase 27: the app did not run the "
+                                 "expected kernel launches")
+        best = torch.load(os.path.join(ckpt, "best.pt"), map_location="cpu")
+        again = stt.main(argv + ["--test", "--resume", "auto"])
+        rel = max(abs(again[k] - res[k]) / max(abs(res[k]), 1e-12)
+                  for k in res)
+        accs = [k for k in res if k.endswith("acc")]
+        print(f"phase 27a: best.pt at step {best['step']}; --test --resume "
+              f"auto: {again}; equal to the training run's final evaluation "
+              f"and best.pt's: {again == res == best['metrics']} (largest "
+              f"relative difference {rel:.3e}) [{gpu}]")
+        if (best["metrics"] != res or set(again) != set(res) or rel > 1e-6
+                or any(again[k] != res[k] for k in accs)):
+            raise AssertionError("phase 27: --test --resume auto does not "
+                                 "reproduce the saved evaluation")
+        stt.main(argv + ["--demo", "--resume", "auto"])
+        strips = sorted(os.listdir(demo))
+        shapes = set()
+        for name in strips:
+            with open(os.path.join(demo, name), "rb") as f:
+                shapes.add(decode_png(f.read()).shape)
+        print(f"phase 27a: --demo wrote {len(strips)} PNG strips, decoded "
+              f"at {sorted(shapes)} [{gpu}]")
+        if len(strips) != 10 or shapes != {(32, 3 * 128, 3)}:
+            raise AssertionError("phase 27: --demo strips missing or "
+                                 "misshapen")
+
+        # steady state: epoch 1's steps on the device's timeline (HR maps
+        # cached), the host's share and the device's busy share
+        ev = [e for _, _, e in rec["steps"]]
+        half = steps // 2
+        app_ms = ev[half].elapsed_time(ev[-1]) / (steps - 1 - half)
+        trainer = rec["trainers"][0]
+        t0 = time.perf_counter()
+        for hr, lr, labels in itertools.islice(
+                trainer.train_data.batches(TRAIN_B), SR_HOST_BATCHES):
+            trainer._host_batch(hr, lr, labels)
+        host_ms = (time.perf_counter() - t0) * 1e3 / SR_HOST_BATCHES
+        from torch.profiler import ProfilerActivity, profile
+        feed = trainer.feed(trainer.train_data)
+        fed = enumerate(feed)
+
+        def steps(k: int) -> None:
+            for bi, batch in itertools.islice(fed, k):
+                batch["hr_map"] = trainer._hr_map(bi, batch)
+                trainer.train_step(batch, trainer.generator)
+
+        steps(2)                        # the workers start up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            steps(4)
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t0) * 1e3
+        feed.close()
+        busy = device_busy_ms(prof)
+        ref = (f"; phase 6e's step on resident batches {step6_ms:.3f} ms, "
+               f"the app's {app_ms / step6_ms:.2f}x" if step6_ms else "")
+        print(f"phase 27a: app step (epoch 1, device timeline between step "
+              f"starts) {app_ms:.3f} ms, {TRAIN_B * 1e3 / app_ms:.1f} img/s"
+              f"{ref}; host read + decode + resize + collate + label "
+              f"encode {host_ms:.3f} ms per batch of {TRAIN_B} "
+              f"({SR_HOST_BATCHES} batches, one process); the app's "
+              f"feed's steps 3-6 under the profiler: wall "
+              f"{prof_wall:.3f} ms, kernels + copies {busy:.3f} ms, "
+              f"device busy {100 * busy / prof_wall:.1f} % [{gpu}]")
+
+        # the feed: the app's workers against the same host work in the
+        # main thread and on a thread, in turns on the same trainer
+        walls = sr_feed_turns(trainer)
+        steady = {k: float(np.median([w[1] for w in v]))
+                  for k, v in walls.items()}
+        print(f"phase 27a: feed turns of {SR_FEED_STEPS} steps, wall ms "
+              f"per step (all steps, after {SR_FEED_WARM}), each feed "
+              f"twice: {trainer.num_workers} forked workers into the "
+              f"prefetch thread (the app's) {walls['workers']}, main "
+              f"thread {walls['main']}, one process's host work on the "
+              f"prefetch thread {walls['thread']}; medians after "
+              f"{SR_FEED_WARM} {steady}: the workers' "
+              f"{steady['main'] / steady['workers']:.2f}x and the "
+              f"thread's {steady['main'] / steady['thread']:.2f}x the main "
+              f"thread's rate [{gpu}]")
+
+        # (b) the same model and loss over LMDBDataset and MixLMDBDataset
+        for name, ds in (("LMDBDataset (HR only)", LMDBDataset(
+                             stores["hr_only"], voc_type="all")),
+                         ("MixLMDBDataset (every other item HR only)",
+                          MixLMDBDataset(stores["mix"], voc_type="all",
+                                         seed=SEED))):
+            sub = SRTrainer(trainer.model, trainer.loss_fn, ds, None,
+                            batch_size=TRAIN_B, epochs=1,
+                            eval_every=10 ** 9, seed=SEED)
+            with recording(train_sr, "make_sr_train_step", SRTrainer,
+                           train_counts) as r:
+                sub.train_step = train_sr.make_sr_train_step(
+                    sub.model, sub.loss_fn, sub.optimizer)
+                sub.train()
+                torch.cuda.synchronize()
+            losses = finite_losses(r)
+            print(f"phase 27b: SRTrainer over {name}: {len(losses)} steps, "
+                  f"losses {[round(v, 4) for v in losses]}, launches per "
+                  f"step {sorted({d for _, d, _ in r['steps']})} [{gpu}]")
+            if len(losses) != 2 or {d for _, d, _ in r["steps"]} != {
+                    want_step}:
+                raise AssertionError(f"phase 27: {name} did not train")
+
+        # (c) text_gestalt.main: TSRN + STN, stroke focus, 2 steps + eval
+        cfg, _, _ = sr_app_config(tmp, "gestalt", [stores["small"]],
+                                  [vals[0]], 1, 10 ** 9)
+        gru = lambda: (fused_residual_layernorm.launches,
+                       fgru.fused_bigru.launches)
+        fused_residual_layernorm.launches = fgru.fused_bigru.launches = 0
+        with recording(train_sr, "make_sr_train_step", SRTrainer,
+                       gru) as rec:
+            t0 = time.perf_counter()
+            res = gestalt.main(["--config", cfg, "--arch", "tsrn", "--STN",
+                                "--text_focus"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        total = gru()
+        losses = finite_losses(rec)
+        per_step = {d for _, d, _ in rec["steps"]}
+        print(f"phase 27c: text_gestalt.main --arch tsrn --STN "
+              f"--text_focus: {len(losses)} steps and "
+              f"{len(rec['evals'])} evaluation in "
+              f"{wall:.3f} s, losses {[round(v, 4) for v in losses]}; "
+              f"launches (B2 in the stroke oracle, B8) per step "
+              f"{sorted(per_step)} (expected [(3, 0)]: one oracle forward "
+              f"on the SR image, cuDNN's GRU), app total {total} (expected "
+              f"(12, 0): phase 21a's 6 of a live-map step, twice; B8 stays "
+              f"off, as JAX's app leaves fused_gru off); evaluation {res} "
+              f"[{gpu}]")
+        if (len(losses) != 2 or per_step != {(3, 0)} or total != (12, 0)
+                or len(rec["evals"]) != 1
+                or not np.isfinite(res["psnr"])):
+            raise AssertionError("phase 27: text_gestalt did not run the "
+                                 "expected path")
+
+
+def seg_app_photos(root: str, shapes, seed: int) -> None:
+    """Seeded photo-sized images and TextSeg-coded annotations under
+    root/img (JPEG q90, the port's `encode_jpeg`) and root/ann (PNG,
+    `encode_png`): a background of 64-px tiles with noise sigma 8, dark
+    bars as text (100 in the annotation), background 200, a 2-px ring of
+    255 (ignore) around each bar. Unsourced: a photo's order of size."""
+    rng = np.random.default_rng(seed)
+    for d in ("img", "ann"):
+        os.makedirs(os.path.join(root, d))
+    for i, (w, h) in enumerate(shapes):
+        tiles = rng.integers(70, 220, (h // 64 + 1, w // 64 + 1, 3))
+        img = np.kron(tiles, np.ones((64, 64, 1)))[:h, :w]
+        ann = np.full((h, w), 200, np.uint8)
+        for _ in range(int(rng.integers(6, 16))):
+            bh, bw = int(rng.integers(16, 80)), int(rng.integers(40, 300))
+            y, x = int(rng.integers(2, h - bh - 2)), int(rng.integers(
+                2, w - bw - 2))
+            ann[y - 2:y + bh + 2, x - 2:x + bw + 2] = 255
+            ann[y:y + bh, x:x + bw] = 100
+            img[y:y + bh, x:x + bw] = rng.integers(0, 60, 3)
+        img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255)
+        with open(os.path.join(root, "img", f"p{i:02d}.jpg"), "wb") as f:
+            f.write(encode_jpeg(img.astype(np.uint8), 90))
+        with open(os.path.join(root, "ann", f"p{i:02d}.png"), "wb") as f:
+            f.write(encode_png(ann))
+
+
+def phase28(dev, gpu: str, step16_ms=None) -> None:
+    """The seg training journey through apps.seg.train, fed from a
+    directory of JPEG photos and PNG annotations."""
+    from fudanocr_tpu_torch.apps.seg import train as seg_app
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seg_app_") as tmp:
+        t0 = time.perf_counter()
+        seg_app_photos(os.path.join(tmp, "train"), SEG_APP_SHAPES,
+                       SEED + 28)
+        seg_app_photos(os.path.join(tmp, "val"), SEG_APP_VAL_SHAPES,
+                       SEED + 280)
+        ckpt = os.path.join(tmp, "ckpt")
+        print(f"phase 28: wrote {len(SEG_APP_SHAPES)} train photos (1024x768"
+              f" and 768x1024) and {len(SEG_APP_VAL_SHAPES)} val photos, "
+              f"JPEG q90 with TextSeg PNG annotations, in "
+              f"{time.perf_counter() - t0:.2f} s [{gpu}]")
+
+        def argv(iters: int) -> list:
+            return [SEG_CONFIG, "--options",
+                    f"data.img_dir={tmp}/train/img",
+                    f"data.ann_dir={tmp}/train/ann",
+                    f"data.val_img_dir={tmp}/val/img",
+                    f"data.val_ann_dir={tmp}/val/ann",
+                    f"schedule.total_iters={iters}",
+                    f"schedule.eval_every={SEG_APP_ITERS}",
+                    f"ckpt_dir={ckpt}"]
+
+        torch.cuda.synchronize()
+        reset_train_seg_counts()        # the journey's run, counted
+        with recording(train_seg, "make_seg_train_step", SegTrainer,
+                       train_seg_counts) as rec:
+            t0 = time.perf_counter()
+            res = seg_app.main(argv(SEG_APP_ITERS))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        losses = finite_losses(rec)
+        per_step = {d for _, d, _ in rec["steps"]}
+        want = TRAIN_RECIPES[0][1]
+        saved = sorted(os.listdir(ckpt))
+        print(f"phase 28: apps.seg.train on {SEG_CONFIG.split('/')[-1]} "
+              f"(crop 512², batch 8, the full train pipeline; slide "
+              f"evaluation at 1024² / 768²): {len(losses)} iterations in "
+              f"{wall:.3f} s (the whole app), losses "
+              f"{[round(v, 4) for v in losses]}; launches per step (B7 fwd, "
+              f"B7 bwd, B6 fwd, B6 bwd) {sorted(per_step)} (expected "
+              f"[{want}]); per evaluation "
+              f"{[d for _, d in rec['evals']]}; final evaluation {res}; "
+              f"checkpoints {saved} [{gpu}]")
+        if (len(losses) != SEG_APP_ITERS or per_step != {want}
+                or not all(d[0] > 0 for _, d in rec["evals"])
+                or not {f"iter_{SEG_APP_ITERS}", "best"} <= set(saved)):
+            raise AssertionError("phase 28: the app did not train, evaluate "
+                                 "and checkpoint as configured")
+        trainer = rec["trainers"][0]
+        ev = [e for _, _, e in rec["steps"]]
+        app_ms = ev[1].elapsed_time(ev[-1]) / (len(ev) - 2)
+        random.seed(SEED)
+        t0 = time.perf_counter()
+        for i in range(SEG_HOST_SAMPLES):
+            trainer.train_data[i]
+        host_ms = (time.perf_counter() - t0) * 1e3 / SEG_HOST_SAMPLES
+
+        # the run again with --auto-resume and 2 more iterations, profiled
+        with recording(train_seg, "make_seg_train_step", SegTrainer,
+                       train_seg_counts) as rec:
+            rec["profile"] = {}
+            seg_app.main(argv(SEG_APP_ITERS + SEG_APP_MORE)
+                         + ["--auto-resume"])
+        resumed = rec["trainers"][0]
+        losses = finite_losses(rec)
+        prof = rec["profile"]
+        print(f"phase 28: --auto-resume with total_iters "
+              f"{SEG_APP_ITERS + SEG_APP_MORE}: started at iteration "
+              f"{resumed.start_iter} (expected {SEG_APP_ITERS}), took "
+              f"{len(losses)} steps, losses {[round(v, 4) for v in losses]}"
+              f" [{gpu}]")
+        if resumed.start_iter != SEG_APP_ITERS or len(losses) != \
+                SEG_APP_MORE:
+            raise AssertionError("phase 28: --auto-resume did not continue "
+                                 "from the saved iteration")
+        ref = (f"; phase 16's step on resident batches {step16_ms:.3f} ms, "
+               f"the app's {app_ms / step16_ms:.2f}x" if step16_ms else "")
+        print(f"phase 28: app iteration (device timeline between step "
+              f"starts, iterations 2-{SEG_APP_ITERS}) {app_ms:.3f} ms, "
+              f"{trainer.batch_size * 1e3 / app_ms:.2f} img/s{ref}; host "
+              f"pipeline (decode, resize, crop, flip, photometric, "
+              f"normalise, pad) {host_ms:.3f} ms per sample over "
+              f"{SEG_HOST_SAMPLES}, one process; the resumed run's "
+              f"train() under the profiler: wall {prof['wall_ms']:.3f} ms, "
+              f"kernels + copies {prof['busy_ms']:.3f} ms, device busy "
+              f"{100 * prof['busy_ms'] / prof['wall_ms']:.1f} % [{gpu}]")
+
+
 STANDALONE = {"1": phase1, "4": phase4, "5": phase5, "6": phase6,
               "7": phase7, "10": phase10, "13": phase13, "17": phase17,
               "19": phase19, "20": phase20_alone, "22": phase22,
-              "24": phase24, "25": phase25, "26": phase26_alone}
+              "24": phase24, "25": phase25, "26": phase26_alone,
+              "27": phase27, "28": phase28}
 
 
 def main(argv: list) -> int:
@@ -3194,7 +3715,7 @@ def main(argv: list) -> int:
     ln, ln_bf16 = phase4(dev, gpu)
     b4 = phase5(dev, gpu)
     torch.cuda.empty_cache()
-    ln_n, fwd_n, bwd_n, _ = phase6(dev, gpu)
+    (ln_n, fwd_n, bwd_n, _), step6_ms = phase6(dev, gpu)
     torch.cuda.empty_cache()
     b7, b5 = phase7(dev, gpu)
     models = seg_models(dev)
@@ -3206,8 +3727,9 @@ def main(argv: list) -> int:
     b6_n = phase11_12(dev, gpu)
     torch.cuda.empty_cache()
     b7_bwd, b6_bwd = phase13(dev, gpu)
+    step16_ms = {}
     for config, want in TRAIN_RECIPES:
-        counts = train_recipe(config, want, dev, gpu)
+        counts, step16_ms[config] = train_recipe(config, want, dev, gpu)
     b7_bwd_n, b6_bwd_n = counts[1], counts[3]   # per det-recipe step
     torch.cuda.empty_cache()
     b3 = phase17(dev, gpu)
@@ -3225,6 +3747,10 @@ def main(argv: list) -> int:
     b10_b11, b10_b11_n = phase24(dev, gpu)
     torch.cuda.empty_cache()
     ln_bf16_n, b4_mma_fwd_n, b4_mma_bwd_n, _ = phase25(dev, gpu)
+    torch.cuda.empty_cache()
+    phase27(dev, gpu, step6_ms)
+    torch.cuda.empty_cache()
+    phase28(dev, gpu, step16_ms[SEG_CONFIG])
     bf16_b = (torch.bfloat16, TRAIN_B)
     b10, b11_fwd, b11_bwd = b10_b11[(torch.float32, TRAIN_B)]
     _, b11_mma_fwd, b11_mma_bwd = b10_b11[bf16_b]

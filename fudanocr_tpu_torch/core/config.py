@@ -24,6 +24,10 @@ else rather than misread it:
 Not read: flow mappings, anchors and aliases, tags, block scalars (`|`,
 `>`), multi-line plain scalars, documents (`---`), tabs, YAML 1.1's
 yes/no/on/off booleans, octal or hex ints.
+
+`dump_yaml` writes a tree of mappings, lists and scalars in that subset
+(strings double-quoted), so a config made in code reads back the same
+through `parse_yaml` and `yaml.safe_load`.
 """
 
 from __future__ import annotations
@@ -244,6 +248,50 @@ def parse_yaml(text: str) -> Any:
     if i != len(lines):
         _fail(lines[i].no, "unexpected indentation")
     return value
+
+
+def _dump_scalar(v: Any) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        text = repr(v)
+        mantissa, e, exp = text.partition("e")
+        if "." not in mantissa:
+            mantissa += ".0"
+        if e and exp[0] not in "+-":
+            exp = "+" + exp
+        text = mantissa + (e + exp if e else "")
+        if not _FLOAT.fullmatch(text):
+            raise ValueError(f"dump_yaml: cannot write the float {v!r}")
+        return text
+    if isinstance(v, str):
+        if '"' in v or "\\" in v or "\n" in v:
+            raise ValueError(f"dump_yaml: cannot quote {v!r}")
+        return f'"{v}"'
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_dump_scalar(x) for x in v) + "]"
+    raise ValueError(f"dump_yaml: cannot write {type(v).__name__} values")
+
+
+def dump_yaml(tree: Dict[str, Any], indent: int = 0) -> str:
+    """A mapping of mappings, (nested) lists and scalars -> YAML text in
+    the subset `parse_yaml` reads."""
+    out = []
+    for k, v in tree.items():
+        if not _KEY.fullmatch(f"{k}:"):
+            raise ValueError(f"dump_yaml: key {k!r} is not an identifier")
+        pad = " " * indent
+        if isinstance(v, dict) and v:
+            out.append(f"{pad}{k}:\n" + dump_yaml(v, indent + 2))
+        elif isinstance(v, dict):
+            raise ValueError(f"dump_yaml: empty mapping under {k!r}")
+        else:
+            out.append(f"{pad}{k}: {_dump_scalar(v)}\n")
+    return "".join(out)
 
 
 # -- loading ----------------------------------------------------------------

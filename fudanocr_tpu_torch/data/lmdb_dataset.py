@@ -1,22 +1,25 @@
-"""LMDB-backed paired SR datasets (TextZoom layout), without PIL (port of
-fudanocr_tpu/data/lmdb_dataset.py: `PairedLMDBDataset`,
-`LRServingLMDBDataset`, `create_dataset`).
+"""LMDB-backed SR datasets (TextZoom layout), without PIL (port of
+fudanocr_tpu/data/lmdb_dataset.py: `LMDBDataset`, `PairedLMDBDataset`,
+`LRServingLMDBDataset`, `MixLMDBDataset`, `create_dataset`).
 
-Keys follow the reference layout: 'image_hr-%09d', 'image_lr-%09d' and
-'label-%09d' with 1-based indices, and 'num-samples'. Images decode with
-data/image.py (JPEG or PNG, byte-equal to PIL's decode) into uint8 (H, W,
-3) arrays; batches are fixed-shape NHWC numpy arrays. Nothing here calls
+Keys follow the reference layout: 'image_hr-%09d', 'image_lr-%09d' (or
+'image-%09d' for an HR-only store) and 'label-%09d' with 1-based indices,
+and 'num-samples'. Every batch reads its keys in one pass per store.
+Images decode with data/image.py (JPEG or PNG, byte-equal to PIL's
+decode) into uint8 (H, W, 3) arrays; batches are fixed-shape NHWC numpy
+arrays. Nothing here calls
 torch, so the datasets run inside forked worker processes.
 """
 
 from __future__ import annotations
 
+import random
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from fudanocr_tpu_torch.data.collate import resize_normalize, sr_collate
-from fudanocr_tpu_torch.data.image import decode_image
+from fudanocr_tpu_torch.data.image import decode_image, resize_bicubic
 from fudanocr_tpu_torch.data.jpeg import encode_jpeg
 from fudanocr_tpu_torch.data.lmdb_store import LMDBReader, LMDBWriter
 from fudanocr_tpu_torch.eval.metrics import str_filt
@@ -79,6 +82,25 @@ class _LMDBBase:
                                **collate_kw)
 
 
+class LMDBDataset(_LMDBBase):
+    """HR-only LMDB (lmdbDataset + alignCollate_syn): the LR image is the
+    HR's bicubic downsample by `scale` (PIL's BICUBIC, `resize_bicubic`).
+    The HR comes from 'image_hr-', else from 'image-'."""
+
+    def __getitem__(self, index: int):
+        return self.fetch_items([index])[0]
+
+    def fetch_items(self, indices: Sequence[int]) -> List:
+        out = []
+        for hr, plain, label in self._lookup(
+                indices, (b"image_hr", b"image", b"label")):
+            img = decode_image(hr if hr is not None else plain)
+            lr = resize_bicubic(img, (img.shape[1] // self.scale,
+                                      img.shape[0] // self.scale))
+            out.append((img, lr, self._label(label)))
+        return out
+
+
 class PairedLMDBDataset(_LMDBBase):
     """Real paired HR/LR LMDB (lmdbDataset_real): items (hr, lr, label)."""
 
@@ -107,6 +129,41 @@ class LRServingLMDBDataset(_LMDBBase):
         lr_size = (w // self.scale, h // self.scale)
         return np.stack([resize_normalize(img, lr_size, dtype=dtype)
                          for img in items])
+
+
+class MixLMDBDataset(_LMDBBase):
+    """lmdbDataset_mix (dataset.py:155-202): in training the LR image is
+    the stored LR with probability 0.5, else the HR itself, the coin drawn
+    from `random.Random(seed)` only for items that have a stored LR, in
+    index order (the JAX class's draws); with `test` the stored LR when
+    there is one. An item without 'image_hr-' reads 'image-' as HR and
+    has no LR."""
+
+    # the coins come from one generator in read order: forked workers
+    # would each draw from a copy of it (train/sr.SRTrainer refuses that)
+    draws_in_read_order = True
+
+    def __init__(self, *args, test: bool = False, seed: int = 0, **kw):
+        super().__init__(*args, **kw)
+        self.test = test
+        self._rng = random.Random(seed)
+
+    def __getitem__(self, index: int):
+        return self.fetch_items([index])[0]
+
+    def fetch_items(self, indices: Sequence[int]) -> List:
+        out = []
+        for hr, lr, plain, label in self._lookup(
+                indices, (b"image_hr", b"image_lr", b"image", b"label")):
+            if hr is None:
+                hr, lr = plain, None
+            hr_img = decode_image(hr)
+            if lr and (self.test or self._rng.random() < 0.5):
+                lr_img = decode_image(lr)
+            else:
+                lr_img = hr_img
+            out.append((hr_img, lr_img, self._label(label)))
+        return out
 
 
 def create_dataset(out_path: str, samples, quality: int = 95) -> int:

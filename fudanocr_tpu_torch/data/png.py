@@ -1,13 +1,21 @@
-"""PNG decoding in numpy and the standard library, without PIL.
+"""PNG decoding and encoding in numpy and the standard library, without
+PIL.
 
-`decode_png(buf)` takes non-interlaced 8-bit PNGs of every colour type:
+`decode_png(buf)` takes non-interlaced 8-bit PNGs of every colour type,
+and palette images of 1, 2 and 4 bits and gray ones of 2 and 4 bits
+(scaled to 0..255, as PIL's "L") as well:
 gray (H, W, 1), gray + alpha (H, W, 2), RGB (H, W, 3), RGBA (H, W, 4) and
 palette, which comes back as the palette's RGB (H, W, 3) (a tRNS chunk is
-ignored, as PIL's convert("RGB") ignores it). Chunk CRCs are checked, the
-IDAT stream is inflated with zlib, and the five scanline filters are undone
-row by row: None, Sub and Up in numpy, Average and Paeth, whose every byte
+ignored, as PIL's convert("RGB") ignores it), or with
+`expand_palette=False` as its indices (H, W, 1), as PIL opens it. Chunk
+CRCs are checked, the IDAT stream is inflated with zlib, and the five
+scanline filters are undone row by row: None, Sub and Up in numpy, Average and Paeth, whose every byte
 depends on the one decoded to its left, in a loop over the row's bytes.
-Interlaced images and bit depths other than 8 raise ValueError.
+Interlaced images and other bit depths raise ValueError.
+
+`encode_png(img)` writes uint8 (H, W) or (H, W, C) as gray, gray +
+alpha, RGB or RGBA: every row filter 0 (None), the data deflated by zlib.
+PIL reads the file back to the same array.
 """
 
 from __future__ import annotations
@@ -95,7 +103,20 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def decode_png(buf: bytes) -> np.ndarray:
+# colour type -> bit depths below 8 read: palette indices, gray levels
+# (1-bit gray is PIL's mode "1", left out)
+_PACKED = {3: (1, 2, 4), 0: (2, 4)}
+
+
+def _unpack(rows: np.ndarray, w: int, depth: int) -> np.ndarray:
+    """(h, stride) bytes of `depth`-bit samples, first sample in the high
+    bits -> (h, w) uint8 samples."""
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    samples = (rows[:, :, None] >> shifts) & np.uint8((1 << depth) - 1)
+    return np.ascontiguousarray(samples.reshape(rows.shape[0], -1)[:, :w])
+
+
+def decode_png(buf: bytes, expand_palette: bool = True) -> np.ndarray:
     """PNG bytes -> uint8 (H, W, C); see the module docstring."""
     buf = bytes(buf)
     if not buf.startswith(SIGNATURE):
@@ -112,22 +133,54 @@ def decode_png(buf: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = header
-    if depth != 8:
-        raise ValueError(f"PNG: bit depth {depth} is not supported (8 only)")
     if interlace:
         raise ValueError("PNG: interlaced images are not supported")
     if ctype not in _CHANNELS:
         raise ValueError(f"PNG: unknown colour type {ctype}")
+    packed = depth in _PACKED.get(ctype, ())
+    if depth != 8 and not packed:
+        raise ValueError(f"PNG: bit depth {depth} of colour type {ctype} "
+                         "is not supported")
     bpp = _CHANNELS[ctype]
+    stride = (w * depth + 7) // 8 if packed else w * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < h * (w * bpp + 1):
+    if raw.size < h * (stride + 1):
         raise ValueError("PNG: image data too short")
-    img = _unfilter(raw[:h * (w * bpp + 1)], h, w * bpp, bpp)
+    img = _unfilter(raw[:h * (stride + 1)], h, stride, bpp)
+    if packed:
+        img = _unpack(img, w, depth)
+        if ctype == 0:        # gray scaled to 0..255, as PIL's "L"
+            img = img * np.uint8(255 // ((1 << depth) - 1))
     img = img.reshape(h, w, bpp)
-    if ctype == 3:
+    if ctype == 3 and expand_palette:
         if palette is None:
             raise ValueError("PNG: palette image without PLTE")
         if int(img.max(initial=0)) >= len(palette):
             raise ValueError("PNG: palette index out of range")
         img = palette[img[..., 0]]
     return np.ascontiguousarray(img)
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data)))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """uint8 image -> PNG bytes; see the module docstring."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError("encode_png takes uint8 images")
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, c = img.shape
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}.get(c)
+    if ctype is None:
+        raise ValueError(f"encode_png: {c} channels")
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           np.ascontiguousarray(img).reshape(h, w * c)], 1)
+    return b"".join([
+        SIGNATURE,
+        _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)),
+        _chunk(b"IDAT", zlib.compress(rows.tobytes())),
+        _chunk(b"IEND", b"")])

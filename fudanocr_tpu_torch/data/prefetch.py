@@ -1,13 +1,15 @@
 """Asynchronous host -> device staging (port of fudanocr_tpu/data/prefetch.py).
 
-A background thread pulls host batches (numpy arrays) and stages each on
-the device while the consumer's stream runs the previous step: on CUDA it
-pins the array (`pin_memory()`), copies it with `non_blocking=True` on a side
-stream of its own and records an event. The consumer's `next()` makes its
-current stream wait on that event and calls `record_stream`, so the
-caching allocator does not hand the buffer out again before the
-consumer's work on it is done. On the CPU the staged batch is the array
-as a tensor. An exception in the thread is raised in the consumer.
+A background thread pulls host batches (a numpy array, or a dict of them)
+and stages each on the device while the consumer's stream runs the
+previous step: on CUDA it pins each array (`pin_memory()`), copies it with
+`non_blocking=True` on a side stream of its own and records an event. The
+consumer's `next()` makes its current stream wait on that event and calls
+`record_stream` on each tensor, so the caching allocator does not hand a
+buffer out again before the consumer's work on it is done. On the CPU the
+staged batch is the array as a tensor (a dict of them). Whatever the
+source iterator computes (decoding, collating, label encoding) runs on the
+thread. An exception in the thread is raised in the consumer.
 `close()` (or the end of the stream) stops the thread and closes the
 source iterator.
 """
@@ -25,6 +27,13 @@ Device = Union[str, torch.device]
 _END = object()
 
 
+def _apply(fn, batch):
+    """fn over an array, or over each value of a dict of arrays."""
+    if isinstance(batch, dict):
+        return {k: fn(v) for k, v in batch.items()}
+    return fn(batch)
+
+
 class PrefetchIterator:
     """Stage `buffer_size` batches of `batches` ahead on `device`."""
 
@@ -40,12 +49,17 @@ class PrefetchIterator:
                                         daemon=True)
         self._thread.start()
 
+    def _copy(self, arr) -> torch.Tensor:
+        if self._stream is None:
+            return torch.as_tensor(arr, device=self.device)
+        pinned = torch.from_numpy(np.ascontiguousarray(arr)).pin_memory()
+        return pinned.to(self.device, non_blocking=True)
+
     def _stage(self, batch):
         if self._stream is None:
-            return torch.as_tensor(batch, device=self.device), None
+            return _apply(self._copy, batch), None
         with torch.cuda.stream(self._stream):
-            pinned = torch.from_numpy(np.ascontiguousarray(batch)).pin_memory()
-            batch = pinned.to(self.device, non_blocking=True)
+            batch = _apply(self._copy, batch)
             event = torch.cuda.Event()
             event.record(self._stream)
         return batch, event
@@ -86,7 +100,7 @@ class PrefetchIterator:
         if event is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(event)
-            batch.record_stream(stream)
+            _apply(lambda t: t.record_stream(stream), batch)
         return batch
 
     def close(self) -> None:

@@ -10,20 +10,31 @@ config weights it) on the full-resolution logits and, for a det-guided
 model with `gt_det` in the batch, det_loss_ratio x the det loss on the det
 logits bilinearly upsampled to the label size; then backward and one
 `SegAdam` update (train/state.py). Everything runs eagerly on the model's
-device, one process, one device. Checkpoints, resume and the metrics
-logger of the JAX trainer are not ported yet (ROADMAP Queue A4): a
-trainer given a `ckpt_dir` raises.
+device, one process, one device.
+
+Checkpoints keep the JAX trainer's layout (`core/checkpoint.py`):
+`ckpt_dir/iter_{it}/` every `ckpt_every` iterations (the newest `max_keep`
+kept) and `ckpt_dir/best/` on the best mIoU, each a meta.json (step, best)
+and the port's payload state.pt: the reference-layout state_dict, the
+`SegAdam` state and the step. `resume` (or `auto_resume`, from the latest
+iter_ checkpoint) restores all of it; the per-iteration generator is keyed
+by the iteration, so a run resumed at an epoch boundary replays the
+uninterrupted run's batches and dropout.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import shutil
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fudanocr_tpu_torch.core import checkpoint as ckpt_lib
+from fudanocr_tpu_torch.core.logging import MetricsLogger
 from fudanocr_tpu_torch.eval.seg_metrics import (intersect_and_union,
                                                  total_metrics)
 from fudanocr_tpu_torch.losses.seg_losses import (cross_entropy_loss,
@@ -149,7 +160,9 @@ class SegTrainer:
     shuffle=False, seed=0)` yielding dicts of numpy arrays (see
     data/seg_dataset.py). `model` comes initialised and on its device,
     where the batches are moved. `crop` evaluates with the sliding window
-    (`stride` defaults to `crop`), else the whole image."""
+    (`stride` defaults to `crop`), else the whole image. With `log_dir`, a
+    `MetricsLogger` records the train metrics every 50 iterations, each
+    evaluation and a prediction table of its first batch."""
 
     def __init__(self, model: torch.nn.Module, train_data, eval_data,
                  num_classes: int = 2, batch_size: int = 4,
@@ -160,11 +173,10 @@ class SegTrainer:
                  stride: Optional[Tuple[int, int]] = None,
                  ckpt_dir: Optional[str] = None, seed: int = 0,
                  det_loss_ratio: float = 0.1,
-                 gt_guided_masks: bool = False, lovasz_impl: str = "sort"):
-        if ckpt_dir is not None:
-            raise NotImplementedError("SegTrainer: checkpoints and resume "
-                                      "are not ported yet (ROADMAP A4); "
-                                      "pass ckpt_dir=None")
+                 gt_guided_masks: bool = False, lovasz_impl: str = "sort",
+                 log_dir: Optional[str] = None,
+                 ckpt_every: Optional[int] = None,
+                 auto_resume: bool = False, max_keep: int = 3):
         self.model = model
         self.train_data = train_data
         self.eval_data = eval_data
@@ -174,6 +186,9 @@ class SegTrainer:
         self.eval_every = eval_every
         self.crop = crop
         self.stride = stride
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_every = ckpt_every or eval_every
+        self.max_keep = max_keep
         self.seed = seed
         self.device = next(model.parameters()).device
         self.optimizer = make_seg_optimizer(model, lr,
@@ -182,6 +197,37 @@ class SegTrainer:
             model, self.optimizer, loss_weights, det_loss_ratio,
             gt_guided_masks, lovasz_impl)
         self.start_iter = 0
+        self.best = -1.0
+        self.metrics_logger = MetricsLogger(log_dir) if log_dir else None
+        if auto_resume and ckpt_dir:
+            path = ckpt_lib.latest(ckpt_dir, prefix="iter_")
+            if path:
+                self.resume(path)
+
+    def _payload(self) -> dict:
+        return {"state_dict": self.model.state_dict(),
+                "optimizer": self.optimizer.adam.state_dict(),
+                "step": self.optimizer.count}
+
+    def resume(self, ckpt_path: str) -> None:
+        """Restore the weights, BN statistics, optimizer state, iteration
+        and best mIoU from a checkpoint directory (the runner's
+        resume_from / --auto-resume)."""
+        payload = ckpt_lib.load(ckpt_path, map_location=self.device)
+        meta = ckpt_lib.load_meta(ckpt_path)
+        self.model.load_state_dict(payload["state_dict"])
+        self.optimizer.adam.load_state_dict(payload["optimizer"])
+        self.optimizer.count = self.start_iter = int(payload["step"])
+        self.best = float(meta.get("best", -1.0))
+        log.info("resumed from %s at iter %d", ckpt_path, self.start_iter)
+
+    def _save_periodic(self, it: int) -> None:
+        ckpt_lib.save(os.path.join(self.ckpt_dir, f"iter_{it}"),
+                      self._payload(), meta={"step": it, "best": self.best})
+        subs = sorted((d for d in os.listdir(self.ckpt_dir)
+                       if d.startswith("iter_")), key=lambda d: int(d[5:]))
+        for d in subs[:-self.max_keep]:
+            shutil.rmtree(os.path.join(self.ckpt_dir, d), ignore_errors=True)
 
     def _device_batch(self, batch) -> Batch:
         return {k: torch.from_numpy(np.asarray(v)).to(self.device)
@@ -206,11 +252,19 @@ class SegTrainer:
                 if it % 50 == 0:
                     m = {k: float(v) for k, v in metrics.items()}
                     log.info("iter %d/%d %s", it, self.total_iters, m)
+                    if self.metrics_logger:
+                        self.metrics_logger.scalars(m, it, "train/")
                 if it % self.eval_every == 0:
                     self.evaluate(it)
+                if self.ckpt_dir and it % self.ckpt_every == 0:
+                    self._save_periodic(it)
         return it
 
-    def evaluate(self, it: int = 0) -> Dict[str, float]:
+    def evaluate(self, it: int = 0,
+                 save_best: bool = True) -> Dict[str, float]:
+        """mIoU / mDice / mFscore over `eval_data`. With a `ckpt_dir` and
+        `save_best`, a result at or above the best so far (>=, as JAX's)
+        writes `ckpt_dir/best/`."""
         model = self.model
 
         def fwd(x):
@@ -219,19 +273,32 @@ class SegTrainer:
 
         hist = np.zeros((4, self.num_classes), np.float64)
         with torch.inference_mode():
-            for batch in self.eval_data.batches(self.batch_size):
+            for bi, batch in enumerate(self.eval_data.batches(
+                    self.batch_size)):
                 b = self._device_batch(batch)
                 img = b["img"].float()
                 logits = (slide_inference(fwd, img, self.crop,
                                           self.stride or self.crop)
                           if self.crop is not None else fwd(img))
+                pred = logits.argmax(-1)
                 gt = b["gt_seg"]
                 if "valid" in b:   # padded tail samples count nothing
                     gt = torch.where(b["valid"][:, None, None] > 0, gt, 255)
-                counts = intersect_and_union(logits.argmax(-1), gt,
-                                             self.num_classes)
+                if bi == 0 and self.metrics_logger is not None:
+                    self.metrics_logger.prediction_table(
+                        it, batch["img"], batch["gt_seg"],
+                        pred.cpu().numpy())
+                counts = intersect_and_union(pred, gt, self.num_classes)
                 hist += torch.stack(counts).cpu().numpy()
         res = total_metrics(*hist)
         summary = {k: res[k] for k in ("aAcc", "mIoU", "mDice", "mFscore")}
         log.info("eval @%d: %s", it, summary)
+        if self.metrics_logger:
+            self.metrics_logger.scalars(summary, it, "eval/")
+        if self.ckpt_dir and save_best and res["mIoU"] >= self.best:
+            self.best = res["mIoU"]
+            ckpt_lib.save(os.path.join(self.ckpt_dir, "best"),
+                          self._payload(),
+                          meta={"step": self.optimizer.count,
+                                "best": self.best, **summary})
         return summary

@@ -11,18 +11,32 @@ path (TBSRN's fused-enhancer kernel, TSRN's fused GRU kernel when its
 when one is given. `StrokeSRTrainer` is Text Gestalt's trainer: the same
 loop with the stroke codec's labels. Everything runs eagerly on the
 model's device, one process, one device.
+
+The training feed reads, decodes and collates in `num_workers` forked
+processes (`data/workers.WorkerBatches`, the reference's DataLoader
+workers), and a thread encodes the labels and stages each batch one
+ahead (`data/prefetch.PrefetchIterator`: pinned memory, a side-stream
+copy), as the serving path does. With no workers all of it runs in the
+main thread before each step. JAX's feed runs the host work on a thread
+of its own; here that thread holds the GIL against the step's launches
+and ran slower than the main thread (chip_smoke.py phase 27a on an H100).
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
+from fudanocr_tpu_torch.core.logging import MetricsLogger
 from fudanocr_tpu_torch.data.codecs import SequenceCodec, english_stroke_codec
+from fudanocr_tpu_torch.data.image import resize_bicubic
+from fudanocr_tpu_torch.data.png import encode_png
+from fudanocr_tpu_torch.data.prefetch import PrefetchIterator
+from fudanocr_tpu_torch.data.workers import WorkerBatches
 from fudanocr_tpu_torch.eval.ctc import CTCLabelConverter, ctc_greedy_decode
 from fudanocr_tpu_torch.eval.metrics import psnr, sequence_accuracy, ssim
 from fudanocr_tpu_torch.losses.sr_losses import encode_text_labels
@@ -90,10 +104,13 @@ class SRTrainer:
 
     `train_data` and `eval_data` are objects with `.batches(batch_size)`
     yielding (hr, lr, labels): NHWC float numpy arrays in [0, 1] and a list
-    of strings. `eval_data` may be a dict of difficulty buckets
-    (easy/medium/hard); the best checkpoint then tracks the summed accuracy
-    (super_resolution.py:103-135). `model` comes initialised (e.g. from a
-    seed) and on its device; `seed` seeds the dropout generator.
+    of strings. With `num_workers`, `train_data` also has
+    `fetch_items(indices)` and `collate(items)` (the LMDB and synthetic
+    sets), and the workers fork with it. `eval_data` may be a dict of
+    difficulty buckets (easy/medium/hard); the best checkpoint then tracks
+    the summed accuracy (super_resolution.py:103-135). `model` comes
+    initialised (e.g. from a seed) and on its device; `seed` seeds the
+    dropout generator.
 
     With a text-focus loss the frozen oracle's HR attention map of each
     batch ordinal is computed once, in epoch 0, and reused from then on
@@ -106,7 +123,8 @@ class SRTrainer:
                  max_label_len: int = 32, ckpt_dir: Optional[str] = None,
                  recognizer: Optional[torch.nn.Module] = None,
                  converter: Optional[CTCLabelConverter] = None,
-                 seed: int = 1234):
+                 seed: int = 1234, log_dir: Optional[str] = None,
+                 num_workers: int = 0):
         self.model = model
         self.loss_fn = loss_fn
         self.train_data = train_data
@@ -116,6 +134,7 @@ class SRTrainer:
         self.eval_every = eval_every
         self.max_label_len = max_label_len
         self.ckpt_dir = ckpt_dir
+        self.num_workers = num_workers
         self.converter = converter
         self.device = next(model.parameters()).device
         self.generator = torch.Generator(self.device).manual_seed(seed)
@@ -131,6 +150,7 @@ class SRTrainer:
         self.hr_cache_cap_bytes = 4 << 30
         self.history = []
         self.best = {"acc": -1.0, "psnr": -1.0}
+        self.metrics_logger = MetricsLogger(log_dir) if log_dir else None
 
     def resume(self, ckpt_path: str) -> None:
         """Restore the model's weights and BatchNorm statistics from a
@@ -144,17 +164,49 @@ class SRTrainer:
         """Labels -> (text_input, text_gt, lengths) for the loss."""
         return encode_text_labels(labels, self.max_label_len)
 
-    def _device_batch(self, hr, lr, labels) -> Batch:
+    def _host_batch(self, hr, lr, labels) -> Dict[str, np.ndarray]:
+        """A collated batch with its labels encoded, as host arrays."""
         text_input, text_gt, lengths = self._encode(labels)
+        return {"hr": np.asarray(hr, np.float32),
+                "lr": np.asarray(lr, np.float32),
+                "text_input": np.asarray(text_input, np.int64),
+                "text_gt": np.asarray(text_gt, np.int64),
+                "lengths": np.asarray(lengths, np.int64)}
 
-        def dev(a, dtype):
-            return torch.as_tensor(np.asarray(a), dtype=dtype).to(
-                self.device, non_blocking=True)
+    def host_batches(self, data) -> Iterator[Dict[str, np.ndarray]]:
+        """`data`'s training batches as `_host_batch` makes them: read,
+        decoded and collated by `num_workers` forked processes, or in the
+        calling thread with none."""
+        if not self.num_workers:
+            batches = data.batches(self.batch_size)
+        elif getattr(data, "draws_in_read_order", False):
+            raise ValueError(f"{type(data).__name__} draws from one "
+                             "generator in read order; forked workers "
+                             "would each draw from a copy of it: train it "
+                             "with num_workers=0")
+        else:
+            # the workers fork with `data` (an LMDB store is a read-only
+            # mmap) and keep the batches in order
+            batches = WorkerBatches(lambda: data, self.batch_size,
+                                    num_workers=self.num_workers)
+        for hr, lr, labels in batches:
+            yield self._host_batch(hr, lr, labels)
 
-        return {"hr": dev(hr, torch.float32), "lr": dev(lr, torch.float32),
-                "text_input": dev(text_input, torch.int64),
-                "text_gt": dev(text_gt, torch.int64),
-                "lengths": dev(lengths, torch.int64)}
+    def feed(self, data) -> Iterator[Batch]:
+        """`data`'s training batches on the device: with `num_workers`,
+        `host_batches` on a thread that stages each batch one ahead; with
+        none, in the main thread before each step."""
+        if self.num_workers:
+            return PrefetchIterator(self.host_batches(data), self.device,
+                                    buffer_size=1)
+        return (self._to_device(b) for b in self.host_batches(data))
+
+    def _to_device(self, batch: Dict[str, np.ndarray]) -> Batch:
+        return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
+                for k, v in batch.items()}
+
+    def _device_batch(self, hr, lr, labels) -> Batch:
+        return self._to_device(self._host_batch(hr, lr, labels))
 
     def _hr_map(self, ordinal: int, batch: Batch) -> torch.Tensor:
         """The frozen oracle's HR attention map of the batch at this epoch
@@ -171,18 +223,53 @@ class SRTrainer:
 
     def train(self) -> None:
         for epoch in range(self.epochs):
-            for bi, (hr, lr, labels) in enumerate(
-                    self.train_data.batches(self.batch_size)):
-                batch = self._device_batch(hr, lr, labels)
-                if self._use_hr_cache:
-                    batch["hr_map"] = self._hr_map(bi, batch)
-                metrics = self.train_step(batch, self.generator)
-                self.step += 1
-                if self.step % 50 == 0:
-                    log.info("epoch %d iter %d %s", epoch, self.step,
-                             {k: float(v) for k, v in metrics.items()})
-                if self.step % self.eval_every == 0:
-                    self.evaluate(self.step)
+            batches = self.feed(self.train_data)
+            try:
+                for bi, batch in enumerate(batches):
+                    if self._use_hr_cache:
+                        batch["hr_map"] = self._hr_map(bi, batch)
+                    metrics = self.train_step(batch, self.generator)
+                    self.step += 1
+                    if self.step % 50 == 0:
+                        m = {k: float(v) for k, v in metrics.items()}
+                        log.info("epoch %d iter %d %s", epoch, self.step, m)
+                        if self.metrics_logger:
+                            self.metrics_logger.scalars(m, self.step,
+                                                        "train/")
+                    if self.step % self.eval_every == 0:
+                        self.evaluate(self.step)
+            finally:
+                batches.close()
+
+    def demo(self, out_dir: str, n_vis: int = 10) -> str:
+        """Write `n_vis` LR|SR|HR strips of `eval_data` (the LR bicubic-
+        upsampled to the HR size, the SR clipped to [0, 1]) as PNG files
+        "{i:03d}_{label}.png" to `out_dir` (the reference's --demo image
+        dumps, super_resolution.py:331-425)."""
+        os.makedirs(out_dir, exist_ok=True)
+        data = self.eval_data
+        if isinstance(data, dict):       # the first difficulty bucket
+            data = next(iter(data.values()))
+        written = 0
+        for hr, lr, labels in data.batches(self.batch_size):
+            batch = self._device_batch(hr, lr, labels)
+            out = self.eval_step(batch["lr"], batch["hr"])
+            sr = out["sr"].float().clamp(0, 1).cpu().numpy()
+            h, w = hr.shape[1], hr.shape[2]
+            for i in range(sr.shape[0]):
+                if written >= n_vis:
+                    return out_dir
+                lr_up = resize_bicubic(
+                    (lr[i, ..., :3] * 255).astype(np.uint8),
+                    (w, h)).astype(np.float32) / 255.0
+                strip = np.concatenate(
+                    [lr_up, sr[i, ..., :3], hr[i, ..., :3]], axis=1)
+                with open(os.path.join(out_dir,
+                                       f"{written:03d}_{labels[i]}.png"),
+                          "wb") as f:
+                    f.write(encode_png((strip * 255).astype(np.uint8)))
+                written += 1
+        return out_dir
 
     def _evaluate_one(self, data) -> Dict[str, float]:
         psnrs, ssims, preds, gts = [], [], [], []
@@ -220,6 +307,8 @@ class SRTrainer:
             res = self._evaluate_one(self.eval_data)
         self.history.append({"iter": it, **res})
         log.info("eval @%d: %s", it, res)
+        if self.metrics_logger:
+            self.metrics_logger.scalars(res, it, "eval/")
         if self.ckpt_dir and res.get("acc", res.get("psnr", 0.0)) >= \
                 self.best.get("acc", -1.0):
             self.best = res

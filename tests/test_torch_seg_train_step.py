@@ -16,7 +16,7 @@ def test_train_step_matches_jax(det):
     train_step_parity(det)
 
 
-def test_seg_trainer_trains_and_evaluates_on_the_model_device():
+def test_seg_trainer_trains_and_evaluates_on_the_model_device(tmp_path):
     model = _port_model(det=True)
     trainer = pseg.SegTrainer(model, _Blobs(4, 11), _Blobs(3, 12),
                               batch_size=2, total_iters=3, eval_every=10 ** 9,
@@ -45,5 +45,8 @@ def test_seg_trainer_trains_and_evaluates_on_the_model_device():
     g = lambda it: torch.rand(4, generator=pseg.iteration_generator(3, it,
                                                                     "cpu"))
     assert torch.equal(g(2), g(2)) and not torch.equal(g(1), g(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        pseg.SegTrainer(model, _Blobs(2, 1), _Blobs(2, 2), ckpt_dir="ckpt")
+    # a ckpt_dir is taken (checkpoints are ported); by default it is
+    # written every eval_every iterations
+    t = pseg.SegTrainer(model, _Blobs(2, 1), _Blobs(2, 2), eval_every=5,
+                        ckpt_dir=str(tmp_path / "ckpt"))
+    assert (t.ckpt_every, t.best, t.start_iter) == (5, -1.0, 0)
