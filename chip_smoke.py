@@ -241,7 +241,31 @@ Phases:
      launches per step, slide evaluation, `iter_4/` and `best/` written;
      then `--auto-resume` to 6 iterations starts at 4 and takes 2 steps;
      the iteration's ms against phase 16's, the host pipeline's ms per
-     sample and the device busy share of the resumed run.
+     sample and the device busy share of the resumed run;
+ 29. the seg models in bf16 (`dtype=torch.bfloat16` in backbone and head,
+     as the JAX package's bench_seg.py builds them): (a) B7 and B6 at the
+     bf16 steps' shapes (the det recipe's four levels at batch 2, the
+     plain recipe's three kernel stages at batch 8): the inference
+     forward, the STATS (training) forward and the backward against their
+     plain twins, beside SDPA in bf16 (B6 with the float mask), with the
+     bf16 bound and the fp32 kernel's split-TF32 bound beside it; (b) one
+     bf16 train step per recipe (phase 14's, as they are) against the
+     bf16 plain step (loss rel 1e-2; gradients 5e-2 norm-relative and
+     within the plain bf16 step's distance from the fp32 plain step),
+     launches per step by counter and, from a profiled step, by kernel
+     name and template (the bf16 STATS forward unmasked and MASKED, the
+     backward's dq, dkv and reduce), the busy share, and ms / img/s beside
+     the fp32 kernel-path step in turns;
+ 30. bf16 seg inference against the bf16 plain path (logits max 1e-2,
+     mean 1e-3 and within twice the plain path's distance from the fp32
+     path; class maps equal where the margin exceeds twice the measured
+     error): slide over phase 8's canvas, whole 512x1024 and 2048² (B5),
+     det-guided slide over phase 11's canvas; `apps.seg.test` with and
+     without `--tta` on seeded photos and a checkpoint of the weights with
+     the classifier's bias set so that both classes are predicted (fp32:
+     the app has no dtype), its metrics against kernels=False's within
+     1e-4, and TTA moving them by more; bf16 `tta_inference` over slide on
+     the first photo (probabilities max 5e-4).
 
 Phases 8 and 11 end with a torch.profiler breakdown of one more canvas
 (device time by name, the device's busy time against the wall time).
@@ -366,6 +390,20 @@ TRAIN_BATCHES, EPOCHS, EVAL_BATCHES = 4, 8, 2
 SEG_CONFIG = "configs/seg/textformer_b0_textseg.yaml"
 SEG_CROP, SEG_STRIDE = (1024, 1024), (768, 768)
 SEG_ATOL = 1e-4   # logits, kernel path vs kernels=False, fp32
+# phase 30, bf16 kernel path vs the bf16 plain path, about 2.5-4x the
+# largest reading of PR 18's sound runs (NVIDIA H100 80GB HBM3, 700 W):
+# logits max 1.465e-3 .. 3.662e-3 and mean 1.780e-4 .. 3.953e-4 over the
+# slide, whole and det slide canvases (|logits| up to 0.209), TTA
+# probabilities max 1.219e-4; each path also within twice the bf16 plain
+# path's own distance from the fp32 path, as the CPU tests hold the port
+# to JAX (that distance is a few bf16 ulps of the logits too: max
+# 1.79e-3 .. 1.87e-3, mean 2.95e-4 .. 3.98e-4 in the same runs)
+SEG_BF16_ATOL, SEG_BF16_MEAN, SEG_TTA_ATOL = 1e-2, 1e-3, 5e-4
+# phase 30, apps.seg.test's metrics, fp32 kernel path vs kernels=False: a
+# class flipped at a near-tie pixel moves a metric by ~1 / 1.5e6 over the
+# two photos; the bar admits ~150 such flips, and TTA itself must move
+# the metrics by more than the bar
+SEG_METRIC_ATOL = 1e-4
 # B7 on the slide recipe's 1024² crops at batch 3: (B, Lq, Lkv, D, heads)
 B7_SHAPES = ((3, 65536, 1024, 32, 1), (3, 16384, 1024, 64, 2),
              (3, 4096, 1024, 160, 5), (3, 1024, 1024, 256, 8))
@@ -1288,8 +1326,9 @@ def phase7(dev, gpu: str) -> tuple:
                             **bd, "library_ms": lib_ms}
             del q, k, v
         torch.cuda.empty_cache()
-    # the JSON rows: the largest call of each route, fp32
-    return b7[(65536, torch.float32)], b5[(262144, torch.float32)]
+    # the JSON rows: the largest call of each route, fp32 and bf16
+    return (b7[(65536, torch.float32)], b5[(262144, torch.float32)],
+            b7[(65536, torch.bfloat16)], b5[(262144, torch.bfloat16)])
 
 
 def seg_counts() -> tuple:
@@ -1315,9 +1354,12 @@ def seg_models(dev):
 
 
 def seg_run(phase: str, model, plain, img: np.ndarray, crop, stride,
-            want_counts: tuple, gpu: str) -> tuple:
-    """One `inference_segmentor` call per path, checked; returns the
-    launch counts of the kernel path's call."""
+            want_counts: tuple, gpu: str, atol: float = SEG_ATOL,
+            mean_bar=None, what: str = "fp32", ref32=None) -> tuple:
+    """One `inference_segmentor` call per path, checked (logits within
+    `atol`, and in mean within `mean_bar` where given; with an fp32
+    `ref32` model, also within twice the plain path's distance from it, in
+    max and mean); returns the launch counts of the kernel path's call."""
     run = lambda m: inference_segmentor(m, img, crop, stride,
                                         return_logits=True)
     run(plain)                       # warm-up: kernel build, cuDNN plans
@@ -1340,14 +1382,24 @@ def seg_run(phase: str, model, plain, img: np.ndarray, crop, stride,
             logits).all():
         raise AssertionError(f"{phase}: logits {tuple(logits.shape)} or not "
                              "finite")
-    err = (logits - logits_p).abs().max().item()
+    diff = (logits - logits_p).abs()
+    err, mean_err = diff.max().item(), diff.mean().item()
+    far = (float("inf"), float("inf"))
+    if ref32 is not None:
+        d32 = (logits_p - run(ref32)[1]).abs()
+        far = (2 * d32.max().item(), 2 * d32.mean().item())
+        del d32
+        print(f"phase {phase}: {h}x{w} {mode} {what}: the plain path's "
+              f"distance from the fp32 path max {far[0] / 2:.3e}, mean "
+              f"{far[1] / 2:.3e}; the kernel path's from the plain path must "
+              "stay within twice it")
     tol = max(2 * err, 1e-6)
     sure = (top2_margin(logits_p[0]) > tol).cpu().numpy()
     same = seg == seg_p
-    print(f"phase {phase}: {h}x{w} {mode}: launches (region B6, packed B7, "
-          f"head-major B5) {counts} (expected {want_counts}); logits vs "
-          f"kernels=False "
-          f"max abs err {err:.3e} (bar {SEG_ATOL}), |logits| max "
+    print(f"phase {phase}: {h}x{w} {mode} {what}: launches (region B6, "
+          f"packed B7, head-major B5) {counts} (expected {want_counts}); "
+          f"logits vs kernels=False max abs err {err:.3e} (bar {atol}), "
+          f"mean {mean_err:.3e} (bar {mean_bar}), |logits| max "
           f"{logits_p.abs().max().item():.3f}; class maps equal at "
           f"{int(same.sum())} of {same.size} pixels and at all "
           f"{int(sure.sum())} whose top-2 margin exceeds {tol:.3e}: "
@@ -1355,11 +1407,13 @@ def seg_run(phase: str, model, plain, img: np.ndarray, crop, stride,
     if counts != want_counts:
         raise AssertionError(f"{phase}: the run did not launch the expected "
                              "attention kernels")
-    if err > SEG_ATOL or not same[sure].all():
+    if (err > atol or not same[sure].all() or err > far[0]
+            or mean_err > far[1]
+            or (mean_bar is not None and mean_err > mean_bar)):
         raise AssertionError(f"{phase}: kernel path disagrees with "
                              "kernels=False")
     k_ms, p_ms = in_turns(lambda: run(model), lambda: run(plain), 3)
-    print(f"phase {phase}: {h}x{w} {mode} fp32, per canvas: kernel path "
+    print(f"phase {phase}: {h}x{w} {mode} {what}, per canvas: kernel path "
           f"{k_ms:.3f} ms ({1e3 / k_ms:.3f} canvases/s, peak "
           f"{peak_k:.2f} GiB), plain path {p_ms:.3f} ms "
           f"({1e3 / p_ms:.3f} canvases/s, peak {peak_p:.2f} GiB) [{gpu}]")
@@ -1490,7 +1544,9 @@ def phase10(dev, gpu: str) -> dict:
                             **bd, "library_ms": lib_ms}
             del q, k, v, qh, kh, vh, mask, got, full, free, mean_v
         torch.cuda.empty_cache()
-    return b6[(B6_SHAPES[0][1], torch.float32)]   # level 0, fp32
+    # level 0, fp32 and bf16
+    return (b6[(B6_SHAPES[0][1], torch.float32)],
+            b6[(B6_SHAPES[0][1], torch.bfloat16)])
 
 
 def det_models(dev):
@@ -1528,7 +1584,8 @@ def maps_ok(text: torch.Tensor, inst: torch.Tensor) -> list:
     return out
 
 
-def nontrivial_text_maps(model, plain, inputs: list) -> list:
+def nontrivial_text_maps(model, plain, inputs: list,
+                         phase: str = "11") -> list:
     """Make every image's text map neither all 0 nor all 1, with at least
     2 instances: keep the seeded weights if they do, else redraw `det_cls`
     from the next seed (at most 8)."""
@@ -1536,7 +1593,7 @@ def nontrivial_text_maps(model, plain, inputs: list) -> list:
     for attempt in range(8):
         stats = [maps_ok(*det_maps(model, x)) for x in inputs]
         if all(s is not None for st in stats for s in st):
-            print(f"phase 11: text maps non-trivial with "
+            print(f"phase {phase}: text maps non-trivial with "
                   + ("the seeded weights" if attempt == 0 else
                      f"det_cls redrawn from seed {SEED + 110 + attempt - 1}")
                   + f": (text share, instances) per image {stats}")
@@ -1627,7 +1684,7 @@ def bwd_bound(b: int, h: int, lq: int, lk: int, dh: int, dt) -> dict:
 
 
 def bwd_check(q, k, v, do, ids, heads: int, dt, gpu: str,
-              names: bool = False) -> dict:
+              names: bool = False, phase: str = "13") -> dict:
     """The training forward and the backward kernel on strided packed
     operands (as the model gives them) against the plain backward; the
     fully suppressed rows' dq on their own; kernel, plain and SDPA-backward
@@ -1649,9 +1706,9 @@ def bwd_check(q, k, v, do, ids, heads: int, dt, gpu: str,
         plain = lambda: ra.region_flash_mha_bwd_reference(q, k, v, *ids, do,
                                                           heads)
     if names:
-        attn_kernel_name("13", f"{name} training forward", fwd, dt,
+        attn_kernel_name(phase, f"{name} training forward", fwd, dt,
                          "attn_fwd_kernel")
-        kernel_names("13", f"{name} backward", bwd, dt, "attn_bwd",
+        kernel_names(phase, f"{name} backward", bwd, dt, "attn_bwd",
                      BWD_KERNELS[dt])
     got, want = bwd(), plain()
     torch.cuda.synchronize()
@@ -1688,8 +1745,8 @@ def bwd_check(q, k, v, do, ids, heads: int, dt, gpu: str,
     lib_ms = cuda_ms(sdpa, 3)
     bd = bwd_bound(b, heads, lq, lk, dh, dt)
     short = short_note(bwd, sdpa, k_ms, dt)
-    print(f"phase 13: {name} backward q ({b}, {lq}, {d}), k/v ({b}, {lk}, "
-          f"{d}), {heads} heads, {dt}: dq/dk/dv rel err "
+    print(f"phase {phase}: {name} backward q ({b}, {lq}, {d}), k/v ({b}, "
+          f"{lk}, {d}), {heads} heads, {dt}: dq/dk/dv rel err "
           f"{rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e}, max abs {err:.3e}"
           f"{full_note}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
           f"backward {lib_ms:.4f} ms, {bound_note(bd)}{short}; training "
@@ -3675,11 +3732,404 @@ def phase28(dev, gpu: str, step16_ms=None) -> None:
               f"{100 * prof['busy_ms'] / prof['wall_ms']:.1f} % [{gpu}]")
 
 
+# -- phases 29-30: the seg models in bf16 ------------------------------------
+
+BF16 = torch.bfloat16
+# the bf16 steps' attention calls (B, Lq, Lkv, D, heads, level side, sr,
+# region-masked): the det recipe's four levels at batch 2 (B7 and B6), then
+# the plain recipe's three kernel stages at batch 8 (B7)
+STEP_ATTN_SHAPES = tuple(
+    shape + (masked,) for shape in BWD_SHAPES[:4]
+    for masked in (False, True)) + (
+    (8, 16384, 256, 32, 1, 128, 8, False), (8, 4096, 256, 64, 2, 64, 4, False),
+    (8, 1024, 256, 160, 5, 32, 2, False))
+
+
+def bf16_segmentor(cfg, kernels: bool = True):
+    """The config's segmentor with `dtype=torch.bfloat16` in its backbone
+    and head, as the JAX package's bench_seg.py builds them, in eval mode
+    on the CPU."""
+    from fudanocr_tpu_torch.apps.seg.inference import (backbone_kwargs,
+                                                       is_det_guided)
+    from fudanocr_tpu_torch.models.seg import (CascadeMiT,
+                                               CascadeMiTDetGuided,
+                                               DetGuidedEncoderDecoder,
+                                               EncoderDecoder, SegformerHead)
+
+    kw = backbone_kwargs(cfg)
+    det = is_det_guided(cfg)
+    backbone = (CascadeMiTDetGuided if det else CascadeMiT)(
+        **kw, kernels=kernels,
+        drop_path_rate=cfg.model.backbone.get("drop_path_rate", 0.1),
+        dtype=BF16)
+    d, nh, h = kw["embed_dims"], kw["num_heads"], cfg.model.decode_head
+    head = SegformerHead([d * n for n in (1,) + tuple(nh[1:])],
+                         h.num_classes, h.channels,
+                         h.get("dropout_ratio", 0.1), dtype=BF16)
+    return (DetGuidedEncoderDecoder if det else EncoderDecoder)(
+        backbone, head).eval()
+
+
+def seg_twins(config: str, seed: int, dev) -> tuple:
+    """(fp32 kernel-path segmentor, bf16 kernel path, bf16 plain path,
+    config), one seeded set of weights with non-trivial BN and LN
+    statistics, on `dev`."""
+    fp, cfg = init_segmentor(config, device="cpu", seed=seed)
+    randomize_stats(fp, torch.Generator().manual_seed(seed))
+    twins = [bf16_segmentor(cfg, kernels) for kernels in (True, False)]
+    for m in twins:
+        m.load_state_dict(fp.state_dict())
+    return (fp.to(dev), *(m.to(dev) for m in twins), cfg)
+
+
+def attn_template_args(key: str) -> tuple:
+    """(kernel name, template arguments) of a profiler kernel key."""
+    key = re.sub(r"^void |\(anonymous namespace\)::", "", key)
+    name = re.split(r"[<(]", key)[0]
+    m = re.match(r"[^<(]*<([^>]*)>", key)
+    args = tuple(a.strip() for a in m.group(1).split(",")) if m else ()
+    return name, args
+
+
+def bf16_step_launches(rows) -> dict:
+    """Launches of csrc/unmasked_attention.cu's bf16 training kernels in a
+    profiled step, by role: the STATS forward unmasked and MASKED
+    (`attn_fwd_kernel<bf16, float, DH, MASKED, STATS=true>`) and the
+    backward's dq, dkv (unmasked, MASKED) and reduce."""
+    out = {}
+    for e in rows:
+        name, args = attn_template_args(e.key)
+        if not name.startswith("attn_") or not args \
+                or "bfloat16" not in args[0]:
+            continue
+        if name == "attn_fwd_kernel" and args[-1] == "true":
+            kind = "masked" if args[-2] == "true" else "plain"
+            role = f"stats_fwd_{kind}"
+        elif name in ("attn_bwd_dq_kernel", "attn_bwd_dkv_kernel"):
+            kind = "masked" if args[-1] == "true" else "plain"
+            role = f"{name[len('attn_bwd_'):-len('_kernel')]}_{kind}"
+        elif name == "attn_bwd_reduce_kernel":
+            role = "reduce"
+        else:
+            role = f"other {name}<{', '.join(args)}>"
+        out[role] = out.get(role, 0) + e.count
+    return out
+
+
+def bf16_step_recipe(config: str, want: tuple, dev, gpu: str) -> tuple:
+    """Phase 29 for one recipe: the bf16 step against the bf16 plain step
+    and the fp32 plain step, its launches (counters and profiler names),
+    ms and img/s beside the fp32 kernel step; returns (launches, bf16 ms,
+    fp32 ms)."""
+    fp, model, plain, cfg = seg_twins(config, SEED + 29, dev)
+    ref, _ = init_segmentor(config, device="cpu", kernels=False)
+    ref = ref.to(dev)
+    init = {k: v.clone() for k, v in fp.state_dict().items()}
+    ref.load_state_dict(init)
+    side, bs = cfg.data.crop_size[0], cfg.data.batch_size
+    det = bool(cfg.model.get("det_guided", False))
+    tag = f"{config.split('/')[-1]} ({side}², batch {bs})"
+    batch = device_batch(next(SeededTextSeg(bs, side, SEED + 290, det)
+                              .batches(bs)), dev)
+    steps = [recipe_step(m, cfg)[1] for m in (model, plain, ref)]
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.synchronize()
+    reset_train_seg_counts()
+    out = [steps[0](batch, torch.Generator(dev).manual_seed(7))]
+    torch.cuda.synchronize()
+    counts = train_seg_counts()
+    out += [st(batch, torch.Generator(dev).manual_seed(7))
+            for st in steps[1:]]
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    lk, lp, lr32 = (o["loss"].item() for o in out)
+    loss_rel, loss_bf16 = abs(lk - lp) / abs(lp), abs(lp - lr32) / abs(lr32)
+    grel, worst, worst_name = grad_distance(model, plain)
+    grel_bf16, worst_bf16, _ = grad_distance(plain, ref)
+    print(f"phase 29: {tag}: one bf16 train step, kernel path "
+          f"{ {k: round(v.item(), 6) for k, v in out[0].items()} }; loss "
+          f"plain bf16 {lp:.6f} (rel {loss_rel:.3e}, bar "
+          f"{BF16_STEP_LOSS_REL}), plain fp32 {lr32:.6f} (bf16 vs fp32 rel "
+          f"{loss_bf16:.3e}); gradients kernel vs plain bf16 {grel:.3e} "
+          f"norm-relative (bar {BF16_STEP_GRAD_REL} and the plain bf16 "
+          f"step's distance from fp32, {grel_bf16:.3e}), worst tensor "
+          f"{worst:.3e} ({worst_name}; plain bf16 vs fp32 worst "
+          f"{worst_bf16:.3e}); launches (B7 fwd, B7 bwd, B6 fwd, B6 bwd) "
+          f"{counts} (expected {want}) [{gpu}]")
+    if not all(np.isfinite(v.item()) for v in out[0].values()):
+        raise AssertionError(f"phase 29 {tag}: metrics are not finite")
+    if loss_rel > BF16_STEP_LOSS_REL or grel > min(BF16_STEP_GRAD_REL,
+                                                   grel_bf16):
+        raise AssertionError(f"phase 29 {tag}: the bf16 kernel path step "
+                             "disagrees with the bf16 plain step")
+    if counts != want:
+        raise AssertionError(f"phase 29 {tag}: the bf16 step did not launch "
+                             "the expected attention kernels")
+    del ref, plain, steps, out
+    torch.cuda.empty_cache()
+
+    # launches by kernel name and the busy share of one profiled step; ms
+    # and img/s beside the fp32 kernel-path step, in turns
+    model.load_state_dict(init)
+    fp.load_state_dict(init)
+    _, step_k = recipe_step(model, cfg)
+    _, step_f = recipe_step(fp, cfg)
+    gk, gf = (torch.Generator(dev).manual_seed(9) for _ in range(2))
+    rows, busy = profile_step(step_k, batch, gk, gpu, f"phase 29: {tag} bf16")
+    by_role = bf16_step_launches(rows)
+    attn_dev = sum(e.device_time_total for e in rows
+                   if attn_template_args(e.key)[0].startswith("attn_")) / 1e3
+    b7f, b7b, b6f, b6b = want
+    want_roles = {"stats_fwd_plain": b7f, "dq_plain": b7b, "dkv_plain": b7b,
+                  "reduce": b7b + b6b}
+    if b6f:
+        want_roles.update(stats_fwd_masked=b6f, dq_masked=b6b,
+                          dkv_masked=b6b)
+    print(f"phase 29: {tag}: bf16 launches per step by kernel (profiler "
+          f"names of csrc/unmasked_attention.cu): {by_role} (expected "
+          f"{want_roles}); attention {attn_dev:.3f} ms of {busy:.3f} ms "
+          f"device time [{gpu}]")
+    if by_role != want_roles:
+        raise AssertionError(f"phase 29 {tag}: the profiled bf16 step ran "
+                             f"{by_role}, want {want_roles}")
+    rows_f, busy_f = profile_step(step_f, batch, gf, gpu,
+                                  f"phase 29: {tag} fp32")
+    k_ms, f_ms = in_turns(lambda: step_k(batch, gk),
+                          lambda: step_f(batch, gf), 2)
+    launches = [sum(e.count for e in r) for r in (rows, rows_f)]
+    print(f"phase 29: {tag}: train step bf16 {k_ms:.3f} ms "
+          f"({bs * 1e3 / k_ms:.2f} img/s, device {busy:.3f} ms in "
+          f"{launches[0]} launches, busy {100 * busy / k_ms:.1f} % of the "
+          f"unprofiled step), fp32 {f_ms:.3f} ms ({bs * 1e3 / f_ms:.2f} "
+          f"img/s, device {busy_f:.3f} ms in {launches[1]} launches, busy "
+          f"{100 * busy_f / f_ms:.1f} %), bf16 / fp32 {k_ms / f_ms:.3f} "
+          f"[{gpu}]")
+    del model, fp, batch
+    torch.cuda.empty_cache()
+    return counts, k_ms, f_ms
+
+
+def bf16_step_kernels(dev, gpu: str) -> dict:
+    """B7 and B6 in bf16 at the bf16 steps' shapes: the inference forward
+    (B7 on the tensor cores, B6 MASKED on the CUDA cores), the STATS
+    forward and the backward, each against its plain twin and beside SDPA
+    in bf16 (B6 with the float mask), with the bf16 bound (989 TFLOP/s)
+    and the fp32 kernel's split-TF32 bound beside it."""
+    gen = torch.Generator().manual_seed(SEED + 291)
+    regions = blob_regions(dev)[1:]
+    rows = {}
+    for b, lq, lk, d, heads, side, sr, masked in STEP_ATTN_SHAPES:
+        q, k, v = _attn_operands(gen, dev, BF16, b, lq, lk, d)
+        dh = d // heads
+        ids = mask = None
+        if masked:
+            ids = tuple(r.contiguous() for r in
+                        region_vectors(regions, (side, side), sr))
+            name = "region (B6)"
+            kern = lambda: ra.region_flash_mha(q, k, v, *ids, heads)
+            stats = lambda: ra.region_packed_fwd(q, k, v, *ids, heads,
+                                                 stats=True)
+            plain = lambda: ra.region_flash_mha_reference(q, k, v, *ids,
+                                                          heads)
+            mask = ra.region_mask(*ids)[:, None].to(BF16)
+        else:
+            name = "packed (B7)"
+            kern = lambda: ra.packed_flash_mha(q, k, v, heads)
+            stats = lambda: ra.unmasked_packed_fwd(q, k, v, heads,
+                                                   stats=True)
+            plain = lambda: ra.packed_flash_mha_reference(q, k, v, heads)
+        want = plain()
+        err = _attn_check(name, kern(), want, BF16)
+        err_s = _attn_check(f"{name} STATS", stats()[0], want, BF16)
+        k_ms, p_ms = in_turns(kern, plain, 3)
+        s_ms = cuda_ms(stats, 3)
+        qh, kh, vh = (t.unflatten(-1, (heads, dh)).transpose(1, 2)
+                      for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=mask)
+        lib_ms = cuda_ms(sdpa, 3)
+        extra = 4 * b * (lq + lk) if masked else 0
+        bd = attn_bound(b, heads, lq, lk, dh, BF16, extra_bytes=extra)
+        bd32 = attn_bound(b, heads, lq, lk, dh, torch.float32,
+                          extra_bytes=extra)
+        bwd16, bwd32 = (bwd_bound(b, heads, lq, lk, dh, dt)
+                        for dt in (BF16, torch.float32))
+        print(f"phase 29: {name} forward q ({b}, {lq}, {d}), k/v ({b}, {lk},"
+              f" {d}), {heads} heads, bf16: max abs err {err:.3e}, STATS "
+              f"{err_s:.3e}; kernel {k_ms:.4f} ms, STATS forward "
+              f"{s_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
+              f"{'with the float mask ' if masked else ''}{lib_ms:.4f} ms, "
+              f"{bound_note(bd)}; the fp32 kernel's {bound_note(bd32)}; "
+              f"backward {bound_note(bwd16)}, the fp32 kernel's "
+              f"{bound_note(bwd32)} [{gpu}]")
+        rows[("fwd", masked, lq, b)] = {
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **bd,
+            "library_ms": lib_ms}
+        rows[("stats", masked, lq, b)] = {
+            "max_abs_err": err_s, "ms": s_ms, "plain_ms": p_ms, **bd,
+            "library_ms": lib_ms}
+        do = torch.randn(b, lq, d, generator=gen).to(dev, BF16)
+        rows[("bwd", masked, lq, b)] = bwd_check(
+            q, k, v, do, ids, heads, BF16, gpu, names=lq == 65536,
+            phase="29")
+        del q, k, v, do, qh, kh, vh, mask, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase29(dev, gpu: str) -> dict:
+    rows = bf16_step_kernels(dev, gpu)
+    out = {}
+    for config, want in TRAIN_RECIPES:
+        out[config] = bf16_step_recipe(config, want, dev, gpu)
+    lvl0 = lambda kind, masked: rows[(kind, masked, 65536, 2)]
+    return {"launches": out[DET_CONFIG][0],
+            "stats_plain": lvl0("stats", False),
+            "stats_masked": lvl0("stats", True),
+            "bwd_plain": lvl0("bwd", False), "bwd_masked": lvl0("bwd", True)}
+
+
+def phase30(dev, gpu: str) -> dict:
+    """bf16 seg inference: slide, whole image, det-guided slide and TTA
+    through apps.seg.test, each against the bf16 plain path."""
+    from fudanocr_tpu_torch.apps.seg import test as seg_test
+    from fudanocr_tpu_torch.apps.seg.test import TTA_SCALES
+    from fudanocr_tpu_torch.apps.seg.train import build_data
+    from fudanocr_tpu_torch.core import checkpoint as ckpt_lib
+    from fudanocr_tpu_torch.core.config import (load_config,
+                                                merge_cli_overrides)
+    from fudanocr_tpu_torch.models.seg import slide_inference, tta_inference
+
+    launches = {}
+    fp, model, plain, _ = seg_twins(SEG_CONFIG, SEED + 30, dev)
+    bars = dict(atol=SEG_BF16_ATOL, mean_bar=SEG_BF16_MEAN, what="bf16",
+                ref32=fp)
+    img = np.random.default_rng(SEED + 80).integers(0, 256, (1024, 2048, 3),
+                                                    dtype=np.uint8)
+    launches["slide"] = seg_run("30", model, plain, img, SEG_CROP,
+                                SEG_STRIDE, (0, 8, 0), gpu, **bars)
+    for (h, w), want in (((512, 1024), (0, 6, 2)),
+                         ((2048, 2048), (0, 0, 8))):
+        whole = np.random.default_rng(SEED + 90 + h).integers(
+            0, 256, (h, w, 3), dtype=np.uint8)
+        launches[(h, w)] = seg_run("30", model, plain, whole, None, None,
+                                   want, gpu, **bars)
+        torch.cuda.empty_cache()
+
+    # apps.seg.test (fp32: the app has no dtype) on seeded photos, from a
+    # checkpoint of these weights whose classifier bias centres the first
+    # photo's median logit margin, so that both classes are predicted;
+    # each metric against the kernels=False model's (init_segmentor on the
+    # same checkpoint) through the app's own evaluation, with and without
+    # TTA. Then tta_inference of the bf16 model over slide against the bf16
+    # plain path on that photo
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seg_test_") as tmp:
+        seg_app_photos(os.path.join(tmp, "val"), SEG_APP_VAL_SHAPES,
+                       SEED + 300)
+        opts = ["--options"] + [f"data.{k}={tmp}/val/{d}" for k, d in (
+            ("img_dir", "img"), ("ann_dir", "ann"), ("val_img_dir", "img"),
+            ("val_ann_dir", "ann"))]
+        cfg = merge_cli_overrides(load_config(SEG_CONFIG), opts[1:])
+        eval_data = build_data(cfg, train=False)
+        x = torch.from_numpy(next(eval_data.batches(1))["img"]).to(dev)
+        with torch.inference_mode():
+            margin = fp(x).diff(dim=-1).median().item()
+        sd = {k: v.clone() for k, v in fp.state_dict().items()}
+        sd["decode_head.conv_seg.bias"][1] -= margin
+        ckpt = os.path.join(tmp, "best")
+        ckpt_lib.save(ckpt, {"state_dict": sd}, {"step": 0})
+        plain32, _ = init_segmentor(SEG_CONFIG, device=dev, kernels=False,
+                                    checkpoint=ckpt)
+        with torch.inference_mode():
+            share = plain32(x).argmax(-1).float().mean().item()
+        argv = [SEG_CONFIG, "--checkpoint", ckpt] + opts
+        torch.cuda.synchronize()
+        reset_seg_counts()
+        t0 = time.perf_counter()
+        res_tta = seg_test.main(argv + ["--tta"])
+        torch.cuda.synchronize()
+        tta_s = time.perf_counter() - t0
+        tta_counts = seg_counts()
+        res = seg_test.main(argv)
+        want_tta = seg_test.tta_metrics(plain32, eval_data, cfg)
+        want = SegTrainer(plain32, eval_data, eval_data,
+                          num_classes=cfg.model.decode_head.num_classes,
+                          batch_size=cfg.data.batch_size, total_iters=1,
+                          eval_every=10 ** 9).evaluate(0, save_best=False)
+    del plain32
+    keys = ("aAcc", "mIoU", "mDice", "mFscore")
+    gap = max(abs(got[k] - ref[k]) for got, ref in ((res, want),
+                                                    (res_tta, want_tta))
+              for k in keys)
+    tta_moves = max(abs(res_tta[k] - res[k]) for k in keys)
+    print(f"phase 30: apps.seg.test --checkpoint over "
+          f"{len(SEG_APP_VAL_SHAPES)} photos (fp32; text share {share:.4f} "
+          f"on the first): {res}; with --tta (scales {TTA_SCALES} x flip, "
+          f"each through slide): {res_tta} in {tta_s:.3f} s, launches (B6, "
+          f"B7, B5) {tta_counts}; kernels=False: {want}, with TTA "
+          f"{want_tta}; largest metric gap {gap:.3e} (bar "
+          f"{SEG_METRIC_ATOL}), TTA moves a metric by {tta_moves:.3e} [{gpu}]")
+    if not 0.3 < share < 0.7:
+        raise AssertionError(f"phase 30: the app's weights predict text at "
+                             f"{share:.4f} of the first photo")
+    if any(set(r) != set(keys) or not all(0.0 <= v <= 1.0
+                                          for v in r.values())
+           for r in (res, res_tta)):
+        raise AssertionError(f"phase 30: apps.seg.test gave {res}, {res_tta}")
+    if gap > SEG_METRIC_ATOL or tta_moves <= SEG_METRIC_ATOL:
+        raise AssertionError("phase 30: apps.seg.test on the kernel path "
+                             "disagrees with kernels=False, or --tta changed "
+                             "nothing")
+    if tta_counts[1] == 0:
+        raise AssertionError("phase 30: TTA ran no packed attention")
+
+    def tta(m):
+        with torch.inference_mode():
+            return tta_inference(
+                lambda t: slide_inference(m, t, SEG_CROP, SEG_STRIDE), x,
+                TTA_SCALES)
+
+    pk, pp = tta(model), tta(plain)
+    err = (pk - pp).abs().max().item()
+    sure = (top2_margin(pp[0]) > 2 * err).cpu()
+    same = (pk.argmax(-1) == pp.argmax(-1))[0].cpu()
+    k_ms, p_ms = in_turns(lambda: tta(model), lambda: tta(plain), 1)
+    print(f"phase 30: tta_inference over slide, {tuple(x.shape[1:3])} photo, "
+          f"bf16: probabilities vs kernels=False max abs err {err:.3e} (bar "
+          f"{SEG_TTA_ATOL}); class maps equal at all {int(sure.sum())} "
+          f"pixels whose top-2 margin exceeds {2 * err:.3e}: "
+          f"{bool(same[sure].all())}; kernel path {k_ms:.3f} ms, plain "
+          f"{p_ms:.3f} ms [{gpu}]")
+    if err > SEG_TTA_ATOL or not same[sure].all():
+        raise AssertionError("phase 30: bf16 TTA disagrees with kernels=False")
+    del fp, model, plain, x, pk, pp
+    torch.cuda.empty_cache()
+
+    # the det-guided model: slide on the 1024x2048 canvas
+    fp, model, plain, _ = seg_twins(DET_CONFIG, SEED + 31, dev)
+    det_img = np.random.default_rng(SEED + 110).integers(
+        0, 256, (*DET_SLIDE_HW, 3), dtype=np.uint8)
+    xd = normalized(det_img, dev)
+    ch, cw, pos = crop_grid(*DET_SLIDE_HW, SEG_CROP, SEG_STRIDE)
+    crops = torch.cat([xd[:, y:y + ch, c:c + cw] for y, c in pos])
+    nontrivial_text_maps(model, plain, [crops], phase="30")
+    if not torch.equal(det_maps(model, crops)[1], det_maps(plain, crops)[1]):
+        raise AssertionError("phase 30: the bf16 instance maps of the kernel "
+                             "and plain paths differ")
+    del xd, crops
+    launches["det_slide"] = seg_run("30", model, plain, det_img, SEG_CROP,
+                                    SEG_STRIDE, DET_SLIDE_LAUNCHES, gpu,
+                                    **dict(bars, ref32=fp))
+    del fp, model, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
 STANDALONE = {"1": phase1, "4": phase4, "5": phase5, "6": phase6,
               "7": phase7, "10": phase10, "13": phase13, "17": phase17,
               "19": phase19, "20": phase20_alone, "22": phase22,
               "24": phase24, "25": phase25, "26": phase26_alone,
-              "27": phase27, "28": phase28}
+              "27": phase27, "28": phase28, "29": phase29, "30": phase30}
 
 
 def main(argv: list) -> int:
@@ -3717,13 +4167,13 @@ def main(argv: list) -> int:
     torch.cuda.empty_cache()
     (ln_n, fwd_n, bwd_n, _), step6_ms = phase6(dev, gpu)
     torch.cuda.empty_cache()
-    b7, b5 = phase7(dev, gpu)
+    b7, b5, b7_bf16, b5_bf16 = phase7(dev, gpu)
     models = seg_models(dev)
     b7_n = phase8(dev, gpu, models)
     b5_n = phase9(dev, gpu, models)
     del models
     torch.cuda.empty_cache()
-    b6 = phase10(dev, gpu)
+    b6, b6_bf16 = phase10(dev, gpu)
     b6_n = phase11_12(dev, gpu)
     torch.cuda.empty_cache()
     b7_bwd, b6_bwd = phase13(dev, gpu)
@@ -3751,6 +4201,10 @@ def main(argv: list) -> int:
     phase27(dev, gpu, step6_ms)
     torch.cuda.empty_cache()
     phase28(dev, gpu, step16_ms[SEG_CONFIG])
+    torch.cuda.empty_cache()
+    bf16 = phase29(dev, gpu)
+    torch.cuda.empty_cache()
+    inf16 = phase30(dev, gpu)
     bf16_b = (torch.bfloat16, TRAIN_B)
     b10, b11_fwd, b11_bwd = b10_b11[(torch.float32, TRAIN_B)]
     _, b11_mma_fwd, b11_mma_bwd = b10_b11[bf16_b]
@@ -3844,7 +4298,39 @@ def main(argv: list) -> int:
         {"name": "packed_dropout_attention_bwd_mma", "route": "cuda",
          "source": attn_src,
          "replaces": "fudanocr_tpu/ops/flash_attention.py:401",
-         "launches": b11_mma_bwd_n, **b11_mma_bwd}]
+         "launches": b11_mma_bwd_n, **b11_mma_bwd},
+        # the bf16 seg attention (phases 7, 10, 29, 30): inference forwards
+        # at the slide shapes, launches per bf16 canvas; the training
+        # forward (STATS) and backward at the det step's level 0, launches
+        # per bf16 det step
+        {"name": "unmasked_attention_packed_bf16", "route": "cuda",
+         "source": seg_src, "cuda_kernels": ["attn_fwd_mma_kernel"],
+         "replaces": "fudanocr_tpu/ops/region_attention.py:280",
+         "launches": inf16["slide"][1], **b7_bf16},
+        {"name": "unmasked_attention_bhld_bf16", "route": "cuda",
+         "source": seg_src, "cuda_kernels": ["attn_fwd_mma_kernel"],
+         "replaces": "fudanocr_tpu/ops/flash_attention.py:653",
+         "launches": inf16[(2048, 2048)][2], **b5_bf16},
+        {"name": "region_attention_packed_bf16", "route": "cuda",
+         "source": seg_src, "cuda_kernels": ["attn_fwd_kernel"],
+         "replaces": "fudanocr_tpu/ops/region_attention.py:167",
+         "launches": inf16["det_slide"][0], **b6_bf16},
+        {"name": "unmasked_attention_packed_stats_bf16", "route": "cuda",
+         "source": seg_src, "cuda_kernels": ["attn_fwd_kernel"],
+         "replaces": "fudanocr_tpu/ops/region_attention.py:280",
+         "launches": bf16["launches"][0], **bf16["stats_plain"]},
+        {"name": "region_attention_packed_stats_bf16", "route": "cuda",
+         "source": seg_src, "cuda_kernels": ["attn_fwd_kernel"],
+         "replaces": "fudanocr_tpu/ops/region_attention.py:167",
+         "launches": bf16["launches"][2], **bf16["stats_masked"]},
+        {"name": "unmasked_attention_packed_bwd_bf16", "route": "cuda",
+         "source": seg_src, "cuda_kernels": BWD_KERNELS[torch.bfloat16],
+         "replaces": "fudanocr_tpu/ops/region_attention.py:306",
+         "launches": bf16["launches"][1], **bf16["bwd_plain"]},
+        {"name": "region_attention_packed_bwd_bf16", "route": "cuda",
+         "source": seg_src, "cuda_kernels": BWD_KERNELS[torch.bfloat16],
+         "replaces": "fudanocr_tpu/ops/region_attention.py:201",
+         "launches": bf16["launches"][3], **bf16["bwd_masked"]}]
     # the CUDA-core floor is computed, not measured: the phase lines print
     # it, the kernels line carries only `bound_ms`
     for row in rows:

@@ -6,13 +6,18 @@ and `build_model` of apps/seg/train.py:65-87; mmseg/apis/inference.py).
                               stride=(768, 768))     # (H, W) class map
     overlay = show_result(image, seg)
 
-`init_segmentor` builds the configured `EncoderDecoder(CascadeMiT,
-SegformerHead)`, or for a det-guided config (`model.det_guided: true`, every
-`*_det` file) `DetGuidedEncoderDecoder(CascadeMiTDetGuided,
-SegformerHead)`, on the card (unless `device` says otherwise), with
+`init_segmentor` builds the configured segmentor through the registries
+(`core/registry.py`, as the JAX app's `build_model`): by default
+`EncoderDecoder(CascadeMiT, SegformerHead)`, or for a det-guided config
+(`model.det_guided: true`, every `*_det` file)
+`DetGuidedEncoderDecoder(CascadeMiTDetGuided, SegformerHead)`, and any
+registered `model.type` / `backbone.type` / `decode_head.type`; on the
+card (unless `device` says otherwise), with the weights of a `checkpoint`
+directory (the port's payload, `core/checkpoint.load_model_state`), or
 JAX-layout numpy `variables` moved in through
-`utils.weights.load_jax_variables` (porter `segmentor` or `segmentor_det`),
-or else the modules' own initialisation drawn from `seed`.
+`utils.weights.load_jax_variables` (porter `segmentor` or
+`segmentor_det`), or else the modules' own initialisation drawn from
+`seed`.
 `inference_segmentor` normalises the image and runs the whole image
 (`crop=None`) or the sliding window (the configs' test recipe is
 `test.mode: slide`, crop 1024², stride 768²); of a det-guided model it keeps
@@ -26,13 +31,12 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from fudanocr_tpu_torch.core import checkpoint as ckpt_lib
 from fudanocr_tpu_torch.core.config import load_config, merge_cli_overrides
+from fudanocr_tpu_torch.core.registry import BACKBONES, HEADS, SEGMENTORS
 from fudanocr_tpu_torch.data.seg_pipeline import Normalize
-from fudanocr_tpu_torch.models.seg.cascade_mit import CascadeMiT
-from fudanocr_tpu_torch.models.seg.det_guided import CascadeMiTDetGuided
-from fudanocr_tpu_torch.models.seg.encoder_decoder import (
-    DetGuidedEncoderDecoder, EncoderDecoder, slide_inference)
-from fudanocr_tpu_torch.models.seg.segformer_head import SegformerHead
+from fudanocr_tpu_torch.models.seg import (CascadeEncoderDecoder,
+                                           EncoderDecoder, slide_inference)
 from fudanocr_tpu_torch.utils.weights import load_jax_variables
 
 DEFAULT_PALETTE = ((0, 0, 0), (220, 40, 40), (40, 220, 40), (40, 40, 220))
@@ -51,50 +55,51 @@ def is_det_guided(cfg) -> bool:
 
 def build_model(cfg, kernels: bool = True) -> EncoderDecoder:
     """The configured segmentor in eval mode on the CPU (its forward takes
-    `train=True` for training), with the JAX package's registry defaults
-    and the config's drop-path and dropout rates (apps/seg/train.py:65-87):
-    EncoderDecoder(CascadeMiT, SegformerHead), or with `model.det_guided`
-    DetGuidedEncoderDecoder(CascadeMiTDetGuided, SegformerHead). Raises
-    NotImplementedError for other registered types."""
+    `train=True` for training), built through the registries with the JAX
+    app's defaults (apps/seg/train.py:65-87): `model.type` (default
+    EncoderDecoder, DetGuidedEncoderDecoder with `model.det_guided`), its
+    `backbone.type` (CascadeMiT, CascadeMiTDetGuided) with the config's
+    shape and drop-path rate, and `decode_head.type` (SegformerHead) with
+    its classes, channels and dropout. A `CascadeEncoderDecoder` config
+    raises: the JAX app cannot build one either (ROADMAP C21); the module
+    itself is built directly."""
     m = cfg.model
     det = is_det_guided(cfg)
-    for key, want in (("type", "DetGuidedEncoderDecoder" if det
-                       else "EncoderDecoder"),
-                      ("backbone.type", "CascadeMiTDetGuided" if det
-                       else "CascadeMiT"),
-                      ("decode_head.type", "SegformerHead")):
-        node = m
-        for part in key.split(".")[:-1]:
-            node = node[part]
-        got = node.get("type", want)
-        if got != want:
-            raise NotImplementedError(f"model.{key} = {got!r}: the port has "
-                                      f"only {want}")
+    segmentor = SEGMENTORS.get(m.get("type", "DetGuidedEncoderDecoder"
+                                     if det else "EncoderDecoder"))
+    if segmentor is CascadeEncoderDecoder:
+        raise NotImplementedError(
+            "model.type CascadeEncoderDecoder: no config builds a cascade of "
+            "heads, and the JAX app's build_model cannot (ROADMAP C21); "
+            "construct CascadeEncoderDecoder(backbone, heads) directly")
+    b, h = m.backbone, m.decode_head
     kw = backbone_kwargs(cfg)
-    backbone = (CascadeMiTDetGuided if det else CascadeMiT)(
-        **kw, kernels=kernels,
-        drop_path_rate=m.backbone.get("drop_path_rate", 0.1))
+    backbone = BACKBONES.get(b.get("type", "CascadeMiTDetGuided" if det
+                                   else "CascadeMiT"))(
+        **kw, kernels=kernels, drop_path_rate=b.get("drop_path_rate", 0.1))
     d, nh = kw["embed_dims"], kw["num_heads"]
-    h = m.decode_head
-    head = SegformerHead([d * n for n in (1,) + tuple(nh[1:])],
-                         num_classes=h.num_classes, channels=h.channels,
-                         dropout_ratio=h.get("dropout_ratio", 0.1))
-    segmentor = DetGuidedEncoderDecoder if det else EncoderDecoder
+    head = HEADS.get(h.get("type", "SegformerHead"))(
+        [d * n for n in (1,) + tuple(nh[1:])], num_classes=h.num_classes,
+        channels=h.channels, dropout_ratio=h.get("dropout_ratio", 0.1))
     return segmentor(backbone, head).eval()
 
 
 def init_segmentor(config_path: str, variables=None, device="cuda",
                    overrides: Sequence[str] = (), seed: int = 0,
-                   kernels: bool = True):
-    """-> (model on `device`, in eval mode, config). `variables` is a JAX
-    segmentor's {"params": ..., "batch_stats": ...} tree (numpy arrays);
-    without it, the modules' own initialisation under `torch.manual_seed
+                   kernels: bool = True, checkpoint: Optional[str] = None):
+    """-> (model on `device`, in eval mode, config). `checkpoint` is a
+    checkpoint directory of `SegTrainer` (`best/`, `iter_N/`; a JAX
+    `state.msgpack` raises, ROADMAP A4); `variables` a JAX segmentor's
+    {"params": ..., "batch_stats": ...} tree (numpy arrays); without
+    either, the modules' own initialisation under `torch.manual_seed
     (seed)` (the global generator's state is restored after)."""
     cfg = merge_cli_overrides(load_config(config_path), list(overrides))
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = build_model(cfg, kernels=kernels)
-    if variables is not None:
+    if checkpoint:
+        model.load_state_dict(ckpt_lib.load_model_state(checkpoint, "cpu"))
+    elif variables is not None:
         load_jax_variables(model, "segmentor_det" if is_det_guided(cfg)
                            else "segmentor", variables,
                            **backbone_kwargs(cfg))

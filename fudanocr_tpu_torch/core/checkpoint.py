@@ -7,9 +7,11 @@ A checkpoint is a directory holding
   meta.json  — step, best metrics and the like
 
 `save` writes atomically (a temporary directory, then a rename), so a
-killed run never leaves a half-written checkpoint. JAX's `state.msgpack`
-(flax serialization) is not read or written yet: that interchange is
-ROADMAP A4, which adds it beside `state.pt`.
+killed run never leaves a half-written checkpoint. `load_model_state`
+reads a model's weights from a trainer's checkpoint. JAX's
+`state.msgpack` (flax serialization) is not read or written yet: that
+interchange is ROADMAP A4, which adds it beside `state.pt`; a directory
+holding only it raises.
 """
 
 from __future__ import annotations
@@ -43,6 +45,18 @@ def save(path: str, payload: Any, meta: Optional[Dict] = None) -> None:
 
 def load(path: str, map_location=None) -> Any:
     return torch.load(os.path.join(path, PAYLOAD), map_location=map_location)
+
+
+def load_model_state(path: str, map_location=None) -> Dict:
+    """The model state_dict of the checkpoint directory `path` (a
+    `SegTrainer` checkpoint's payload "state_dict")."""
+    if not os.path.exists(os.path.join(path, PAYLOAD)):
+        if os.path.exists(os.path.join(path, "state.msgpack")):
+            raise NotImplementedError(
+                f"{path}: a JAX-format checkpoint (state.msgpack); reading "
+                "it is ROADMAP A4, not ported yet")
+        raise FileNotFoundError(f"{path}: no {PAYLOAD}")
+    return load(path, map_location)["state_dict"]
 
 
 def load_meta(path: str) -> Dict:

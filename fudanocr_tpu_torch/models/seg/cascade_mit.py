@@ -27,12 +27,24 @@ JAX package's NHWC reshape); `CascadeMiT.forward` takes and returns NCHW,
 and `models/seg/encoder_decoder.EncoderDecoder` is the NHWC public
 function. Module names are the reference's state_dict keys (`conv1`,
 `bn1`, `layer{1,2,3}.{0,1}`, `layers.{i}.{0,1,2}`, `conv2`..`conv5`), which
-`utils/porters.port_cascade_mit` reads. Float32. The mode is an argument,
-as in the JAX modules: `forward(x, train=True, generator=g)` normalises
-with batch statistics and moves the running ones (flax BatchNorm,
-`nn/layers.batch_norm`) and applies drop-path with the schedule
-rate * i / (total - 1) over the encoder layers (cascade_mit.py:350-354),
-its per-sample draws from the `torch.Generator` g; `train=False` (the
+`utils/porters.port_cascade_mit` reads.
+
+`dtype` (default float32; bfloat16 is what the JAX package benchmarks) is
+the activations' type, as the JAX modules' `dtype` field: parameters stay
+float32, each module rounds its input to the dtype, and the rounding
+points are flax's: every conv and linear rounds its operands and result
+(`nn/layers.conv2d`, `linear`), LayerNorm and BatchNorm compute float32
+statistics and round their result (`layer_norm`, `batch_norm`), the
+attention scores are a product at the dtype taken to float32, softmax in
+float32 with the probabilities rounded to v's dtype, GELU at the dtype,
+and `upsample` is `jax.image.resize` at the dtype (`ops/resize.
+resize_bilinear`: bf16 weights, each axis's product rounded).
+
+The mode is an argument, as in the JAX modules: `forward(x, train=True,
+generator=g)` normalises with batch statistics and moves the running ones
+(flax BatchNorm, `nn/layers.batch_norm`) and applies drop-path with the
+schedule rate * i / (total - 1) over the encoder layers (cascade_mit.py:
+350-354), its per-sample draws from the `torch.Generator` g; `train=False` (the
 default) uses the running statistics and no drop-path. The JAX stem's
 space-to-depth rewrite (`StemConv4x`, used only in training) is a TPU
 matrix-unit trick computing the same function, and is not ported: the stem
@@ -48,13 +60,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fudanocr_tpu_torch.nn.layers import batch_norm
+from fudanocr_tpu_torch.nn.layers import (batch_norm, conv2d, layer_norm,
+                                          linear)
 from fudanocr_tpu_torch.ops.flash_attention import flash_mha
 from fudanocr_tpu_torch.ops.region_attention import (packed_flash_mha,
                                                      packed_flash_supported,
                                                      region_flash_mha,
                                                      region_flash_supported,
                                                      region_mask)
+from fudanocr_tpu_torch.ops.resize import resize_bilinear
 
 Region = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -103,21 +117,20 @@ def drop_path_rates(rate: float, num_layers: Sequence[int]) -> List[float]:
 
 
 def upsample(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
-    """Bilinear, half-pixel centres, to ref's spatial size. The JAX package
-    uses `jax.image.resize(..., "bilinear")`, which equals this whenever
-    the size grows or stays (its antialiasing acts only when shrinking),
-    and every call here grows or keeps the size."""
-    if x.shape[-2:] == ref.shape[-2:]:
-        return x
-    return F.interpolate(x, size=ref.shape[-2:], mode="bilinear",
-                         align_corners=False)
+    """`jax.image.resize(x, ..., "bilinear")` to ref's spatial size, at x's
+    dtype (`ops/resize.resize_bilinear`)."""
+    return resize_bilinear(x, tuple(ref.shape[-2:]))
 
 
 class StemConv4x(nn.Conv2d):
-    """The 7x7 stride-4 stem conv, padding 3 (keys `weight`, `bias`)."""
+    """The 7x7 stride-4 stem conv, padding 3 (keys `weight`, `bias`), at
+    its input's dtype."""
 
     def __init__(self, in_features: int, features: int):
         super().__init__(in_features, features, 7, stride=4, padding=3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(self, x)
 
 
 class ResNetBlock(nn.Module):
@@ -125,8 +138,10 @@ class ResNetBlock(nn.Module):
     `bn1`, `conv2`, `bn2` and, when the stride or width changes,
     `shortcut.{0,1}`."""
 
-    def __init__(self, in_features: int, features: int, stride: int = 1):
+    def __init__(self, in_features: int, features: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv1 = nn.Conv2d(in_features, features, 3, stride, 1)
         self.bn1 = nn.BatchNorm2d(features)
         self.conv2 = nn.Conv2d(features, features, 3, 1, 1)
@@ -138,11 +153,13 @@ class ResNetBlock(nn.Module):
                 nn.BatchNorm2d(features))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = F.relu(batch_norm(self.bn1, self.conv1(x), train))
-        y = batch_norm(self.bn2, self.conv2(y), train)
+        x = x.to(self.dtype)
+        y = F.relu(batch_norm(self.bn1, conv2d(self.conv1, x), train))
+        y = batch_norm(self.bn2, conv2d(self.conv2, y), train)
         r = x
         if self.shortcut is not None:
-            r = batch_norm(self.shortcut[1], self.shortcut[0](x), train)
+            r = batch_norm(self.shortcut[1], conv2d(self.shortcut[0], x),
+                           train)
         return F.relu(y + r)
 
 
@@ -172,8 +189,9 @@ class EfficientAttention(nn.Module):
     `sr`, `norm` when sr_ratio > 1."""
 
     def __init__(self, c: int, num_heads: int, sr_ratio: int = 1,
-                 kernels: bool = True):
+                 kernels: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.num_heads = num_heads
         self.sr_ratio = sr_ratio
         self.kernels = kernels
@@ -186,13 +204,15 @@ class EfficientAttention(nn.Module):
                 region: Region = None) -> torch.Tensor:
         """`region`: (rq (B, Lq), rkv (B, Lkv)) ids; pairs with equal ids
         get -1e10 added to their score."""
+        x = x.to(self.dtype)
         b, lq, c = x.shape
         nh = self.num_heads
-        w, bias = self.attn.in_proj_weight, self.attn.in_proj_bias
+        w = self.attn.in_proj_weight.to(x.dtype)
+        bias = self.attn.in_proj_bias.to(x.dtype)
         if self.sr_ratio > 1:
             q = F.linear(x, w[:c], bias[:c])
-            kv = to_tokens(self.sr(to_map(x, hw)))
-            kv = F.linear(self.norm(kv), w[c:], bias[c:])
+            kv = to_tokens(conv2d(self.sr, to_map(x, hw)))
+            kv = F.linear(layer_norm(self.norm, kv), w[c:], bias[c:])
             k, v = kv[..., :c], kv[..., c:]
         else:
             qkv = F.linear(x, w, bias)
@@ -205,11 +225,11 @@ class EfficientAttention(nn.Module):
             if self.kernels and region_flash_supported(lq, lkv, c, nh):
                 o = region_flash_mha(q, k, v, rq.contiguous(),
                                      rkv.contiguous(), nh)
-                return self.attn.out_proj(o)
+                return linear(self.attn.out_proj, o)
             mask = region_mask(rq, rkv)[:, None]
         elif self.kernels and packed_flash_supported(lq, lkv, c, nh):
             o = packed_flash_mha(q, k, v, nh)
-            return self.attn.out_proj(o)
+            return linear(self.attn.out_proj, o)
         heads = lambda t: t.unflatten(-1, (nh, c // nh)).transpose(1, 2)
         q, k, v = heads(q), heads(k), heads(v)
         if (mask is None and self.kernels
@@ -221,22 +241,27 @@ class EfficientAttention(nn.Module):
             if mask is not None:
                 s = s + mask
             o = torch.matmul(torch.softmax(s, -1).to(v.dtype), v)
-        return self.attn.out_proj(o.transpose(1, 2).reshape(b, lq, c))
+        return linear(self.attn.out_proj,
+                      o.transpose(1, 2).reshape(b, lq, c))
 
 
 class MixFFN(nn.Module):
     """1x1 conv -> 3x3 depthwise -> GELU -> 1x1 conv (cascade_mit.py:40-92):
     keys `layers.{0,1,4}` (2 is the GELU, 3 the reference's dropout)."""
 
-    def __init__(self, c: int, hidden: int):
+    def __init__(self, c: int, hidden: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.layers = nn.Sequential(
             nn.Conv2d(c, hidden, 1),
             nn.Conv2d(hidden, hidden, 3, 1, 1, groups=hidden),
             nn.GELU(), nn.Identity(), nn.Conv2d(hidden, c, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.layers(x)
+        fc1, pe_conv, _, _, fc2 = self.layers
+        y = conv2d(pe_conv, conv2d(fc1, x.to(self.dtype)))
+        return conv2d(fc2, F.gelu(y))
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -245,21 +270,25 @@ class TransformerEncoderLayer(nn.Module):
 
     def __init__(self, c: int, num_heads: int, mlp_ratio: int = 4,
                  sr_ratio: int = 1, kernels: bool = True,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.drop_path_rate = drop_path_rate
         self.norm1 = nn.LayerNorm(c, eps=1e-6)
-        self.attn = EfficientAttention(c, num_heads, sr_ratio, kernels)
+        self.attn = EfficientAttention(c, num_heads, sr_ratio, kernels,
+                                       dtype)
         self.norm2 = nn.LayerNorm(c, eps=1e-6)
-        self.ffn = MixFFN(c, c * mlp_ratio)
+        self.ffn = MixFFN(c, c * mlp_ratio, dtype)
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int],
                 region: Region = None, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         rate = self.drop_path_rate
-        y = self.attn(self.norm1(x), hw, region)
+        x = x.to(self.dtype)
+        y = self.attn(layer_norm(self.norm1, x), hw, region)
         x = x + drop_path(y, rate, train, generator)
-        y = to_tokens(self.ffn(to_map(self.norm2(x), hw)))
+        y = to_tokens(self.ffn(to_map(layer_norm(self.norm2, x), hw)))
         return x + drop_path(y, rate, train, generator)
 
 
@@ -277,25 +306,27 @@ class CascadeStage(nn.ModuleList):
     def __init__(self, in_features: int, c: int, num_layers: int,
                  num_heads: int, sr_ratio: int, mlp_ratio: int = 4,
                  kernels: bool = True,
-                 drop_path_rates: Sequence[float] = ()):
+                 drop_path_rates: Sequence[float] = (),
+                 dtype: torch.dtype = torch.float32):
         rates = list(drop_path_rates) + [0.0] * num_layers
         super().__init__([
             _PatchEmbed(in_features, c),
             nn.ModuleList(TransformerEncoderLayer(c, num_heads, mlp_ratio,
                                                   sr_ratio, kernels,
-                                                  rates[j])
+                                                  rates[j], dtype)
                           for j in range(num_layers)),
             nn.LayerNorm(c, eps=1e-6)])
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         embed, layers, norm = self
-        x = embed.projection(x)
+        x = conv2d(embed.projection, x.to(self.dtype))
         hw = tuple(x.shape[-2:])
-        t = embed.norm(to_tokens(x))
+        t = layer_norm(embed.norm, to_tokens(x))
         for layer in layers:
             t = layer(t, hw, None, train, generator)
-        return to_map(norm(t), hw)
+        return to_map(layer_norm(norm, t), hw)
 
 
 class CascadeMiT(nn.Module):
@@ -308,8 +339,10 @@ class CascadeMiT(nn.Module):
                  num_heads: Sequence[int] = (1, 2, 5, 8),
                  sr_ratios: Sequence[int] = (8, 4, 2, 1),
                  mlp_ratio: int = 4, in_features: int = 3,
-                 kernels: bool = True, drop_path_rate: float = 0.1):
+                 kernels: bool = True, drop_path_rate: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         d, nh = embed_dims, tuple(num_heads)
         pyr = [d, d * nh[1], d * nh[2], d * nh[3]]
         dpr = drop_path_rates(drop_path_rate, num_layers)
@@ -317,11 +350,12 @@ class CascadeMiT(nn.Module):
         self.bn1 = nn.BatchNorm2d(d)
         for i in range(3):
             self.add_module(f"layer{i + 1}", nn.Sequential(
-                ResNetBlock(pyr[i], pyr[i + 1], 2),
-                ResNetBlock(pyr[i + 1], pyr[i + 1], 1)))
+                ResNetBlock(pyr[i], pyr[i + 1], 2, dtype),
+                ResNetBlock(pyr[i + 1], pyr[i + 1], 1, dtype)))
         self.layers = nn.ModuleList(
             CascadeStage(d * nh[min(i + 1, 3)], d * nh[i], num_layers[i],
-                         nh[i], sr_ratios[i], mlp_ratio, kernels, dpr[i])
+                         nh[i], sr_ratios[i], mlp_ratio, kernels, dpr[i],
+                         dtype)
             for i in range(4))
         # conv2..conv5 fuse levels 4..1 (the JAX package's fuse4..fuse1)
         for i in range(4):
@@ -332,13 +366,15 @@ class CascadeMiT(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> List[torch.Tensor]:
-        x1 = batch_norm(self.bn1, self.conv1(x), train)
+        x1 = batch_norm(self.bn1, self.conv1(x.to(self.dtype)), train)
         x2 = run_blocks(self.layer1, x1, train)
         x3 = run_blocks(self.layer2, x2, train)
         x4 = run_blocks(self.layer3, x3, train)
         stage = lambda i, t: self.layers[i](t, train, generator)
-        x4_ = self.conv2(torch.cat([x4, stage(3, x4)], 1))
-        x3_ = self.conv3(torch.cat([x3, stage(2, upsample(x4_, x3))], 1))
-        x2_ = self.conv4(torch.cat([x2, stage(1, upsample(x3_, x2))], 1))
-        x1_ = self.conv5(torch.cat([x1, stage(0, upsample(x2_, x1))], 1))
+        fuse = lambda i, parts: conv2d(getattr(self, f"conv{i}"),
+                                       torch.cat(parts, 1))
+        x4_ = fuse(2, [x4, stage(3, x4)])
+        x3_ = fuse(3, [x3, stage(2, upsample(x4_, x3))])
+        x2_ = fuse(4, [x2, stage(1, upsample(x3_, x2))])
+        x1_ = fuse(5, [x1, stage(0, upsample(x2_, x1))])
         return [x1_, x2_, x3_, x4_]

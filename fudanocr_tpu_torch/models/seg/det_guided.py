@@ -23,7 +23,10 @@ On top of the cascade backbone of models/seg/cascade_mit.py it adds
 Module names are the reference V10 state_dict keys that
 `utils/porters.port_cascade_mit_v10` reads. Ids travel as float32: a tie
 gives the id 0.5, which is foreground and an id of its own, and instance
-ids (at most H/4*W/4 + 1) are exact in float32. Float32. `train=True,
+ids (at most H/4*W/4 + 1) are exact in float32, whatever `dtype` the
+activations take (default float32; as the JAX module's field and with
+the rounding points of models/seg/cascade_mit.py: the det logits come out
+in it, `soft_argmax` takes them to float32 first). `train=True,
 generator=g` is the training forward of the JAX module: batch statistics
 in every BN (det head, gates, branch BNs, fusion convs), drop-path in the
 cascade stages (not in the branches, whose rate is 0 in JAX), the masks
@@ -45,7 +48,7 @@ from fudanocr_tpu_torch.models.seg.cascade_mit import (CascadeStage,
                                                        drop_path_rates,
                                                        run_blocks, to_map,
                                                        to_tokens, upsample)
-from fudanocr_tpu_torch.nn.layers import batch_norm
+from fudanocr_tpu_torch.nn.layers import batch_norm, conv2d
 from fudanocr_tpu_torch.ops.region_attention import region_mask
 
 
@@ -161,7 +164,7 @@ class _DetConvBN(nn.Sequential):
                          nn.BatchNorm2d(features))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return batch_norm(self[1], self[0](x), train)
+        return batch_norm(self[1], conv2d(self[0], x), train)
 
 
 class _GateFuse(_DetConvBN):
@@ -187,8 +190,10 @@ class CascadeMiTDetGuided(nn.Module):
                  num_heads: Sequence[int] = (1, 2, 5, 8),
                  sr_ratios: Sequence[int] = (8, 4, 2, 1),
                  mlp_ratio: int = 4, in_features: int = 3,
-                 kernels: bool = True, drop_path_rate: float = 0.1):
+                 kernels: bool = True, drop_path_rate: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         d, nh = embed_dims, tuple(num_heads)
         dims = [d * n for n in nh]
         dpr = drop_path_rates(drop_path_rate, num_layers)
@@ -197,11 +202,11 @@ class CascadeMiTDetGuided(nn.Module):
         self.bn1 = nn.BatchNorm2d(d)
         for i in range(3):
             self.add_module(f"layer{i + 1}", nn.Sequential(
-                ResNetBlock(dims[i], dims[i + 1], 2),
-                ResNetBlock(dims[i + 1], dims[i + 1], 1)))
+                ResNetBlock(dims[i], dims[i + 1], 2, dtype),
+                ResNetBlock(dims[i + 1], dims[i + 1], 1, dtype)))
         self.layers = nn.ModuleList(
             CascadeStage(dims[i], dims[i], num_layers[i], nh[i],
-                         sr_ratios[i], mlp_ratio, kernels, dpr[i])
+                         sr_ratios[i], mlp_ratio, kernels, dpr[i], dtype)
             for i in range(4))
         # conv2..conv5 fuse levels 4..1: [pyramid, (upsampled,) gated]
         for i in range(4):
@@ -213,7 +218,8 @@ class CascadeMiTDetGuided(nn.Module):
             self.add_module(f"out_det_{i + 1}", _DetConvBN(dims[i], dims[3]))
             for kind in ("text", "instance"):
                 self.add_module(f"{kind}_sa_{i + 1}", TransformerEncoderLayer(
-                    dims[i], nh[i], mlp_ratio, sr_ratios[i], kernels))
+                    dims[i], nh[i], mlp_ratio, sr_ratios[i], kernels,
+                    dtype=dtype))
                 self.add_module(f"{kind}_sa_bn_{i + 1}",
                                 nn.BatchNorm2d(dims[i]))
             self.add_module(f"fuse_text_instance_{i + 1}", _GateFuse(dims[i]))
@@ -231,7 +237,7 @@ class CascadeMiTDetGuided(nn.Module):
                 det_gt: Optional[torch.Tensor] = None, train: bool = False,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-        x1 = batch_norm(self.bn1, self.conv1(x), train)
+        x1 = batch_norm(self.bn1, self.conv1(x.to(self.dtype)), train)
         feats = [x1]
         for i in range(3):
             feats.append(run_blocks(getattr(self, f"layer{i + 1}"),
@@ -239,7 +245,8 @@ class CascadeMiTDetGuided(nn.Module):
 
         det = [upsample(getattr(self, f"out_det_{i + 1}")(f, train), x1)
                for i, f in enumerate(feats)]
-        det_logits = self.det_cls(self.fusion_conv(torch.cat(det, 1), train))
+        det_logits = conv2d(self.det_cls[0],
+                            self.fusion_conv(torch.cat(det, 1), train))
 
         hw1 = tuple(x1.shape[-2:])
         # the masks carry no gradient (the reference's pass through numpy

@@ -1,30 +1,37 @@
-"""EncoderDecoder segmentors and sliding-window inference (port of
-fudanocr_tpu/models/seg/encoder_decoder.py:24-41, :69-86 and :115-168;
-reference mmseg/models/segmentors/encoder_decoder.py:14-337).
+"""EncoderDecoder segmentors, sliding-window and test-time-augmented
+inference (port of fudanocr_tpu/models/seg/encoder_decoder.py; reference
+mmseg/models/segmentors/encoder_decoder.py:14-337, cascade_encoder_decoder.
+py:12-98, pipelines/test_time_aug.py).
 
 `EncoderDecoder(img)` maps an NHWC image batch to NHWC per-pixel class
 logits at the input size (backbone -> decode head at 1/4 -> bilinear
 upsampling). `DetGuidedEncoderDecoder(img, det_gt=None)` (the reference's
 EncoderDecoder_V4, over `CascadeMiTDetGuided`) returns those logits and
-the backbone's NHWC det logits at 1/4. Both take `train=True, generator=g`
-for the training forward (batch statistics, drop-path and dropout drawn
-from g), which returns the same outputs. `slide_inference` runs a segmentor
-over the same crop grid as the JAX
-package: crops of `crop` every `stride`, the last row and column clamped
-to the border, several crops batched into one forward (at most
-`max_fwd_images` images), logits summed where crops overlap and divided by
-the count map.
+the backbone's NHWC det logits at 1/4. `CascadeEncoderDecoder(img)` runs
+a list of decode heads, each after the first taking the backbone's
+features with the previous head's logits (resized to the 1/4 scale)
+appended to the finest level. All take `train=True, generator=g` for the
+training forward (batch statistics, drop-path and dropout drawn from g),
+which returns the same outputs. The logits come out in the head's dtype
+(resized as `jax.image.resize` at that dtype). `slide_inference` runs a
+segmentor over the same crop grid as the JAX package: crops of `crop`
+every `stride`, the last row and column clamped to the border, several
+crops batched into one forward (at most `max_fwd_images` images), logits
+summed where crops overlap and divided by the count map, in float32.
+`tta_inference` averages the float32 softmax of a segmentor over
+rescaled and flipped copies of the image.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from fudanocr_tpu_torch.models.seg.cascade_mit import upsample
+from fudanocr_tpu_torch.ops.resize import resize_bilinear
 
 
 def nchw(img: torch.Tensor) -> torch.Tensor:
@@ -64,6 +71,60 @@ class DetGuidedEncoderDecoder(EncoderDecoder):
         feats, det_logits = self.backbone(x, det_gt, train, generator)
         logits = upsample(self.decode_head(feats, train, generator), x)
         return logits.permute(0, 2, 3, 1), det_logits.permute(0, 2, 3, 1)
+
+
+class CascadeEncoderDecoder(nn.Module):
+    """Backbone + a cascade of decode heads (JAX encoder_decoder.py:44-66):
+    head k > 0 sees the features with the previous logits, bilinearly
+    resized to the finest level, concatenated to it. Keys `backbone.*` and
+    `decode_head.{k}.*`, mmseg's ModuleList (so `SegAdam` gives the heads
+    the head's lr x10; the JAX optimizer, whose rule reads the top-level
+    names `decode_heads_{k}`, gives them x1)."""
+
+    def __init__(self, backbone: nn.Module, decode_heads: Sequence[nn.Module]):
+        super().__init__()
+        self.backbone = backbone
+        self.decode_head = nn.ModuleList(decode_heads)
+
+    def forward(self, img: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, H, W, C) image -> (B, H, W, num_classes) logits."""
+        x = nchw(img)
+        feats = self.backbone(x, train, generator)
+        logits = self.decode_head[0](feats, train, generator)
+        for head in self.decode_head[1:]:
+            prev = upsample(logits, feats[0])
+            aug = [torch.cat([feats[0], prev], 1)]
+            logits = head(aug + list(feats[1:]), train, generator)
+        return upsample(logits, x).permute(0, 2, 3, 1)
+
+
+def tta_inference(apply_fn: Callable[[torch.Tensor], torch.Tensor],
+                  img: torch.Tensor, scales: Sequence[float] = (1.0,),
+                  flip: bool = True) -> torch.Tensor:
+    """MultiScaleFlipAug (JAX encoder_decoder.py:89-112): `apply_fn` over
+    NHWC `img` (B, H, W, 3) resized to int(H * s) x int(W * s) for each
+    scale s (bilinear, antialiased when shrinking, as `jax.image.resize`),
+    and with `flip` its horizontal mirror too; each variant's logits
+    (mirrored back) resized to H x W at their dtype, softmax in float32,
+    and the mean of those probabilities: (B, H, W, C) float32."""
+    b, h, w, _ = img.shape
+    acc, n = None, 0
+    for s in scales:
+        base = img if s == 1.0 else resize_bilinear(
+            img.permute(0, 3, 1, 2), (int(h * s), int(w * s))).permute(
+            0, 2, 3, 1)
+        variants = [base] + ([base.flip(2)] if flip else [])
+        for vi, v in enumerate(variants):
+            logits = apply_fn(v)
+            if vi == 1:
+                logits = logits.flip(2)
+            logits = resize_bilinear(logits.permute(0, 3, 1, 2),
+                                     (h, w)).permute(0, 2, 3, 1)
+            p = torch.softmax(logits.float(), -1)
+            acc = p if acc is None else acc + p
+            n += 1
+    return acc / n
 
 
 def crop_grid(h: int, w: int, crop: Tuple[int, int],

@@ -5,7 +5,10 @@ scale, concat, a 1x1 fusion conv + BN + ReLU, dropout, and the 1x1
 classifier. `forward(inputs, train=True, generator=g)` takes batch
 statistics in the BNs (flax, `nn/layers.batch_norm`) and applies flax
 `Dropout(dropout_ratio)` after the fusion (`nn/layers.dropout`, draws from
-g); `train=False` uses the running statistics and no dropout.
+g); `train=False` uses the running statistics and no dropout. `dtype`
+(default float32) is the activations' type, as the JAX head's field:
+parameters stay float32, the inputs are rounded to it, and the logits
+come out in it (see models/seg/cascade_mit.py for the rounding points).
 
 NCHW in and out. Keys `convs.{i}.conv`, `convs.{i}.bn`, `fusion_conv.conv`,
 `fusion_conv.bn`, `conv_seg`, which `utils/porters.port_segformer_head`
@@ -21,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fudanocr_tpu_torch.models.seg.cascade_mit import upsample
-from fudanocr_tpu_torch.nn.layers import batch_norm, dropout
+from fudanocr_tpu_torch.nn.layers import batch_norm, conv2d, dropout
 
 
 class ConvBNReLU(nn.Module):
@@ -33,13 +36,15 @@ class ConvBNReLU(nn.Module):
         self.bn = nn.BatchNorm2d(features)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return F.relu(batch_norm(self.bn, self.conv(x), train))
+        return F.relu(batch_norm(self.bn, conv2d(self.conv, x), train))
 
 
 class SegformerHead(nn.Module):
     def __init__(self, in_features: Sequence[int], num_classes: int = 2,
-                 channels: int = 256, dropout_ratio: float = 0.1):
+                 channels: int = 256, dropout_ratio: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.dropout_ratio = dropout_ratio
         self.convs = nn.ModuleList(ConvBNReLU(c, channels)
                                    for c in in_features)
@@ -50,9 +55,9 @@ class SegformerHead(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         ref = inputs[0]
-        outs = [upsample(conv(x, train), ref)
+        outs = [upsample(conv(x.to(self.dtype), train), ref)
                 for conv, x in zip(self.convs, inputs)]
         out = self.fusion_conv(torch.cat(outs, 1), train)
         if train:
             out = dropout(out, self.dropout_ratio, generator)
-        return self.conv_seg(out)
+        return conv2d(self.conv_seg, out)

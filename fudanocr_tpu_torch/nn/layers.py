@@ -16,9 +16,11 @@ exactly as the JAX module does:
   unbiased one, so the stock module drifts from the JAX `batch_stats`
   after one step).
 
-The `conv2d` / `linear` / `batch_norm` helpers run a module's parameters at
-the activation's dtype (params stay float32), the port's counterpart of
-flax's `dtype=` field. Dropout draws its mask from an explicit
+The `conv2d` / `linear` / `batch_norm` / `layer_norm` helpers run a
+module's parameters at the activation's dtype (params stay float32), the
+port's counterpart of flax's `dtype=` field: convolutions and products
+round their operands to it, the norms take float32 statistics and round
+only their result. Dropout draws its mask from an explicit
 `torch.Generator` on the activation's device (flax's `rngs={"dropout":
 ...}`).
 """
@@ -48,12 +50,20 @@ def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
 def conv2d(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """`m` applied at x's dtype (weights cast, params stay float32)."""
     bias = None if m.bias is None else m.bias.to(x.dtype)
-    return F.conv2d(x, m.weight.to(x.dtype), bias, m.stride, m.padding)
+    return F.conv2d(x, m.weight.to(x.dtype), bias, m.stride, m.padding,
+                    m.dilation, m.groups)
 
 
 def linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     bias = None if m.bias is None else m.bias.to(x.dtype)
     return F.linear(x, m.weight.to(x.dtype), bias)
+
+
+def layer_norm(m: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """`m` with float32 statistics and affine, output in x's dtype (flax
+    LayerNorm with `dtype=`)."""
+    return F.layer_norm(x.float(), m.normalized_shape, m.weight, m.bias,
+                        m.eps).to(x.dtype)
 
 
 def batch_norm(m: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,

@@ -1,16 +1,21 @@
-"""Segmentation training: poly schedule, optimizer, train step and the
+"""Segmentation training: poly schedule, optimizers, train step and the
 iteration-based trainer (port of fudanocr_tpu/train/seg.py: `poly_schedule`
-:35-45, `make_seg_optimizer` :76-87, `make_seg_train_step` :151-238,
-`SegTrainer` :296-469; reference mmseg/apis/train.py:71-194 and the
-textformer configs' optimizer).
+:35-45, `make_seg_optimizer` :76-87, `layer_id_for_param` and
+`make_layer_decay_optimizer` :90-148, `make_seg_train_step` :151-238,
+`SegTrainer` :296-469; reference mmseg/apis/train.py:71-194, the
+textformer configs' optimizer and mmseg/core/optimizers/
+layer_decay_optimizer_constructor.py).
 
 The step runs the segmentor's training forward (`train=True, generator=g`:
 batch statistics, drop-path, head dropout), CE (plus Lovász where the
 config weights it) on the full-resolution logits and, for a det-guided
 model with `gt_det` in the batch, det_loss_ratio x the det loss on the det
-logits bilinearly upsampled to the label size; then backward and one
-`SegAdam` update (train/state.py). Everything runs eagerly on the model's
-device, one process, one device.
+logits taken to float32 and bilinearly upsampled to the label size; then
+backward and one `SegAdam` update (train/state.py). A model built with
+`dtype=torch.bfloat16` trains unchanged: its activations are bf16, its
+parameters, gradients and Adam state float32 (as optax keeps them), and
+the losses take the logits to float32. Everything runs eagerly on the
+model's device, one process, one device.
 
 Checkpoints keep the JAX trainer's layout (`core/checkpoint.py`):
 `ckpt_dir/iter_{it}/` every `ckpt_every` iterations (the newest `max_keep`
@@ -27,7 +32,7 @@ from __future__ import annotations
 import logging
 import os
 import shutil
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -76,6 +81,43 @@ def make_seg_optimizer(model: torch.nn.Module, base_lr: float = 6e-5,
     head's lr x10, and the poly schedule."""
     return SegAdam(model, poly_schedule(base_lr, total_iters), weight_decay,
                    head_lr_mult)
+
+
+def layer_id_for_param(name: str, num_layers: Sequence[int]) -> int:
+    """The depth of a CascadeMiT parameter for layer-wise lr decay, from
+    its port name, the id the JAX `layer_id_for_param` gives its
+    counterpart: the stem (`conv1`, `bn1`) 0, the ResNet pyramid
+    `layer{k}` k, the transformer stage `layers.{i}` 3 + its first layer's
+    index over all stages (+ j for its layer j; its patch embed and final
+    norm take the first), everything else (the fusion convs, a det head,
+    a segmentor's top-level `backbone.` / `decode_head.`) 3 + total + 1."""
+    parts = name.split(".")
+    top = parts[0]
+    if top in ("conv1", "bn1"):
+        return 0
+    if top in ("layer1", "layer2", "layer3"):
+        return int(top[5])
+    if top == "layers":
+        stage = int(parts[1])
+        off = 3 + sum(num_layers[:stage])
+        return off + int(parts[3]) if parts[2] == "1" else off
+    return 3 + sum(num_layers) + 1
+
+
+def make_layer_decay_optimizer(model: torch.nn.Module, base_lr: float = 6e-5,
+                               weight_decay: float = 0.01,
+                               total_iters: int = 160_000,
+                               decay_rate: float = 0.9,
+                               num_layers: Sequence[int] = (2, 2, 2, 2)
+                               ) -> SegAdam:
+    """Layer-wise lr decay: lr x decay_rate^(max_id - layer id) over the
+    poly schedule, max_id = 3 + sum(num_layers) + 1
+    (layer_decay_optimizer_constructor.py:162), Adam with coupled decay on
+    tensors of ndim > 1, as the JAX optimizer."""
+    max_id = 3 + sum(num_layers) + 1
+    return SegAdam(model, poly_schedule(base_lr, total_iters), weight_decay,
+                   lr_mult=lambda name: decay_rate ** (
+                       max_id - layer_id_for_param(name, num_layers)))
 
 
 def make_seg_train_step(model: torch.nn.Module, optimizer: SegAdam,

@@ -13,7 +13,9 @@
   scale_by_schedule(-mult * schedule))`, mult 10 for the decode head. The
   decay is added to the gradient before Adam normalises it: Adam with a
   coupled L2 term, which `torch.optim.Adam(weight_decay=...)` is (the
-  reference's decoupled AdamW is another update; ROADMAP Queue C9).
+  reference's decoupled AdamW is another update; ROADMAP Queue C9). The
+  layer-wise decay optimizer (train/seg.make_layer_decay_optimizer) is the
+  same update with a multiplier per parameter name (`lr_mult`).
 
 Adam is `torch.optim.Adam`, whose update (bias-corrected moments, eps
 outside the square root) is optax's.
@@ -74,25 +76,29 @@ HEAD_MODULES = ("decode_head", "auxiliary_head")   # lr x head_lr_mult
 
 
 class SegAdam:
-    """Adam over four parameter groups (backbone or head, x decayed or
-    not) with the lr set before each update to mult * schedule(count),
-    count being the number of updates already taken (optax
-    `scale_by_schedule`). Decay `weight_decay` applies to tensors with more
-    than one dimension, coupled as in JAX. Call `zero_grad()`, backward,
-    then `step()`."""
+    """Adam over parameter groups (lr multiplier x decayed or not) with
+    the lr set before each update to mult * schedule(count), count being
+    the number of updates already taken (optax `scale_by_schedule`). The
+    multiplier of a parameter is `lr_mult(name)`, by default `head_lr_mult`
+    for the decode head's and 1 for the rest. Decay `weight_decay` applies
+    to tensors with more than one dimension, coupled as in JAX. Call
+    `zero_grad()`, backward, then `step()`."""
 
     def __init__(self, model: nn.Module, schedule: Callable[[int], float],
-                 weight_decay: float = 0.01, head_lr_mult: float = 10.0):
+                 weight_decay: float = 0.01, head_lr_mult: float = 10.0,
+                 lr_mult: Optional[Callable[[str], float]] = None):
         self.schedule = schedule
+        if lr_mult is None:
+            lr_mult = lambda name: (head_lr_mult if name.split(".")[0]
+                                    in HEAD_MODULES else 1.0)
         groups = {}
         for name, p in model.named_parameters():
             if p.requires_grad:
-                head = name.split(".")[0] in HEAD_MODULES
-                groups.setdefault((head, p.dim() > 1), []).append(p)
+                groups.setdefault((lr_mult(name), p.dim() > 1), []).append(p)
         self.adam = torch.optim.Adam(
             [{"params": ps, "weight_decay": weight_decay if decay else 0.0,
-              "lr_mult": head_lr_mult if head else 1.0}
-             for (head, decay), ps in sorted(groups.items())],
+              "lr_mult": mult}
+             for (mult, decay), ps in sorted(groups.items())],
             lr=schedule(0), betas=(0.9, 0.999), eps=1e-8)
         self.count = 0
         self.last_lr = None

@@ -3,8 +3,13 @@
 The port's own copy of the porters in fudanocr_tpu/utils/torch_port.py
 (lines 21-296, 453-608) for the models the port has: TBSRN, TSRN, CRNN,
 the OCRTransformer, CascadeMiT, the det-guided CascadeMiT (V10) and the
-SegFormer head, plus `port_segmentor` / `port_segmentor_det` for a
-whole EncoderDecoder / DetGuidedEncoderDecoder. Each maps a torch state_dict
+SegFormer head, plus `port_segmentor` / `port_segmentor_det` /
+`port_cascade_segmentor` for a whole EncoderDecoder /
+DetGuidedEncoderDecoder / CascadeEncoderDecoder; and, with no JAX
+counterpart (the JAX package ports no torch weights into them), porters
+from mmseg's key layout into the JAX necks (`port_fpn`,
+`port_multilevel_neck`, `port_jpu`, `port_mla_neck`, `port_ic_neck`) and
+`Encoding` (`port_encoding`). Each maps a torch state_dict
 (reference key layout, which every port module carries) onto the JAX
 package's {"params": ..., "batch_stats": ...} tree: conv OIHW -> HWIO,
 linear W -> W^T, LSTM gate blocks transposed, BatchNorm running stats into
@@ -463,6 +468,114 @@ def port_segmentor_det(sd: Dict, embed_dims: int = 32,
                           backbone=port_cascade_mit_v10)
 
 
+def port_cascade_segmentor(sd: Dict, embed_dims: int = 32,
+                          num_layers=(2, 2, 2, 2), num_heads=(1, 2, 5, 8),
+                          sr_ratios=(8, 4, 2, 1)) -> Dict:
+    """CascadeEncoderDecoder(CascadeMiT, [SegformerHead, ...]): the
+    `decode_head.{k}.` keys into the JAX module's `decode_heads_{k}`."""
+    sd = strip_module_prefix(sd)
+    bb = port_cascade_mit(_under(sd, "backbone."), embed_dims, num_layers,
+                          num_heads, sr_ratios)
+    out = {kind: {"backbone": bb[kind]} for kind in ("params",
+                                                     "batch_stats")}
+    for k in range(_count(sd, "decode_head.{}.conv_seg.weight")):
+        head = port_segformer_head(_under(sd, f"decode_head.{k}."))
+        for kind in out:
+            out[kind][f"decode_heads_{k}"] = head[kind]
+    return out
+
+
+def _count(sd: Dict, pattern: str) -> int:
+    """How many consecutive i from 0 have `pattern.format(i)` in sd."""
+    n = 0
+    while pattern.format(n) in sd:
+        n += 1
+    return n
+
+
+def _conv_module(sd, prefix) -> Tuple[Dict, Dict]:
+    """mmcv ConvModule(conv, bn) -> the JAX necks' `_ConvBNReLU`."""
+    p, s = bn(sd, f"{prefix}.bn")
+    return {"conv": conv(sd, f"{prefix}.conv"), "bn": p}, {"bn": s}
+
+
+def _neck_convs(sd: Dict, pairs) -> Dict:
+    """{JAX name pattern: mmseg prefix pattern} of bare biased convs, over
+    every level present."""
+    params: Dict[str, Any] = {}
+    for ours, theirs in pairs:
+        for i in range(_count(sd, theirs + ".conv.weight")):
+            params[ours.format(i)] = conv(sd, theirs.format(i) + ".conv")
+    return {"params": params}
+
+
+def port_fpn(sd: Dict) -> Dict:
+    """mmseg necks/fpn.py FPN -> the JAX FPN (lateral{i}, fpn_conv{i})."""
+    return _neck_convs(strip_module_prefix(sd),
+                       (("lateral{}", "lateral_convs.{}"),
+                        ("fpn_conv{}", "fpn_convs.{}")))
+
+
+def port_multilevel_neck(sd: Dict) -> Dict:
+    """mmseg necks/multilevel_neck.py -> the JAX MultiLevelNeck
+    (lateral{i}, conv{i})."""
+    return _neck_convs(strip_module_prefix(sd),
+                       (("lateral{}", "lateral_convs.{}"),
+                        ("conv{}", "convs.{}")))
+
+
+def _conv_modules(sd: Dict, pairs) -> Dict:
+    """{JAX name pattern: mmseg ConvModule prefix pattern}, every level."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for ours, theirs in pairs:
+        for i in range(_count(sd, theirs + ".conv.weight")):
+            params[ours.format(i)], stats[ours.format(i)] = _conv_module(
+                sd, theirs.format(i))
+    return {"params": params, "batch_stats": stats}
+
+
+def port_jpu(sd: Dict) -> Dict:
+    """mmseg necks/jpu.py JPU -> the JAX JPU (conv{i}, dw{i}, pw{i})."""
+    return _conv_modules(strip_module_prefix(sd), (
+        ("conv{}", "conv_layers.{}.0"),
+        ("dw{}", "dilation_layers.{}.0.depthwise_conv"),
+        ("pw{}", "dilation_layers.{}.0.pointwise_conv")))
+
+
+def port_mla_neck(sd: Dict) -> Dict:
+    """mmseg necks/mla_neck.py MLANeck -> the JAX MLANeck (norm{i},
+    proj{i}, extract{i})."""
+    sd = strip_module_prefix(sd)
+    out = _conv_modules(sd, (("proj{}", "mla.channel_proj.{}"),
+                             ("extract{}", "mla.feat_extract.{}")))
+    for i in range(_count(sd, "norm.{}.weight")):
+        out["params"][f"norm{i}"] = _ln_std(sd, f"norm.{i}")
+    return out
+
+
+def port_ic_neck(sd: Dict) -> Dict:
+    """mmseg necks/ic_neck.py ICNeck -> the JAX ICNeck (cff_24, cff_12,
+    each conv_low and conv_high)."""
+    sd = strip_module_prefix(sd)
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for cff in ("cff_24", "cff_12"):
+        params[cff], stats[cff] = {}, {}
+        for part in ("conv_low", "conv_high"):
+            params[cff][part], stats[cff][part] = _conv_module(
+                sd, f"{cff}.{part}")
+    return {"params": params, "batch_stats": stats}
+
+
+def port_encoding(sd: Dict) -> Dict:
+    """mmseg ops/encoding.py Encoding -> the JAX Encoding (the same
+    names)."""
+    sd = strip_module_prefix(sd)
+    return {"params": {"codewords": _np(sd["codewords"]),
+                       "scale": _np(sd["scale"])}}
+
+
 PORTERS = {
     "tbsrn": port_tbsrn,
     "tsrn": port_tsrn,
@@ -473,4 +586,11 @@ PORTERS = {
     "segformer_head": port_segformer_head,
     "segmentor": port_segmentor,
     "segmentor_det": port_segmentor_det,
+    "cascade_segmentor": port_cascade_segmentor,
+    "fpn": port_fpn,
+    "multilevel_neck": port_multilevel_neck,
+    "jpu": port_jpu,
+    "mla_neck": port_mla_neck,
+    "ic_neck": port_ic_neck,
+    "encoding": port_encoding,
 }

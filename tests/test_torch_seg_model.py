@@ -190,7 +190,8 @@ def test_init_segmentor_seeded_and_det_guided_refused():
     """Seeded initialisation. A det-guided config, refused until the
     det-guided slice was ported, now builds the det-guided segmentor
     (tests/test_torch_det_guided.py holds it against JAX); what is still
-    refused is a registered type the port does not have."""
+    refused is a type that is not registered (the registry's KeyError, as
+    in JAX)."""
     a, _ = pinf.init_segmentor(CONFIG, device="cpu", overrides=OVERRIDES)
     b, _ = pinf.init_segmentor(CONFIG, device="cpu", overrides=OVERRIDES)
     c, _ = pinf.init_segmentor(CONFIG, device="cpu", overrides=OVERRIDES,
@@ -202,6 +203,6 @@ def test_init_segmentor_seeded_and_det_guided_refused():
     det, _ = pinf.init_segmentor("configs/seg/textformer_b0_textseg_det.yaml",
                                  device="cpu", overrides=OVERRIDES)
     assert isinstance(det, DetGuidedEncoderDecoder)
-    with pytest.raises(NotImplementedError, match="CascadeMiT"):
+    with pytest.raises(KeyError, match="MixVisionTransformer"):
         pinf.init_segmentor(CONFIG, device="cpu", overrides=OVERRIDES + (
             "model.backbone.type=MixVisionTransformer",))
