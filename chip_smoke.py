@@ -92,7 +92,7 @@ Phases:
      all-background image): max error, fully suppressed rows equal to the
      mean of v; kernel, plain and masked-SDPA ms (timed only) beside the
      bound, as in phase 7; the kernel's name: fp32 the split-TF32 forward,
-     bf16 the CUDA-core one (`attn_fwd_kernel`);
+     bf16 the tensor-core one (`attn_fwd_mma_kernel`, MASKED);
  11. det-guided segmentation at full width: `init_segmentor` on
      configs/seg/textformer_b0_textseg_det.yaml (CascadeMiTDetGuided-b0 +
      SegformerHead, weights from a seed, non-trivial BN and LN statistics;
@@ -113,7 +113,9 @@ Phases:
      kernel, plain and SDPA-backward ms (timed only) beside the bound, as
      in phase 7; at level 0 the kernels by name: fp32 the split-TF32
      training forward and `attn_bwd_dq_tf32x3_kernel`,
-     `attn_bwd_dkv_tf32x3_kernel` and the reduce, bf16 the CUDA-core ones;
+     `attn_bwd_dkv_tf32x3_kernel` and the reduce, bf16 the tensor-core
+     STATS forward (`attn_fwd_mma_kernel`) and `attn_bwd_dq_mma_kernel`,
+     `attn_bwd_dkv_mma_kernel` and the reduce;
  14. one train step of each seg recipe at full b0 width and depth, fp32:
      configs/seg/textformer_b0_textseg.yaml (512², batch 8, CE) and
      textformer_b0_textseg_det.yaml (1024², batch 2, CE + Lovász + 0.1 det
@@ -246,21 +248,31 @@ Phases:
      as the JAX package's bench_seg.py builds them): (a) B7 and B6 at the
      bf16 steps' shapes (the det recipe's four levels at batch 2, the
      plain recipe's three kernel stages at batch 8): the inference
-     forward, the STATS (training) forward and the backward against their
-     plain twins, beside SDPA in bf16 (B6 with the float mask), with the
-     bf16 bound and the fp32 kernel's split-TF32 bound beside it; (b) one
+     forward, the STATS (training) forward and the backward, all on the
+     tensor cores, against their plain twins (2e-2 forward, 1e-2
+     norm-relative gradients) and against the CPU rounding model of
+     tests/torch_attention_cases.py `bf16_attention_model` run on the card
+     (o within one bf16 ulp or 1e-2, o32 1e-3, gradients 2e-3); the STATS
+     o equal to the inference forward's bit for bit (bf16(p) V, as the
+     plain twin rounds it), fully suppressed rows the mean of v; beside
+     SDPA in bf16 (B6 with the float mask), with the bf16 bound and the
+     fp32 kernel's split-TF32 bound beside it; (b) one
      bf16 train step per recipe (phase 14's, as they are) against the
      bf16 plain step (loss rel 1e-2; gradients 5e-2 norm-relative and
      within the plain bf16 step's distance from the fp32 plain step),
      launches per step by counter and, from a profiled step, by kernel
-     name and template (the bf16 STATS forward unmasked and MASKED, the
-     backward's dq, dkv and reduce), the busy share, and ms / img/s beside
-     the fp32 kernel-path step in turns;
+     name and template (`attn_fwd_mma_kernel<DH, VEC16, MASKED, STATS>`
+     with STATS, unmasked and MASKED, and the backward's
+     `attn_bwd_dq_mma_kernel`, `attn_bwd_dkv_mma_kernel` and reduce; any
+     other attention kernel, a CUDA-core one included, fails), the busy
+     share, and ms / img/s beside the fp32 kernel-path step in turns;
  30. bf16 seg inference against the bf16 plain path (logits max 1e-2,
      mean 1e-3 and within twice the plain path's distance from the fp32
      path; class maps equal where the margin exceeds twice the measured
      error): slide over phase 8's canvas, whole 512x1024 and 2048² (B5),
-     det-guided slide over phase 11's canvas; `apps.seg.test` with and
+     det-guided slide over phase 11's canvas, whose attention kernels a
+     profiler trace names (only `attn_fwd_mma_kernel`); `apps.seg.test`
+     with and
      without `--tta` on seeded photos and a checkpoint of the weights with
      the classifier's bias set so that both classes are predicted (fp32:
      the app has no dtype), its metrics against kernels=False's within
@@ -364,12 +376,11 @@ FP32_RTOL, FP32_ATOL = 2e-4, 2e-5
 # phases 4-5, kernel vs plain on the same inputs. fp32: the same math in
 # another summation order (measured max errors 1e-6 .. 3e-6); bf16: the
 # outputs are rounded to bf16 (8 mantissa bits), and the plain attention
-# rounds its probabilities to bf16 for the value product. The unmasked bf16
-# inference forward of csrc/unmasked_attention.cu (phases 7, 17, 24) and
-# the bf16 dropout kernels (phases 5, 24; their backward also rounds keep P
-# and dS for dV and dK, tests/test_torch_dropout_rounding.py) round them
-# there too; the
-# MASKED and STATS forwards keep them fp32
+# rounds its probabilities to bf16 for the value product. The bf16 kernels
+# of csrc/unmasked_attention.cu (phases 7, 10, 13, 17, 24, 29) and the bf16
+# dropout kernels (phases 5, 24) round them there too; their backwards also
+# round P and dS for dV and dK (tests/test_torch_seg_bf16_rounding.py,
+# test_torch_dropout_rounding.py)
 LN_ATOL = {torch.float32: 1e-5, torch.bfloat16: 0.04}
 ATTN_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
@@ -564,14 +575,13 @@ def kernel_names(phase: str, what: str, fn, dt, prefix: str,
                              f"{sorted(kernels)}, want {want}")
 
 
-def attn_kernel_name(phase: str, what: str, fn, dt,
-                     bf16_kernel: str = "attn_fwd_mma_kernel") -> None:
+def attn_kernel_name(phase: str, what: str, fn, dt) -> None:
     """Fail unless the attention forward that `fn` runs is the split-TF32
-    kernel in fp32 and `bf16_kernel` in bf16 (csrc/unmasked_attention.cu:
-    the tensor-core forward for unmasked inference, the CUDA-core one for
-    the MASKED and STATS forwards), by name in a profiler trace."""
+    kernel in fp32 and the tensor-core one in bf16 (csrc/
+    unmasked_attention.cu `attn_fwd_mma_kernel`: unmasked, MASKED and
+    STATS), by name in a profiler trace."""
     kernel_names(phase, what, fn, dt, "attn_fwd",
-                 [bf16_kernel if dt == torch.bfloat16
+                 ["attn_fwd_mma_kernel" if dt == torch.bfloat16
                   else "attn_fwd_tf32x3_kernel"])
 
 
@@ -1503,8 +1513,7 @@ def phase10(dev, gpu: str) -> dict:
             if lq == B6_SHAPES[0][1]:
                 attn_kernel_name(
                     "10", "region (B6)",
-                    lambda: ra.region_flash_mha(q, k, v, rq, rkv, heads), dt,
-                    "attn_fwd_kernel")
+                    lambda: ra.region_flash_mha(q, k, v, rq, rkv, heads), dt)
             # rows whose every pair is suppressed are the mean of v
             full = (rq[:, :, None] == rkv[:, None, :]).all(-1)
             free = ~(rq[:, :, None] == rkv[:, None, :]).any(-1)
@@ -1654,11 +1663,11 @@ def phase11_12(dev, gpu: str) -> int:
 
 BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # the backward's launches by name: fp32 the split-TF32 passes, bf16 the
-# CUDA-core ones, then the reduce
+# bf16 tensor-core ones, then the reduce
 BWD_KERNELS = {
     torch.float32: ["attn_bwd_dkv_tf32x3_kernel", "attn_bwd_dq_tf32x3_kernel",
                     "attn_bwd_reduce_kernel"],
-    torch.bfloat16: ["attn_bwd_dkv_kernel", "attn_bwd_dq_kernel",
+    torch.bfloat16: ["attn_bwd_dkv_mma_kernel", "attn_bwd_dq_mma_kernel",
                      "attn_bwd_reduce_kernel"]}
 
 
@@ -1706,8 +1715,7 @@ def bwd_check(q, k, v, do, ids, heads: int, dt, gpu: str,
         plain = lambda: ra.region_flash_mha_bwd_reference(q, k, v, *ids, do,
                                                           heads)
     if names:
-        attn_kernel_name(phase, f"{name} training forward", fwd, dt,
-                         "attn_fwd_kernel")
+        attn_kernel_name(phase, f"{name} training forward", fwd, dt)
         kernel_names(phase, f"{name} backward", bwd, dt, "attn_bwd",
                      BWD_KERNELS[dt])
     got, want = bwd(), plain()
@@ -3792,23 +3800,25 @@ def attn_template_args(key: str) -> tuple:
 
 
 def bf16_step_launches(rows) -> dict:
-    """Launches of csrc/unmasked_attention.cu's bf16 training kernels in a
-    profiled step, by role: the STATS forward unmasked and MASKED
-    (`attn_fwd_kernel<bf16, float, DH, MASKED, STATS=true>`) and the
-    backward's dq, dkv (unmasked, MASKED) and reduce."""
+    """Launches of the attention kernels in a profiled bf16 step, by role:
+    csrc/unmasked_attention.cu's tensor-core STATS forward unmasked and
+    MASKED (`attn_fwd_mma_kernel<DH, VEC16, MASKED, STATS=true>`), the
+    backward's dq and dkv (`attn_bwd_{dq,dkv}_mma_kernel<DH, VEC16,
+    MASKED>`, unmasked and MASKED) and the reduce; any other attention
+    kernel (an inference forward, an fp32 or a CUDA-core one) under a role
+    of its own, `other ...`."""
     out = {}
     for e in rows:
         name, args = attn_template_args(e.key)
-        if not name.startswith("attn_") or not args \
-                or "bfloat16" not in args[0]:
+        if not name.startswith("attn_"):
             continue
-        if name == "attn_fwd_kernel" and args[-1] == "true":
+        if name == "attn_fwd_mma_kernel" and args[-1:] == ("true",):
             kind = "masked" if args[-2] == "true" else "plain"
             role = f"stats_fwd_{kind}"
-        elif name in ("attn_bwd_dq_kernel", "attn_bwd_dkv_kernel"):
+        elif name in ("attn_bwd_dq_mma_kernel", "attn_bwd_dkv_mma_kernel"):
             kind = "masked" if args[-1] == "true" else "plain"
-            role = f"{name[len('attn_bwd_'):-len('_kernel')]}_{kind}"
-        elif name == "attn_bwd_reduce_kernel":
+            role = f"{name[len('attn_bwd_'):-len('_mma_kernel')]}_{kind}"
+        elif name == "attn_bwd_reduce_kernel" and "bfloat16" in args[0]:
             role = "reduce"
         else:
             role = f"other {name}<{', '.join(args)}>"
@@ -3909,12 +3919,56 @@ def bf16_step_recipe(config: str, want: tuple, dev, gpu: str) -> tuple:
     return counts, k_ms, f_ms
 
 
+# the bf16 kernels against the CPU rounding model run on the card: the
+# same rounding points, sums in another order (an fp32 sum can round a P
+# or dS to the other bf16 neighbour); o32 carries p to ~16 bits
+MODEL_O32_ATOL, MODEL_GRAD_REL = 1e-3, 2e-3
+
+
+def bf16_ulps_over(got, want, floor: float) -> float:
+    """The largest |got - want| over one bf16 ulp of `want` or `floor`,
+    whichever is larger (both round to bf16: a differently ordered sum
+    can land on the neighbouring value)."""
+    _, e = torch.frexp(want.float())
+    ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32), e - 8)
+    return ((got.float() - want.float()).abs()
+            / ulp.clamp(min=floor)).max().item()
+
+
+def model_check(name, q, k, v, ids, do, heads, stats_out, grads) -> str:
+    """The bf16 STATS forward's (o, o32, m, inv) and the backward's
+    (dq, dk, dv) against `bf16_attention_model` on the same inputs."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from torch_attention_cases import bf16_attention_model
+
+    o, o32, m, inv = stats_out
+    mo, mo32, mm, minv, *mg = bf16_attention_model(q, k, v, heads, *ids,
+                                                   do=do)
+    o_ratio = bf16_ulps_over(o, mo, ATTN_ATOL[BF16] / 2)
+    o32_err = (o32 - mo32).abs().max().item()
+    stat_err = max((m - mm).abs().max().item(),
+                   ((inv - minv).abs() / minv).max().item())
+    rels = [rel_err(g, w) for g, w in zip(grads, mg)]
+    note = (f"model: o {o_ratio:.3f} of an ulp or 1e-2, o32 max abs "
+            f"{o32_err:.3e}, m and 1/l {stat_err:.3e}, dq/dk/dv rel "
+            f"{rels[0]:.2e}/{rels[1]:.2e}/{rels[2]:.2e}")
+    if (o_ratio > 1.0 or o32_err > MODEL_O32_ATOL or stat_err > 1e-4
+            or max(rels) > MODEL_GRAD_REL):
+        raise AssertionError(f"{name} bf16 disagrees with the rounding "
+                             f"model: {note}")
+    del mo, mo32, mg, mm, minv
+    return note
+
+
 def bf16_step_kernels(dev, gpu: str) -> dict:
-    """B7 and B6 in bf16 at the bf16 steps' shapes: the inference forward
-    (B7 on the tensor cores, B6 MASKED on the CUDA cores), the STATS
-    forward and the backward, each against its plain twin and beside SDPA
-    in bf16 (B6 with the float mask), with the bf16 bound (989 TFLOP/s)
-    and the fp32 kernel's split-TF32 bound beside it."""
+    """B7 and B6 in bf16 at the bf16 steps' shapes, all on the tensor
+    cores: the inference forward, the STATS forward and the backward, each
+    against its plain twin and the rounding model, and beside SDPA in bf16
+    (B6 with the float mask), with the bf16 bound (989 TFLOP/s) and the
+    fp32 kernel's split-TF32 bound beside it."""
     gen = torch.Generator().manual_seed(SEED + 291)
     regions = blob_regions(dev)[1:]
     rows = {}
@@ -3939,8 +3993,25 @@ def bf16_step_kernels(dev, gpu: str) -> dict:
                                                    stats=True)
             plain = lambda: ra.packed_flash_mha_reference(q, k, v, heads)
         want = plain()
-        err = _attn_check(name, kern(), want, BF16)
-        err_s = _attn_check(f"{name} STATS", stats()[0], want, BF16)
+        inf_o = kern()
+        err = _attn_check(name, inf_o, want, BF16)
+        stats_out = stats()
+        err_s = _attn_check(f"{name} STATS", stats_out[0], want, BF16)
+        # the STATS o is bf16(p) V / l, as the inference forward and the
+        # plain twin round it; fully suppressed rows the mean of v
+        if not torch.equal(stats_out[0], inf_o):
+            raise AssertionError(f"{name} bf16: the STATS forward's o differs "
+                                 "from the inference forward's")
+        if masked:
+            full = (ids[0][:, :, None] == ids[1][:, None, :]).all(-1)
+            mean_v = v.float().mean(1, keepdim=True).expand(-1, lq, -1)
+            full_err = (stats_out[0].float() - mean_v)[full].abs().max()
+            if not full.any() or full_err.item() > ATTN_ATOL[BF16]:
+                raise AssertionError(f"{name} bf16 STATS: fully suppressed "
+                                     f"rows {int(full.sum())}, max err to "
+                                     f"the mean of v {full_err.item()}")
+            del full, mean_v
+        del inf_o
         k_ms, p_ms = in_turns(kern, plain, 3)
         s_ms = cuda_ms(stats, 3)
         qh, kh, vh = (t.unflatten(-1, (heads, dh)).transpose(1, 2)
@@ -3950,6 +4021,10 @@ def bf16_step_kernels(dev, gpu: str) -> dict:
         lib_ms = cuda_ms(sdpa, 3)
         extra = 4 * b * (lq + lk) if masked else 0
         bd = attn_bound(b, heads, lq, lk, dh, BF16, extra_bytes=extra)
+        # the STATS forward also writes o32 and each row's max and 1/l
+        bd_s = attn_bound(b, heads, lq, lk, dh, BF16,
+                          extra_bytes=extra + 4 * b * lq * d
+                          + 8 * b * heads * lq)
         bd32 = attn_bound(b, heads, lq, lk, dh, torch.float32,
                           extra_bytes=extra)
         bwd16, bwd32 = (bwd_bound(b, heads, lq, lk, dh, dt)
@@ -3959,20 +4034,29 @@ def bf16_step_kernels(dev, gpu: str) -> dict:
               f"{err_s:.3e}; kernel {k_ms:.4f} ms, STATS forward "
               f"{s_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
               f"{'with the float mask ' if masked else ''}{lib_ms:.4f} ms, "
-              f"{bound_note(bd)}; the fp32 kernel's {bound_note(bd32)}; "
+              f"{bound_note(bd)}, STATS {bound_note(bd_s)}; the fp32 "
+              f"kernel's {bound_note(bd32)}; "
               f"backward {bound_note(bwd16)}, the fp32 kernel's "
               f"{bound_note(bwd32)} [{gpu}]")
         rows[("fwd", masked, lq, b)] = {
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, **bd,
             "library_ms": lib_ms}
         rows[("stats", masked, lq, b)] = {
-            "max_abs_err": err_s, "ms": s_ms, "plain_ms": p_ms, **bd,
+            "max_abs_err": err_s, "ms": s_ms, "plain_ms": p_ms, **bd_s,
             "library_ms": lib_ms}
         do = torch.randn(b, lq, d, generator=gen).to(dev, BF16)
         rows[("bwd", masked, lq, b)] = bwd_check(
             q, k, v, do, ids, heads, BF16, gpu, names=lq == 65536,
             phase="29")
-        del q, k, v, do, qh, kh, vh, mask, want
+        grads = (ra.region_packed_bwd(q, k, v, *ids, *stats_out[1:2], do,
+                                      *stats_out[2:], heads) if masked
+                 else ra.unmasked_packed_bwd(q, k, v, stats_out[1], do,
+                                             *stats_out[2:], heads))
+        note = model_check(name, q, k, v, ids or (None, None), do, heads,
+                           stats_out, grads)
+        print(f"phase 29: {name} q ({b}, {lq}, {d}), {heads} heads, bf16 "
+              f"against the rounding model: {note} [{gpu}]")
+        del q, k, v, do, qh, kh, vh, mask, want, stats_out, grads
         torch.cuda.empty_cache()
     return rows
 
@@ -4120,6 +4204,11 @@ def phase30(dev, gpu: str) -> dict:
     launches["det_slide"] = seg_run("30", model, plain, det_img, SEG_CROP,
                                     SEG_STRIDE, DET_SLIDE_LAUNCHES, gpu,
                                     **dict(bars, ref32=fp))
+    # every attention kernel of a bf16 det canvas is the tensor-core
+    # forward (MASKED for the branches, unmasked for the stages)
+    kernel_names("30", "bf16 det slide canvas", lambda: inference_segmentor(
+        model, det_img, SEG_CROP, SEG_STRIDE, return_logits=True), BF16,
+        "attn_", ["attn_fwd_mma_kernel"])
     del fp, model, plain
     torch.cuda.empty_cache()
     return launches
@@ -4312,15 +4401,15 @@ def main(argv: list) -> int:
          "replaces": "fudanocr_tpu/ops/flash_attention.py:653",
          "launches": inf16[(2048, 2048)][2], **b5_bf16},
         {"name": "region_attention_packed_bf16", "route": "cuda",
-         "source": seg_src, "cuda_kernels": ["attn_fwd_kernel"],
+         "source": seg_src, "cuda_kernels": ["attn_fwd_mma_kernel"],
          "replaces": "fudanocr_tpu/ops/region_attention.py:167",
          "launches": inf16["det_slide"][0], **b6_bf16},
         {"name": "unmasked_attention_packed_stats_bf16", "route": "cuda",
-         "source": seg_src, "cuda_kernels": ["attn_fwd_kernel"],
+         "source": seg_src, "cuda_kernels": ["attn_fwd_mma_kernel"],
          "replaces": "fudanocr_tpu/ops/region_attention.py:280",
          "launches": bf16["launches"][0], **bf16["stats_plain"]},
         {"name": "region_attention_packed_stats_bf16", "route": "cuda",
-         "source": seg_src, "cuda_kernels": ["attn_fwd_kernel"],
+         "source": seg_src, "cuda_kernels": ["attn_fwd_mma_kernel"],
          "replaces": "fudanocr_tpu/ops/region_attention.py:167",
          "launches": bf16["launches"][2], **bf16["stats_masked"]},
         {"name": "unmasked_attention_packed_bwd_bf16", "route": "cuda",

@@ -12,7 +12,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bf16_mma.cuh"   // cp.async
+#include "bf16_mma.cuh"   // cp.async, quad_sum
 #include "unmasked_attention.cuh"
 
 namespace {
@@ -50,10 +50,6 @@ __device__ __forceinline__ uint32_t ldb(const float* p) {
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // The A operand of a warp's 16 rows x KS*8 features (m16n8k8: lane (g, t)

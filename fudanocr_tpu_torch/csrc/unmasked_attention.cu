@@ -80,9 +80,8 @@
 // unmasked, MASKED and STATS; B5, B6, B7 and, through B7's wrappers, B3 and
 // B10) or, for the backward, `attn_bwd_dq_tf32x3_kernel` and
 // `attn_bwd_dkv_tf32x3_kernel` (csrc/unmasked_attention_bwd_tf32x3.cu),
-// then this file's reduce; their helpers are csrc/tf32x3.cuh. No fp32
-// instantiation of the CUDA-core kernels below is built. (Three sources,
-// so that nvcc compiles them in parallel.) One TF32 product
+// then this file's reduce; their helpers are csrc/tf32x3.cuh. (Three
+// sources, so that nvcc compiles them in parallel.) One TF32 product
 // (mma.sync m16n8k8 .tf32: 10 explicit mantissa bits, products exact,
 // fp32 sums) misses the fp32 bar by two orders: its operands carry 2^-11
 // relative error, ~5e-4 in o at standard-normal inputs against the 1e-5
@@ -103,9 +102,9 @@
 // CUDA cores (rounded to nearest), and within a tile the two small
 // products of every k-step are summed before the large ones: S takes dh/8
 // truncations of its own size, never one per tile of Lkv.
-// The rounding points are the CUDA-core kernels': s = fp32 product times
-// scale with __fmul_rn, MASKED adds -1e10 with __fadd_rn, the running max
-// from -inf, p = exp(s - m) in fp32, l in fp32, o = acc * (1/l); STATS
+// The rounding points are the bf16 kernels' (below): s = fp32 product
+// times scale with __fmul_rn, MASKED adds -1e10 with __fadd_rn, the running
+// max from -inf, p = exp(s - m) in fp32, l in fp32, o = acc * (1/l); STATS
 // writes m, 1/l and o in fp32. The design is B1's and the bf16 forward's
 // mma.sync loop (below) on fp32 tiles:
 //   * one block of 8 warps per 128 rows; each warp owns 16 rows (q rows,
@@ -140,60 +139,77 @@
 //     dV) in shared memory, each element owned by one lane, added to once
 //     per tile.
 //
-// bf16: the unmasked inference forward (`attn_fwd_mma_kernel`: B7, B3 and
-// B10 on the packed layout, B5 on the head-major one) runs on the tensor
-// cores; every bf16 call without region ids and without STATS runs it. It
-// computes the JAX kernels' function at their rounding points
-// (region_attention.py `_fwd_body` :63-81, flash_attention.py
-// `_packed_kernel` :136-160 and the online `_flash_kernel` :46-79):
-//   s = fp32(q k^T) * scale, m the running row max, p = exp(s - m) in fp32,
+// bf16: every call runs on the tensor cores, mma.sync m16n8k16 (bf16 in,
+// fp32 accumulators): the forward `attn_fwd_mma_kernel` (unmasked
+// inference: B7, B3 and B10 on the packed layout, B5 on the head-major one;
+// MASKED: B6; STATS: the training forward of B6 and B7), the backward
+// `attn_bwd_dq_mma_kernel` then `attn_bwd_dkv_mma_kernel` and the reduce.
+// They compute the JAX kernels' function at their rounding points
+// (region_attention.py `_fwd_body` :63-81 and `_bwd_body` :96-142,
+// flash_attention.py `_packed_kernel` :136-160 and the online
+// `_flash_kernel` :46-79):
+//   s = fp32(q k^T) * scale (+ -1e10 where the ids are equal, MASKED),
+//   m the running row max from -inf, p = exp(s - m) in fp32 (unmasked:
+//   2^(q.k * scale*log2(e) - m*log2(e)) as one FMA, as the dropout kernels
+//   form it; the argument differs from JAX's by an ulp, and the forward
+//   runs ~10 % faster at det level 0, scripts/time_seg_attention.py),
 //   l = sum p in fp32, the rescale exp(m_old - m_new),
 //   o = (bf16(p) v, accumulated in fp32) / l, rounded to bf16.
-// What bounds it: 4*B*H*Lq*Lkv*dh flops on the tensor cores (989 TFLOP/s
-// bf16) against 2 bytes per q, k, v and o element; at TBSRN's shape (B 256,
-// L 1024, 4 heads of 32) 137 GFLOP take 0.139 ms, the bytes 0.03 ms. At
-// dh = 32 each score costs 4*dh = 128 tensor-core flops but also a scale,
-// a max, a subtraction, an exponential and an add on the CUDA cores, so the
-// softmax, not the products, is what the design has to keep lean. The
-// design is FlashAttention-2's forward on mma.sync m16n8k16 (bf16 in, fp32
-// accumulators), B1's attention loop (csrc/fused_enhancer.cu
-// `attention_mma`) on strided operands:
-//   * one block of 8 warps per (128-row q tile, head, image); each warp
-//     owns 16 q rows and keeps their A fragments in registers for the whole
-//     key loop;
-//   * 64-key tiles of K and V stay bf16 in shared memory, rows padded by 8
-//     elements so the fragment loads are free of bank conflicts, double-
-//     buffered with 16-byte cp.async copies: tile j + 1 loads while tile j
-//     is computed. The q tile is staged once through the second buffer.
-//     Where a base pointer or a stride rules out 16-byte copies (a column
-//     slice at an odd element offset), a compile-time variant of the same
-//     kernel copies 2 bytes at a time, synchronously;
-//   * S = Q K^T as dh/16 k-steps x 8 n-tiles per warp, K's B fragments as
-//     32-bit loads from the row-major (key, d) tile;
-//   * the online softmax on the accumulator fragments: a row's values sit
-//     in the 4 lanes of a quad and reduce with two xor shuffles;
+// What bounds them: 4*B*H*Lq*Lkv*dh flops forward, 10*B*H*Lq*Lkv*dh
+// backward, on the tensor cores (989 TFLOP/s bf16), against 2 bytes per
+// q, k, v, o (and dO, dq, dk, dv) element, 4 per o32 element and row
+// statistic; at TBSRN's shape (B 256, L 1024, 4 heads of 32) the forward's
+// 137 GFLOP take 0.139 ms, the bytes 0.03 ms; at the det recipe's level 0
+// (B 2, Lq 65,536, Lkv 1024, dh 32) 17.2 and 42.9 GFLOP take 0.017 and
+// 0.043 ms, the training forward's bytes (q, o and o32) 0.006 ms. At
+// dh = 32 each score costs 4*dh = 128 tensor-core flops forward but also a
+// scale, a max, a subtraction, an exponential and an add on the CUDA cores
+// (and in the backward a second exponential and the dS arithmetic), so
+// the per-score work, not the products, is what the design keeps lean.
+// The design is FlashAttention-2 on mma.sync, B1's attention loop
+// (csrc/fused_enhancer.cu `attention_mma`) on strided operands:
+//   * one block of 8 warps per 128 rows (q rows; keys in the dK/dV pass);
+//     each warp owns 16 rows and keeps their A fragments in registers for
+//     the whole loop (Q; Q and dO; K and V);
+//   * the other side's 64-row tiles stay bf16 in shared memory, rows
+//     padded by 8 elements so the fragment loads are free of bank
+//     conflicts, double-buffered with 16-byte cp.async copies: tile j + 1
+//     loads while tile j is computed. MASKED stages the tile's 64 key ids
+//     beside K/V (the dK/dV pass: the q rows' ids, m, 1/l and D beside
+//     Q/dO); each lane keeps its two rows' ids in registers. Where a base
+//     pointer or a stride rules out 16-byte copies (a column slice at an
+//     odd element offset), a compile-time variant copies 2 bytes at a time;
+//   * S = Q K^T as dh/16 k-steps x 8 n-tiles per warp, the B fragments as
+//     32-bit loads from the row-major (key, d) tile; the online softmax on
+//     the accumulator fragments (a row's values sit in the 4 lanes of a
+//     quad and reduce with two xor shuffles);
 //   * P rounded to bf16 and repacked in registers: the m16n8 C layout of
 //     two adjacent key n-tiles is the m16n8k16 A layout, so P never goes
-//     through shared memory; V's B fragments come through ldmatrix.trans;
-//   * o / l rounded to bf16 and stored through the output's own strides.
-// No wgmma and no TMA: mma.sync at 8 warps per block is the proven base
-// (B1); warp-group products are later work.
-// The bf16 MASKED forward, STATS forward and backward, which no path
-// reaches in bf16, still widen bf16 to fp32 on the CUDA cores
-// (`attn_fwd_kernel`, `attn_bwd_dq_kernel`, `attn_bwd_dkv_kernel`): one
-// block of 128 threads per 128 rows, one thread per q row (or key) holding
-// its row and its accumulator in registers, each shared-memory row read as
-// a broadcast feeding one FMA per feature, tiles staged element by element.
-// A bf16 value is exact in TF32 (its low part is zero), so these calls can
-// move to the tf32x3 kernels with one product each at today's bf16
-// semantics (ROADMAP B-R2).
+//     through shared memory; V's B fragments come through ldmatrix.trans.
+// STATS: the backward forms D_i = dO_i . o_i, which JAX takes from the
+// fp32 probabilities (rowsum(dP probs)), while the bf16 o is (bf16(p) v)/l
+// as JAX rounds it. So p is split into a bf16 pair hi = bf16(p), lo =
+// bf16(p - hi), one extra product: o = acc_hi / l in bf16 and
+// o32 = (acc_hi + acc_lo) / l in fp32, beside m and 1/l per (image, head,
+// row). D from bf16(p) alone took dq to 0.009 norm-relative from JAX's
+// bf16 kernels on the "rising" case of the CPU model (tests/
+// test_torch_seg_bf16_rounding.py), against a bar of 0.01.
+// The backward: S and dP = dO V^T, one bf16 product each (exact in fp32);
+// p = exp(s - m) * (1/l) from the saved statistics with the forward's
+// rounding; dS = p (dP - D). P and dS are rounded to bf16 for dV and dK;
+// for dQ dS is a bf16 pair hi + lo: a row of dS sums to 0, and one
+// rounding lets K's mean over the keys into dQ (0.011 on "rising" in the
+// model). The CPU model (tests/torch_attention_cases.py
+// `bf16_attention_model`) stays within a quarter of the 0.01 bar in dk
+// and dv and 3e-4 in dq. The dQ pass (launch 1) also writes D for the dK/dV
+// pass (launch 2); both are held to 128 registers at dh = 32 (2 blocks an
+// SM). No wgmma and no TMA: mma.sync at 8 warps per block is the proven
+// base (B1, B4); warp-group products are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "bf16_mma.cuh"
 #include "unmasked_attention.cuh"
@@ -202,271 +218,168 @@ namespace {
 
 using namespace seg_attn;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// r . row, row a 16-byte aligned row of DH floats in shared memory (a
-// broadcast: every thread reads the same row)
-template <int DH>
-__device__ __forceinline__ float dot_sm(const float* r, const float* row) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-  float a0 = 0.f, a1 = 0.f;
-#pragma unroll
-  for (int i = 0; i < DH / 4; i += 2) {
-    const float4 u = r4[i];
-    const float4 w = r4[i + 1];
-    a0 = fmaf(r[4 * i], u.x, a0);
-    a0 = fmaf(r[4 * i + 1], u.y, a0);
-    a0 = fmaf(r[4 * i + 2], u.z, a0);
-    a0 = fmaf(r[4 * i + 3], u.w, a0);
-    a1 = fmaf(r[4 * i + 4], w.x, a1);
-    a1 = fmaf(r[4 * i + 5], w.y, a1);
-    a1 = fmaf(r[4 * i + 6], w.z, a1);
-    a1 = fmaf(r[4 * i + 7], w.w, a1);
-  }
-  return a0 + a1;
+using bf16 = __nv_bfloat16;
+
+// 2^x on the SFU (what __expf runs after its own multiply by log2(e))
+__device__ __forceinline__ float ex2f(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// acc += c * row (row in shared memory, as above)
-template <int DH>
-__device__ __forceinline__ void axpy_sm(float* acc, float c,
-                                        const float* row) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int i = 0; i < DH / 4; ++i) {
-    const float4 u = r4[i];
-    acc[4 * i] = fmaf(c, u.x, acc[4 * i]);
-    acc[4 * i + 1] = fmaf(c, u.y, acc[4 * i + 1]);
-    acc[4 * i + 2] = fmaf(c, u.z, acc[4 * i + 2]);
-    acc[4 * i + 3] = fmaf(c, u.w, acc[4 * i + 3]);
-  }
-}
-
-template <typename T, int DH>
-__device__ __forceinline__ void load_row(const T* __restrict__ p, float* r) {
-#pragma unroll
-  for (int i = 0; i < DH; ++i) r[i] = to_f(p[i]);
-}
-
-// Copy kTile rows of DH features, rows r0.. of a matrix with row stride
-// `stride` at src, into the (kTile, DH) fp32 tile dst. Neighbouring threads
-// read neighbouring features of a row.
-template <typename T, int DH>
-__device__ __forceinline__ void stage_tile(const T* __restrict__ src,
-                                           int64_t stride, int r0,
-                                           float* dst) {
-#pragma unroll 4
-  for (int i = threadIdx.x; i < kTile * DH; i += kRows)
-    dst[i] = to_f(src[(int64_t)(r0 + i / DH) * stride + i % DH]);
-}
-
-// the scaled score of one (q, key) pair, with the forward's rounding: the
-// masked sum is rounded twice (product, then sum), never contracted into
-// one FMA, to keep the JAX kernel's rounding
-template <bool MASKED>
-__device__ __forceinline__ float score(float d, float scale, float rid,
-                                       float kid) {
-  return MASKED ? __fadd_rn(__fmul_rn(d, scale), rid == kid ? kNeg : 0.f)
-                : d * scale;
-}
-
-// STATS: o is fp32 and the row max and 1/denominator are written to
-// stat_m / stat_inv at ((b * H + h) * Lq + row)
-template <typename T, typename TO, int DH, bool MASKED, bool STATS>
-__global__ void __launch_bounds__(kRows)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, TO* __restrict__ o,
-                const float* __restrict__ rq, const float* __restrict__ rkv,
-                float* __restrict__ stat_m, float* __restrict__ stat_inv,
-                int Lq, int Lkv, Strides sq, Strides sk, Strides sv,
-                Strides so, float scale) {
-  // scores held in registers per online-softmax step: fewer at dh = 64,
-  // where the q row and the accumulator take 128 registers
-  constexpr int kChunk = DH == 32 ? 32 : 16;
-  __shared__ __align__(16) float ks[kTile * DH];
-  __shared__ __align__(16) float vs[kTile * DH];
-  __shared__ float ids[MASKED ? kTile : 1];
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int64_t row = (int64_t)blockIdx.x * kRows + threadIdx.x;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-  const float rid = MASKED ? rq[(int64_t)b * Lq + row] : 0.f;
-
-  float qr[DH], acc[DH];
-  load_row<T, DH>(q + b * sq.b + h * sq.h + row * sq.r, qr);
-#pragma unroll
-  for (int i = 0; i < DH; ++i) acc[i] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < Lkv; k0 += kTile) {
-    __syncthreads();
-    stage_tile<T, DH>(kb, sk.r, k0, ks);
-    stage_tile<T, DH>(vb, sv.r, k0, vs);
-    if (MASKED && threadIdx.x < kTile)
-      ids[threadIdx.x] = rkv[(int64_t)b * Lkv + k0 + threadIdx.x];
-    __syncthreads();
-#pragma unroll 1
-    for (int c0 = 0; c0 < kTile; c0 += kChunk) {
-      float s[kChunk];
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        s[j] = score<MASKED>(dot_sm<DH>(qr, ks + (c0 + j) * DH), scale, rid,
-                             MASKED ? ids[c0 + j] : 0.f);
-        cmax = fmaxf(cmax, s[j]);
-      }
-      const float mnew = fmaxf(m, cmax);
-      const float alpha = __expf(m - mnew);   // 0 on the first chunk
-      l *= alpha;
-#pragma unroll
-      for (int i = 0; i < DH; ++i) acc[i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float p = __expf(s[j] - mnew);
-        l += p;
-        axpy_sm<DH>(acc, p, vs + (c0 + j) * DH);
-      }
-      m = mnew;
-    }
-  }
-  const float inv = 1.f / l;
-  TO* op = o + b * so.b + h * so.h + row * so.r;
-#pragma unroll
-  for (int i = 0; i < DH; ++i) store_f(op + i, acc[i] * inv);
-  if (STATS) {
-    const int64_t r = ((int64_t)b * gridDim.y + h) * Lq + row;
-    stat_m[r] = m;
-    stat_inv[r] = inv;
-  }
-}
-
-// ---- the bf16 inference forward on the tensor cores (see the top) --------
-template <int DH, bool VEC16>
+// ---- bf16 on the tensor cores (see the top) -------------------------------
+// The forward. MASKED: pairs whose ids a.rq (B, Lq), a.rkv (B, Lkv) are
+// equal get -1e10 added to their score. STATS: the training forward, o
+// (bf16, a.o at a.so) and o32 (fp32, contiguous (B, Lq, H*DH)), and the row
+// max and 1/denominator at a.stat_m, a.stat_inv ((b * H + h) * Lq + row).
+template <int DH, bool VEC16, bool MASKED, bool STATS>
 __global__ void __launch_bounds__(kMmaThreads)
-attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ o, int Lkv, Strides sq,
-                    Strides sk, Strides sv, Strides so, float scale) {
+attn_fwd_mma_kernel(const FwdArgs a) {
   constexpr int P = DH + 8;        // row pitch of the shared tiles
   constexpr int KS = DH / 16;      // k-steps of Q K^T
   constexpr int NS = kTile / 8;    // key n-tiles of S
   constexpr int NO = DH / 8;       // feature n-tiles of O
   // two stages of [K tile | V tile]; stage 1 first holds the q tile
-  __shared__ __align__(16) __nv_bfloat16 kv[2][2 * kTile * P];
+  __shared__ __align__(16) bf16 kv[2][2 * kTile * P];
+  __shared__ __align__(16) float ids[2][MASKED ? kTile : 2];
   static_assert(2 * kTile >= kRows, "the q tile must fit in one stage");
   const int b = blockIdx.z, h = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;       // mma group and lane in it
   const int64_t row0 = (int64_t)blockIdx.x * kRows;
-  const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
-  const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
+  const bf16* kb = (const bf16*)a.k + b * a.sk.b + h * a.sk.h;
+  const bf16* vb = (const bf16*)a.v + b * a.sv.b + h * a.sv.h;
+  const float* ib = MASKED ? a.rkv + (int64_t)b * a.Lkv : nullptr;
+  // key tile j into stage j & 1: K and V rows, and (MASKED) their ids
+  auto issue = [&](int j) {
+    bf16* st = kv[j & 1];
+    const int64_t k0 = (int64_t)j * kTile;
+    copy_rows<DH, VEC16, kMmaThreads>(st, kb + k0 * a.sk.r, a.sk.r, kTile);
+    copy_rows<DH, VEC16, kMmaThreads>(st + kTile * P, vb + k0 * a.sv.r,
+                                      a.sv.r, kTile);
+    if (MASKED && threadIdx.x < kTile)
+      cp_async4(&ids[j & 1][threadIdx.x], ib + k0 + threadIdx.x);
+    cp_async_commit();
+  };
 
   copy_rows<DH, VEC16, kMmaThreads>(
-      kv[1], q + b * sq.b + h * sq.h + row0 * sq.r, sq.r, kRows);
+      kv[1], (const bf16*)a.q + b * a.sq.b + h * a.sq.h + row0 * a.sq.r,
+      a.sq.r, kRows);
   cp_async_commit();
-  copy_rows<DH, VEC16, kMmaThreads>(kv[0], kb, sk.r, kTile);
-  copy_rows<DH, VEC16, kMmaThreads>(kv[0] + kTile * P, vb, sv.r, kTile);
-  cp_async_commit();
+  issue(0);
   cp_async_wait<1>();   // the q tile is in
   __syncthreads();
   uint32_t qa[KS][4];    // this warp's 16 q rows as A fragments
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
-    const __nv_bfloat16* p = kv[1] + (warp * 16 + g) * P + kk * 16 + 2 * t;
+    const bf16* p = kv[1] + (warp * 16 + g) * P + kk * 16 + 2 * t;
     qa[kk][0] = ld32(p);
     qa[kk][1] = ld32(p + 8 * P);
     qa[kk][2] = ld32(p + 8);
     qa[kk][3] = ld32(p + 8 * P + 8);
   }
-  float acc[NO][4];
+  // this lane's rows g (c = 0, 1) and g + 8 (c = 2, 3), key columns
+  // n*8 + 2t + {0, 1}
+  const int64_t rowg = row0 + warp * 16 + g;
+  float rid[2] = {0.f, 0.f};
+  if (MASKED) {
+    rid[0] = a.rq[(int64_t)b * a.Lq + rowg];
+    rid[1] = a.rq[(int64_t)b * a.Lq + rowg + 8];
+  }
+  // bf16(p) V and, STATS, (p - bf16(p)) V (unused otherwise: no registers)
+  float acc[NO][4], lo[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
-  // this lane's rows g (c = 0, 1) and g + 8 (c = 2, 3), key columns
-  // n*8 + 2t + {0, 1}
+    for (int c = 0; c < 4; ++c) acc[n][c] = lo[n][c] = 0.f;
+  // the running max: of the scaled, masked scores (MASKED); of the raw
+  // products otherwise (scale > 0), whose p = exp(s * scale - m * scale)
+  // is one FMA in base 2 with scale * log2(e) folded in
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const float sl2 = a.scale * 1.4426950408889634f;
 
   // one barrier per tile: after it, tile j is in from every thread's
   // copies, and every warp is done with tile j - 1 (and, at j = 0, with
   // the q tile), so tile j + 1 may load into that buffer while tile j is
   // computed
-  const int tiles = Lkv / kTile;
+  const int tiles = a.Lkv / kTile;
   for (int j = 0; j < tiles; ++j) {
     cp_async_wait<0>();   // tile j is in, from this thread's copies
     __syncthreads();
-    if (j + 1 < tiles) {
-      __nv_bfloat16* nxt = kv[(j + 1) & 1];
-      const int64_t k0 = (int64_t)(j + 1) * kTile;
-      copy_rows<DH, VEC16, kMmaThreads>(nxt, kb + k0 * sk.r, sk.r, kTile);
-      copy_rows<DH, VEC16, kMmaThreads>(nxt + kTile * P, vb + k0 * sv.r,
-                                        sv.r, kTile);
-      cp_async_commit();
-    }
-    const __nv_bfloat16* kt = kv[j & 1];
-    const __nv_bfloat16* vt = kt + kTile * P;
+    if (j + 1 < tiles) issue(j + 1);
+    const bf16* kt = kv[j & 1];
+    const bf16* vt = kt + kTile * P;
 
     float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const __nv_bfloat16* kp = kt + (n * 8 + g) * P + kk * 16 + 2 * t;
-        mma_bf16(s[n], qa[kk], ld32(kp), ld32(kp + 8));
-      }
-    }
-    // the scaled fp32 scores (rounded once, not contracted into the
-    // exponent's argument), the running max over the quad
+    mma_abt(s, qa, kt, g, t);
+    // MASKED: the scaled fp32 scores, rounded once, the suppression added
+    // and rounded again, as the JAX kernel rounds them (a row whose keys
+    // are all suppressed is uniform); the running max over the quad
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+    for (int n = 0; n < NS; ++n) {
+      float2 kid = make_float2(0.f, 0.f);
+      if (MASKED)
+        kid = *reinterpret_cast<const float2*>(&ids[j & 1][n * 8 + 2 * t]);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        s[n][c] = __fmul_rn(s[n][c], scale);
+        if (MASKED) {
+          s[n][c] = __fmul_rn(s[n][c], a.scale);
+          s[n][c] = __fadd_rn(
+              s[n][c], rid[c >> 1] == ((c & 1) ? kid.y : kid.x) ? kNeg : 0.f);
+        }
         mx[c >> 1] = fmaxf(mx[c >> 1], s[n][c]);
       }
-    float alpha[2], sum[2] = {0.f, 0.f};
+    }
+    float alpha[2], sum[2] = {0.f, 0.f}, mb[2];
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
       mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
-      const float m_new = fmaxf(m[rr], mx[rr]);   // finite: no masking
-      alpha[rr] = __expf(m[rr] - m_new);          // 0 on the first tile
+      // finite: a suppressed score is -1e10, not -inf
+      const float m_new = fmaxf(m[rr], mx[rr]);
+      alpha[rr] = MASKED ? __expf(m[rr] - m_new)   // 0 on the first tile
+                         : ex2f((m[rr] - m_new) * sl2);
       m[rr] = m_new;
+      mb[rr] = m_new * sl2;
     }
 #pragma unroll
     for (int n = 0; n < NS; ++n)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        s[n][c] = __expf(s[n][c] - m[c >> 1]);
+        s[n][c] = MASKED ? __expf(s[n][c] - m[c >> 1])
+                         : ex2f(fmaf(s[n][c], sl2, -mb[c >> 1]));
         sum[c >> 1] += s[n][c];
       }
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      sum[rr] += __shfl_xor_sync(0xffffffffu, sum[rr], 1);
-      sum[rr] += __shfl_xor_sync(0xffffffffu, sum[rr], 2);
-      l[rr] = l[rr] * alpha[rr] + sum[rr];
-    }
+    for (int rr = 0; rr < 2; ++rr)
+      l[rr] = l[rr] * alpha[rr] + quad_sum(sum[rr]);
 #pragma unroll
     for (int n = 0; n < NO; ++n)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[n][c] *= alpha[c >> 1];
-    // O += bf16(P) V: the accumulators of key n-tiles 2kk, 2kk + 1 are the
-    // A fragment of k-step kk
+      for (int c = 0; c < 4; ++c) {
+        acc[n][c] *= alpha[c >> 1];
+        if (STATS) lo[n][c] *= alpha[c >> 1];
+      }
+    // O += bf16(P) V (STATS: and (P - bf16(P)) V into lo): the accumulators
+    // of key n-tiles 2kk, 2kk + 1 are the A fragment of k-step kk
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      uint32_t pa[4], pl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* si = s[2 * kk + (i >> 1)] + 2 * (i & 1);
+        pa[i] = pack_bf16(si[0], si[1]);
+        if (STATS) {
+          const float2 hi = unpack_bf16(pa[i]);
+          pl[i] = pack_bf16(si[0] - hi.x, si[1] - hi.y);
+        }
+      }
 #pragma unroll
       for (int n = 0; n < NO; n += 2) {
         uint32_t bf[4];
@@ -474,157 +387,251 @@ attn_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                   (lane >> 4) * 8);
         mma_bf16(acc[n], pa, bf[0], bf[1]);
         mma_bf16(acc[n + 1], pa, bf[2], bf[3]);
+        if (STATS) {
+          mma_bf16(lo[n], pl, bf[0], bf[1]);
+          mma_bf16(lo[n + 1], pl, bf[2], bf[3]);
+        }
       }
     }
   }
-  __nv_bfloat16* ob = o + b * so.b + h * so.h;
+  bf16* ob = (bf16*)a.o + b * a.so.b + h * a.so.h;
+  const int64_t D = (int64_t)gridDim.y * DH;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    __nv_bfloat16* orow = ob + (row0 + warp * 16 + g + 8 * hr) * so.r;
+    const int64_t row = rowg + 8 * hr;
+    bf16* orow = ob + row * a.so.r;
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      const float lo = acc[n][2 * hr] / l[hr];
-      const float hi = acc[n][2 * hr + 1] / l[hr];
-      __nv_bfloat16* dst = orow + n * 8 + 2 * t;
-      if (VEC16) {
-        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(lo, hi);
-      } else {
-        dst[0] = __float2bfloat16(lo);
-        dst[1] = __float2bfloat16(hi);
+    for (int n = 0; n < NO; ++n)
+      st_pair<VEC16>(orow + n * 8 + 2 * t, acc[n][2 * hr] / l[hr],
+                     acc[n][2 * hr + 1] / l[hr]);
+    if (STATS) {
+      float* o32 = a.o32 + ((int64_t)b * a.Lq + row) * D + h * DH + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<float2*>(o32 + n * 8) =
+            make_float2((acc[n][2 * hr] + lo[n][2 * hr]) / l[hr],
+                        (acc[n][2 * hr + 1] + lo[n][2 * hr + 1]) / l[hr]);
+      if (t == 0) {
+        const int64_t r = ((int64_t)b * gridDim.y + h) * a.Lq + row;
+        // in the scores' units, as the backward forms them
+        a.stat_m[r] = MASKED ? m[hr] : __fmul_rn(m[hr], a.scale);
+        a.stat_inv[r] = 1.f / l[hr];
       }
     }
   }
 }
 
-// Backward launch 1 in bf16 on the CUDA cores: dq (B, Lq, H*DH)
-// contiguous, and D_i = dO_i . o_i into delta, for this thread's q row
-// against every key. dout (input type) and o (fp32) are contiguous
-// (B, Lq, H*DH).
-template <typename T, int DH, bool MASKED>
-__global__ void __launch_bounds__(kRows)
-attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const float* __restrict__ o,
-                   const T* __restrict__ dout, const float* __restrict__ rq,
-                   const float* __restrict__ rkv,
-                   const float* __restrict__ stat_m,
-                   const float* __restrict__ stat_inv,
-                   float* __restrict__ delta, T* __restrict__ dq, int Lq,
-                   int Lkv, Strides sq, Strides sk, Strides sv, float scale) {
-  __shared__ __align__(16) float ks[kTile * DH];
-  __shared__ __align__(16) float vs[kTile * DH];
-  __shared__ float ids[MASKED ? kTile : 1];
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int64_t D = (int64_t)gridDim.y * DH;
-  const int64_t row = (int64_t)blockIdx.x * kRows + threadIdx.x;
-  const int64_t srow = ((int64_t)b * gridDim.y + h) * Lq + row;
-  const int64_t prow = ((int64_t)b * Lq + row) * D + h * DH;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-  const float rid = MASKED ? rq[(int64_t)b * Lq + row] : 0.f;
-
-  float qr[DH], dor[DH], acc[DH];
-  load_row<T, DH>(q + b * sq.b + h * sq.h + row * sq.r, qr);
-  load_row<T, DH>(dout + prow, dor);
-  load_row<float, DH>(o + prow, acc);   // o, to form D_i
-  float di = 0.f;
-#pragma unroll
-  for (int i = 0; i < DH; ++i) {
-    di = fmaf(dor[i], acc[i], di);
-    acc[i] = 0.f;
-  }
-  delta[srow] = di;
-  const float m = stat_m[srow], inv = stat_inv[srow];
-
-  for (int k0 = 0; k0 < Lkv; k0 += kTile) {
-    __syncthreads();
-    stage_tile<T, DH>(kb, sk.r, k0, ks);
-    stage_tile<T, DH>(vb, sv.r, k0, vs);
-    if (MASKED && threadIdx.x < kTile)
-      ids[threadIdx.x] = rkv[(int64_t)b * Lkv + k0 + threadIdx.x];
-    __syncthreads();
-#pragma unroll 2
-    for (int j = 0; j < kTile; ++j) {
-      const float s = score<MASKED>(dot_sm<DH>(qr, ks + j * DH), scale, rid,
-                                    MASKED ? ids[j] : 0.f);
-      const float p = __expf(s - m) * inv;
-      const float dp = dot_sm<DH>(dor, vs + j * DH);
-      axpy_sm<DH>(acc, p * (dp - di), ks + j * DH);
-    }
-  }
-  T* dst = dq + prow;
-#pragma unroll
-  for (int i = 0; i < DH; ++i) store_f(dst + i, acc[i] * scale);
+// the probability of one score element x (fp32 product) with the
+// forward's rounding, from the row's saved max m and 1/denominator inv
+template <bool MASKED>
+__device__ __forceinline__ float prob(float x, float scale, float rid,
+                                      float kid, float m, float inv) {
+  x = __fmul_rn(x, scale);
+  if (MASKED) x = __fadd_rn(x, rid == kid ? kNeg : 0.f);
+  return __expf(x - m) * inv;
 }
 
-// Backward launch 2 in bf16: this thread's key row against q rows
-// [split * q_chunk, min(Lq, (split + 1) * q_chunk)), block x = split *
-// (Lkv / kRows) + key block. Writes unscaled fp32 partial dk and dv at
-// ((split * B + b) * Lkv + key) * H*DH + h*DH.
-template <typename T, int DH, bool MASKED>
-__global__ void __launch_bounds__(kRows)
-attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ rq,
-                    const float* __restrict__ rkv,
-                    const float* __restrict__ stat_m,
-                    const float* __restrict__ stat_inv,
-                    const float* __restrict__ delta,
-                    float* __restrict__ dk_part, float* __restrict__ dv_part,
-                    int Lq, int Lkv, int q_chunk, Strides sq, Strides sk,
-                    Strides sv, float scale) {
-  __shared__ __align__(16) float qs[kTile * DH];
-  __shared__ __align__(16) float dos[kTile * DH];
-  __shared__ float s_m[kTile], s_inv[kTile], s_di[kTile];
-  __shared__ float ids[MASKED ? kTile : 1];
+// Backward launch 1: dq (B, Lq, H*DH) contiguous, and D_i = dO_i . o32_i
+// into delta, for this warp's 16 q rows against every key. dout (bf16) and
+// o32 (fp32) are contiguous (B, Lq, H*DH). dQ = scale (dS_hi + dS_lo) K.
+template <int DH, bool VEC16, bool MASKED>
+__global__ void __launch_bounds__(kMmaThreads, DH == 32 ? 2 : 1)
+attn_bwd_dq_mma_kernel(const BwdArgs a) {
+  constexpr int P = DH + 8, T = kTile * P;
+  constexpr int KS = DH / 16, NS = kTile / 8, NO = DH / 8;
+  __shared__ __align__(16) bf16 kv[2][2 * T];   // [K | V] x 2
+  __shared__ __align__(16) float ids[2][MASKED ? kTile : 2];
   const int b = blockIdx.z, h = blockIdx.y;
-  const int H = gridDim.y;
-  const int64_t D = (int64_t)H * DH;
-  const int nkb = Lkv / kRows;
-  const int split = blockIdx.x / nkb;
-  const int64_t key = (int64_t)(blockIdx.x % nkb) * kRows + threadIdx.x;
-  const int q0 = split * q_chunk;
-  const int q1 = min(Lq, q0 + q_chunk);
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* dob = dout + (int64_t)b * Lq * D + h * DH;
-  const int64_t sbase = ((int64_t)b * H + h) * Lq;
-  const float rid = MASKED ? rkv[(int64_t)b * Lkv + key] : 0.f;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t D = (int64_t)a.H * DH;
+  const int64_t row0 = (int64_t)blockIdx.x * kRows + warp * 16;
+  const int64_t srow0 = ((int64_t)b * a.H + h) * a.Lq + row0;
+  const int64_t prow0 = ((int64_t)b * a.Lq + row0) * D + h * DH;
+  const bf16* kb = (const bf16*)a.k + b * a.sk.b + h * a.sk.h;
+  const bf16* vb = (const bf16*)a.v + b * a.sv.b + h * a.sv.h;
+  const float* ib = MASKED ? a.rkv + (int64_t)b * a.Lkv : nullptr;
 
-  float kr[DH], vr[DH], dk[DH], dv[DH];
-  load_row<T, DH>(k + b * sk.b + h * sk.h + key * sk.r, kr);
-  load_row<T, DH>(v + b * sv.b + h * sv.h + key * sv.r, vr);
+  auto issue = [&](int j) {
+    bf16* st = kv[j & 1];
+    const int64_t k0 = (int64_t)j * kTile;
+    copy_rows<DH, VEC16, kMmaThreads>(st, kb + k0 * a.sk.r, a.sk.r, kTile);
+    copy_rows<DH, VEC16, kMmaThreads>(st + T, vb + k0 * a.sv.r, a.sv.r,
+                                      kTile);
+    if (MASKED && threadIdx.x < kTile)
+      cp_async4(&ids[j & 1][threadIdx.x], ib + k0 + threadIdx.x);
+    cp_async_commit();
+  };
+  issue(0);
+  uint32_t qa[KS][4], da[KS][4];
+  load_a<VEC16>(qa, (const bf16*)a.q + b * a.sq.b + h * a.sq.h +
+                        row0 * a.sq.r, a.sq.r, g, t);
+  load_a<VEC16>(da, (const bf16*)a.dout + prow0, D, g, t);
+  // D_i over this lane's features of dO's fragments, then the quad: the
+  // fragment (kk, i) holds row g + 8 (i & 1), features kk*16 + 2t +
+  // 8 (i >> 1) + {0, 1}
+  float di[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < DH; ++i) dk[i] = dv[i] = 0.f;
-
-  for (int t0 = q0; t0 < q1; t0 += kTile) {
-    __syncthreads();
-    stage_tile<T, DH>(qb, sq.r, t0, qs);
-    stage_tile<T, DH>(dob, D, t0, dos);
-    if (threadIdx.x < kTile) {
-      const int64_t r = sbase + t0 + threadIdx.x;
-      s_m[threadIdx.x] = stat_m[r];
-      s_inv[threadIdx.x] = stat_inv[r];
-      s_di[threadIdx.x] = delta[r];
-      if (MASKED) ids[threadIdx.x] = rq[(int64_t)b * Lq + t0 + threadIdx.x];
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = unpack_bf16(da[kk][i]);
+      const float2 y = *reinterpret_cast<const float2*>(
+          a.o + prow0 + (g + 8 * (i & 1)) * D + kk * 16 + 2 * t +
+          8 * (i >> 1));
+      di[i & 1] = fmaf(x.x, y.x, di[i & 1]);
+      di[i & 1] = fmaf(x.y, y.y, di[i & 1]);
     }
-    __syncthreads();
-#pragma unroll 2
-    for (int i = 0; i < kTile; ++i) {
-      // kr . q_i multiplies the same pairs in the same order as the
-      // forward's q_i . k_j: the same score
-      const float s = score<MASKED>(dot_sm<DH>(kr, qs + i * DH), scale,
-                                    MASKED ? ids[i] : 0.f, rid);
-      const float p = __expf(s - s_m[i]) * s_inv[i];
-      const float dp = dot_sm<DH>(vr, dos + i * DH);
-      axpy_sm<DH>(dv, p, dos + i * DH);
-      axpy_sm<DH>(dk, p * (dp - s_di[i]), qs + i * DH);
-    }
+  float m[2], inv[2], rid[2] = {0.f, 0.f};
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    di[rr] = quad_sum(di[rr]);
+    m[rr] = a.stat_m[srow0 + g + 8 * rr];
+    inv[rr] = a.stat_inv[srow0 + g + 8 * rr];
+    if (MASKED) rid[rr] = a.rq[(int64_t)b * a.Lq + row0 + g + 8 * rr];
+    if (t == 0) a.delta[srow0 + g + 8 * rr] = di[rr];
   }
-  const int64_t out = ((int64_t)(split * gridDim.z + b) * Lkv + key) * D +
-                      h * DH;
+  float acc[NO][4];
 #pragma unroll
-  for (int i = 0; i < DH; ++i) {
-    dk_part[out + i] = dk[i];
-    dv_part[out + i] = dv[i];
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] =
+      acc[n][3] = 0.f;
+
+  const int tiles = a.Lkv / kTile;
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (j + 1 < tiles) issue(j + 1);
+    const bf16* kt = kv[j & 1];
+    float s[NS][4], dp[NS][4];
+    mma_abt(s, qa, kt, g, t);
+    mma_abt(dp, da, kt + T, g, t);
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      float2 kid = make_float2(0.f, 0.f);
+      if (MASKED)
+        kid = *reinterpret_cast<const float2*>(&ids[j & 1][n * 8 + 2 * t]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = prob<MASKED>(s[n][c], a.scale, rid[c >> 1],
+                                     (c & 1) ? kid.y : kid.x, m[c >> 1],
+                                     inv[c >> 1]);
+        s[n][c] = p * (dp[n][c] - di[c >> 1]);   // dS
+      }
+    }
+    mma_xb<true>(acc, s, kt, lane);   // dQ += (dS_hi + dS_lo) K
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    bf16* dst = (bf16*)a.dq + prow0 + (g + 8 * hr) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      st_pair<true>(dst + n * 8, acc[n][2 * hr] * a.scale,
+                    acc[n][2 * hr + 1] * a.scale);
+  }
+}
+
+// Backward launch 2: this warp's 16 keys against the q rows
+// [split * q_chunk, min(Lq, (split + 1) * q_chunk)), block x = split *
+// (Lkv / kRows) + key block. dV += bf16(P)^T dO, dK += bf16(dS)^T Q;
+// writes unscaled fp32 partial dk and dv at ((split * B + b) * Lkv + key)
+// * H*DH + h*DH.
+template <int DH, bool VEC16, bool MASKED>
+__global__ void __launch_bounds__(kMmaThreads, DH == 32 ? 2 : 1)
+attn_bwd_dkv_mma_kernel(const BwdArgs a) {
+  constexpr int P = DH + 8, T = kTile * P;
+  constexpr int KS = DH / 16, NS = kTile / 8, NO = DH / 8;
+  constexpr int NROW = MASKED ? 4 : 3;   // m, 1/l, D (and ids) per q row
+  __shared__ __align__(16) bf16 sm[2][2 * T];   // [Q | dO] x 2
+  __shared__ __align__(16) float rows_f[2][4][kTile];
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t D = (int64_t)a.H * DH;
+  const int nkb = a.Lkv / kRows;
+  const int split = blockIdx.x / nkb;
+  const int64_t key0 = (int64_t)(blockIdx.x % nkb) * kRows + warp * 16;
+  const int q0 = split * a.q_chunk;
+  const int q1 = min(a.Lq, q0 + a.q_chunk);
+  const bf16* qb = (const bf16*)a.q + b * a.sq.b + h * a.sq.h;
+  const bf16* dob = (const bf16*)a.dout + (int64_t)b * a.Lq * D + h * DH;
+  const int64_t sbase = ((int64_t)b * a.H + h) * a.Lq;
+
+  // q tile j into stage j & 1: Q and dO rows, and the rows' m, 1/l, D and
+  // ids
+  auto issue = [&](int j) {
+    bf16* st = sm[j & 1];
+    const int64_t r0 = q0 + (int64_t)j * kTile;
+    copy_rows<DH, VEC16, kMmaThreads>(st, qb + r0 * a.sq.r, a.sq.r, kTile);
+    copy_rows<DH, VEC16, kMmaThreads>(st + T, dob + r0 * D, D, kTile);
+    if (threadIdx.x < NROW * kTile) {
+      const int w = threadIdx.x / kTile, r = threadIdx.x % kTile;
+      const float* src = w == 0 ? a.stat_m + sbase
+                         : w == 1 ? a.stat_inv + sbase
+                         : w == 2 ? a.delta + sbase
+                                  : a.rq + (int64_t)b * a.Lq;
+      cp_async4(&rows_f[j & 1][w][r], src + r0 + r);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  uint32_t ka[KS][4], va[KS][4];   // this warp's keys
+  load_a<VEC16>(ka, (const bf16*)a.k + b * a.sk.b + h * a.sk.h +
+                        key0 * a.sk.r, a.sk.r, g, t);
+  load_a<VEC16>(va, (const bf16*)a.v + b * a.sv.b + h * a.sv.h +
+                        key0 * a.sv.r, a.sv.r, g, t);
+  float rkey[2] = {0.f, 0.f};
+  if (MASKED) {
+    rkey[0] = a.rkv[(int64_t)b * a.Lkv + key0 + g];
+    rkey[1] = a.rkv[(int64_t)b * a.Lkv + key0 + g + 8];
+  }
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
+
+  const int tiles = (q1 - q0) / kTile;
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (j + 1 < tiles) issue(j + 1);
+    const bf16* qt = sm[j & 1];
+    const bf16* dot = qt + T;
+    const float* sm_m = rows_f[j & 1][0];
+    const float* sm_inv = rows_f[j & 1][1];
+    const float* sm_d = rows_f[j & 1][2];
+    const float* sm_id = rows_f[j & 1][3];
+    // S^T = K Q^T and dP^T = V dO^T: element (n, c) is key g + 8 (c >> 1)
+    // and q row n*8 + 2t + (c & 1) of the tile
+    float s[NS][4], dp[NS][4];
+    mma_abt(s, ka, qt, g, t);
+    mma_abt(dp, va, dot, g, t);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int qc = n * 8 + 2 * t + (c & 1);
+        const float p = prob<MASKED>(s[n][c], a.scale,
+                                     MASKED ? sm_id[qc] : 0.f, rkey[c >> 1],
+                                     sm_m[qc], sm_inv[qc]);
+        s[n][c] = p;
+        dp[n][c] = p * (dp[n][c] - sm_d[qc]);   // dS^T
+      }
+    mma_xb(dv, s, dot, lane);   // dV += bf16(P)^T dO
+    mma_xb(dk, dp, qt, lane);   // dK += bf16(dS)^T Q
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int64_t out =
+        ((int64_t)(split * gridDim.z + b) * a.Lkv + key0 + g + 8 * hr) * D +
+        h * DH + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<float2*>(a.dk_part + out + n * 8) =
+          make_float2(dk[n][2 * hr], dk[n][2 * hr + 1]);
+      *reinterpret_cast<float2*>(a.dv_part + out + n * 8) =
+          make_float2(dv[n][2 * hr], dv[n][2 * hr + 1]);
+    }
   }
 }
 
@@ -647,25 +654,6 @@ __global__ void attn_bwd_reduce_kernel(const float* __restrict__ dk_part,
   }
 }
 
-// the bf16 MASKED or STATS forward on the CUDA cores
-template <int DH, bool MASKED, bool STATS>
-void launch_fwd_bf16(const FwdArgs& a, dim3 grid, cudaStream_t s) {
-  using T = __nv_bfloat16;
-  using TO = typename std::conditional<STATS, float, T>::type;
-  attn_fwd_kernel<T, TO, DH, MASKED, STATS><<<grid, kRows, 0, s>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (TO*)a.o, a.rq, a.rkv,
-      a.stat_m, a.stat_inv, a.Lq, a.Lkv, a.sq, a.sk, a.sv, a.so, a.scale);
-}
-
-template <bool MASKED, bool STATS>
-void launch_fwd_bf16_dh(const FwdArgs& a, int dh, dim3 grid,
-                        cudaStream_t s) {
-  if (dh == 32)
-    launch_fwd_bf16<32, MASKED, STATS>(a, grid, s);
-  else
-    launch_fwd_bf16<64, MASKED, STATS>(a, grid, s);
-}
-
 bool shape_ok(int B, int H, int Lq, int Lkv, int dh) {
   return B >= 1 && H >= 1 && B <= 65535 && H <= 65535 && Lq >= kRows &&
          Lq % kRows == 0 && Lkv >= kTile && Lkv % kTile == 0 &&
@@ -678,46 +666,48 @@ bool aligned16(const void* p, const Strides& s) {
          s.h % 8 == 0 && s.r % 8 == 0;
 }
 
-template <int DH, bool VEC16>
+template <int DH, bool VEC16, bool MASKED, bool STATS>
 void launch_mma(const FwdArgs& a, dim3 grid, cudaStream_t s) {
-  using T = __nv_bfloat16;
-  attn_fwd_mma_kernel<DH, VEC16><<<grid, kMmaThreads, 0, s>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, a.Lkv, a.sq,
-      a.sk, a.sv, a.so, a.scale);
+  attn_fwd_mma_kernel<DH, VEC16, MASKED, STATS>
+      <<<grid, kMmaThreads, 0, s>>>(a);
 }
 
-// the bf16 unmasked inference forward: the tensor-core kernel, its 16-byte
-// copy variant wherever every operand allows it
+// the bf16 forward: the 16-byte copy variant wherever every operand allows
+// it
+template <bool MASKED, bool STATS>
 void launch_mma_dh(const FwdArgs& a, int dh, dim3 grid, cudaStream_t s) {
   const bool v16 = aligned16(a.q, a.sq) && aligned16(a.k, a.sk) &&
                    aligned16(a.v, a.sv) && aligned16(a.o, a.so);
   if (dh == 32)
-    v16 ? launch_mma<32, true>(a, grid, s) : launch_mma<32, false>(a, grid, s);
+    v16 ? launch_mma<32, true, MASKED, STATS>(a, grid, s)
+        : launch_mma<32, false, MASKED, STATS>(a, grid, s);
   else
-    v16 ? launch_mma<64, true>(a, grid, s) : launch_mma<64, false>(a, grid, s);
+    v16 ? launch_mma<64, true, MASKED, STATS>(a, grid, s)
+        : launch_mma<64, false, MASKED, STATS>(a, grid, s);
 }
 
 // rq == rkv == nullptr: unmasked; both set: region-masked. stats: the
-// training forward (o fp32, stat_m and stat_inv written). Every fp32 call
-// runs the split-TF32 kernel; in bf16 an unmasked call without stats runs
-// the tensor-core kernel, every other call the CUDA-core one.
+// training forward (o32, stat_m and stat_inv written; in bf16 also o).
+// Every fp32 call runs the split-TF32 kernel, every bf16 call the
+// tensor-core one.
 int launch(const FwdArgs& a, int B, int H, int dh, bool stats, int bf16,
            void* stream) {
   if (!shape_ok(B, H, a.Lq, a.Lkv, dh) || (a.rq == nullptr) != (a.rkv ==
-      nullptr) || (stats && (a.stat_m == nullptr || a.stat_inv == nullptr)))
+      nullptr) || (stats && (a.stat_m == nullptr || a.stat_inv == nullptr))
+      || a.o == nullptr || (stats && bf16 && a.o32 == nullptr))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(a.Lq / kRows, H, B);
   cudaStream_t s = (cudaStream_t)stream;
   if (!bf16)
     return launch_fwd_tf32x3(a, dh, stats, grid, s);
   if (a.rq && stats)
-    launch_fwd_bf16_dh<true, true>(a, dh, grid, s);
+    launch_mma_dh<true, true>(a, dh, grid, s);
   else if (a.rq)
-    launch_fwd_bf16_dh<true, false>(a, dh, grid, s);
+    launch_mma_dh<true, false>(a, dh, grid, s);
   else if (stats)
-    launch_fwd_bf16_dh<false, true>(a, dh, grid, s);
+    launch_mma_dh<false, true>(a, dh, grid, s);
   else
-    launch_mma_dh(a, dh, grid, s);
+    launch_mma_dh<false, false>(a, dh, grid, s);
   return (int)cudaGetLastError();
 }
 
@@ -736,35 +726,38 @@ int q_splits(const BwdArgs& a) {
   return (a.Lq + a.q_chunk - 1) / a.q_chunk;
 }
 
-// the bf16 backward on the CUDA cores
-template <int DH, bool MASKED>
+// the bf16 backward on the tensor cores: launches 1 and 2, then the reduce
+template <int DH, bool VEC16, bool MASKED>
 int launch_bwd_bf16(const BwdArgs& a, cudaStream_t s) {
-  using T = __nv_bfloat16;
-  attn_bwd_dq_kernel<T, DH, MASKED><<<dim3(a.Lq / kRows, a.H, a.B), kRows, 0,
-                                      s>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.o, (const T*)a.dout,
-      a.rq, a.rkv, a.stat_m, a.stat_inv, a.delta, (T*)a.dq, a.Lq, a.Lkv,
-      a.sq, a.sk, a.sv, a.scale);
+  attn_bwd_dq_mma_kernel<DH, VEC16, MASKED>
+      <<<dim3(a.Lq / kRows, a.H, a.B), kMmaThreads, 0, s>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int splits = q_splits(a);
-  attn_bwd_dkv_kernel<T, DH, MASKED><<<dim3(splits * (a.Lkv / kRows), a.H,
-                                            a.B), kRows, 0, s>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, a.rq,
-      a.rkv, a.stat_m, a.stat_inv, a.delta, a.dk_part, a.dv_part, a.Lq,
-      a.Lkv, a.q_chunk, a.sq, a.sk, a.sv, a.scale);
+  attn_bwd_dkv_mma_kernel<DH, VEC16, MASKED>
+      <<<dim3(splits * (a.Lkv / kRows), a.H, a.B), kMmaThreads, 0, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_reduce<T>(a, DH, splits, s);
+  return launch_reduce<bf16>(a, DH, splits, s);
+}
+
+template <int DH, bool MASKED>
+int launch_bwd_bf16_v(const BwdArgs& a, cudaStream_t s) {
+  const int64_t D = (int64_t)a.H * DH;
+  const bool v16 = aligned16(a.q, a.sq) && aligned16(a.k, a.sk) &&
+                   aligned16(a.v, a.sv) &&
+                   aligned16(a.dout, {(int64_t)a.Lq * D, DH, D});
+  return v16 ? launch_bwd_bf16<DH, true, MASKED>(a, s)
+             : launch_bwd_bf16<DH, false, MASKED>(a, s);
 }
 
 int launch_bwd(const BwdArgs& a, int dh, bool bf16, cudaStream_t s) {
   if (bf16) {
     if (a.rq)
-      return dh == 32 ? launch_bwd_bf16<32, true>(a, s)
-                      : launch_bwd_bf16<64, true>(a, s);
-    return dh == 32 ? launch_bwd_bf16<32, false>(a, s)
-                    : launch_bwd_bf16<64, false>(a, s);
+      return dh == 32 ? launch_bwd_bf16_v<32, true>(a, s)
+                      : launch_bwd_bf16_v<64, true>(a, s);
+    return dh == 32 ? launch_bwd_bf16_v<32, false>(a, s)
+                    : launch_bwd_bf16_v<64, false>(a, s);
   }
   const int splits = q_splits(a);
   const int err = launch_bwd_tf32x3(a, dh, splits, s);
@@ -815,20 +808,23 @@ extern "C" int attn_region_packed_fwd(const void* q, const void* k,
 // The training forward of both packed routes: as attn_unmasked_packed_fwd
 // (rq == rkv == nullptr) or attn_region_packed_fwd, but o32 is a
 // contiguous fp32 (B, Lq, H*dh), and stat_m, stat_inv (B, H, Lq) fp32
-// receive each row's max and 1/denominator.
+// receive each row's max and 1/denominator. In bf16 o (B, Lq, H*dh)
+// contiguous receives the output, o32 the product of the fp32
+// probabilities; in fp32 o is nullptr and o32 is the output.
 extern "C" int attn_packed_fwd_stats(const void* q, const void* k,
                                      const void* v, const float* rq,
-                                     const float* rkv, float* o32,
+                                     const float* rkv, void* o, float* o32,
                                      float* stat_m, float* stat_inv, int B,
                                      int H, int Lq, int Lkv, int dh,
                                      int64_t q_row, int64_t k_row,
                                      int64_t v_row, float scale, int bf16,
                                      void* stream) {
   const int64_t hs = dh, d = (int64_t)H * dh;
-  return launch({q, k, v, o32, rq, rkv, stat_m, stat_inv, Lq, Lkv,
-                 {Lq * q_row, hs, q_row}, {Lkv * k_row, hs, k_row},
-                 {Lkv * v_row, hs, v_row}, {Lq * d, hs, d}, scale},
-                B, H, dh, true, bf16, stream);
+  FwdArgs a{q, k, v, bf16 ? o : o32, rq, rkv, stat_m, stat_inv, Lq, Lkv,
+            {Lq * q_row, hs, q_row}, {Lkv * k_row, hs, k_row},
+            {Lkv * v_row, hs, v_row}, {Lq * d, hs, d}, scale};
+  a.o32 = o32;
+  return launch(a, B, H, dh, true, bf16, stream);
 }
 
 // The backward of both packed routes (three launches, see the top of this

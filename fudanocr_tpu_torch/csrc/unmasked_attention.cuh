@@ -30,6 +30,7 @@ struct FwdArgs {
   int Lq, Lkv;
   Strides sq, sk, sv, so;
   float scale;
+  float* o32;   // bf16 STATS: the fp32 product with fp32 probabilities
 };
 
 struct BwdArgs {

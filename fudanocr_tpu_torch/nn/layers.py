@@ -48,10 +48,20 @@ def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
 
 
 def conv2d(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """`m` applied at x's dtype (weights cast, params stay float32)."""
+    """`m` applied at x's dtype (weights cast, params stay float32).
+
+    A bf16 CPU input is convolved in float32 on the bf16 operands and the
+    result rounded to bf16 once, flax's rounding point: oneDNN's AMX bf16
+    convolution (torch 2.13) returns wrong sums where kernel = stride, as in
+    CascadeMiT's spatial reduction `sr` (tests/test_torch_layers_bf16_cpu.py;
+    with ONEDNN_MAX_CPU_ISA=AVX512_CORE it rounds once). CUDA runs cuDNN."""
+    w = m.weight.to(x.dtype)
     bias = None if m.bias is None else m.bias.to(x.dtype)
-    return F.conv2d(x, m.weight.to(x.dtype), bias, m.stride, m.padding,
-                    m.dilation, m.groups)
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        return F.conv2d(x.float(), w.float(),
+                        None if bias is None else bias.float(), m.stride,
+                        m.padding, m.dilation, m.groups).to(x.dtype)
+    return F.conv2d(x, w, bias, m.stride, m.padding, m.dilation, m.groups)
 
 
 def linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:

@@ -118,7 +118,7 @@ def load_library() -> ctypes.CDLL:
         + [f, i, p]
     lib.attn_region_packed_fwd.argtypes = [p] * 6 + [i] * 5 + [i64] * 4 \
         + [f, i, p]
-    lib.attn_packed_fwd_stats.argtypes = [p] * 8 + [i] * 5 + [i64] * 3 \
+    lib.attn_packed_fwd_stats.argtypes = [p] * 9 + [i] * 5 + [i64] * 3 \
         + [f, i, p]
     lib.attn_packed_bwd.argtypes = [p] * 15 + [i] * 5 + [i64] * 3 \
         + [i, f, i, p]

@@ -199,21 +199,27 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _fwd_stats(lib, q, k, v, rq, rkv, heads: int):
     """The training forward: (o at q's dtype, o fp32, row max, 1/row sum),
-    the statistics (B, H, Lq) fp32."""
+    the statistics (B, H, Lq) fp32. In bf16 the kernel writes o, the
+    probabilities rounded to bf16 for the value product as JAX rounds them,
+    and o fp32 from the fp32 probabilities, which the backward's D takes;
+    in fp32 the two are one tensor."""
     from fudanocr_tpu_torch.ops._build import check
 
     b, lq, d = q.shape
     dh = d // heads
+    bf16 = q.dtype == torch.bfloat16
     o32 = torch.empty((b, lq, d), dtype=torch.float32, device=q.device)
+    o = torch.empty((b, lq, d), dtype=q.dtype, device=q.device) if bf16 \
+        else o32
     m = torch.empty((b, heads, lq), dtype=torch.float32, device=q.device)
     inv = torch.empty_like(m)
     check(lib.attn_packed_fwd_stats(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rq), _ptr(rkv),
-        o32.data_ptr(), m.data_ptr(), inv.data_ptr(), b, heads, lq,
-        k.shape[1], dh, q.stride(1), k.stride(1), v.stride(1),
-        1.0 / math.sqrt(dh), int(q.dtype == torch.bfloat16),
+        o.data_ptr() if bf16 else None, o32.data_ptr(), m.data_ptr(),
+        inv.data_ptr(), b, heads, lq, k.shape[1], dh, q.stride(1),
+        k.stride(1), v.stride(1), 1.0 / math.sqrt(dh), int(bf16),
         torch.cuda.current_stream().cuda_stream), "attn_packed_fwd_stats")
-    return o32.to(q.dtype), o32, m, inv
+    return o, o32, m, inv
 
 
 def unmasked_packed_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

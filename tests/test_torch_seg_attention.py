@@ -317,9 +317,10 @@ def _attn_fwd_kernels(fn) -> list:
 
 @pytest.mark.cuda
 def test_only_bf16_unmasked_inference_runs_the_tensor_core_kernel(cuda):
-    """Which forward each call runs: bf16 unmasked inference the bf16
-    tensor-core kernel, every fp32 call the split-TF32 one (also on the
-    tensor cores), the other bf16 calls the CUDA-core one."""
+    """Which forward each call runs: every bf16 call the bf16 tensor-core
+    kernel (unmasked inference, MASKED, STATS, in their template
+    variants), every fp32 call the split-TF32 one (also on the tensor
+    cores)."""
     q, k, v = edge_qkv("plain", 1, 256, 128, 64, cuda)
     odd = edge_qkv("odd", 1, 256, 128, 64, cuda)
     f32 = [t.float() for t in (q, k, v)]
@@ -328,12 +329,13 @@ def test_only_bf16_unmasked_inference_runs_the_tensor_core_kernel(cuda):
     trained = [t.clone().requires_grad_() for t in (q, k, v)]
     runs = {
         "packed bf16": (lambda: ra.packed_flash_mha(q, k, v, 2),
-                        "attn_fwd_mma_kernel<32, true>"),
+                        "attn_fwd_mma_kernel<32, true, false, false>"),
         "packed bf16, odd offsets": (lambda: ra.packed_flash_mha(*odd, 2),
-                                     "attn_fwd_mma_kernel<32, false>"),
+                                     "attn_fwd_mma_kernel<32, false, false, "
+                                     "false>"),
         "head-major bf16": (lambda: fa.flash_mha(
             *(heads_view(t, 2) for t in (q, k, v))),
-            "attn_fwd_mma_kernel<32, true>"),
+            "attn_fwd_mma_kernel<32, true, false, false>"),
         "packed fp32": (lambda: ra.packed_flash_mha(*f32, 2),
                         "attn_fwd_tf32x3_kernel<32, false, false>"),
         "head-major fp32": (lambda: fa.flash_mha(
@@ -345,11 +347,13 @@ def test_only_bf16_unmasked_inference_runs_the_tensor_core_kernel(cuda):
             *(t.clone().requires_grad_() for t in f32), 2),
             "attn_fwd_tf32x3_kernel<32, false, true>"),
         "region bf16": (lambda: ra.region_flash_mha(q, k, v, rq, rkv, 2),
-                        "attn_fwd_kernel<__nv_bfloat16, __nv_bfloat16, 32, "
-                        "true, false>"),
+                        "attn_fwd_mma_kernel<32, true, true, false>"),
         "training forward bf16": (lambda: ra.packed_flash_mha(*trained, 2),
-                                  "attn_fwd_kernel<__nv_bfloat16, float, "
-                                  "32, false, true>"),
+                                  "attn_fwd_mma_kernel<32, true, false, "
+                                  "true>"),
+        "region training forward bf16": (lambda: ra.region_flash_mha(
+            *(t.clone().requires_grad_() for t in (q, k, v)), rq, rkv, 2),
+            "attn_fwd_mma_kernel<32, true, true, true>"),
     }
     for what, (fn, want) in runs.items():
         names = _attn_fwd_kernels(fn)

@@ -266,15 +266,15 @@ def test_fp32_backward_kernel_edge_cases(cuda, masked, b, lq, lkv, d, heads,
 @pytest.mark.cuda
 def test_fp32_backward_runs_the_tf32x3_kernels(cuda):
     """The fp32 backward's launches by name in a torch.profiler trace: the
-    split-TF32 dQ and dK/dV passes and the reduce; bf16 the CUDA-core
-    ones."""
+    split-TF32 dQ and dK/dV passes and the reduce; bf16 the bf16
+    tensor-core ones."""
     from torch.profiler import ProfilerActivity, profile
 
     for dtype, want in ((torch.float32, ["attn_bwd_dkv_tf32x3_kernel",
                                          "attn_bwd_dq_tf32x3_kernel",
                                          "attn_bwd_reduce_kernel"]),
-                        (torch.bfloat16, ["attn_bwd_dkv_kernel",
-                                          "attn_bwd_dq_kernel",
+                        (torch.bfloat16, ["attn_bwd_dkv_mma_kernel",
+                                          "attn_bwd_dq_mma_kernel",
                                           "attn_bwd_reduce_kernel"])):
         q, k, v, do = (torch.from_numpy(a).to(cuda, dtype) for a in
                        _inputs(0, 2, 1024, 128, 64)[:4])

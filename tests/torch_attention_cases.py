@@ -5,7 +5,9 @@ csrc/flash_attention_dropout.cu), shared by the `cuda` tests of
 tests/test_torch_seg_attention.py, test_torch_seg_attention_bwd.py,
 test_torch_qkv_attention.py, test_torch_packed_attention.py and
 test_torch_flash_attention.py; `dropout_rounding_model`, the bf16 dropout
-kernels' arithmetic in plain torch; and `tf32x3_attention_model`, the fp32
+kernels' arithmetic in plain torch; `bf16_attention_model`, the bf16
+training and MASKED seg attention kernels' arithmetic (tests/
+test_torch_seg_bf16_rounding.py); and `tf32x3_attention_model`, the fp32
 kernels' arithmetic (tests/test_torch_tf32x3_rounding.py). Each case is made
 on the CPU from a seed, then moved to the card in bf16 (`CASES`) or fp32
 (`FP32_CASES`):
@@ -148,6 +150,96 @@ def dropout_rounding_model(q, k, v, do, seed, heads: int, rate: float,
         outs[2][..., cols] = scale * inv_keep * (hi.transpose(1, 2) @ qh)
         outs[3][..., cols] = inv_keep * (pk.transpose(1, 2) @ doh)
     return tuple(t.to(torch.bfloat16) for t in outs)
+
+
+# -- the bf16 seg attention kernels' arithmetic -------------------------------
+
+def bf16_attention_model(q, k, v, heads: int, rq=None, rkv=None, do=None,
+                         o32_from: str = "pair", dq_split: bool = True,
+                         tile: int = 64):
+    """The bf16 training kernels of csrc/unmasked_attention.cu
+    (`attn_fwd_mma_kernel` with STATS, `attn_bwd_dq_mma_kernel`,
+    `attn_bwd_dkv_mma_kernel`) in plain torch, at their rounding points, on
+    bf16 packed q (B, Lq, D), k, v (B, Lkv, D), ids rq (B, Lq), rkv (B, Lkv)
+    or None (unmasked), dO (B, Lq, D) or None (forward only). Returns
+    (o bf16, o32, m, inv) and, with dO, also (dq, dk, dv) in bf16.
+
+    The products of bf16 operands are exact in fp32 and summed in fp32 (the
+    tensor cores' order is not modelled: it moves sums by fp32 ulps; nor is
+    the unmasked kernel's exponent, one FMA with scale * log2(e) folded in,
+    an ulp of its argument from s - m).
+    Forward per `tile` keys: s = fp32(q k^T) * scale, rounded, plus -1e10
+    where the ids are equal, rounded again; the running max from -inf,
+    alpha = exp(m_old - m_new), p = exp(s - m_new), l = l * alpha + rowsum
+    p; p as a bf16 pair hi = bf16(p), lo = bf16(p - hi), acc_hi and acc_lo
+    rescaled by alpha and summed with hi V and lo V. o = bf16(acc_hi / l),
+    JAX's `p.astype(v.dtype)`; o32 = (acc_hi + acc_lo) / l, the fp32
+    probabilities' product that JAX's backward forms D from
+    (`o32_from`="hi": acc_hi / l, one rounding of p; the rejected
+    simplification). Statistics m and inv = 1 / l per (image, head, row).
+    Backward: D = rowsum(dO o32) in fp32, p = exp(s - m) * inv, dP = dO V^T,
+    dS = p (dP - D); dV = bf16(P)^T dO, dK = scale bf16(dS)^T Q, and
+    dQ = scale (hi + lo) K with dS as a bf16 pair (`dq_split`=False: one
+    rounding, the rejected simplification: a row of dS sums to 0, and one
+    rounding lets K's mean into dQ)."""
+    from fudanocr_tpu_torch.ops.region_attention import NEG
+
+    def bf(x):
+        return x.to(torch.bfloat16).float()
+
+    b, lq, d = q.shape
+    lkv = k.shape[1]
+    dh = d // heads
+    scale = 1.0 / math.sqrt(dh)
+    neg = None
+    if rq is not None:
+        neg = torch.where(rq.float()[:, :, None] == rkv.float()[:, None, :],
+                          torch.tensor(NEG), torch.tensor(0.0)).to(q.device)
+    o = torch.empty(b, lq, d, device=q.device)
+    o32 = torch.empty_like(o)
+    ms = torch.empty(b, heads, lq, device=q.device)
+    invs = torch.empty_like(ms)
+    grads = [torch.empty(b, n, d, device=q.device) for n in (lq, lkv, lkv)]
+    for h in range(heads):
+        cols = slice(h * dh, (h + 1) * dh)
+        qh, kh, vh = (t[..., cols].float() for t in (q, k, v))
+        s = (qh @ kh.transpose(1, 2)) * scale
+        if neg is not None:
+            s = s + neg
+        m = torch.full((b, lq, 1), -math.inf, device=q.device)
+        l = torch.zeros(b, lq, 1, device=q.device)
+        acc_hi = torch.zeros(b, lq, dh, device=q.device)
+        acc_lo = torch.zeros_like(acc_hi)
+        for k0 in range(0, lkv, tile):
+            st = s[..., k0:k0 + tile]
+            m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(st - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            hi = bf(p)
+            acc_hi = acc_hi * alpha + hi @ vh[:, k0:k0 + tile]
+            acc_lo = acc_lo * alpha + bf(p - hi) @ vh[:, k0:k0 + tile]
+            m = m_new
+        inv = 1.0 / l
+        o[..., cols] = bf(acc_hi / l)
+        o32[..., cols] = (acc_hi + acc_lo) / l if o32_from == "pair" \
+            else acc_hi / l
+        ms[:, h], invs[:, h] = m[..., 0], inv[..., 0]
+        if do is None:
+            continue
+        doh = do[..., cols].float()
+        dsum = (doh * o32[..., cols]).sum(-1, keepdim=True)
+        p = torch.exp(s - m) * inv
+        ds = p * (doh @ vh.transpose(1, 2) - dsum)
+        hi = bf(ds)
+        dq_op = hi + bf(ds - hi) if dq_split else hi
+        grads[0][..., cols] = scale * (dq_op @ kh)
+        grads[1][..., cols] = scale * (hi.transpose(1, 2) @ qh)
+        grads[2][..., cols] = bf(p).transpose(1, 2) @ doh
+    out = (o.to(torch.bfloat16), o32, ms, invs)
+    if do is None:
+        return out
+    return out + tuple(g.to(torch.bfloat16) for g in grads)
 
 
 # -- the fp32 kernels' arithmetic: split TF32 on the tensor cores ----------
