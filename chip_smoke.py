@@ -277,7 +277,29 @@ Phases:
      the classifier's bias set so that both classes are predicted (fp32:
      the app has no dtype), its metrics against kernels=False's within
      1e-4, and TTA moving them by more; bf16 `tta_inference` over slide on
-     the first photo (probabilities max 5e-4).
+     the first photo (probabilities max 5e-4);
+ 31. the CTR pillar (phases 31-33, synthetic characters, random weights
+     from seed 0, fp32, batch 32, the JAX apps' default widths):
+     `apps.sld.train` in stroke mode (ResNet (3, 4, 6, 3) with the stem
+     pool only, d_embed 512, d_model 1024, d_ff 2048, 32x32, max_len 30,
+     Adadelta lr 1.0; 4 steps, then the confusable-matched evaluation):
+     B2 launched 3 times a step and a decoder pass (102 in the run), one
+     step against `kernels=False` (the training bar), the greedy decode's
+     ids against the plain path's (equal up to a top-2 margin within twice
+     the measured step-output error), step and decode ms of both paths in
+     turns, each one's device time and largest kernels, B2 by kernel name
+     in a profiled step and decode, B2 against its plain version at
+     (32 * 30, 1024); one JSON line;
+ 32. `apps.ccr_clip.pretrain` (ResNet-50 on 128x128, 12 text layers of
+     width 512, 8 heads, embed 2048, context 30; 4 steps, zero-shot
+     retrieval; no kernel) and its step and retrieval ms, then
+     `apps.ccr_clip.train` over its `best/` (the image_ids encoder,
+     out_dim 2048, 32x32, max_len 48, gallery decode; 156 B2 launches) as
+     phase 31, B2 at (32 * 48, 1024);
+ 33. `apps.oictr.train` (the oictr encoder (3, 4, 6), d_model 512,
+     d_embed 256, 32x128, max_len 16) for 11 epochs of 4 updates, across
+     the SGDR restart at update 40 (180 B2 launches), as phase 31, B2 at
+     (32 * 16, 512).
 
 Phases 8 and 11 end with a torch.profiler breakdown of one more canvas
 (device time by name, the device's busy time against the wall time).
@@ -289,7 +311,10 @@ their type (H100 SXM data sheet: fp32 67 TFLOP/s on CUDA cores, bf16
 989 TFLOP/s on tensor cores) and its bytes (each input read once, each
 output written once) over 3.35 TB/s. The last line is {"ok": true,
 "device": {...}}; the line before it is the card's name and power limit as
-nvidia-smi gives them, and the line before that the kernel table as JSON.
+nvidia-smi gives them, and the line before that the kernel table as JSON
+(`fused_residual_layernorm_ctr`: B2's launches in the three CTR entry
+points' runs, its numbers at (32 * 30, 1024) fp32; each CTR phase's line
+also holds B2 at its training rows and at its decoder passes' rows).
 """
 
 from __future__ import annotations
@@ -843,6 +868,54 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
             / b.float().norm().clamp_min(1e-30)).item()
 
 
+def ln_case(phase: str, rows: int, d: int, dt, gen: torch.Generator, dev,
+            gpu: str) -> dict:
+    """B2 at (rows, d) in `dt` against its plain version (forward, and the
+    gradients through its autograd Function against plain autograd), its
+    ms in turns with the plain version's, device ms and bound: the kernel
+    row's numbers."""
+    x, r = (torch.randn(rows, d, generator=gen).to(dev, dt)
+            for _ in range(2))
+    s = (1 + 0.2 * torch.randn(d, generator=gen)).to(dev)
+    b = (0.1 * torch.randn(d, generator=gen)).to(dev)
+    g = torch.randn(rows, d, generator=gen).to(dev, dt)
+    lk = [t.clone().requires_grad_() for t in (x, r, s, b)]
+    lp = [t.clone().requires_grad_() for t in (x, r, s, b)]
+    got = fused_residual_layernorm(*lk)
+    want = fused_residual_layernorm_reference(*lp)
+    gk = torch.autograd.grad(got, lk, g)
+    gp = torch.autograd.grad(want, lp, g)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError("LayerNorm kernel output not finite")
+    err = (got.float() - want.float()).abs().max().item()
+    grel = max(rel_err(a, c) for a, c in zip(gk, gp))
+    if err > LN_ATOL[dt] or grel > GRAD_REL[dt]:
+        raise AssertionError(
+            f"LayerNorm kernel disagrees at ({rows}, {d}) {dt}: "
+            f"max abs {err} (bar {LN_ATOL[dt]}), grads rel {grel} "
+            f"(bar {GRAD_REL[dt]})")
+    k_ms, p_ms = in_turns(
+        lambda: fused_residual_layernorm(x, r, s, b),
+        lambda: fused_residual_layernorm_reference(x, r, s, b), 20)
+    kb_ms, pb_ms = in_turns(
+        lambda: torch.autograd.grad(fused_residual_layernorm(*lk), lk, g),
+        lambda: torch.autograd.grad(
+            fused_residual_layernorm_reference(*lp), lp, g), 10)
+    kd_ms = device_ms(lambda: fused_residual_layernorm(x, r, s, b), 20)
+    print(f"phase {phase}: residual LN ({rows}, {d}) {dt}: max abs err "
+          f"{err:.3e}, grads max rel {grel:.3e}; forward kernel "
+          f"{k_ms:.4f} ms ({kd_ms:.4f} ms of device time in the "
+          f"profiler), plain {p_ms:.4f} ms; forward+backward "
+          f"{kb_ms:.4f} ms, plain {pb_ms:.4f} ms [{gpu}]")
+    es = torch.finfo(dt).bits // 8
+    # F.layer_norm is another function (biased variance, eps under the
+    # root): no library call
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            **bound(8 * rows * d, 3 * rows * d * es + 8 * d, dt),
+            "library_ms": None}
+
+
 def phase4(dev, gpu: str) -> dict:
     gen = torch.Generator().manual_seed(SEED + 4)
     result = {}
@@ -852,50 +925,7 @@ def phase4(dev, gpu: str) -> dict:
                          (STEP_B * 1024, 128, (torch.bfloat16,)),
                          (STEP_B * 32, 1024, (torch.bfloat16,))):
         for dt in dts:
-            x, r = (torch.randn(rows, d, generator=gen).to(dev, dt)
-                    for _ in range(2))
-            s = (1 + 0.2 * torch.randn(d, generator=gen)).to(dev)
-            b = (0.1 * torch.randn(d, generator=gen)).to(dev)
-            g = torch.randn(rows, d, generator=gen).to(dev, dt)
-            lk = [t.clone().requires_grad_() for t in (x, r, s, b)]
-            lp = [t.clone().requires_grad_() for t in (x, r, s, b)]
-            got = fused_residual_layernorm(*lk)
-            want = fused_residual_layernorm_reference(*lp)
-            gk = torch.autograd.grad(got, lk, g)
-            gp = torch.autograd.grad(want, lp, g)
-            torch.cuda.synchronize()
-            if not torch.isfinite(got).all():
-                raise AssertionError("LayerNorm kernel output not finite")
-            err = (got.float() - want.float()).abs().max().item()
-            grel = max(rel_err(a, c) for a, c in zip(gk, gp))
-            if err > LN_ATOL[dt] or grel > GRAD_REL[dt]:
-                raise AssertionError(
-                    f"LayerNorm kernel disagrees at ({rows}, {d}) {dt}: "
-                    f"max abs {err} (bar {LN_ATOL[dt]}), grads rel {grel} "
-                    f"(bar {GRAD_REL[dt]})")
-            k_ms, p_ms = in_turns(
-                lambda: fused_residual_layernorm(x, r, s, b),
-                lambda: fused_residual_layernorm_reference(x, r, s, b), 20)
-            kb_ms, pb_ms = in_turns(
-                lambda: torch.autograd.grad(fused_residual_layernorm(*lk),
-                                            lk, g),
-                lambda: torch.autograd.grad(
-                    fused_residual_layernorm_reference(*lp), lp, g), 10)
-            kd_ms = device_ms(lambda: fused_residual_layernorm(x, r, s, b),
-                              20)
-            print(f"phase 4: residual LN ({rows}, {d}) {dt}: max abs err "
-                  f"{err:.3e}, grads max rel {grel:.3e}; forward kernel "
-                  f"{k_ms:.4f} ms ({kd_ms:.4f} ms of device time in the "
-                  f"profiler), plain {p_ms:.4f} ms; forward+backward "
-                  f"{kb_ms:.4f} ms, plain {pb_ms:.4f} ms [{gpu}]")
-            es = torch.finfo(dt).bits // 8
-            # F.layer_norm is another function (biased variance, eps under
-            # the root): no library call
-            result[(rows, d, dt)] = {"max_abs_err": err, "ms": k_ms,
-                                     "plain_ms": p_ms,
-                                     **bound(8 * rows * d,
-                                             3 * rows * d * es + 8 * d, dt),
-                                     "library_ms": None}
+            result[(rows, d, dt)] = ln_case("4", rows, d, dt, gen, dev, gpu)
     return (result[(TRAIN_B * 1024, 128, torch.float32)],
             result[(STEP_B * 1024, 128, torch.bfloat16)])
 
@@ -4214,11 +4244,354 @@ def phase30(dev, gpu: str) -> dict:
     return launches
 
 
+# phases 31-33: the CTR pillar through its entry points, at the JAX apps'
+# default (published) widths on synthetic characters. B2 runs in every
+# OCRDecoderLayer's three LayerNorms: 3 launches per decoder pass, at
+# (B * max_len, d_model)
+CTR_B = 32
+CTR_SAMPLES = 128            # 4 steps an epoch; the test set one batch
+CTR_LN = {"31": (CTR_B * 30, 1024), "32": (CTR_B * 48, 1024),
+          "33": (CTR_B * 16, 512)}
+# each decoder pass runs over the whole (B, max_len + 1) token buffer
+CTR_LN_DECODE = {k: (rows + CTR_B, d) for k, (rows, d) in CTR_LN.items()}
+# decode step outputs (logits, or cosines against the gallery), kernel path
+# against plain: about 10x the largest reading on the H100 (1.05e-5, PERF.md)
+CTR_DECODE_ATOL = 1e-4
+LN_NAME = "ln_residual_kernel"
+
+
+def ctr_eval_batches() -> int:
+    """Full batches of the apps' synthetic test set (a quarter of the
+    training set, at least 8 samples)."""
+    return max(CTR_SAMPLES // 4, 8) // CTR_B
+
+
+def ctr_entry(phase: str, what: str, main, argv: list, want: int,
+              gpu: str) -> tuple:
+    """Run an app's `main(argv)` on the card with B2's counter from 0;
+    fail unless it launched B2 `want` times and returned an accuracy.
+    Returns (result, launches)."""
+    torch.cuda.synchronize()
+    fused_residual_layernorm.launches = 0
+    t0 = time.perf_counter()
+    res = main(argv)
+    torch.cuda.synchronize()
+    n = fused_residual_layernorm.launches
+    print(f"phase {phase}: {what}: {res} in {time.perf_counter() - t0:.3f} "
+          f"s, B2 launches {n} (expected {want}) [{gpu}]")
+    if n != want or not 0.0 <= res["acc"] <= 1.0:
+        raise AssertionError(f"phase {phase}: {what} did not run the "
+                             "expected path")
+    return res, n
+
+
+def ctr_step_check(phase: str, what: str, step_k, step_p, model, plain,
+                   batch: dict, gpu: str) -> int:
+    """One train step of the kernel path against `kernels=False` from the
+    same weights, batch and dropout generator (the training bar); returns
+    the step's B2 launches."""
+    from fudanocr_tpu_torch.train.seg import iteration_generator
+
+    dev = batch["image"].device
+    for (name, a), b in zip(model.state_dict().items(),
+                            plain.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"phase {phase}: {name} differs at start")
+    torch.cuda.synchronize()
+    fused_residual_layernorm.launches = 0
+    lk = step_k(batch, iteration_generator(SEED, 0, dev)).item()
+    torch.cuda.synchronize()
+    n = fused_residual_layernorm.launches
+    lp = step_p(batch, iteration_generator(SEED, 0, dev)).item()
+    loss_rel = abs(lk - lp) / abs(lp)
+    worst, worst_name, zero = grads_agree(model, plain, f"phase {phase}")
+    stats = max((a - b).abs().max().item() for (k, a), b in
+                zip(model.named_buffers(), plain.buffers())
+                if k.endswith(("running_mean", "running_var")))
+    print(f"phase {phase}: one {what} step at batch {CTR_B}: kernel path "
+          f"loss {lk:.6f}, plain {lp:.6f} (rel {loss_rel:.3e}, bar "
+          f"{STEP_LOSS_REL}); per-tensor gradient rel err max {worst:.3e} "
+          f"({worst_name}; bar {STEP_GRAD_REL}), {zero} zero-gradient "
+          f"tensors equal; BN statistics max abs {stats:.3e} (bar 1e-5); "
+          f"B2 launches {n} [{gpu}]")
+    if (not np.isfinite(lk) or loss_rel > STEP_LOSS_REL
+            or worst > STEP_GRAD_REL or stats > 1e-5):
+        raise AssertionError(f"phase {phase}: the kernel path's step "
+                             "disagrees with kernels=False")
+    return n
+
+
+def ctr_decode_check(phase: str, what: str, decode, model, plain,
+                     x: torch.Tensor, gallery, gpu: str) -> int:
+    """The kernel path's greedy decode against the plain path's: both
+    paths' step outputs on the kernel path's token buffer within
+    CTR_DECODE_ATOL, and the ids equal up to each row's first difference,
+    where the kernel path's top-2 margin is within twice the measured
+    step-output distance. Returns B2's launches per decode."""
+    torch.cuda.synchronize()
+    fused_residual_layernorm.launches = 0
+    ids_k = decode(model, x)
+    torch.cuda.synchronize()
+    n = fused_residual_layernorm.launches
+    ids_p = decode(plain, x)
+    buf = torch.cat([torch.zeros_like(ids_k[:, :1]), ids_k], 1)
+    with torch.no_grad():
+        sk, sp = (m.decode_step(m.encode(x), buf)[0][:, :-1].float()
+                  for m in (model, plain))
+    if gallery is not None:
+        unit = lambda e: e / e.norm(dim=-1, keepdim=True).clamp_min(1e-8)
+        sk, sp = unit(sk) @ gallery.T, unit(sp) @ gallery.T
+    err = (sk - sp).abs().max().item()
+    if not err <= CTR_DECODE_ATOL:
+        raise AssertionError(f"phase {phase}: {what} step outputs differ "
+                             f"by {err} (bar {CTR_DECODE_ATOL})")
+    differ = (ids_k != ids_p).cpu()
+    ties = 0
+    for row in range(ids_k.shape[0]):
+        cols = torch.nonzero(differ[row]).flatten()
+        if cols.numel():
+            top2 = sk[row, int(cols[0])].topk(2).values
+            if (top2[0] - top2[1]).item() > 2 * err:
+                raise AssertionError(f"phase {phase}: {what} ids differ at "
+                                     f"row {row} with a clear margin")
+            ties += 1
+    print(f"phase {phase}: {what} greedy decode, {tuple(ids_k.shape)} ids: "
+          f"step outputs max abs err {err:.3e} (bar {CTR_DECODE_ATOL}); "
+          f"rows equal to the plain path's {ids_k.shape[0] - ties}, the "
+          f"rest split at a top-2 "
+          f"margin within {2 * err:.3e}; B2 launches {n} [{gpu}]")
+    return n
+
+
+def ctr_timings(phase: str, what: str, step_k, step_p, batch: dict,
+                decode_k, decode_p, gpu: str) -> dict:
+    """Step and decode ms of both paths in turns (CUDA events after a
+    warm-up), and B2's launches by kernel name in a profiled step and
+    decode."""
+    from fudanocr_tpu_torch.train.seg import iteration_generator
+
+    gen = iteration_generator(SEED, 1, batch["image"].device)
+    k_ms, p_ms = in_turns(lambda: step_k(batch, gen),
+                          lambda: step_p(batch, gen), 3)
+    dk_ms, dp_ms = in_turns(decode_k, decode_p, 2)
+    by_name, busy = {}, {}
+    for key, fn in (("step", lambda: step_k(batch, gen)),
+                    ("decode", decode_k)):
+        for _ in range(3):   # a trace with no device event is taken again
+            split = profile_kernels(fn, 1)
+            if split:
+                break
+        by_name[key] = {n: c for n, (_, c) in split.items()
+                        if n.startswith("ln_")}
+        busy[key] = sum(ms for ms, _ in split.values())
+        top = sorted(split.items(), key=lambda kv: -kv[1][0])[:4]
+        print(f"phase {phase}: {what} {key}: device {busy[key]:.3f} ms in "
+              f"{sum(c for _, c in split.values()):.0f} launches; most: "
+              + ", ".join(f"{n} {ms:.3f} ms x{c:.0f}" for n, (ms, c) in top)
+              + f" [{gpu}]")
+    print(f"phase {phase}: {what}: train step {k_ms:.3f} ms (plain "
+          f"{p_ms:.3f}), {CTR_B * 1e3 / k_ms:.1f} img/s, busy "
+          f"{100 * busy['step'] / k_ms:.1f} %; greedy decode {dk_ms:.3f} ms "
+          f"per batch (plain {dp_ms:.3f}), busy "
+          f"{100 * busy['decode'] / dk_ms:.1f} %; B2 by kernel name "
+          f"{by_name} [{gpu}]")
+    return {"step_ms": k_ms, "plain_step_ms": p_ms, "decode_ms": dk_ms,
+            "plain_decode_ms": dp_ms, "step_device_ms": busy["step"],
+            "decode_device_ms": busy["decode"], "b2_by_name": by_name}
+
+
+def ctr_ln(phase: str, dev, gpu: str) -> tuple:
+    """B2 against its plain version at the phase's training rows and at
+    its decoder passes' rows."""
+    gen = torch.Generator().manual_seed(SEED + int(phase))
+    return tuple(ln_case(phase, *shapes[phase], torch.float32, gen, dev, gpu)
+                 for shapes in (CTR_LN, CTR_LN_DECODE))
+
+
+def ctr_report(phase: str, app: str, entry: int, per_step: int,
+               per_decode: int, times: dict, ln: tuple, gpu: str) -> None:
+    # the counters hold the launches; the trace names the kernel (and
+    # counts it, unless the profiler drops events, as late in the process
+    # it has: PERF.md section 7)
+    for key, want in (("step", per_step), ("decode", per_decode)):
+        got = times["b2_by_name"][key]
+        if set(got) != {LN_NAME}:
+            raise AssertionError(f"phase {phase}: the profiled {key} ran "
+                                 f"{got}, want {want} x {LN_NAME}")
+        if got[LN_NAME] != want:
+            print(f"phase {phase}: the profiled {key} traced "
+                  f"{got[LN_NAME]} of the counter's {want} B2 launches")
+    print(json.dumps({"phase": int(phase), "app": app, "batch": CTR_B,
+                      "entry_point_b2_launches": entry,
+                      "b2_per_step": per_step, "b2_per_decode": per_decode,
+                      **times, "b2_shape": list(CTR_LN[phase]),
+                      "b2": ln[0],
+                      "b2_decode_shape": list(CTR_LN_DECODE[phase]),
+                      "b2_decode": ln[1], "card": gpu}))
+
+
+def phase31(dev, gpu: str) -> tuple:
+    """SLD in stroke mode: ResNet (3, 4, 6, 3) with the stem pool only,
+    d_embed 512, d_model 1024, d_ff 2048, 32x32, batch 32, max_len 30,
+    Adadelta lr 1.0; the confusable-matched evaluation."""
+    from fudanocr_tpu_torch.apps.sld import train as sld
+    from fudanocr_tpu_torch.core.config import merge_cli_overrides
+    from fudanocr_tpu_torch.models.rec.ocr_transformer import greedy_decode
+
+    opts = [f"batch={CTR_B}", f"synthetic_samples={CTR_SAMPLES}",
+            "val_frequency=1000000"]
+    steps, max_len = CTR_SAMPLES // CTR_B, sld.DEFAULT_CONFIG.max_len
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sld_") as tmp:
+        _, entry = ctr_entry(
+            "31", "apps.sld.train (stroke mode, 1 epoch, confusable-matched "
+            "evaluation)", sld.main, ["--device", "cuda", "--options", *opts,
+                                      f"ckpt_dir={tmp}/sld"],
+            3 * steps + 3 * max_len * ctr_eval_batches(), gpu)
+        if not os.path.isdir(f"{tmp}/sld/best"):
+            raise AssertionError("phase 31: no best/ written")
+    cfg = merge_cli_overrides(sld.DEFAULT_CONFIG, opts + ["ckpt_dir="])
+    tk = sld.build_trainer(cfg, dev)
+    tp = sld.build_trainer(cfg, dev, kernels=False)
+    batch = tk.device_batch(*next(tk.train_data.batches(CTR_B)))
+    per_step = ctr_step_check("31", "SLD", tk.train_step, tp.train_step,
+                              tk.model, tp.model, batch, gpu)
+    dec = lambda m, x: greedy_decode(m, x, max_len)
+    x = batch["image"]
+    per_decode = ctr_decode_check("31", "SLD", dec, tk.model, tp.model, x,
+                                  None, gpu)
+    times = ctr_timings("31", "SLD", tk.train_step, tp.train_step, batch,
+                        lambda: dec(tk.model, x), lambda: dec(tp.model, x),
+                        gpu)
+    ln = ctr_ln("31", dev, gpu)
+    ctr_report("31", "sld", entry, per_step, per_decode, times, ln, gpu)
+    return entry, ln[0]
+
+
+def phase32(dev, gpu: str) -> int:
+    """CCR-CLIP: stage 1 (`pretrain`: ResNet-50 on 128x128, 12 text layers
+    of width 512, 8 heads, embed 2048, context 30, batch 32), then stage 2
+    (`train`: the image_ids encoder, out_dim 2048, 32x32, batch 32, max_len
+    48, gallery decode) over stage 1's checkpoint."""
+    from fudanocr_tpu_torch.apps.ccr_clip import pretrain
+    from fudanocr_tpu_torch.apps.ccr_clip import train as ctr2
+    from fudanocr_tpu_torch.core.config import merge_cli_overrides
+    from fudanocr_tpu_torch.losses.clip_loss import first_occurrence_targets
+    from fudanocr_tpu_torch.models.rec.ocr_transformer import \
+        greedy_decode_gallery
+
+    steps = CTR_SAMPLES // CTR_B
+    opts = [f"batch={CTR_B}", f"synthetic_samples={CTR_SAMPLES}"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_clip_") as tmp:
+        ctr_entry("32", "apps.ccr_clip.pretrain (1 epoch, zero-shot "
+                  "retrieval)", pretrain.main,
+                  ["--device", "cuda", "--options", *opts,
+                   f"ckpt_dir={tmp}/clip"], 0, gpu)
+        s1 = pretrain.CLIPPretrainer(merge_cli_overrides(
+            pretrain.DEFAULT_CONFIG, opts + ["ckpt_dir="]), dev)
+        images, labels = next(s1.train_data.batches(CTR_B))
+        im = torch.from_numpy(images).to(dev)
+        text = s1.text_tokens(labels)
+        tg = torch.from_numpy(first_occurrence_targets(labels)).to(dev)
+        loss = s1.train_step(im, text, tg).item()
+        tf = s1.charset_text_features().float()
+        retrieve = lambda: (s1.model.encode_image(im).float() @ tf.T
+                            ).argmax(1)
+        s1_ms = cuda_ms(lambda: s1.train_step(im, text, tg), 3)
+        with torch.no_grad():
+            r_ms = cuda_ms(retrieve, 3)
+        print(f"phase 32: CCR-CLIP stage 1 step at batch {CTR_B} "
+              f"(128x128): loss {loss:.4f}, {s1_ms:.3f} ms, "
+              f"{CTR_B * 1e3 / s1_ms:.1f} img/s; zero-shot retrieval "
+              f"{r_ms:.3f} ms per batch [{gpu}]")
+        if not np.isfinite(loss):
+            raise AssertionError("phase 32: stage-1 loss not finite")
+        del s1, im, text, tf
+        torch.cuda.empty_cache()
+
+        opts2 = opts + [f"radical_model={tmp}/clip/best",
+                        "val_frequency=1000000"]
+        max_len = ctr2.DEFAULT_CONFIG.max_len
+        _, entry = ctr_entry(
+            "32", "apps.ccr_clip.train (stage 2 over stage 1's best/, 1 "
+            "epoch, gallery decode)", ctr2.main,
+            ["--device", "cuda", "--options", *opts2,
+             f"ckpt_dir={tmp}/ctr"],
+            3 * steps + 3 * max_len * ctr_eval_batches(), gpu)
+        if not os.path.isdir(f"{tmp}/ctr/best"):
+            raise AssertionError("phase 32: no best/ written")
+        cfg = merge_cli_overrides(ctr2.DEFAULT_CONFIG, opts2 + ["ckpt_dir="])
+        tk, gallery = ctr2.build_trainer(cfg, dev)
+        tp, gallery_p = ctr2.build_trainer(cfg, dev, kernels=False)
+    if not torch.equal(gallery, gallery_p) or gallery.shape != (38, 2048):
+        raise AssertionError("phase 32: the galleries differ")
+    batch = tk.device_batch(*next(tk.train_data.batches(CTR_B)))
+    per_step = ctr_step_check("32", "CCR-CLIP stage 2", tk.train_step,
+                              tp.train_step, tk.model, tp.model, batch, gpu)
+    dec = lambda m, x: greedy_decode_gallery(m, x, gallery, max_len)
+    x = batch["image"]
+    per_decode = ctr_decode_check("32", "CCR-CLIP stage 2", dec, tk.model,
+                                  tp.model, x, gallery, gpu)
+    times = ctr_timings("32", "CCR-CLIP stage 2", tk.train_step,
+                        tp.train_step, batch, lambda: dec(tk.model, x),
+                        lambda: dec(tp.model, x), gpu)
+    ln = ctr_ln("32", dev, gpu)
+    ctr_report("32", "ccr_clip", entry, per_step, per_decode,
+               dict(times, stage1_step_ms=s1_ms, stage1_retrieval_ms=r_ms),
+               ln, gpu)
+    return entry
+
+
+def phase33(dev, gpu: str) -> int:
+    """OI-CTR: the oictr encoder (3, 4, 6), d_model 512, d_embed 256,
+    32x128, batch 32, max_len 16; 11 epochs of 4 updates, across the SGDR
+    restart at 10 epochs."""
+    from fudanocr_tpu_torch.apps.oictr import train as oictr
+    from fudanocr_tpu_torch.core.config import merge_cli_overrides
+    from fudanocr_tpu_torch.models.rec.ocr_transformer import greedy_decode
+
+    epochs, per_epoch = 11, CTR_SAMPLES // CTR_B
+    opts = [f"batch={CTR_B}", f"synthetic_samples={CTR_SAMPLES}",
+            f"epoch={epochs}", "val_frequency=1000000"]
+    max_len = oictr.DEFAULT_CONFIG.max_len
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_oictr_") as tmp:
+        _, entry = ctr_entry(
+            "33", f"apps.oictr.train ({epochs} epochs of {per_epoch} "
+            f"updates)", oictr.main, ["--device", "cuda", "--options", *opts,
+                                      f"ckpt_dir={tmp}/oictr"],
+            3 * epochs * per_epoch + 3 * max_len * ctr_eval_batches(), gpu)
+        if not os.path.isdir(f"{tmp}/oictr/best"):
+            raise AssertionError("phase 33: no best/ written")
+    cfg = merge_cli_overrides(oictr.DEFAULT_CONFIG, opts + ["ckpt_dir="])
+    tk = oictr.OICTRTrainer(cfg, dev)
+    tp = oictr.OICTRTrainer(cfg, dev, kernels=False)
+    sched, t0 = tk.optimizer.schedule, 10 * per_epoch
+    print(f"phase 33: lr at updates {t0 - 1}, {t0}, {t0 + 1}: "
+          f"{sched(t0 - 1):.3e}, {sched(t0):.3e}, {sched(t0 + 1):.3e}; "
+          f"the run took {epochs * per_epoch} updates [{gpu}]")
+    if not (tk.steps_per_epoch == per_epoch and sched(t0 - 1) < 0.01
+            and sched(t0) == cfg.lr):
+        raise AssertionError("phase 33: the run does not cross a restart")
+    batch = tk.device_batch(*next(tk.train_data.batches(CTR_B)))
+    per_step = ctr_step_check("33", "OI-CTR", tk.train_step, tp.train_step,
+                              tk.model, tp.model, batch, gpu)
+    dec = lambda m, x: greedy_decode(m, x, max_len)
+    x = batch["image"]
+    per_decode = ctr_decode_check("33", "OI-CTR", dec, tk.model, tp.model, x,
+                                  None, gpu)
+    times = ctr_timings("33", "OI-CTR", tk.train_step, tp.train_step, batch,
+                        lambda: dec(tk.model, x), lambda: dec(tp.model, x),
+                        gpu)
+    ln = ctr_ln("33", dev, gpu)
+    ctr_report("33", "oictr", entry, per_step, per_decode, times, ln, gpu)
+    return entry
+
+
 STANDALONE = {"1": phase1, "4": phase4, "5": phase5, "6": phase6,
               "7": phase7, "10": phase10, "13": phase13, "17": phase17,
               "19": phase19, "20": phase20_alone, "22": phase22,
               "24": phase24, "25": phase25, "26": phase26_alone,
-              "27": phase27, "28": phase28, "29": phase29, "30": phase30}
+              "27": phase27, "28": phase28, "29": phase29, "30": phase30,
+              "31": phase31, "32": phase32, "33": phase33}
 
 
 def main(argv: list) -> int:
@@ -4294,6 +4667,12 @@ def main(argv: list) -> int:
     bf16 = phase29(dev, gpu)
     torch.cuda.empty_cache()
     inf16 = phase30(dev, gpu)
+    torch.cuda.empty_cache()
+    sld_n, ln_ctr = phase31(dev, gpu)
+    torch.cuda.empty_cache()
+    clip_n = phase32(dev, gpu)
+    torch.cuda.empty_cache()
+    oictr_n = phase33(dev, gpu)
     bf16_b = (torch.bfloat16, TRAIN_B)
     b10, b11_fwd, b11_bwd = b10_b11[(torch.float32, TRAIN_B)]
     _, b11_mma_fwd, b11_mma_bwd = b10_b11[bf16_b]
@@ -4325,6 +4704,12 @@ def main(argv: list) -> int:
          "source": "fudanocr_tpu_torch/csrc/fused_layernorm.cu",
          "replaces": "fudanocr_tpu/ops/fused_layernorm.py:53",
          "launches": ln_n, **ln},
+        # the CTR decoders' B2 (phases 31-33): launches of the three entry
+        # points' runs, numbers at SLD's (32 * 30, 1024) fp32
+        {"name": "fused_residual_layernorm_ctr", "route": "cuda",
+         "source": "fudanocr_tpu_torch/csrc/fused_layernorm.cu",
+         "replaces": "fudanocr_tpu/ops/fused_layernorm.py:53",
+         "launches": sld_n + clip_n + oictr_n, **ln_ctr},
         {"name": "fused_residual_layernorm_bf16", "route": "cuda",
          "source": "fudanocr_tpu_torch/csrc/fused_layernorm.cu",
          "replaces": "fudanocr_tpu/ops/fused_layernorm.py:53",

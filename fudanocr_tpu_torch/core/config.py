@@ -89,6 +89,7 @@ _INT = re.compile(r"[-+]?(0|[1-9][0-9]*)")
 # YAML 1.1 (PyYAML): a float has a point; an exponent has a sign
 _FLOAT = re.compile(r"[-+]?([0-9]+\.[0-9]*|\.[0-9]+)([eE][-+][0-9]+)?")
 _PLAIN = re.compile(r"[A-Za-z_./][A-Za-z0-9_./+-]*")
+_INT_RUN = re.compile(r"[0-9]+(,[0-9]+)+")   # "1,1,1": a string to PyYAML
 _KEY = re.compile(r"([A-Za-z_][A-Za-z0-9_]*):(?: (.*))?")
 _CONSTANTS = {"true": True, "True": True, "TRUE": True, "false": False,
               "False": False, "FALSE": False, "null": None, "Null": None,
@@ -142,6 +143,8 @@ def parse_scalar(s: str, no: int = 0) -> Any:
         return body
     if _PLAIN.fullmatch(s) and s.lower() not in ("yes", "no", "on", "off",
                                                  "y", "n"):
+        return s
+    if _INT_RUN.fullmatch(s):
         return s
     _fail(no, f"cannot read the value {s!r}")
 

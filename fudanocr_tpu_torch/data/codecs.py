@@ -2,7 +2,9 @@
 fudanocr_tpu/data/codecs.py it needs; numpy only).
 
 text-gestalt's english_decomposition.txt maps a character to a string of
-stroke digits (stroke_focus_loss.py:32-38); `SequenceCodec` turns
+stroke digits (stroke_focus_loss.py:32-38), SLD's table to stroke classes
+1-5, and the image-ids-CTR / CCR-CLIP tables to radical token lists
+(`load_radical_table`, `radical_codec`); `SequenceCodec` turns
 decomposed labels into fixed-shape shift-right decoder inputs, dense
 targets and lengths for the device (the pattern every CTR project
 shares, e.g. sld/util.py:90-116).
@@ -87,6 +89,44 @@ class SequenceCodec:
             text_gt[i, :len(ids)] = ids
             text_input[i, 1:len(ids)] = ids[:-1]
         return text_input, text_gt, lengths
+
+
+def load_radical_table(path: str) -> Dict[str, List[str]]:
+    """image-ids-CTR decompose table: `char:r1 r2 r3` with multi-char
+    radical tokens (CCR-CLIP/utils.py:20-30); a line ':' alone is the
+    colon's own entry."""
+    table: Dict[str, List[str]] = {}
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if not line:
+                continue
+            char, _, seq = line.partition(":")
+            if char == "" and seq == "":
+                char, seq = ":", ":"
+            table[char] = seq.split(" ")
+    return table
+
+
+def radical_codec(alphabet_path: Optional[str] = None,
+                  decompose_path: Optional[str] = None) -> SequenceCodec:
+    """CCR-CLIP radical codec: alphabet = ['PAD'] + file lines + ['$']
+    (CCR-CLIP/utils.py:10-17), terminator '$'. Without files, the JAX
+    package's synthetic radical system (tests and demos): radicals r0-r11,
+    and each of A-Z, 0-9 decomposed into 2-4 of them, drawn from
+    `random.Random(0)` in JAX's order."""
+    if alphabet_path and decompose_path:
+        with open(alphabet_path, encoding="utf-8") as f:
+            radicals = [ln.strip("\n") for ln in f if ln.strip("\n")]
+        table = load_radical_table(decompose_path)
+    else:
+        import random
+        import string
+        radicals = [f"r{i}" for i in range(12)]
+        rng = random.Random(0)
+        table = {ch: [rng.choice(radicals) for _ in range(rng.randint(2, 4))]
+                 for ch in string.ascii_uppercase + string.digits}
+    return SequenceCodec(["PAD"] + radicals + ["$"], table, terminator="$")
 
 
 def english_stroke_codec(decomposition_path: Optional[str] = None

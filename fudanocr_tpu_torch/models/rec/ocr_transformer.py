@@ -1,8 +1,10 @@
 """Shared CTR core: ResNet encoder + 1-layer transformer decoder (port of
-fudanocr_tpu/models/rec/ocr_transformer.py). In this slice it is the
-frozen text-focus oracle of TBSRN training
-(scene-text-telescope/loss/transformer.py:348-389):
-`OCRTransformer(vocab=37, num_in=1, layers=(1, 2, 5, 3), num_heads=16)`.
+fudanocr_tpu/models/rec/ocr_transformer.py). It is the frozen text-focus
+oracle of TBSRN training (scene-text-telescope/loss/transformer.py:348-389,
+`OCRTransformer(vocab=37, num_in=1, layers=(1, 2, 5, 3), num_heads=16)`),
+the SLD recogniser (`stage1_pool=False`) and CCR-CLIP's stage-2 model
+(`encoder_preset="image_ids"`, `out_dim=2048`: embeddings matched against
+a gallery).
 
 Module names follow the reference state_dict that
 `utils/porters.port_ocr_transformer` reads, with the
@@ -16,8 +18,12 @@ JAX weights in.
 
 Images are NHWC at the public functions, as in the JAX package; the
 encoder runs NCHW inside. Teacher-forced decoding over fixed-length
-padded text with a causal mask, as the JAX module does;
-`greedy_decode` comes with the SLD slice.
+padded text with a causal mask, as the JAX module does. `greedy_decode`
+and `greedy_decode_gallery` are JAX's static-shape decoders: encode once,
+then `max_len` decoder passes over the whole padded token buffer, each
+writing one slot. They recompute the whole prefix each step, as JAX does
+(a KV cache would change the products' shapes and so near-tie argmaxes),
+and keep the ids on the device until the caller copies them.
 """
 
 from __future__ import annotations
@@ -66,22 +72,26 @@ class BasicBlock(nn.Module):
 class OCRResNet(nn.Module):
     """The CTR encoder family (see the JAX module): `stage_pools[s]`
     pools before stage s, `stage_convs[s]` adds conv+BN+ReLU after it,
-    `head_conv` adds the final 1024-wide conv. NCHW in and out."""
+    `head_conv` adds the final 1024-wide conv. `width_div` divides every
+    channel width (at least 4; small test models only). NCHW in and
+    out."""
 
     def __init__(self, num_in: int = 3, layers: Sequence[int] = (3, 4, 6, 3),
                  stage_feats: Sequence[int] = (256, 256, 512, 512),
                  stage_pools: Sequence[bool] = (True, False, False, False),
                  stage_convs: Sequence[bool] = (True, True, True, False),
-                 head_conv: bool = True):
+                 head_conv: bool = True, width_div: int = 1):
         super().__init__()
         self.layers = tuple(layers)
         self.stage_pools = tuple(stage_pools)
         self.stage_convs = tuple(stage_convs)
         self.head_conv = head_conv
-        self.conv1, self.bn1 = _conv3(num_in, 64), nn.BatchNorm2d(64)
-        self.conv2, self.bn2 = _conv3(64, 128), nn.BatchNorm2d(128)
-        in_feats = 128
+        w = lambda f: max(f // width_div, 4)
+        self.conv1, self.bn1 = _conv3(num_in, w(64)), nn.BatchNorm2d(w(64))
+        self.conv2, self.bn2 = _conv3(w(64), w(128)), nn.BatchNorm2d(w(128))
+        in_feats = w(128)
         for s, (n_blocks, feats) in enumerate(zip(layers, stage_feats)):
+            feats = w(feats)
             setattr(self, f"layer{s + 1}", nn.Sequential(*[
                 BasicBlock(in_feats if i == 0 else feats, feats,
                            downsample=(i == 0 and in_feats != feats))
@@ -91,9 +101,9 @@ class OCRResNet(nn.Module):
                 setattr(self, f"layer{s + 1}_bn", nn.BatchNorm2d(feats))
             in_feats = feats
         if head_conv:
-            self.layer4_conv2 = _conv3(in_feats, 1024)
-            self.layer4_conv2_bn = nn.BatchNorm2d(1024)
-            in_feats = 1024
+            self.layer4_conv2 = _conv3(in_feats, w(1024))
+            self.layer4_conv2_bn = nn.BatchNorm2d(w(1024))
+            in_feats = w(1024)
         self.out_features = in_feats
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -197,34 +207,42 @@ class _Generator(nn.Module):
 
 class OCRTransformer(nn.Module):
     """ResNet encoder + one transformer decoder layer + generator of
-    `vocab` logits.
+    `vocab` logits, or of `out_dim`-wide embeddings.
 
-    `encoder_preset` (a key of OCR_RESNET_PRESETS) replaces `layers`.
+    `encoder_preset` (a key of OCR_RESNET_PRESETS) replaces `layers`;
+    `stage1_pool=False` pools at the stem only (SLD, ACPM);
+    `encoder_width_div` divides the encoder's widths (small test models).
     `kernels=False` runs the plain PyTorch versions of the kernels its
     LayerNorms reach (the comparison path). Parameters stay float32;
-    `dtype` is the compute dtype. The JAX module's `out_dim` and
-    `stage1_pool` come with the CTR slices that use them."""
+    `dtype` is the compute dtype."""
 
     def __init__(self, vocab: int, num_in: int = 3,
                  layers: Sequence[int] = (3, 4, 6, 3), num_heads: int = 4,
                  d_embed: int = 512, d_model: int = 1024, d_ff: int = 2048,
-                 encoder_preset: Optional[str] = None, kernels: bool = True,
+                 out_dim: Optional[int] = None, stage1_pool: bool = True,
+                 encoder_preset: Optional[str] = None,
+                 encoder_width_div: int = 1, kernels: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        kw = (dict(OCR_RESNET_PRESETS[encoder_preset])
-              if encoder_preset is not None else dict(layers=tuple(layers)))
+        if encoder_preset is not None:
+            kw = dict(OCR_RESNET_PRESETS[encoder_preset])
+        else:
+            kw = dict(layers=tuple(layers))
+            if not stage1_pool:
+                kw["stage_pools"] = (False,) * 4
         if 2 * d_embed != d_model:
             raise ValueError(f"the decoder input concatenates the embedding "
                              f"and its positional code: d_model {d_model} "
                              f"must be 2 * d_embed {d_embed}")
         self.d_embed, self.dtype = d_embed, dtype
-        self.encoder = _Encoder(OCRResNet(num_in, **kw))
+        self.encoder = _Encoder(OCRResNet(num_in, width_div=encoder_width_div,
+                                          **kw))
         mem = self.encoder.cnn.out_features
         self.embedding_word = _Embeddings(vocab, d_embed)
         self.decoder = OCRDecoderLayer(
             num_heads, d_model, d_ff,
             memory_features=None if mem == d_model else mem, kernels=kernels)
-        self.generator_word = _Generator(d_model, vocab)
+        self.generator_word = _Generator(d_model, out_dim or vocab)
         self._consts: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def encode(self, image: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -275,3 +293,46 @@ class OCRTransformer(nn.Module):
             memory, text_input, train, attention_map, generator)
         return {"pred": pred, "map": attn_map, "conv": memory,
                 "hidden": hidden}
+
+
+def _token_buffer(memory: torch.Tensor, max_len: int,
+                  start_id: int) -> torch.Tensor:
+    return torch.full((memory.shape[0], max_len + 1), start_id,
+                      dtype=torch.long, device=memory.device)
+
+
+@torch.no_grad()
+def greedy_decode(model: nn.Module, image: torch.Tensor, max_len: int,
+                  start_id: int = 0) -> torch.Tensor:
+    """Greedy autoregressive decode (JAX `greedy_decode`): encode once,
+    then `max_len` inference passes of `model.decode_step` over the whole
+    (B, max_len + 1) token buffer (start id `start_id`); pass i writes the
+    argmax of its output at position i into slot i + 1. Returns the
+    (B, max_len) int64 ids on the image's device: the caller copies them
+    once. `model` is any module with `encode` and `decode_step`
+    (OCRTransformer, OICTR)."""
+    memory = model.encode(image)
+    tokens = _token_buffer(memory, max_len, start_id)
+    for i in range(max_len):
+        out, _, _ = model.decode_step(memory, tokens)
+        tokens[:, i + 1] = out[:, i].argmax(-1)
+    return tokens[:, 1:]
+
+
+@torch.no_grad()
+def greedy_decode_gallery(model: nn.Module, image: torch.Tensor,
+                          gallery: torch.Tensor, max_len: int,
+                          start_id: int = 0) -> torch.Tensor:
+    """`greedy_decode` for embedding generators (JAX
+    `greedy_decode_gallery`, CCR-CLIP stage 2): each step's fp32 output
+    embedding, divided by max(its norm, 1e-8), is matched against the
+    frozen `gallery` (V, D) by cosine; the argmax is the next id."""
+    memory = model.encode(image)
+    g = gallery.float()
+    tokens = _token_buffer(memory, max_len, start_id)
+    for i in range(max_len):
+        out, _, _ = model.decode_step(memory, tokens)
+        emb = out[:, i].float()
+        emb = emb / emb.norm(dim=-1, keepdim=True).clamp_min(1e-8)
+        tokens[:, i + 1] = (emb @ g.T).argmax(-1)
+    return tokens[:, 1:]

@@ -93,7 +93,8 @@ def batch_norm(m: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     y = F.batch_norm(x, None, None, m.weight, m.bias, True, 0.0, m.eps)
     with torch.no_grad():
         axes = [0] + list(range(2, x.dim()))
-        var, mean = torch.var_mean(x.float(), dim=axes, correction=0)
+        var, mean = torch.var_mean(x.to(m.running_var.dtype), dim=axes,
+                                   correction=0)
         m.running_mean.lerp_(mean, m.momentum)
         m.running_var.lerp_(var, m.momentum)
     return y

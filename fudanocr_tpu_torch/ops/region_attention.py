@@ -21,8 +21,11 @@ the mean of v. JAX, the reference and the port agree on that (the JAX
 docstring's "plain softmax of its scores" does not hold in fp32). Ids carry
 no gradient, as in JAX.
 
-The wrappers run the plain versions on CPU tensors, where autograd
-differentiates them. On CUDA tensors they launch the strided kernels of
+The wrappers run the plain versions on CPU tensors, through
+`_PlainPackedAttention`: the plain forward, and as its backward the plain
+backward at the JAX `_bwd_body`'s rounding points (autograd through the
+forward rounds dq differently, 1.3e-2 from JAX's bf16 backward on a rising
+row max). On CUDA tensors they launch the strided kernels of
 csrc/unmasked_attention.cu, the family `flash_mha` (ops/flash_attention.py)
 launches for the (B, H, L, dh) layout: without a gradient to take, the
 forward through `unmasked_packed_fwd` or `region_packed_fwd` (its MASKED
@@ -400,6 +403,27 @@ class _PackedAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+class _PlainPackedAttention(torch.autograd.Function):
+    """The CPU route of both packed wrappers (rq is None: unmasked): the
+    plain forward, and `_bwd_reference` as its backward, which is JAX's
+    `_bwd_body` for both dtypes (D from the fp32 probabilities)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rq, rkv, heads):
+        ctx.heads = heads
+        ctx.save_for_backward(q, k, v, rq, rkv)
+        if rq is None:
+            return packed_flash_mha_reference(q, k, v, heads)
+        return region_flash_mha_reference(q, k, v, rq, rkv, heads)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, rq, rkv = ctx.saved_tensors
+        neg = None if rq is None else region_mask(rq, rkv)
+        dq, dk, dv = _bwd_reference(q, k, v, neg, do, ctx.heads)
+        return dq, dk, dv, None, None, None
+
+
 def _needs_grad(*ts: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
@@ -409,13 +433,14 @@ def packed_flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Unmasked multi-head attention over packed (B, L, H*dh) operands ->
     (B, Lq, H*dh), differentiable in q, k and v.
 
-    CPU tensors run the plain version. CUDA tensors run the kernels (built
-    at first use, see ops/_build.py) and raise on what they do not take: a
-    dtype other than float32/bfloat16, a head width other than 32 or 64, Lq
-    not a multiple of 128 or Lkv of 64 (of 128 when a gradient is to be
-    taken), or a feature stride other than 1."""
+    CPU tensors run the plain version (`_PlainPackedAttention`). CUDA
+    tensors run the kernels (built at first use, see ops/_build.py) and
+    raise on what they do not take: a dtype other than float32/bfloat16, a
+    head width other than 32 or 64, Lq not a multiple of 128 or Lkv of 64
+    (of 128 when a gradient is to be taken), or a feature stride other
+    than 1."""
     if q.device.type == "cpu":
-        return packed_flash_mha_reference(q, k, v, heads)
+        return _PlainPackedAttention.apply(q, k, v, None, None, heads)
     if q.device.type != "cuda":
         raise ValueError(f"packed_flash_mha: no kernel for {q.device}")
     if _needs_grad(q, k, v):
@@ -431,12 +456,12 @@ def region_flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     equal get -1e10 added to their score (see the module docstring).
     Differentiable in q, k and v; the ids get no gradient.
 
-    CPU tensors run the plain version. CUDA tensors run the MASKED kernels
-    and raise on what they do not take: what `packed_flash_mha` refuses,
-    or ids that are not contiguous float32 of shapes (B, Lq) and (B, Lkv)
-    on q's device."""
+    CPU tensors run the plain version (`_PlainPackedAttention`). CUDA
+    tensors run the MASKED kernels and raise on what they do not take:
+    what `packed_flash_mha` refuses, or ids that are not contiguous float32
+    of shapes (B, Lq) and (B, Lkv) on q's device."""
     if q.device.type == "cpu":
-        return region_flash_mha_reference(q, k, v, rq, rkv, heads)
+        return _PlainPackedAttention.apply(q, k, v, rq, rkv, heads)
     if q.device.type != "cuda":
         raise ValueError(f"region_flash_mha: no kernel for {q.device}")
     if _needs_grad(q, k, v):

@@ -1,15 +1,17 @@
 """Porters: original FudanOCR state_dicts -> JAX-layout variable trees.
 
 The port's own copy of the porters in fudanocr_tpu/utils/torch_port.py
-(lines 21-296, 453-608) for the models the port has: TBSRN, TSRN, CRNN,
-the OCRTransformer, CascadeMiT, the det-guided CascadeMiT (V10) and the
-SegFormer head, plus `port_segmentor` / `port_segmentor_det` /
-`port_cascade_segmentor` for a whole EncoderDecoder /
-DetGuidedEncoderDecoder / CascadeEncoderDecoder; and, with no JAX
-counterpart (the JAX package ports no torch weights into them), porters
-from mmseg's key layout into the JAX necks (`port_fpn`,
+(lines 21-394, 453-608) for the models the port has: TBSRN, TSRN, CRNN,
+the OCRTransformer (every encoder preset), CCR-CLIP, OI-CTR, CascadeMiT,
+the det-guided CascadeMiT (V10) and the SegFormer head, plus
+`port_segmentor` / `port_segmentor_det` / `port_cascade_segmentor` for a
+whole EncoderDecoder / DetGuidedEncoderDecoder / CascadeEncoderDecoder;
+and, with no JAX counterpart (the JAX package ports no torch weights into
+them), porters from mmseg's key layout into the JAX necks (`port_fpn`,
 `port_multilevel_neck`, `port_jpu`, `port_mla_neck`, `port_ic_neck`) and
-`Encoding` (`port_encoding`). Each maps a torch state_dict
+`Encoding` (`port_encoding`), CCR-CLIP's ViT tower (`port_clip_vit`) and
+OI-CTR's reconstructor (in `port_oictr`, under the port's own key
+names). Each maps a torch state_dict
 (reference key layout, which every port module carries) onto the JAX
 package's {"params": ..., "batch_stats": ...} tree: conv OIHW -> HWIO,
 linear W -> W^T, LSTM gate blocks transposed, BatchNorm running stats into
@@ -254,29 +256,168 @@ def _ocr_resnet(sd: Dict, prefix: str, layers,
     return params, stats
 
 
+# the wide 3-stage encoder of OI-CTR and image-ids-CTR
+_WIDE_RESNET = dict(layers=(3, 4, 6), stage_feats=(256, 512, 1024),
+                    stage_convs=(True, True, True), head_conv=False)
+_PRESET_RESNETS = {"oracle": dict(layers=(1, 2, 5, 3)),
+                   "sld": dict(layers=(3, 4, 6, 3)),
+                   "oictr": _WIDE_RESNET, "image_ids": _WIDE_RESNET}
+
+
+def _decoder(sd) -> Dict:
+    return {
+        "self_attn": _mha(sd, "decoder.mask_multihead", "self"),
+        "ln1": torch_layernorm(sd, "decoder.mul_layernorm1"),
+        "cross_attn": _mha(sd, "decoder.multihead", "cross"),
+        "ln2": torch_layernorm(sd, "decoder.mul_layernorm2"),
+        "pff_w1": linear(sd, "decoder.pff.w_1"),
+        "pff_w2": linear(sd, "decoder.pff.w_2"),
+        "ln3": torch_layernorm(sd, "decoder.mul_layernorm3"),
+    }
+
+
 def port_ocr_transformer(sd: Dict, layers=(3, 4, 6, 3),
-                         encoder_prefix: str = "encoder.") -> Dict:
+                         encoder_prefix: str = "encoder.",
+                         encoder_preset=None) -> Dict:
     """Shared CTR / loss-oracle transformer -> OCRTransformer variables.
 
     Handles both the SR loss oracle (encoder.cnn. prefix, layers [1,2,5,3])
-    and the CTR projects (encoder. prefix, layers [3,4,6,3])."""
+    and the CTR projects (encoder. prefix, layers [3,4,6,3]);
+    `encoder_preset` (a key of OCR_RESNET_PRESETS, e.g. "image_ids" for
+    CCR-CLIP stage 2) replaces `layers`. The generator is whatever width
+    the state_dict holds (vocab logits or `out_dim` embeddings)."""
     sd = strip_module_prefix(sd)
     if any(k.startswith("encoder.cnn.") for k in sd):
         encoder_prefix = "encoder.cnn."
-    enc_params, enc_stats = _ocr_resnet(sd, encoder_prefix, layers)
+    kw = (dict(_PRESET_RESNETS[encoder_preset]) if encoder_preset
+          else dict(layers=layers))
+    enc_params, enc_stats = _ocr_resnet(sd, encoder_prefix, **kw)
     params = {
         "encoder": enc_params,
         "embed": embedding(sd, "embedding_word.lut"),
-        "decoder": {
-            "self_attn": _mha(sd, "decoder.mask_multihead", "self"),
-            "ln1": torch_layernorm(sd, "decoder.mul_layernorm1"),
-            "cross_attn": _mha(sd, "decoder.multihead", "cross"),
-            "ln2": torch_layernorm(sd, "decoder.mul_layernorm2"),
-            "pff_w1": linear(sd, "decoder.pff.w_1"),
-            "pff_w2": linear(sd, "decoder.pff.w_2"),
-            "ln3": torch_layernorm(sd, "decoder.mul_layernorm3"),
-        },
+        "decoder": _decoder(sd),
         "generator": linear(sd, "generator_word.proj"),
+    }
+    return {"params": params, "batch_stats": {"encoder": enc_stats}}
+
+
+def _clip_bottleneck(sd, prefix, downsample: bool):
+    blk: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for i in (1, 2, 3):
+        blk[f"conv{i}"] = conv(sd, f"{prefix}.conv{i}")
+        p, s = bn(sd, f"{prefix}.bn{i}")
+        blk[f"bn{i}"] = p
+        stats[f"bn{i}"] = s
+    if downsample:
+        blk["down_conv"] = conv(sd, f"{prefix}.downsample.0")
+        p, s = bn(sd, f"{prefix}.downsample.1")
+        blk["down_bn"] = p
+        stats["down_bn"] = s
+    return blk, stats
+
+
+def _clip_block(sd, t):
+    """transformer.resblocks.{i} -> ResidualAttentionBlock: torch
+    nn.MultiheadAttention's fused in_proj is the `attn_in` Dense."""
+    return {
+        "ln_1": _ln_std(sd, f"{t}.ln_1"),
+        "attn_in": {"kernel": _np(sd[f"{t}.attn.in_proj_weight"]).T,
+                    "bias": _np(sd[f"{t}.attn.in_proj_bias"])},
+        "attn_out": linear(sd, f"{t}.attn.out_proj"),
+        "ln_2": _ln_std(sd, f"{t}.ln_2"),
+        "mlp_fc": linear(sd, f"{t}.mlp.c_fc"),
+        "mlp_proj": linear(sd, f"{t}.mlp.c_proj"),
+    }
+
+
+def port_ccr_clip(sd: Dict, layers=(3, 4, 6, 3),
+                  transformer_layers: int = 12) -> Dict:
+    """image-ids-CTR/CCR-CLIP model.py:135-221 + resnet50.py -> CCRCLIP
+    (the JAX package's torch_port.py:297-360)."""
+    sd = strip_module_prefix(sd)
+    vis: Dict[str, Any] = {"stem_conv": conv(sd, "visual.conv1")}
+    vstats: Dict[str, Any] = {}
+    vis["stem_bn"], vstats["stem_bn"] = bn(sd, "visual.bn1")
+    in_ch = 64
+    for li, (n, planes) in enumerate(zip(layers, (64, 128, 256, 512))):
+        for b_i in range(n):
+            stride = 2 if (b_i == 0 and li > 0) else 1
+            down = b_i == 0 and (stride != 1 or in_ch != planes * 4)
+            name = f"layer{li + 1}_{b_i}"
+            vis[name], vstats[name] = _clip_bottleneck(
+                sd, f"visual.layer{li + 1}.{b_i}", down)
+            in_ch = planes * 4
+    params: Dict[str, Any] = {
+        "visual": vis,
+        "token_embedding": embedding(sd, "token_embedding"),
+        "positional_embedding": _np(sd["positional_embedding"]),
+        "ln_final": _ln_std(sd, "ln_final"),
+        "text_projection": _np(sd["text_projection"]),
+        "logit_scale": _np(sd["logit_scale"]),
+    }
+    for i in range(transformer_layers):
+        params[f"block{i}"] = _clip_block(sd, f"transformer.resblocks.{i}")
+    return {"params": params, "batch_stats": {"visual": vstats}}
+
+
+def port_clip_vit(sd: Dict, layers: int = 6) -> Dict:
+    """CCR-CLIP/model.py:99-132 VisionTransformer -> the JAX
+    VisionTransformer (no JAX counterpart: the JAX package ports no
+    weights into it)."""
+    sd = strip_module_prefix(sd)
+    params: Dict[str, Any] = {
+        "conv1": conv(sd, "conv1"),
+        "class_embedding": _np(sd["class_embedding"]),
+        "positional_embedding": _np(sd["positional_embedding"]),
+        "ln_pre": _ln_std(sd, "ln_pre"),
+        "ln_post": _ln_std(sd, "ln_post"),
+        "proj": _np(sd["proj"]),
+    }
+    for i in range(layers):
+        params[f"block{i}"] = _clip_block(sd, f"transformer.resblocks.{i}")
+    return {"params": params}
+
+
+def _deconv(sd, name):
+    """torch ConvTranspose2d (in, out, kh, kw) -> flax ConvTranspose
+    (kh, kw, in, out) without kernel flip: the taps reversed."""
+    out = {"kernel": _np(sd[f"{name}.weight"])[:, :, ::-1, ::-1]
+           .transpose(2, 3, 0, 1)}
+    out["bias"] = _np(sd[f"{name}.bias"])
+    return out
+
+
+def port_oictr(sd: Dict) -> Dict:
+    """orientation-independent-CTR/model/transformer.py:399-424 -> OICTR
+    (the JAX package's torch_port.py:362-394), and the port's own
+    `reconstructor.deconv{1..5}` keys into JAX's redesigned reconstructor
+    (which the JAX porter leaves out: the reference's differs)."""
+    sd = strip_module_prefix(sd)
+    layers = tuple(_count(sd, f"encoder.layer{s}.{{}}.conv1.weight")
+                   for s in (1, 2, 3))
+    enc_params, enc_stats = _ocr_resnet(sd, "encoder.", layers,
+                                        **{k: v for k, v in
+                                           _WIDE_RESNET.items()
+                                           if k != "layers"})
+    recon = {f"deconv{i}": _deconv(sd, f"reconstructor.deconv{i}")
+             for i in range(1, 5)}
+    recon["deconv5"] = conv(sd, "reconstructor.deconv5")
+    params = {
+        "encoder": enc_params,
+        "content_extractor": conv(sd, "content_extractor"),
+        "dir_conv": conv(sd, "direction_extractor.conv1"),
+        "dir_linear": linear(sd, "direction_extractor.linear"),
+        "direction_cls": linear(sd, "direction_cls"),
+        "embed": embedding(sd, "embedding_word.lut"),
+        "decoder": _decoder(sd),
+        "generator": linear(sd, "generator_word.proj"),
+        # features_compress: torch conv over the token axis (4, T, 1, 1)
+        # -> a Dense over that axis (T, 4)
+        "features_compress": {
+            "kernel": _np(sd["features_compress.weight"])[:, :, 0, 0].T,
+            "bias": _np(sd["features_compress.bias"])},
+        "reconstructor": recon,
     }
     return {"params": params, "batch_stats": {"encoder": enc_stats}}
 
@@ -581,6 +722,9 @@ PORTERS = {
     "tsrn": port_tsrn,
     "crnn": port_crnn,
     "ocr_transformer": port_ocr_transformer,
+    "ccr_clip": port_ccr_clip,
+    "clip_vit": port_clip_vit,
+    "oictr": port_oictr,
     "cascade_mit": port_cascade_mit,
     "cascade_mit_v10": port_cascade_mit_v10,
     "segformer_head": port_segformer_head,

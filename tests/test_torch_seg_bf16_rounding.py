@@ -28,7 +28,10 @@ for dQ (a row of dS sums to 0; one rounding lets K's mean into dQ).
 
 The port's plain versions (the CPU path and `kernels=False`) are held to
 JAX's kernels on the same inputs: the forward at the bar, the plain
-backward within PLAIN_REL.
+backward within PLAIN_REL. The CPU path's autograd backward is the plain
+backward, bit for bit, in bf16 and in fp32 (against JAX's fp32 kernels on
+"rising"): autograd through the plain forward would take bf16(p) into D
+and miss the bar on "rising".
 
 Tests marked `cuda` hold the kernels against the model and the plain
 version on the card and skip where there is none; they import no jax:
@@ -69,24 +72,25 @@ def _ids(seed: int, b: int = B, lq: int = LQ, lkv: int = LKV):
     return torch.from_numpy(rq), torch.from_numpy(rkv)
 
 
-def _inputs(case: str, dh: int, heads: int):
+def _inputs(case: str, dh: int, heads: int, dtype=BF16):
     d = dh * heads
-    q, k, v = (t.to(BF16) for t in _values(case, B, LQ, LKV, d,
-                                            dh + len(case)))
+    q, k, v = (t.to(dtype) for t in _values(case, B, LQ, LKV, d,
+                                             dh + len(case)))
     do = torch.randn(B, LQ, d, generator=torch.Generator().manual_seed(
-        dh + 1)).to(BF16)
+        dh + 1)).to(dtype)
     return q, k, v, do, *_ids(dh)
 
 
 @functools.lru_cache(maxsize=None)
-def _jax(case: str, dh: int, heads: int, masked: bool):
-    """The inputs and the JAX kernels' bf16 o and (dq, dk, dv) on them
-    (interpret mode), as float32 torch tensors."""
+def _jax(case: str, dh: int, heads: int, masked: bool, dtype=BF16):
+    """The inputs and the JAX kernels' o and (dq, dk, dv) on them
+    (interpret mode, bf16 unless `dtype` is float32), as float32 torch
+    tensors."""
     jax = pytest.importorskip("jax")
     from fudanocr_tpu.ops import region_attention as jra
 
     jnp = jax.numpy
-    q, k, v, do, rq, rkv = _inputs(case, dh, heads)
+    q, k, v, do, rq, rkv = _inputs(case, dh, heads, dtype)
     assert jra.region_flash_supported(LQ, LKV, dh * heads, heads)
     if masked:
         fn = lambda q_, k_, v_: jra.region_flash_mha(
@@ -94,7 +98,8 @@ def _jax(case: str, dh: int, heads: int, masked: bool):
             heads)
     else:
         fn = lambda q_, k_, v_: jra.packed_flash_mha(q_, k_, v_, heads)
-    as_jax = lambda t: jnp.asarray(t.float().numpy(), jnp.bfloat16)
+    jdt = jnp.bfloat16 if dtype == BF16 else jnp.float32
+    as_jax = lambda t: jnp.asarray(t.float().numpy(), jdt)
     o, vjp = jax.vjp(fn, *map(as_jax, (q, k, v)))
     grads = vjp(as_jax(do))
     as_torch = lambda a: torch.from_numpy(np.array(a.astype(jnp.float32)))
@@ -175,10 +180,10 @@ def test_rejected_simplification_misses_half_the_bar(rejected, dh, heads,
 @pytest.mark.parametrize("case,dh,heads,masked", PARAMS)
 def test_plain_version_matches_jax(case, dh, heads, masked):
     """The port's plain forward at the bar and its plain backward within
-    PLAIN_REL, each gradient. Autograd through the plain forward (the CPU
-    path's gradient) is printed beside them (`-s`): its value product takes
-    bf16(p) as the forward rounds it, so its D is the one of the rejected
-    o32-from-bf16(p), and on "rising" its dq misses the bar (ROADMAP C25)."""
+    PLAIN_REL, each gradient. The CPU path's autograd backward is the plain
+    backward bit for bit, so within the bar of JAX's on every case: autograd
+    through the plain forward would take bf16(p) into D, the rejected
+    o32-from-bf16(p), and on "rising" its dq missed the bar."""
     ins, want_o, want_g = _jax(case, dh, heads, masked)
     q, k, v, do, rq, rkv = ins
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -196,9 +201,34 @@ def test_plain_version_matches_jax(case, dh, heads, masked):
           f"plain forward {rels(auto)}")
     assert o.dtype == BF16
     assert (o.float() - want_o).abs().max().item() <= FWD_ATOL
-    for name, g, w in zip(("dq", "dk", "dv"), plain, want_g):
-        assert g.dtype == BF16
+    for name, g, a, w in zip(("dq", "dk", "dv"), plain, auto, want_g):
+        assert g.dtype == a.dtype == BF16
         assert _rel(g, w) <= PLAIN_REL, name
+        assert torch.equal(a, g), name
+        assert _rel(a, w) <= BWD_REL, (name, _rel(a, w))
+
+
+@pytest.mark.parametrize("dh,heads", WIDTHS)
+@pytest.mark.parametrize("masked", [False, True])
+def test_fp32_cpu_backward_matches_jax(dh, heads, masked):
+    """In fp32 the CPU path's autograd backward is the plain backward bit
+    for bit, and within PLAIN_REL of JAX's fp32 kernels on "rising"."""
+    ins, want_o, want_g = _jax("rising", dh, heads, masked, torch.float32)
+    q, k, v, do, rq, rkv = ins
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    if masked:
+        o = ra.region_flash_mha(*leaves, rq, rkv, heads)
+        plain = ra.region_flash_mha_bwd_reference(q, k, v, rq, rkv, do,
+                                                  heads)
+    else:
+        o = ra.packed_flash_mha(*leaves, heads)
+        plain = ra.packed_flash_mha_bwd_reference(q, k, v, do, heads)
+    auto = torch.autograd.grad(o, leaves, do)
+    assert o.dtype == torch.float32
+    assert (o - want_o).abs().max().item() <= 1e-5
+    for name, a, g, w in zip(("dq", "dk", "dv"), auto, plain, want_g):
+        assert torch.equal(a, g), name
+        assert _rel(a, w) <= PLAIN_REL, (name, _rel(a, w))
 
 
 # -- on the card --------------------------------------------------------
