@@ -299,7 +299,25 @@ Phases:
  33. `apps.oictr.train` (the oictr encoder (3, 4, 6), d_model 512,
      d_embed 256, 32x128, max_len 16) for 11 epochs of 4 updates, across
      the SGDR restart at update 40 (180 B2 launches), as phase 31, B2 at
-     (32 * 16, 512).
+     (32 * 16, 512);
+ 34. `apps.acpm.train` (the ResNet (3, 4, 6, 3) with the stem pool only,
+     d_model 1024, 32x32, max_len 12, the L1 radical counter; 4 steps,
+     then the profile-matching evaluation of one test batch: 51 B2
+     launches, 3 a step and 39 a test batch, 12 decoder passes and one
+     forward for the profile heads) as phase 31, then one step each of
+     the VGG and DenseNet encoders and of the STN with the CE counter
+     against `kernels=False`; B2 at (32 * 12, 1024);
+ 35. the CTR models in bf16, JAX's benched configurations: SLD (phase
+     31's model and batch, `dtype=torch.bfloat16`): one step against the
+     bf16 `kernels=False` step and the fp32 plain step (the bf16 training
+     bar), one greedy decode against the bf16 plain path's (step outputs
+     within twice the bf16 plain path's distance from fp32, ids by the
+     margin rule), step and decode ms beside fp32's in turns, device ms,
+     launches and busy share of a profiled call; CCR-CLIP stage 1 at batch
+     128 in bf16 beside fp32 in turns (its towers reach no kernel: the
+     loss within 1e-2 of the fp32 step's; the gradients' distance from
+     fp32 by top-level module, at random init and after 30 fp32 steps);
+     bf16 B2 against its plain version at every CTR row of phases 31-34.
 
 Phases 8 and 11 end with a torch.profiler breakdown of one more canvas
 (device time by name, the device's busy time against the wall time).
@@ -312,8 +330,10 @@ their type (H100 SXM data sheet: fp32 67 TFLOP/s on CUDA cores, bf16
 output written once) over 3.35 TB/s. The last line is {"ok": true,
 "device": {...}}; the line before it is the card's name and power limit as
 nvidia-smi gives them, and the line before that the kernel table as JSON
-(`fused_residual_layernorm_ctr`: B2's launches in the three CTR entry
-points' runs, its numbers at (32 * 30, 1024) fp32; each CTR phase's line
+(`fused_residual_layernorm_ctr`: B2's launches in the four CTR entry
+points' runs, its numbers at (32 * 30, 1024) fp32;
+`fused_residual_layernorm_ctr_bf16`: the bf16 SLD step's and decode's
+launches, its numbers at (32 * 30, 1024) bf16; each CTR phase's line
 also holds B2 at its training rows and at its decoder passes' rows).
 """
 
@@ -2943,6 +2963,27 @@ def grad_distance(model, other) -> tuple:
     return (diff / norm) ** 0.5, worst, worst_name
 
 
+def bf16_step_bar(what: str, losses: tuple, models: tuple) -> dict:
+    """The bf16 training bar on one step of (the bf16 kernel path, the bf16
+    plain path, the fp32 plain path) from the same weights and generator
+    seed, `losses` their losses: the loss within BF16_STEP_LOSS_REL of the
+    plain step's, the gradients, all together, within BF16_STEP_GRAD_REL
+    and within the plain bf16 step's own distance from the fp32 step.
+    Returns the readings; raises past the bar."""
+    lk, lp, l32 = losses
+    grel, worst, worst_name = grad_distance(models[0], models[1])
+    grel16, worst16, _ = grad_distance(models[1], models[2])
+    r = {"loss_rel": abs(lk - lp) / abs(lp),
+         "loss_bf16": abs(lp - l32) / abs(l32), "grel": grel,
+         "worst": worst, "worst_name": worst_name, "grel16": grel16,
+         "worst16": worst16}
+    if (not np.isfinite(lk) or r["loss_rel"] > BF16_STEP_LOSS_REL
+            or grel > min(BF16_STEP_GRAD_REL, grel16)):
+        raise AssertionError(f"{what}: the bf16 kernel path's step "
+                             f"disagrees with the bf16 plain step: {r}")
+    return r
+
+
 def phase25(dev, gpu: str) -> tuple:
     torch.manual_seed(SEED + 25)
     sr_kw = dict(scale_factor=2, width=128, height=32, stn=True,
@@ -2981,25 +3022,19 @@ def phase25(dev, gpu: str) -> tuple:
     out += [st(batch, torch.Generator(dev).manual_seed(7))
             for st in steps[1:]]
     torch.cuda.synchronize()
-    lk, lp, lr32 = (o["loss"].item() for o in out)
-    loss_rel, loss_bf16 = abs(lk - lp) / abs(lp), abs(lp - lr32) / abs(lr32)
-    grel, worst, worst_name = grad_distance(model, plain)
-    grel_bf16, worst_bf16, _ = grad_distance(plain, ref)
-    print(f"phase 25a: one bf16 train step at batch {STEP_B}: loss kernel "
-          f"path {lk:.6f}, plain path {lp:.6f} (rel {loss_rel:.3e}, bar "
-          f"{BF16_STEP_LOSS_REL}), fp32 plain path {lr32:.6f} (bf16 vs fp32 "
-          f"rel {loss_bf16:.3e}); gradients kernel vs plain {grel:.3e} "
-          f"norm-relative (bar {BF16_STEP_GRAD_REL}), worst tensor "
-          f"{worst:.3e} ({worst_name}); plain bf16 vs fp32 {grel_bf16:.3e}, "
-          f"worst tensor {worst_bf16:.3e}; grad norm "
-          f"{out[0]['grad_norm'].item():.4f} vs "
-          f"{out[1]['grad_norm'].item():.4f} [{gpu}]")
     if not all(np.isfinite(v.item()) for v in out[0].values()):
         raise AssertionError("bf16 train step metrics are not finite")
-    if loss_rel > BF16_STEP_LOSS_REL or grel > min(BF16_STEP_GRAD_REL,
-                                                   grel_bf16):
-        raise AssertionError("bf16 kernel path train step disagrees with "
-                             "plain")
+    lk, lp, lr32 = (o["loss"].item() for o in out)
+    r = bf16_step_bar("phase 25a", (lk, lp, lr32), (model, plain, ref))
+    print(f"phase 25a: one bf16 train step at batch {STEP_B}: loss kernel "
+          f"path {lk:.6f}, plain path {lp:.6f} (rel {r['loss_rel']:.3e}, "
+          f"bar {BF16_STEP_LOSS_REL}), fp32 plain path {lr32:.6f} (bf16 vs "
+          f"fp32 rel {r['loss_bf16']:.3e}); gradients kernel vs plain "
+          f"{r['grel']:.3e} norm-relative (bar {BF16_STEP_GRAD_REL}), worst "
+          f"tensor {r['worst']:.3e} ({r['worst_name']}); plain bf16 vs fp32 "
+          f"{r['grel16']:.3e}, worst tensor {r['worst16']:.3e}; grad norm "
+          f"{out[0]['grad_norm'].item():.4f} vs "
+          f"{out[1]['grad_norm'].item():.4f} [{gpu}]")
     del ref, oracle_ref, steps[2], losses[2]
     torch.cuda.empty_cache()
 
@@ -3882,26 +3917,20 @@ def bf16_step_recipe(config: str, want: tuple, dev, gpu: str) -> tuple:
             for st in steps[1:]]
     torch.cuda.synchronize()
     torch.backends.cudnn.deterministic = False
-    lk, lp, lr32 = (o["loss"].item() for o in out)
-    loss_rel, loss_bf16 = abs(lk - lp) / abs(lp), abs(lp - lr32) / abs(lr32)
-    grel, worst, worst_name = grad_distance(model, plain)
-    grel_bf16, worst_bf16, _ = grad_distance(plain, ref)
-    print(f"phase 29: {tag}: one bf16 train step, kernel path "
-          f"{ {k: round(v.item(), 6) for k, v in out[0].items()} }; loss "
-          f"plain bf16 {lp:.6f} (rel {loss_rel:.3e}, bar "
-          f"{BF16_STEP_LOSS_REL}), plain fp32 {lr32:.6f} (bf16 vs fp32 rel "
-          f"{loss_bf16:.3e}); gradients kernel vs plain bf16 {grel:.3e} "
-          f"norm-relative (bar {BF16_STEP_GRAD_REL} and the plain bf16 "
-          f"step's distance from fp32, {grel_bf16:.3e}), worst tensor "
-          f"{worst:.3e} ({worst_name}; plain bf16 vs fp32 worst "
-          f"{worst_bf16:.3e}); launches (B7 fwd, B7 bwd, B6 fwd, B6 bwd) "
-          f"{counts} (expected {want}) [{gpu}]")
     if not all(np.isfinite(v.item()) for v in out[0].values()):
         raise AssertionError(f"phase 29 {tag}: metrics are not finite")
-    if loss_rel > BF16_STEP_LOSS_REL or grel > min(BF16_STEP_GRAD_REL,
-                                                   grel_bf16):
-        raise AssertionError(f"phase 29 {tag}: the bf16 kernel path step "
-                             "disagrees with the bf16 plain step")
+    lk, lp, lr32 = (o["loss"].item() for o in out)
+    r = bf16_step_bar(f"phase 29 {tag}", (lk, lp, lr32), (model, plain, ref))
+    print(f"phase 29: {tag}: one bf16 train step, kernel path "
+          f"{ {k: round(v.item(), 6) for k, v in out[0].items()} }; loss "
+          f"plain bf16 {lp:.6f} (rel {r['loss_rel']:.3e}, bar "
+          f"{BF16_STEP_LOSS_REL}), plain fp32 {lr32:.6f} (bf16 vs fp32 rel "
+          f"{r['loss_bf16']:.3e}); gradients kernel vs plain bf16 "
+          f"{r['grel']:.3e} norm-relative (bar {BF16_STEP_GRAD_REL} and the "
+          f"plain bf16 step's distance from fp32, {r['grel16']:.3e}), worst "
+          f"tensor {r['worst']:.3e} ({r['worst_name']}; plain bf16 vs fp32 "
+          f"worst {r['worst16']:.3e}); launches (B7 fwd, B7 bwd, B6 fwd, "
+          f"B6 bwd) {counts} (expected {want}) [{gpu}]")
     if counts != want:
         raise AssertionError(f"phase 29 {tag}: the bf16 step did not launch "
                              "the expected attention kernels")
@@ -4251,7 +4280,7 @@ def phase30(dev, gpu: str) -> dict:
 CTR_B = 32
 CTR_SAMPLES = 128            # 4 steps an epoch; the test set one batch
 CTR_LN = {"31": (CTR_B * 30, 1024), "32": (CTR_B * 48, 1024),
-          "33": (CTR_B * 16, 512)}
+          "33": (CTR_B * 16, 512), "34": (CTR_B * 12, 1024)}
 # each decoder pass runs over the whole (B, max_len + 1) token buffer
 CTR_LN_DECODE = {k: (rows + CTR_B, d) for k, (rows, d) in CTR_LN.items()}
 # decode step outputs (logits, or cosines against the gallery), kernel path
@@ -4322,12 +4351,13 @@ def ctr_step_check(phase: str, what: str, step_k, step_p, model, plain,
 
 
 def ctr_decode_check(phase: str, what: str, decode, model, plain,
-                     x: torch.Tensor, gallery, gpu: str) -> int:
+                     x: torch.Tensor, gallery, gpu: str,
+                     atol: float = CTR_DECODE_ATOL) -> int:
     """The kernel path's greedy decode against the plain path's: both
-    paths' step outputs on the kernel path's token buffer within
-    CTR_DECODE_ATOL, and the ids equal up to each row's first difference,
-    where the kernel path's top-2 margin is within twice the measured
-    step-output distance. Returns B2's launches per decode."""
+    paths' step outputs on the kernel path's token buffer within `atol`,
+    and the ids equal up to each row's first difference, where the kernel
+    path's top-2 margin is within twice the measured step-output distance.
+    Returns B2's launches per decode."""
     torch.cuda.synchronize()
     fused_residual_layernorm.launches = 0
     ids_k = decode(model, x)
@@ -4342,9 +4372,9 @@ def ctr_decode_check(phase: str, what: str, decode, model, plain,
         unit = lambda e: e / e.norm(dim=-1, keepdim=True).clamp_min(1e-8)
         sk, sp = unit(sk) @ gallery.T, unit(sp) @ gallery.T
     err = (sk - sp).abs().max().item()
-    if not err <= CTR_DECODE_ATOL:
+    if not err <= atol:
         raise AssertionError(f"phase {phase}: {what} step outputs differ "
-                             f"by {err} (bar {CTR_DECODE_ATOL})")
+                             f"by {err} (bar {atol})")
     differ = (ids_k != ids_p).cpu()
     ties = 0
     for row in range(ids_k.shape[0]):
@@ -4356,11 +4386,30 @@ def ctr_decode_check(phase: str, what: str, decode, model, plain,
                                      f"row {row} with a clear margin")
             ties += 1
     print(f"phase {phase}: {what} greedy decode, {tuple(ids_k.shape)} ids: "
-          f"step outputs max abs err {err:.3e} (bar {CTR_DECODE_ATOL}); "
+          f"step outputs max abs err {err:.3e} (bar {atol:.3e}); "
           f"rows equal to the plain path's {ids_k.shape[0] - ties}, the "
           f"rest split at a top-2 "
           f"margin within {2 * err:.3e}; B2 launches {n} [{gpu}]")
     return n
+
+
+def profiled(fn) -> dict:
+    """`profile_kernels(fn, 1)`, taken again (up to three times) when the
+    trace holds no device event."""
+    for _ in range(3):
+        split = profile_kernels(fn, 1)
+        if split:
+            break
+    return split
+
+
+def profile_totals(fn) -> tuple:
+    """(device ms, launches, B2 launches by kernel name) of one call of
+    `fn` in a profiler trace."""
+    split = profiled(fn)
+    return (sum(ms for ms, _ in split.values()),
+            sum(c for _, c in split.values()),
+            {k: c for k, (_, c) in split.items() if k.startswith("ln_")})
 
 
 def ctr_timings(phase: str, what: str, step_k, step_p, batch: dict,
@@ -4377,10 +4426,7 @@ def ctr_timings(phase: str, what: str, step_k, step_p, batch: dict,
     by_name, busy = {}, {}
     for key, fn in (("step", lambda: step_k(batch, gen)),
                     ("decode", decode_k)):
-        for _ in range(3):   # a trace with no device event is taken again
-            split = profile_kernels(fn, 1)
-            if split:
-                break
+        split = profiled(fn)
         by_name[key] = {n: c for n, (_, c) in split.items()
                         if n.startswith("ln_")}
         busy[key] = sum(ms for ms, _ in split.values())
@@ -4586,12 +4632,260 @@ def phase33(dev, gpu: str) -> int:
     return entry
 
 
+def phase34(dev, gpu: str) -> tuple:
+    """ACPM: the ResNet encoder (3, 4, 6, 3) with the stem pool only,
+    d_model 1024, 32x32, batch 32, max_len 12, Adadelta lr 1.0, the L1
+    radical counter; 4 steps, then the profile-matching evaluation of one
+    test batch (a test set of 128 // 4 = 32 samples). Then one step of the
+    VGG and DenseNet encoders and of the STN with the CE counter, each
+    against `kernels=False`."""
+    from fudanocr_tpu_torch.apps.acpm import train as acpm
+    from fudanocr_tpu_torch.core.config import merge_cli_overrides
+    from fudanocr_tpu_torch.models.rec.ocr_transformer import greedy_decode
+
+    opts = [f"batch={CTR_B}", f"synthetic_samples={CTR_SAMPLES}",
+            "val_frequency=1000000"]
+    steps, max_len = CTR_SAMPLES // CTR_B, acpm.DEFAULT_CONFIG.max_len
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_acpm_") as tmp:
+        # B2 three times a training forward; an evaluation batch decodes
+        # (max_len passes) and runs one forward on zero text for the
+        # profile heads; the template encodings reach no decoder
+        _, entry = ctr_entry(
+            "34", "apps.acpm.train (1 epoch, profile-matching evaluation)",
+            acpm.main, ["--device", "cuda", "--options", *opts,
+                        f"ckpt_dir={tmp}/acpm"],
+            3 * steps + (3 * max_len + 3) * ctr_eval_batches(), gpu)
+        if not os.path.isdir(f"{tmp}/acpm/best"):
+            raise AssertionError("phase 34: no best/ written")
+    cfg = merge_cli_overrides(acpm.DEFAULT_CONFIG, opts + ["ckpt_dir="])
+    tk = acpm.ACPMTrainer(cfg, dev)
+    tp = acpm.ACPMTrainer(cfg, dev, kernels=False)
+    host = next(tk.train_data.batches(CTR_B))
+    batch = tk.device_batch(*host)
+    per_step = ctr_step_check("34", "ACPM", tk.train_step, tp.train_step,
+                              tk.model, tp.model, batch, gpu)
+    dec = lambda m, x: greedy_decode(m, x, max_len)
+    x = batch["image"]
+    per_decode = ctr_decode_check("34", "ACPM", dec, tk.model, tp.model, x,
+                                  None, gpu)
+    times = ctr_timings("34", "ACPM", tk.train_step, tp.train_step, batch,
+                        lambda: dec(tk.model, x), lambda: dec(tp.model, x),
+                        gpu)
+    del tk, tp
+    torch.cuda.empty_cache()
+    for extra in (["encoder=vgg"], ["encoder=densenet"],
+                  ["stn=True", "rn_loss=CE"]):
+        c = merge_cli_overrides(acpm.DEFAULT_CONFIG,
+                                opts + extra + ["ckpt_dir="])
+        ek, ep = acpm.ACPMTrainer(c, dev), acpm.ACPMTrainer(c, dev, False)
+        n = ctr_step_check("34", f"ACPM ({', '.join(extra)})", ek.train_step,
+                           ep.train_step, ek.model, ep.model,
+                           ek.device_batch(*host), gpu)
+        if n != per_step:
+            raise AssertionError(f"phase 34: {extra} launched B2 {n} times "
+                                 f"a step, not {per_step}")
+        del ek, ep
+        torch.cuda.empty_cache()
+    ln = ctr_ln("34", dev, gpu)
+    ctr_report("34", "acpm", entry, per_step, per_decode, times, ln, gpu)
+    return entry
+
+
+# phase 35: the bf16 CTR paths, JAX's benched configurations (bench_ctr.py:
+# SLD in bf16 at batch 32; bench_clip.py: CCR-CLIP stage 1 in bf16 at batch
+# 128). bf16 B2 is held against its plain version at every CTR row of
+# phases 31-34, training and decoder passes
+CLIP_BF16_B, CLIP_WARM_STEPS = 128, 30
+CTR_LN_BF16 = sorted(set(CTR_LN.values()) | set(CTR_LN_DECODE.values()))
+
+
+def grad_groups(model, other) -> dict:
+    """By top-level module: (the norm-relative distance of `model`'s
+    gradients from `other`'s, all together, and their scale along
+    `other`'s, <g, f> / <f, f>)."""
+    sums = {}
+    for (name, pk), pp in zip(model.named_parameters(), other.parameters()):
+        g, f = pk.grad.double(), pp.grad.double()
+        acc = sums.setdefault(name.split(".")[0], [0.0, 0.0, 0.0])
+        acc[0] += ((g - f) ** 2).sum().item()
+        acc[1] += (g * f).sum().item()
+        acc[2] += (f ** 2).sum().item()
+    return {k: (round((d / max(ff, 1e-60)) ** 0.5, 4),
+                round(gf / max(ff, 1e-60), 4))
+            for k, (d, gf, ff) in sums.items()}
+
+
+def phase35(dev, gpu: str) -> tuple:
+    """SLD (phase 31's model and batch) in bf16: one step and one greedy
+    decode against `kernels=False`, step and decode ms beside fp32's in
+    turns; CCR-CLIP stage 1 (phase 32's model) at batch 128 in bf16 beside
+    fp32 in turns; bf16 B2 against its plain version at every CTR row."""
+    from fudanocr_tpu_torch.apps.ccr_clip import pretrain
+    from fudanocr_tpu_torch.apps.sld import train as sld
+    from fudanocr_tpu_torch.apps.sr_common import seeded
+    from fudanocr_tpu_torch.core.config import merge_cli_overrides
+    from fudanocr_tpu_torch.losses.clip_loss import first_occurrence_targets
+    from fudanocr_tpu_torch.models.rec.ccr_clip import CCRCLIP
+    from fudanocr_tpu_torch.models.rec.ocr_transformer import greedy_decode
+    from fudanocr_tpu_torch.train.ctr import make_ctr_train_step
+    from fudanocr_tpu_torch.train.seg import iteration_generator
+    from fudanocr_tpu_torch.train.state import clip_adam, ctr_adadelta
+
+    bf, f32 = torch.bfloat16, torch.float32
+    gen_of = lambda: iteration_generator(SEED, 0, dev)
+    cfg = merge_cli_overrides(sld.DEFAULT_CONFIG, [
+        f"batch={CTR_B}", f"synthetic_samples={CTR_SAMPLES}", "ckpt_dir="])
+    codec, _, train_data, _ = sld.build_codec_and_data(cfg)
+    # (bf16 kernel path, bf16 plain, fp32 plain, fp32 kernel path)
+    models = [sld.build_model(cfg, codec.num_classes, dev, k, dt)
+              for k, dt in ((True, bf), (False, bf), (False, f32),
+                            (True, f32))]
+    steps = [make_ctr_train_step(m, ctr_adadelta(m.parameters(), cfg.lr))
+             for m in models]
+    images, labels = next(train_data.batches(CTR_B))
+    ti, tg, ln = codec.encode(labels, cfg.max_len)
+    put = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+    batch = {"image": put(images), "text_input": put(ti).long(),
+             "text_gt": put(tg).long(), "lengths": put(ln)}
+    x = batch["image"]
+    dec = lambda m: greedy_decode(m, x, cfg.max_len)
+    # the decode bar: twice the plain path's own bf16 distance from fp32 in
+    # the step outputs on the fp32 plain path's token buffer
+    buf = torch.cat([torch.zeros_like(x[:, 0, 0, :1], dtype=torch.long),
+                     dec(models[2])], 1)
+    with torch.no_grad():
+        s16, s32 = (m.decode_step(m.encode(x), buf)[0][:, :-1].float()
+                    for m in (models[1], models[2]))
+    atol = 2 * (s16 - s32).abs().max().item()
+    per_decode = ctr_decode_check("35", "bf16 SLD", lambda m, _: dec(m),
+                                  models[0], models[1], x, None, gpu, atol)
+    torch.cuda.synchronize()
+    fused_residual_layernorm.launches = 0
+    lk = steps[0](batch, gen_of()).item()
+    torch.cuda.synchronize()
+    per_step = fused_residual_layernorm.launches
+    lp, l32 = (st(batch, gen_of()).item() for st in steps[1:3])
+    r = bf16_step_bar("phase 35 SLD", (lk, lp, l32), models[:3])
+    print(f"phase 35: one bf16 SLD step: loss kernel path {lk:.6f}, plain "
+          f"{lp:.6f} (rel {r['loss_rel']:.3e}, bar {BF16_STEP_LOSS_REL}), "
+          f"fp32 plain {l32:.6f}; gradients kernel vs plain {r['grel']:.3e} "
+          f"norm-relative (bar {BF16_STEP_GRAD_REL} and the plain bf16 "
+          f"step's distance from fp32, {r['grel16']:.3e}), worst tensor "
+          f"{r['worst']:.3e} ({r['worst_name']}); B2 launches {per_step} "
+          f"[{gpu}]")
+    gen = iteration_generator(SEED, 1, dev)
+    s_ms = in_turns(lambda: steps[0](batch, gen), lambda: steps[3](batch, gen),
+                    3)
+    d_ms = in_turns(lambda: dec(models[0]), lambda: dec(models[3]), 2)
+    prof = {"step": [profile_totals(lambda: st(batch, gen)) for st in
+                     (steps[0], steps[3])],
+            "decode": [profile_totals(lambda: dec(m)) for m in
+                       (models[0], models[3])]}
+    for key, want in (("step", per_step), ("decode", per_decode)):
+        got = prof[key][0][2]
+        if set(got) != {LN_NAME}:
+            raise AssertionError(f"phase 35: the profiled bf16 {key} ran "
+                                 f"{got}, want {want} x {LN_NAME}")
+    sld_row = {"step_ms": s_ms, "decode_ms": d_ms,
+               "step_device_ms": [p[0] for p in prof["step"]],
+               "decode_device_ms": [p[0] for p in prof["decode"]],
+               "step_launches": [p[1] for p in prof["step"]],
+               "decode_launches": [p[1] for p in prof["decode"]]}
+    print(f"phase 35: SLD train step bf16 {s_ms[0]:.3f} ms, fp32 "
+          f"{s_ms[1]:.3f} ms ({CTR_B * 1e3 / s_ms[0]:.1f} / "
+          f"{CTR_B * 1e3 / s_ms[1]:.1f} img/s), device "
+          f"{sld_row['step_device_ms'][0]:.3f} / "
+          f"{sld_row['step_device_ms'][1]:.3f} ms in "
+          f"{sld_row['step_launches'][0]:.0f} / "
+          f"{sld_row['step_launches'][1]:.0f} launches, busy "
+          f"{100 * sld_row['step_device_ms'][0] / s_ms[0]:.1f} / "
+          f"{100 * sld_row['step_device_ms'][1] / s_ms[1]:.1f} %; greedy "
+          f"decode bf16 {d_ms[0]:.3f} ms, fp32 {d_ms[1]:.3f} ms, device "
+          f"{sld_row['decode_device_ms'][0]:.3f} / "
+          f"{sld_row['decode_device_ms'][1]:.3f} ms, busy "
+          f"{100 * sld_row['decode_device_ms'][0] / d_ms[0]:.1f} / "
+          f"{100 * sld_row['decode_device_ms'][1] / d_ms[1]:.1f} % [{gpu}]")
+    launches = per_step + per_decode
+    del models, steps
+    torch.cuda.empty_cache()
+
+    # CCR-CLIP stage 1 at batch 128 (bench_clip.py): the towers reach no
+    # kernel, so the bf16 step is held to the fp32 step's loss
+    pcfg = merge_cli_overrides(pretrain.DEFAULT_CONFIG, [
+        f"batch={CLIP_BF16_B}", f"synthetic_samples={CLIP_BF16_B}",
+        "ckpt_dir="])
+    s1 = pretrain.CLIPPretrainer(pcfg, dev)
+    images, labels = next(s1.train_data.batches(CLIP_BF16_B))
+    cbatch = (put(images), s1.text_tokens(labels),
+              put(first_occurrence_targets(labels)))
+    clip = [seeded(lambda: CCRCLIP(
+        vocab_size=s1.codec.num_classes, context_length=pcfg.max_len,
+        transformer_layers=pcfg.transformer_layers, dtype=dt), 0, dev)
+        for dt in (bf, None)]
+    csteps = [pretrain.make_clip_train_step(m, clip_adam(
+        m.parameters(), lambda count: pcfg.lr)) for m in clip]
+    c16, c32 = (st(*cbatch).item() for st in csteps)
+    grel16, worst16, worst16_name = grad_distance(clip[0], clip[1])
+    groups = grad_groups(clip[0], clip[1])
+    # the same readings once the towers have left random init (no bar:
+    # the towers reach no kernel): the fp32 model takes CLIP_WARM_STEPS
+    # steps on the batch, the bf16 model its weights, then one step each
+    for _ in range(CLIP_WARM_STEPS):
+        warm32 = csteps[1](*cbatch).item()
+    clip[0].load_state_dict(clip[1].state_dict())
+    w16, w32 = (st(*cbatch).item() for st in csteps)
+    warm = {"steps": CLIP_WARM_STEPS, "loss_before": warm32,
+            "loss_bf16": w16, "loss_fp32": w32,
+            "grad_rel_to_fp32": grad_distance(clip[0], clip[1])[0],
+            "by_group": grad_groups(clip[0], clip[1])}
+    c_ms = in_turns(lambda: csteps[0](*cbatch), lambda: csteps[1](*cbatch),
+                    3)
+    cprof = [profile_totals(lambda: st(*cbatch)) for st in csteps]
+    print(f"phase 35: CCR-CLIP stage 1 step at batch {CLIP_BF16_B} "
+          f"(128x128): loss bf16 {c16:.6f}, fp32 {c32:.6f} (rel "
+          f"{abs(c16 - c32) / abs(c32):.3e}, bar {BF16_STEP_LOSS_REL}); "
+          f"gradients bf16 vs fp32 {grel16:.3e} norm-relative, worst tensor "
+          f"{worst16:.3e} ({worst16_name}), by group (distance, scale "
+          f"along fp32) {groups}; after {CLIP_WARM_STEPS} fp32 steps (loss "
+          f"{warm32:.6f}): loss bf16 {w16:.6f}, fp32 {w32:.6f}, gradients "
+          f"{warm['grad_rel_to_fp32']:.3e}, by group {warm['by_group']}; "
+          f"step bf16 {c_ms[0]:.3f} ms, fp32 "
+          f"{c_ms[1]:.3f} ms ({CLIP_BF16_B * 1e3 / c_ms[0]:.1f} / "
+          f"{CLIP_BF16_B * 1e3 / c_ms[1]:.1f} img/s), device "
+          f"{cprof[0][0]:.3f} / {cprof[1][0]:.3f} ms in {cprof[0][1]:.0f} / "
+          f"{cprof[1][1]:.0f} launches, busy "
+          f"{100 * cprof[0][0] / c_ms[0]:.1f} / "
+          f"{100 * cprof[1][0] / c_ms[1]:.1f} % [{gpu}]")
+    if (not np.isfinite(c16)
+            or abs(c16 - c32) / abs(c32) > BF16_STEP_LOSS_REL):
+        raise AssertionError("phase 35: the bf16 stage-1 step's loss is off "
+                             "the fp32 step's")
+    del s1, clip, csteps
+    torch.cuda.empty_cache()
+
+    gen_ln = torch.Generator().manual_seed(SEED + 35)
+    ln = {shape: ln_case("35", *shape, bf, gen_ln, dev, gpu)
+          for shape in CTR_LN_BF16}
+    print(json.dumps({
+        "phase": 35, "sld_bf16": {"batch": CTR_B, **sld_row,
+                                  "b2_per_step": per_step,
+                                  "b2_per_decode": per_decode},
+        "clip_stage1_bf16": {"batch": CLIP_BF16_B, "step_ms": c_ms,
+                             "step_device_ms": [p[0] for p in cprof],
+                             "grad_rel_to_fp32": grel16,
+                             "by_group": groups, "warm": warm},
+        "b2_bf16": {f"{r}x{d}": v for (r, d), v in ln.items()},
+        "card": gpu}))
+    return launches, ln[CTR_LN["31"]]
+
+
 STANDALONE = {"1": phase1, "4": phase4, "5": phase5, "6": phase6,
               "7": phase7, "10": phase10, "13": phase13, "17": phase17,
               "19": phase19, "20": phase20_alone, "22": phase22,
               "24": phase24, "25": phase25, "26": phase26_alone,
               "27": phase27, "28": phase28, "29": phase29, "30": phase30,
-              "31": phase31, "32": phase32, "33": phase33}
+              "31": phase31, "32": phase32, "33": phase33, "34": phase34,
+              "35": phase35}
 
 
 def main(argv: list) -> int:
@@ -4673,6 +4967,10 @@ def main(argv: list) -> int:
     clip_n = phase32(dev, gpu)
     torch.cuda.empty_cache()
     oictr_n = phase33(dev, gpu)
+    torch.cuda.empty_cache()
+    acpm_n = phase34(dev, gpu)
+    torch.cuda.empty_cache()
+    ctr16_n, ln_ctr16 = phase35(dev, gpu)
     bf16_b = (torch.bfloat16, TRAIN_B)
     b10, b11_fwd, b11_bwd = b10_b11[(torch.float32, TRAIN_B)]
     _, b11_mma_fwd, b11_mma_bwd = b10_b11[bf16_b]
@@ -4704,12 +5002,18 @@ def main(argv: list) -> int:
          "source": "fudanocr_tpu_torch/csrc/fused_layernorm.cu",
          "replaces": "fudanocr_tpu/ops/fused_layernorm.py:53",
          "launches": ln_n, **ln},
-        # the CTR decoders' B2 (phases 31-33): launches of the three entry
+        # the CTR decoders' B2 (phases 31-34): launches of the four entry
         # points' runs, numbers at SLD's (32 * 30, 1024) fp32
         {"name": "fused_residual_layernorm_ctr", "route": "cuda",
          "source": "fudanocr_tpu_torch/csrc/fused_layernorm.cu",
          "replaces": "fudanocr_tpu/ops/fused_layernorm.py:53",
-         "launches": sld_n + clip_n + oictr_n, **ln_ctr},
+         "launches": sld_n + clip_n + oictr_n + acpm_n, **ln_ctr},
+        # the bf16 CTR decoders' B2 (phase 35): launches of the bf16 SLD
+        # step and decode, numbers at SLD's (32 * 30, 1024) bf16
+        {"name": "fused_residual_layernorm_ctr_bf16", "route": "cuda",
+         "source": "fudanocr_tpu_torch/csrc/fused_layernorm.cu",
+         "replaces": "fudanocr_tpu/ops/fused_layernorm.py:53",
+         "launches": ctr16_n, **ln_ctr16},
         {"name": "fused_residual_layernorm_bf16", "route": "cuda",
          "source": "fudanocr_tpu_torch/csrc/fused_layernorm.cu",
          "replaces": "fudanocr_tpu/ops/fused_layernorm.py:53",

@@ -109,9 +109,11 @@ def build_codec_and_data(cfg):
     return codec, rectifier, train, test
 
 
-def build_model(cfg, vocab: int, device, kernels: bool = True):
-    """The SLD OCRTransformer (stem pool only), from seed 0, on
-    `device`."""
+def build_model(cfg, vocab: int, device, kernels: bool = True,
+                dtype: torch.dtype = torch.float32):
+    """The SLD OCRTransformer (stem pool only), from seed 0, on `device`,
+    computing in `dtype` (the app trains in float32, as JAX's does; JAX's
+    bench_ctr.py runs the model in bf16)."""
     from fudanocr_tpu_torch.apps.sr_common import seeded
     from fudanocr_tpu_torch.models.rec.ocr_transformer import OCRTransformer
 
@@ -119,7 +121,7 @@ def build_model(cfg, vocab: int, device, kernels: bool = True):
         vocab=vocab, num_in=3, layers=tuple(cfg.encoder_layers), num_heads=4,
         d_embed=cfg.d_embed, d_model=cfg.d_model, d_ff=cfg.d_ff,
         stage1_pool=False, encoder_width_div=cfg.encoder_width_div,
-        kernels=kernels), 0, device)
+        kernels=kernels, dtype=dtype), 0, device)
 
 
 @torch.no_grad()

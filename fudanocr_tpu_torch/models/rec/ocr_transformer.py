@@ -205,7 +205,53 @@ class _Generator(nn.Module):
         self.proj = nn.Linear(d_model, out)
 
 
-class OCRTransformer(nn.Module):
+class TokenDecoding(nn.Module):
+    """The teacher-forced decoding half of the CTR models (OCRTransformer,
+    OICTR, ACPM): the token embedding at half the decoder width beside a
+    1-D positional code, one `OCRDecoderLayer` under a causal mask, and
+    the generator. A subclass sets `d_embed`, `dtype` (None: the
+    parameters' dtype), `embedding_word`, `decoder` and
+    `generator_word`."""
+
+    def __init__(self):
+        super().__init__()
+        self._consts: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def compute_dtype(self) -> torch.dtype:
+        return self.dtype or self.embedding_word.lut.weight.dtype
+
+    def _pe_and_mask(self, l: int, device, dtype) -> Tuple[torch.Tensor,
+                                                            torch.Tensor]:
+        key = (l, device, dtype)
+        if key not in self._consts:   # one host-to-device copy per length
+            pe = torch.from_numpy(positional_encoding_1d(self.d_embed, l))
+            self._consts[key] = (
+                pe.to(device, dtype),
+                torch.ones(l, l, dtype=torch.bool, device=device).tril())
+        return self._consts[key]
+
+    def decode_step(self, memory: torch.Tensor, text_input: torch.Tensor,
+                    train: bool = False,
+                    attention_map: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(B, L) token ids + memory -> (logits, attention map, hidden)."""
+        b, l = text_input.shape
+        dtype = self.compute_dtype()
+        emb = (self.embedding_word.lut(text_input).to(dtype)
+               * math.sqrt(self.d_embed))
+        pe, mask = self._pe_and_mask(l, text_input.device, dtype)
+        # the reference CONCATs a pure positional vector to the embedding
+        # (loss/transformer.py:369-370) instead of adding it
+        x = torch.cat([emb, pe.expand(b, l, self.d_embed)], dim=-1)
+        x, attn_map = self.decoder(x, memory, mask[None, None],
+                                   deterministic=not train,
+                                   attention_map=attention_map,
+                                   generator=generator)
+        return linear(self.generator_word.proj, x), attn_map, x
+
+
+class OCRTransformer(TokenDecoding):
     """ResNet encoder + one transformer decoder layer + generator of
     `vocab` logits, or of `out_dim`-wide embeddings.
 
@@ -214,7 +260,8 @@ class OCRTransformer(nn.Module):
     `encoder_width_div` divides the encoder's widths (small test models).
     `kernels=False` runs the plain PyTorch versions of the kernels its
     LayerNorms reach (the comparison path). Parameters stay float32;
-    `dtype` is the compute dtype."""
+    `dtype` is the compute dtype (JAX's `dtype=`: the image and every
+    activation are rounded to it, the decoder's LayerNorms return it)."""
 
     def __init__(self, vocab: int, num_in: int = 3,
                  layers: Sequence[int] = (3, 4, 6, 3), num_heads: int = 4,
@@ -243,42 +290,12 @@ class OCRTransformer(nn.Module):
             num_heads, d_model, d_ff,
             memory_features=None if mem == d_model else mem, kernels=kernels)
         self.generator_word = _Generator(d_model, out_dim or vocab)
-        self._consts: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def encode(self, image: torch.Tensor, train: bool = False) -> torch.Tensor:
         """NHWC image -> (B, Ht*Wt, C) memory tokens."""
         conv = self.encoder.cnn(image.permute(0, 3, 1, 2).to(self.dtype),
                                 train)
         return conv.flatten(2).transpose(1, 2)
-
-    def _pe_and_mask(self, l: int, device) -> Tuple[torch.Tensor,
-                                                     torch.Tensor]:
-        key = (l, device)
-        if key not in self._consts:   # one host-to-device copy per length
-            pe = torch.from_numpy(positional_encoding_1d(self.d_embed, l))
-            self._consts[key] = (
-                pe.to(device, self.dtype),
-                torch.ones(l, l, dtype=torch.bool, device=device).tril())
-        return self._consts[key]
-
-    def decode_step(self, memory: torch.Tensor, text_input: torch.Tensor,
-                    train: bool = False,
-                    attention_map: Optional[torch.Tensor] = None,
-                    generator: Optional[torch.Generator] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(B, L) token ids + memory -> (logits, attention map, hidden)."""
-        b, l = text_input.shape
-        emb = (self.embedding_word.lut(text_input).to(self.dtype)
-               * math.sqrt(self.d_embed))
-        pe, mask = self._pe_and_mask(l, text_input.device)
-        # the reference CONCATs a pure positional vector to the embedding
-        # (loss/transformer.py:369-370) instead of adding it
-        x = torch.cat([emb, pe.expand(b, l, self.d_embed)], dim=-1)
-        x, attn_map = self.decoder(x, memory, mask[None, None],
-                                   deterministic=not train,
-                                   attention_map=attention_map,
-                                   generator=generator)
-        return linear(self.generator_word.proj, x), attn_map, x
 
     def forward(self, image: torch.Tensor, text_input: torch.Tensor,
                 train: bool = False,
@@ -310,7 +327,7 @@ def greedy_decode(model: nn.Module, image: torch.Tensor, max_len: int,
     argmax of its output at position i into slot i + 1. Returns the
     (B, max_len) int64 ids on the image's device: the caller copies them
     once. `model` is any module with `encode` and `decode_step`
-    (OCRTransformer, OICTR)."""
+    (OCRTransformer, OICTR, ACPM)."""
     memory = model.encode(image)
     tokens = _token_buffer(memory, max_len, start_id)
     for i in range(max_len):

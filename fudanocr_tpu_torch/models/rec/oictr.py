@@ -32,7 +32,6 @@ module differs. The other names are the reference state_dict's
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -40,9 +39,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from fudanocr_tpu_torch.models.rec.ocr_transformer import (
-    OCR_RESNET_PRESETS, OCRDecoderLayer, OCRResNet, _Embeddings, _Generator)
-from fudanocr_tpu_torch.nn.attention import positional_encoding_1d
-from fudanocr_tpu_torch.nn.layers import conv2d, linear
+    OCR_RESNET_PRESETS, OCRDecoderLayer, OCRResNet, TokenDecoding,
+    _Embeddings, _Generator)
+from fudanocr_tpu_torch.nn.layers import conv2d, conv_transpose2d, linear
 
 
 class CharReconstructor(nn.Module):
@@ -61,11 +60,9 @@ class CharReconstructor(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(4):
-            m = getattr(self, f"deconv{i + 1}")
             h, w = x.shape[2:]
-            x = F.conv_transpose2d(x, m.weight.to(x.dtype),
-                                   m.bias.to(x.dtype), 2, 1)[
-                                       :, :, :2 * h, :2 * w]
+            x = conv_transpose2d(getattr(self, f"deconv{i + 1}"), x)[
+                :, :, :2 * h, :2 * w]
             x = F.relu(x) if i < 3 else torch.tanh(x)
         x = torch.tanh(conv2d(self.deconv5, x))
         return x.permute(0, 2, 3, 1)
@@ -89,17 +86,21 @@ def memory_tokens(image_size: Tuple[int, int], stage_pools) -> int:
     return h * w
 
 
-class OICTR(nn.Module):
+class OICTR(TokenDecoding):
     """Recognition, direction and reconstruction branches over one wide
     encoder. `encoder_layers` overrides the blocks per stage (reference
     (3, 4, 6)), `encoder_width_div` divides the encoder's widths (small
     test models only). `kernels=False` runs the decoder LayerNorms' plain
-    version (the comparison path)."""
+    version (the comparison path). `dtype` is the compute dtype
+    (parameters stay float32; None: the parameters' dtype): the char maps
+    are formed in float32 and rounded to it before their compression, as
+    in JAX."""
 
     def __init__(self, vocab: int, d_embed: int = 256, d_model: int = 512,
                  num_heads: int = 4, image_size: Tuple[int, int] = (32, 128),
                  encoder_layers: Optional[Tuple[int, ...]] = None,
-                 encoder_width_div: int = 1, kernels: bool = True):
+                 encoder_width_div: int = 1, kernels: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if 2 * d_embed != d_model:
             raise ValueError(f"d_model {d_model} must be 2 * d_embed "
@@ -107,7 +108,7 @@ class OICTR(nn.Module):
         kw = dict(OCR_RESNET_PRESETS["oictr"])
         if encoder_layers is not None:
             kw["layers"] = tuple(encoder_layers)
-        self.d_embed, self.d_model = d_embed, d_model
+        self.d_embed, self.d_model, self.dtype = d_embed, d_model, dtype
         self.encoder = OCRResNet(3, width_div=encoder_width_div, **kw)
         raw = self.encoder.out_features
         self.content_extractor = nn.Conv2d(raw, d_model, 1)
@@ -120,10 +121,10 @@ class OICTR(nn.Module):
         self.features_compress = nn.Conv2d(
             memory_tokens(image_size, kw["stage_pools"]), 4, 1)
         self.reconstructor = CharReconstructor(d_model)
-        self._consts: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def _raw(self, image: torch.Tensor, train: bool) -> torch.Tensor:
-        return self.encoder(image.permute(0, 3, 1, 2).contiguous(), train)
+        return self.encoder(image.permute(0, 3, 1, 2).to(
+            self.compute_dtype()).contiguous(), train)
 
     def _memory(self, raw: torch.Tensor) -> torch.Tensor:
         return conv2d(self.content_extractor, raw).flatten(2).transpose(1, 2)
@@ -140,29 +141,6 @@ class OICTR(nn.Module):
     def direction_features(self, image: torch.Tensor, train: bool = False):
         """-> (direction feature (B, d_model), direction logits (B, 2))."""
         return self._direction(self._raw(image, train))
-
-    def decode_step(self, memory: torch.Tensor, text_input: torch.Tensor,
-                    train: bool = False,
-                    attention_map: Optional[torch.Tensor] = None,
-                    generator: Optional[torch.Generator] = None):
-        """(B, L) ids + memory -> (logits, attention map, hidden)."""
-        b, l = text_input.shape
-        emb = self.embedding_word.lut(text_input) * math.sqrt(self.d_embed)
-        key = (l, text_input.device)
-        if key not in self._consts:
-            pe = torch.from_numpy(positional_encoding_1d(self.d_embed, l))
-            self._consts[key] = (
-                pe.to(text_input.device),
-                torch.ones(l, l, dtype=torch.bool,
-                           device=text_input.device).tril())
-        pe, mask = self._consts[key]
-        x = torch.cat([emb, pe.to(emb.dtype).expand(b, l, self.d_embed)],
-                      dim=-1)
-        x, attn_map = self.decoder(x, memory, mask[None, None],
-                                   deterministic=not train,
-                                   attention_map=attention_map,
-                                   generator=generator)
-        return linear(self.generator_word.proj, x), attn_map, x
 
     def reconstruct(self, char_maps: torch.Tensor,
                     dir_feats: torch.Tensor) -> torch.Tensor:
@@ -185,8 +163,9 @@ class OICTR(nn.Module):
         # per-char maps: head-mean attention x content tokens
         # (transformer.py:444-448), compressed over the tokens to 4 cells
         amap = attn_map.float().mean(1)                       # (B, L, T)
-        cm = memory.float()[:, None] * amap[..., None]        # (B, L, T, C)
-        w = self.features_compress
+        cm = (memory.float()[:, None] * amap[..., None]).to(
+            self.compute_dtype())
+        w = self.features_compress                          # (B, L, T, C)
         char_maps = F.linear(cm.transpose(2, 3),
                              w.weight[:, :, 0, 0].to(cm.dtype),
                              w.bias.to(cm.dtype))             # (B, L, C, 4)

@@ -16,11 +16,11 @@ exactly as the JAX module does:
   unbiased one, so the stock module drifts from the JAX `batch_stats`
   after one step).
 
-The `conv2d` / `linear` / `batch_norm` / `layer_norm` helpers run a
-module's parameters at the activation's dtype (params stay float32), the
-port's counterpart of flax's `dtype=` field: convolutions and products
-round their operands to it, the norms take float32 statistics and round
-only their result. Dropout draws its mask from an explicit
+The `conv2d` / `conv_transpose2d` / `linear` / `batch_norm` /
+`layer_norm` helpers run a module's parameters at the activation's dtype
+(params stay float32), the port's counterpart of flax's `dtype=` field:
+convolutions and products round their operands to it, the norms take
+float32 statistics and round only their result. Dropout draws its mask from an explicit
 `torch.Generator` on the activation's device (flax's `rngs={"dropout":
 ...}`).
 """
@@ -62,6 +62,19 @@ def conv2d(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
                         None if bias is None else bias.float(), m.stride,
                         m.padding, m.dilation, m.groups).to(x.dtype)
     return F.conv2d(x, w, bias, m.stride, m.padding, m.dilation, m.groups)
+
+
+def conv_transpose2d(m: nn.ConvTranspose2d, x: torch.Tensor) -> torch.Tensor:
+    """`m` applied at x's dtype, as `conv2d` (a bf16 CPU input convolved in
+    float32 and rounded once)."""
+    w = m.weight.to(x.dtype)
+    bias = None if m.bias is None else m.bias.to(x.dtype)
+    args = (m.stride, m.padding, m.output_padding, m.groups, m.dilation)
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        return F.conv_transpose2d(x.float(), w.float(),
+                                  None if bias is None else bias.float(),
+                                  *args).to(x.dtype)
+    return F.conv_transpose2d(x, w, bias, *args)
 
 
 def linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:

@@ -80,9 +80,10 @@ class TPSSpatialTransformer(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         b = ctrl_points.shape[0]
         h, w = self.output_size
+        # the fit runs in float32 whatever the module's dtype, as in JAX
         y = F.pad(ctrl_points.float(), (0, 0, 0, 3))       # (B, N+3, 2)
-        mapping = self.inverse_kernel @ y
-        source = self.target_repr @ mapping                 # (B, HW, 2)
+        mapping = self.inverse_kernel.float() @ y
+        source = self.target_repr.float() @ mapping         # (B, HW, 2)
         grid = source.reshape(b, h, w, 2).clamp(0.0, 1.0) * 2.0 - 1.0
         warped = F.grid_sample(images.permute(0, 3, 1, 2), grid.to(
             images.dtype), mode="bilinear", padding_mode="zeros",

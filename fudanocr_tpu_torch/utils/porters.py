@@ -1,8 +1,10 @@
 """Porters: original FudanOCR state_dicts -> JAX-layout variable trees.
 
 The port's own copy of the porters in fudanocr_tpu/utils/torch_port.py
-(lines 21-394, 453-608) for the models the port has: TBSRN, TSRN, CRNN,
-the OCRTransformer (every encoder preset), CCR-CLIP, OI-CTR, CascadeMiT,
+(lines 21-450, 453-608) for the models the port has: TBSRN, TSRN, CRNN,
+the OCRTransformer (every encoder preset), CCR-CLIP, OI-CTR, ACPM (with
+its STN and the port's VGG and DenseNet encoders, which JAX's porter
+leaves out), CascadeMiT,
 the det-guided CascadeMiT (V10) and the SegFormer head, plus
 `port_segmentor` / `port_segmentor_det` / `port_cascade_segmentor` for a
 whole EncoderDecoder / DetGuidedEncoderDecoder / CascadeEncoderDecoder;
@@ -422,6 +424,100 @@ def port_oictr(sd: Dict) -> Dict:
     return {"params": params, "batch_stats": {"encoder": enc_stats}}
 
 
+def _conv_bn_relu_seq(sd, prefix, idx):
+    """ACPM's conv{i}+bn{i}+relu triplets -> our ConvBNReLU tree."""
+    p, s = bn(sd, f"{prefix}.bn{idx}")
+    return ({"Conv_0": conv(sd, f"{prefix}.conv{idx}"), "BatchNorm_0": p},
+            {"BatchNorm_0": s})
+
+
+def _vgg_encoder(sd, prefix) -> Tuple[Dict, Dict]:
+    """The port's VGGEncoder (`block{i}` ConvBNReLU, keys 0 and 1) -> the
+    JAX VGGEncoder (no reference layout: the names mirror JAX's)."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for i in range(_count(sd, prefix + "block{}.0.weight")):
+        p, st = bn(sd, f"{prefix}block{i}.1")
+        params[f"block{i}"] = {"Conv_0": conv(sd, f"{prefix}block{i}.0"),
+                               "BatchNorm_0": p}
+        stats[f"block{i}"] = {"BatchNorm_0": st}
+    return params, stats
+
+
+def _densenet_encoder(sd, prefix) -> Tuple[Dict, Dict]:
+    """The port's DenseNetEncoder -> the JAX DenseNetEncoder (the same
+    names: stem, stem_bn, b{b}l{i}_conv1/bn1/conv2/bn2, trans{b}, head,
+    head_bn)."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    convs = [n for n in ("stem", "head") if f"{prefix}{n}.weight" in sd]
+    bns = [n + "_bn" for n in convs]
+    b = 0
+    while f"{prefix}b{b}l0_conv1.weight" in sd:
+        for i in range(_count(sd, f"{prefix}b{b}l{{}}_conv1.weight")):
+            convs += [f"b{b}l{i}_conv1", f"b{b}l{i}_conv2"]
+            bns += [f"b{b}l{i}_bn1", f"b{b}l{i}_bn2"]
+        if f"{prefix}trans{b}.weight" in sd:
+            convs.append(f"trans{b}")
+        b += 1
+    for n in convs:
+        params[n] = conv(sd, prefix + n)
+    for n in bns:
+        params[n], stats[n] = bn(sd, prefix + n)
+    return params, stats
+
+
+def port_acpm(sd: Dict) -> Dict:
+    """character-profile-matching/model/transformer.py:478-567 -> ACPM
+    (the JAX package's torch_port.py:403-450: the ResNet encoder, the
+    radical decoder and the counting heads), extended to the STN head
+    (`stn_head.*`) and to the port's VGG and DenseNet encoders, told apart
+    by their keys. The ResNet's blocks per stage are counted."""
+    sd = strip_module_prefix(sd)
+    if "encoder.block0.0.weight" in sd:
+        enc_params, enc_stats = _vgg_encoder(sd, "encoder.")
+    elif "encoder.stem.weight" in sd:
+        enc_params, enc_stats = _densenet_encoder(sd, "encoder.")
+    else:
+        # ACPM's ResNet = SLD's (narrow stages, stem pool only in forward)
+        layers = tuple(_count(sd, f"encoder.layer{s}.{{}}.conv1.weight")
+                       for s in (1, 2, 3, 4))
+        enc_params, enc_stats = _ocr_resnet(sd, "encoder.", layers)
+    params: Dict[str, Any] = {"encoder": enc_params}
+    stats: Dict[str, Any] = {"encoder": enc_stats}
+    if "stn_head.stn_fc2.weight" in sd:
+        params["stn_head"], stats["stn_head"] = _stn_head(sd)
+
+    params["embed"] = embedding(sd, "embedding_word.lut")
+    params["decoder"] = _decoder(sd)
+    params["generator"] = linear(sd, "generator_word.proj")
+
+    # radical counter: RSC_R conv1..3 + linear
+    rsc_r: Dict[str, Any] = {}
+    rsc_r_stats: Dict[str, Any] = {}
+    for i in range(3):
+        rsc_r[f"conv{i}"], rsc_r_stats[f"conv{i}"] = _conv_bn_relu_seq(
+            sd, "RSC_R", i + 1)
+    rsc_r["linear"] = linear(sd, "RSC_R.linear")
+    params["rsc_r"] = rsc_r
+    stats["rsc_r"] = rsc_r_stats
+
+    # stroke counter: shared CNN + N head (linear) + L head (2 convs+linear)
+    rsc_s: Dict[str, Any] = {}
+    rsc_s_stats: Dict[str, Any] = {}
+    for i in range(3):
+        rsc_s[f"shared{i}"], rsc_s_stats[f"shared{i}"] = _conv_bn_relu_seq(
+            sd, "RSC_S.shared_CNN", i + 1)
+    rsc_s["count_n"] = linear(sd, "RSC_S.count_n.linear")
+    for i in range(2):
+        rsc_s[f"l_conv{i}"], rsc_s_stats[f"l_conv{i}"] = _conv_bn_relu_seq(
+            sd, "RSC_S.count_l", i + 1)
+    rsc_s["count_l"] = linear(sd, "RSC_S.count_l.linear")
+    params["rsc_s"] = rsc_s
+    stats["rsc_s"] = rsc_s_stats
+    return {"params": params, "batch_stats": stats}
+
+
 def _ln_std(sd, name):
     """Standard torch nn.LayerNorm (weight, bias) -> flax LayerNorm."""
     return {"scale": _np(sd[f"{name}.weight"]),
@@ -725,6 +821,7 @@ PORTERS = {
     "ccr_clip": port_ccr_clip,
     "clip_vit": port_clip_vit,
     "oictr": port_oictr,
+    "acpm": port_acpm,
     "cascade_mit": port_cascade_mit,
     "cascade_mit_v10": port_cascade_mit_v10,
     "segformer_head": port_segformer_head,

@@ -75,15 +75,15 @@ def _precision(x64):
     return jax.enable_x64(True) if x64 else contextlib.nullcontext()
 
 
-def _jax_step(step, jm_vars, batch, *args, x64):
+def _jax_step(step, jm_vars, batch, *args, x64, compiler_options=None):
     """One JAX step from `jm_vars` on the host `batch`, in float64 when
-    `x64`."""
+    `x64`, compiled with XLA's `compiler_options`."""
     with _precision(x64):
         v = jax.tree_util.tree_map(lambda a: _cast(a, x64), jm_vars)
         state = TrainState.create(v["params"], v["batch_stats"],
                                   capture_grads_tx())
-        return jax.jit(step)(state, {k: jnp.asarray(a)
-                                     for k, a in batch.items()}, *args)
+        return jax.jit(step, compiler_options=compiler_options)(
+            state, {k: jnp.asarray(a) for k, a in batch.items()}, *args)
 
 
 def _ocr_pair(cfg, x64, **kw):
