@@ -348,6 +348,7 @@ import json
 import os
 import random
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -358,6 +359,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fudanocr_tpu_torch.core import checkpoint as ckpt_lib
+from fudanocr_tpu_torch.core import serialization
 from fudanocr_tpu_torch.data.collate import normalize_uint8
 from fudanocr_tpu_torch.data.image import resize_bicubic
 from fudanocr_tpu_torch.core.config import dump_yaml
@@ -408,6 +411,7 @@ from fudanocr_tpu_torch.train.seg import (SegTrainer, make_seg_optimizer,
 from fudanocr_tpu_torch.train.sr import (SRTrainer, StrokeSRTrainer,
                                         make_sr_train_step)
 from fudanocr_tpu_torch.train.state import adam_with_clip
+from fudanocr_tpu_torch.utils.weights import jax_variables
 
 SEED = 0
 ALPHABET = "0123456789abcdefghijklmnopqrstuvwxyz"
@@ -2706,7 +2710,7 @@ def phase22(dev, gpu: str) -> dict:
         # 5 calls held 7 or 9 of its 10 conv launches), so the launches a
         # call are printed, and tests/test_torch_fused_srb.py
         # `test_a_call_runs_its_kernels` holds them in a fresh process
-        prof = profile_kernels(lambda: fused_srb(x, ops), 5)
+        prof = profiled(lambda: fused_srb(x, ops), 5)
         ran = {k: n for k, (_, n) in prof.items()}
         if sorted(ran) != sorted(B9_KERNELS[dt]):
             raise AssertionError(f"phase 22: a B9 call {shape} ran {ran}, "
@@ -4138,7 +4142,6 @@ def phase30(dev, gpu: str) -> dict:
     from fudanocr_tpu_torch.apps.seg import test as seg_test
     from fudanocr_tpu_torch.apps.seg.test import TTA_SCALES
     from fudanocr_tpu_torch.apps.seg.train import build_data
-    from fudanocr_tpu_torch.core import checkpoint as ckpt_lib
     from fudanocr_tpu_torch.core.config import (load_config,
                                                 merge_cli_overrides)
     from fudanocr_tpu_torch.models.seg import slide_inference, tta_inference
@@ -4393,11 +4396,12 @@ def ctr_decode_check(phase: str, what: str, decode, model, plain,
     return n
 
 
-def profiled(fn) -> dict:
-    """`profile_kernels(fn, 1)`, taken again (up to three times) when the
-    trace holds no device event."""
+def profiled(fn, iters: int = 1) -> dict:
+    """`profile_kernels(fn, iters)`, taken again (up to three times) when
+    the trace holds no device event (late in a full run the profiler has
+    returned such traces, in phases 22 and 31-33; PERF.md section 7)."""
     for _ in range(3):
-        split = profile_kernels(fn, 1)
+        split = profile_kernels(fn, iters)
         if split:
             break
     return split
@@ -4879,13 +4883,356 @@ def phase35(dev, gpu: str) -> tuple:
     return launches, ln[CTR_LN["31"]]
 
 
+# -- phase 36: checkpoint interchange with the JAX package's format
+
+# (c): the plain seg recipe's trainer, checkpoints every 2 iterations
+CKPT_SEG_ITERS = 2
+
+
+def timed_ms(fn) -> tuple:
+    """(fn(), wall ms), the card drained before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def ckpt_sizes(path: str) -> dict:
+    """{file: bytes} of a checkpoint directory."""
+    return {f: os.path.getsize(os.path.join(path, f))
+            for f in sorted(os.listdir(path))}
+
+
+def jax_only(src: str, dst: str) -> str:
+    """A copy of checkpoint `src` as the JAX package writes one:
+    state.msgpack and meta.json, no state.pt."""
+    os.makedirs(dst)
+    for name in (ckpt_lib.JAX_STATE, "meta.json"):
+        shutil.copy(os.path.join(src, name), dst)
+    return dst
+
+
+def rewrites_bytes(path: str) -> bool:
+    """state.msgpack read and written back by the port is the same bytes."""
+    with open(os.path.join(path, ckpt_lib.JAX_STATE), "rb") as f:
+        raw = f.read()
+    return serialization.to_bytes(serialization.from_bytes(raw)) == raw
+
+
+def phase36a(dev, gpu: str, tmp: str) -> dict:
+    """Phase 2's TBSRN (bf16, batch 256) serves a batch, is saved as best/
+    in JAX's format, and that checkpoint is loaded into the same warm
+    module (after a perturbed load it has served with, so that operands
+    cached from other weights would show) and into a fresh one:
+    pixels -> strings through B1 bit-equal to the source's."""
+    sr, _, crnn, gen = ocr_models(dev)
+    conv = CTCLabelConverter(ALPHABET)
+    pipe = PixelsToStrings(sr, crnn, conv, device=dev)
+    lr = torch.rand(BATCH, *LR_HW, 3, generator=gen).to(dev)
+    pipe.ids_fn(lr)                         # warm: B1's operands cached
+    texts, out = pipe(lr, return_sr=True)
+    best = os.path.join(tmp, "tbsrn", "best")
+    _, save_ms = timed_ms(lambda: ckpt_lib.save_jax(
+        best, jax_variables(sr), {"step": 0}))
+    same_bytes = rewrites_bytes(best)
+
+    perturbed = {k: v + 0.05 * torch.randn(v.shape, generator=gen).to(v)
+                 if v.is_floating_point() and k.endswith("weight") else v
+                 for k, v in sr.state_dict().items()}
+    sr.load_state_dict(perturbed)
+    _, out_p = pipe(lr, return_sr=True)
+    sd, load_ms = timed_ms(lambda: ckpt_lib.load_model_state(best,
+                                                             module=sr))
+    sr.load_state_dict(sd)
+    torch.cuda.synchronize()
+    fused_enhancer.launches = 0
+    texts_w, out_w = pipe(lr, return_sr=True)
+    torch.cuda.synchronize()
+    n_warm = fused_enhancer.launches
+
+    torch.manual_seed(SEED + 36)            # other weights than the source
+    fresh = TBSRN(scale_factor=2, width=128, height=32, stn=True,
+                  srb_nums=SRB_NUMS, hidden_units=32,
+                  dtype=torch.bfloat16).to(dev).eval()
+    fresh.load_state_dict(ckpt_lib.load_model_state(best, module=fresh))
+    pipe_f = PixelsToStrings(fresh, crnn, conv, device=dev)
+    torch.cuda.synchronize()
+    fused_enhancer.launches = 0
+    texts_f, out_f = pipe_f(lr, return_sr=True)
+    torch.cuda.synchronize()
+    n_fresh = fused_enhancer.launches
+    sizes = ckpt_sizes(best)
+    ok = (torch.equal(out_w, out) and torch.equal(out_f, out)
+          and texts_w == texts == texts_f)
+    print(f"phase 36a: TBSRN (5 SRBs, STN, bf16) best/ in JAX's format: "
+          f"{sizes} bytes, saved in {save_ms:.3f} ms, read through the "
+          f"porter in {load_ms:.3f} ms; read and written back byte-equal: "
+          f"{same_bytes}; after a perturbed load the warm module served "
+          f"other SR output: {not torch.equal(out_p, out)}; pixels -> "
+          f"strings at batch {BATCH} of the source, the warm module and a "
+          f"fresh one bit-equal (SR output and strings): {ok}; B1 launches "
+          f"{n_warm} (warm), {n_fresh} (fresh), expected {2 * SRB_NUMS} "
+          f"[{gpu}]")
+    if not (same_bytes and ok and not torch.equal(out_p, out)
+            and n_warm == n_fresh == 2 * SRB_NUMS):
+        raise AssertionError("phase 36a: the JAX-format TBSRN checkpoint "
+                             "does not serve as its source")
+    return {"tbsrn_best": {"bytes": sizes, "save_ms": save_ms,
+                           "load_ms": load_ms}}
+
+
+def phase36b(dev, gpu: str, tmp: str) -> dict:
+    """scene_text_telescope.main --text_focus, 2 steps, resumed (--resume
+    auto) from a best/ holding only state.msgpack, three times: with the
+    seeded oracle, with an oracle of other (perturbed) weights in memory,
+    and with those weights read from a JAX-format
+    TRAIN.VAL.oracle_checkpoint. The first step's loss of the last two is
+    bit-equal and differs from the seeded oracle's, so the checkpoint was
+    read; the SR weights each run starts training from are bit-equal to
+    the resumed best/'s source."""
+    from fudanocr_tpu_torch.apps import sr_common
+    from fudanocr_tpu_torch.apps.scene_text_telescope import main as stt
+
+    build_oracle = sr_common.build_oracle
+    gen = torch.Generator().manual_seed(SEED + 362)
+    other = {k: v + 0.05 * torch.randn(v.shape, generator=gen).to(v)
+             if v.is_floating_point() and k.endswith("weight") else v
+             for k, v in build_oracle(sr_common.DEFAULTS, LOSS_VOCAB,
+                                      "cpu").state_dict().items()}
+
+    def other_oracle(cfg, vocab, device):
+        oracle = build_oracle(cfg, vocab, device)
+        oracle.load_state_dict(other)
+        return oracle
+
+    held = other_oracle(sr_common.DEFAULTS, LOSS_VOCAB, "cpu")
+    oracle_dir = os.path.join(tmp, "oracle")
+    _, oracle_save_ms = timed_ms(lambda: ckpt_lib.save_jax(
+        oracle_dir, jax_variables(held), {"step": 0}))
+    source = sr_common.seeded(lambda: TBSRN(stn=True, srb_nums=SRB_NUMS),
+                              SEED + 361, "cpu")
+    runs, started = {}, {}
+    train = SRTrainer.train
+    for name, extra, oracle_fn in (
+            ("seeded", [], build_oracle),
+            ("in_memory", [], other_oracle),
+            ("from_checkpoint",
+             [f"TRAIN.VAL.oracle_checkpoint={oracle_dir}"], build_oracle)):
+        cfg, ckpt, _ = sr_app_config(tmp, f"stt_{name}", [], [], 1, 10 ** 6)
+        ckpt_lib.save_jax(os.path.join(ckpt, "best"), jax_variables(source),
+                          {"step": 0})
+        argv = ["--config", cfg, "--arch", "tbsrn", "--STN", "--text_focus",
+                "--resume", "auto", "--device", str(dev), "--options",
+                f"TRAIN.synthetic_samples={2 * TRAIN_B}", *extra]
+        torch.cuda.synchronize()
+        reset_counts()
+        with recording(train_sr, "make_sr_train_step", SRTrainer,
+                       train_counts) as rec:
+            recorded = SRTrainer.train
+
+            def snapshot_train(self, *args, _name=name, **kw):
+                started[_name] = {k: v.detach().cpu().clone() for k, v in
+                                  self.model.state_dict().items()}
+                return recorded(self, *args, **kw)
+
+            SRTrainer.train = snapshot_train
+            sr_common.build_oracle = oracle_fn
+            try:
+                _, wall = timed_ms(lambda: stt.main(argv))
+            finally:
+                SRTrainer.train = recorded
+                sr_common.build_oracle = build_oracle
+        runs[name] = (finite_losses(rec), [d for _, d, _ in rec["steps"]],
+                      train_counts(), wall)
+    assert SRTrainer.train is train
+    want = source.state_dict()
+    resumed = {name: all(torch.equal(sd[k], want[k]) for k in want
+                         if not k.endswith("num_batches_tracked"))
+               for name, sd in started.items()}
+    (l_seed, _, _, _), (l_mem, d_mem, _, _), (l_ckpt, d_ckpt, total, wall) = (
+        runs["seeded"], runs["in_memory"], runs["from_checkpoint"])
+    b4 = [(d[1], d[2]) for d in d_mem + d_ckpt]
+    print(f"phase 36b: scene_text_telescope.main --text_focus --resume auto "
+          f"from a best/ holding only state.msgpack, {len(l_ckpt)} steps at "
+          f"batch {TRAIN_B}: first losses with the seeded oracle "
+          f"{l_seed[0]!r}, with other oracle weights in memory {l_mem[0]!r}, "
+          f"with those read from a JAX-format oracle_checkpoint "
+          f"({ckpt_sizes(oracle_dir)} bytes, saved in "
+          f"{oracle_save_ms:.3f} ms) {l_ckpt[0]!r}: the last two bit-equal "
+          f"{l_mem[0] == l_ckpt[0]}, all losses equal {l_mem == l_ckpt}, the "
+          f"seeded oracle's differs {l_seed[0] != l_ckpt[0]}; SR weights at "
+          f"the first step bit-equal to the resumed best/'s source "
+          f"{resumed}; B4 launches per step (fwd, bwd) {b4} (expected "
+          f"({SRB_NUMS}, {SRB_NUMS})); the app's B2 launches {total[0]}; "
+          f"{wall:.1f} ms the whole app [{gpu}]")
+    if (len(l_ckpt) != 2 or l_mem[0] != l_ckpt[0] or l_seed[0] == l_ckpt[0]
+            or len(resumed) != 3 or not all(resumed.values())
+            or set(b4) != {(SRB_NUMS, SRB_NUMS)} or total[0] == 0):
+        raise AssertionError("phase 36b: the app resumed from JAX-format "
+                             "checkpoints does not train as from memory")
+    return {"oracle": {"bytes": ckpt_sizes(oracle_dir),
+                       "save_ms": oracle_save_ms},
+            "text_focus_first_loss": l_ckpt[0]}
+
+
+def opt_states_equal(a: SegTrainer, b: SegTrainer) -> bool:
+    """Adam's step, exp_avg and exp_avg_sq of every parameter bit-equal
+    (a step read from state.pt sits on the card, a new one on the host)."""
+    pa, pb = dict(a.model.named_parameters()), dict(b.model.named_parameters())
+    return all(torch.equal(a.optimizer.adam.state[pa[n]][k].cpu(),
+                           b.optimizer.adam.state[pb[n]][k].cpu())
+               for n in pa for k in ("step", "exp_avg", "exp_avg_sq"))
+
+
+def phase36c(dev, gpu: str, tmp: str) -> dict:
+    """The plain seg recipe (512², batch 8): iter_2/ written by SegTrainer,
+    resumed from a copy holding only state.msgpack and from state.pt, the
+    restored state bit-equal, one resumed step each (B7); apps.seg.test
+    --checkpoint on a best/ holding only state.msgpack against its
+    state.pt twin."""
+    from fudanocr_tpu_torch.apps.seg import test as seg_test
+
+    def trainer(seed: int, ckpt_dir=None):
+        model, cfg = init_segmentor(SEG_CONFIG, device=dev, seed=seed)
+        side, bs = cfg.data.crop_size[0], cfg.data.batch_size
+        kw = {**trainer_kwargs(cfg), "eval_every": 10 ** 9}
+        return SegTrainer(model, SeededTextSeg(2 * bs, side, SEED + 362,
+                                               False),
+                          SeededTextSeg(bs, side, SEED + 363, False),
+                          ckpt_dir=ckpt_dir, ckpt_every=CKPT_SEG_ITERS,
+                          **kw), side, bs
+
+    src, side, bs = trainer(SEED + 36, os.path.join(tmp, "seg"))
+    randomize_stats(src.model, torch.Generator().manual_seed(SEED + 36))
+    src.train(stop_after=CKPT_SEG_ITERS)
+    it_dir = os.path.join(tmp, "seg", f"iter_{CKPT_SEG_ITERS}")
+    _, pt_ms = timed_ms(lambda: ckpt_lib.save(
+        os.path.join(tmp, "pt_only"), src._payload()))
+    _, jax_ms = timed_ms(lambda: ckpt_lib.save_jax(
+        os.path.join(tmp, "jax_only"), src._jax_tree(opt_state=True)))
+    sizes = ckpt_sizes(it_dir)
+    msg = jax_only(it_dir, os.path.join(tmp, "seg_jax", "iter_2"))
+    resumed = {}
+    for name, path in (("state.msgpack", msg), ("state.pt", it_dir)):
+        t, _, _ = trainer(SEED + 364)
+        _, ms = timed_ms(lambda: t.resume(path))
+        resumed[name] = (t, ms)
+    (tj, jms), (tp, pms) = resumed["state.msgpack"], resumed["state.pt"]
+    sd_j, sd_p = tj.model.state_dict(), tp.model.state_dict()
+    weights_equal = all(torch.equal(sd_j[k], v) for k, v in sd_p.items()
+                        if not k.endswith("num_batches_tracked"))
+    state_equal = (opt_states_equal(tj, tp)
+                   and tj.optimizer.count == tp.optimizer.count
+                   == CKPT_SEG_ITERS and tj.start_iter == tp.start_iter)
+
+    batch = device_batch(next(src.train_data.batches(bs)), dev)
+    losses, launches = [], []
+    torch.backends.cudnn.deterministic = True
+    for t in (tj, tp):
+        torch.cuda.synchronize()
+        reset_train_seg_counts()
+        out = t.train_step(batch, torch.Generator(dev).manual_seed(36))
+        losses.append(out["loss"].item())
+        torch.cuda.synchronize()
+        launches.append(train_seg_counts())
+    torch.backends.cudnn.deterministic = False
+    loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
+
+    tp.ckpt_dir = os.path.join(tmp, "seg_best")
+    tp.evaluate(CKPT_SEG_ITERS + 1)
+    best = os.path.join(tmp, "seg_best", "best")
+    best_jax = jax_only(best, os.path.join(tmp, "seg_best_jax", "best"))
+    opts = ["--device", str(dev), "--options",
+            f"data.synthetic_samples={4 * bs}"]
+    metrics = {name: seg_test.main([SEG_CONFIG, "--checkpoint", path, *opts])
+               for name, path in (("state.msgpack", best_jax),
+                                  ("state.pt", best))}
+    print(f"phase 36c: {SEG_CONFIG.split('/')[-1]} ({side}², batch {bs}): "
+          f"iter_{CKPT_SEG_ITERS}/ {sizes} bytes; writing state.pt "
+          f"{pt_ms:.3f} ms, state.msgpack (porter, optimizer state, codec) "
+          f"{jax_ms:.3f} ms; resume from state.msgpack {jms:.3f} ms, from "
+          f"state.pt {pms:.3f} ms; weights and BN statistics bit-equal: "
+          f"{weights_equal}; exp_avg, exp_avg_sq, steps and counts "
+          f"bit-equal: {state_equal}; one resumed step each: losses "
+          f"{losses} (rel {loss_rel:.3e}, bar {STEP_LOSS_REL}), launches "
+          f"(B7 fwd, B7 bwd, B6 fwd, B6 bwd) {launches} (expected "
+          f"{TRAIN_RECIPES[0][1]}); apps.seg.test --checkpoint best/ from "
+          f"state.msgpack {metrics['state.msgpack']}, from state.pt "
+          f"{metrics['state.pt']} [{gpu}]")
+    if not (weights_equal and state_equal and loss_rel <= STEP_LOSS_REL
+            and launches == [TRAIN_RECIPES[0][1]] * 2
+            and metrics["state.msgpack"] == metrics["state.pt"]
+            and rewrites_bytes(it_dir)):
+        raise AssertionError("phase 36c: the seg trainer does not resume "
+                             "from state.msgpack as from state.pt")
+    return {"seg_iter": {"bytes": sizes, "save_pt_ms": pt_ms,
+                         "save_msgpack_ms": jax_ms,
+                         "resume_msgpack_ms": jms, "resume_pt_ms": pms}}
+
+
+def phase36d(dev, gpu: str, tmp: str) -> dict:
+    """CCR-CLIP stage 2's gallery from a stage-1 best/ holding only
+    state.msgpack, bit-equal to the gallery from its state.pt."""
+    from fudanocr_tpu_torch.apps.ccr_clip import train as ctr2
+    from fudanocr_tpu_torch.apps.sr_common import seeded
+    from fudanocr_tpu_torch.data.codecs import radical_codec
+    from fudanocr_tpu_torch.models.rec.ccr_clip import CCRCLIP
+
+    codec = radical_codec(None, None)
+    charset = sorted(codec.decomposition)
+    clip = seeded(lambda: CCRCLIP(vocab_size=codec.num_classes,
+                                  context_length=ctr2.GALLERY_CONTEXT),
+                  SEED + 365, "cpu")
+    best = os.path.join(tmp, "clip", "best")
+    _, save_ms = timed_ms(lambda: ckpt_lib.save(
+        best, {"state_dict": clip.state_dict()}, {"epoch": 0},
+        jax_tree=jax_variables(clip)))
+    best_jax = jax_only(best, os.path.join(tmp, "clip_jax", "best"))
+    galleries = {}
+    for name, path in (("state.msgpack", best_jax), ("state.pt", best)):
+        cfg = ctr2.merge_cli_overrides(ctr2.DEFAULT_CONFIG,
+                                       [f"radical_model={path}"])
+        galleries[name], ms = timed_ms(lambda: ctr2.build_gallery(
+            cfg, charset, codec, dev))
+        galleries[name + " ms"] = ms
+    equal = torch.equal(galleries["state.msgpack"], galleries["state.pt"])
+    sizes = ckpt_sizes(best)
+    print(f"phase 36d: CCR-CLIP stage-1 best/ {sizes} bytes (both payloads "
+          f"written in {save_ms:.3f} ms); stage 2's gallery "
+          f"{tuple(galleries['state.pt'].shape)} from state.msgpack in "
+          f"{galleries['state.msgpack ms']:.3f} ms, from state.pt in "
+          f"{galleries['state.pt ms']:.3f} ms, bit-equal: {equal} [{gpu}]")
+    if not equal or not rewrites_bytes(best):
+        raise AssertionError("phase 36d: the gallery from state.msgpack "
+                             "differs from the gallery from state.pt")
+    return {"clip_best": {"bytes": sizes, "save_ms": save_ms,
+                          "gallery_msgpack_ms": galleries["state.msgpack ms"],
+                          "gallery_pt_ms": galleries["state.pt ms"]}}
+
+
+def phase36(dev, gpu: str) -> None:
+    """Checkpoint interchange on the card: (a) TBSRN serving, (b) the text-
+    focus app, (c) the seg trainer and apps.seg.test, (d) CCR-CLIP stage
+    2, each from checkpoints in the JAX package's format."""
+    out, seconds = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        for part in (phase36a, phase36b, phase36c, phase36d):
+            t0 = time.perf_counter()
+            out.update(part(dev, gpu, tmp))
+            torch.cuda.empty_cache()
+            seconds[part.__name__[-1]] = time.perf_counter() - t0
+    print(json.dumps({"phase": 36, **out, "seconds": seconds,
+                      "card": gpu}))
+
+
 STANDALONE = {"1": phase1, "4": phase4, "5": phase5, "6": phase6,
               "7": phase7, "10": phase10, "13": phase13, "17": phase17,
               "19": phase19, "20": phase20_alone, "22": phase22,
               "24": phase24, "25": phase25, "26": phase26_alone,
               "27": phase27, "28": phase28, "29": phase29, "30": phase30,
               "31": phase31, "32": phase32, "33": phase33, "34": phase34,
-              "35": phase35}
+              "35": phase35, "36": phase36}
 
 
 def main(argv: list) -> int:
@@ -4971,6 +5318,8 @@ def main(argv: list) -> int:
     acpm_n = phase34(dev, gpu)
     torch.cuda.empty_cache()
     ctr16_n, ln_ctr16 = phase35(dev, gpu)
+    torch.cuda.empty_cache()
+    phase36(dev, gpu)
     bf16_b = (torch.bfloat16, TRAIN_B)
     b10, b11_fwd, b11_bwd = b10_b11[(torch.float32, TRAIN_B)]
     _, b11_mma_fwd, b11_mma_bwd = b10_b11[bf16_b]

@@ -16,7 +16,8 @@ decompose.txt) come from configured paths; without them JAX's seeded
 synthetic profile system and `SyntheticCharDataset` stand in. The print
 templates are `apps/oictr/train.render_char_templates`'s, drawn with the
 port's bitmap font (ROADMAP C26). One device; `best/` holds the port's
-payload (`core/checkpoint`, C28). `main` returns the final evaluation.
+payload and JAX's state.msgpack (params, batch_stats), `core/checkpoint`.
+`main` returns the final evaluation.
 
 At the default config the synthetic test set holds max(64 // 4, 8) = 16
 samples, fewer than a batch of 32, and `batches` drops the partial
@@ -40,6 +41,7 @@ from fudanocr_tpu_torch.core import checkpoint as ckpt_lib
 from fudanocr_tpu_torch.core.config import Config, merge_cli_overrides
 from fudanocr_tpu_torch.train.ctr import masked_token_ce
 from fudanocr_tpu_torch.train.state import ScheduledOptimizer
+from fudanocr_tpu_torch.utils.weights import jax_variables
 
 log = logging.getLogger("fudanocr_tpu_torch.acpm")
 
@@ -293,7 +295,8 @@ class ACPMTrainer:
                           {"state_dict": self.model.state_dict(),
                            "optimizer": self.optimizer.state_dict(),
                            "step": self.optimizer.count},
-                          meta={"step": self.optimizer.count, "acc": acc})
+                          meta={"step": self.optimizer.count, "acc": acc},
+                          jax_tree=jax_variables(self.model))
         return {"acc": acc}
 
 

@@ -12,8 +12,9 @@ whole charset's text features (encoded in chunks of 100); Adam 1e-4
 
 Without alphabet/decompose files the JAX package's synthetic radical
 system and `SyntheticCharDataset` stand in. One device; the contrastive
-batch is the device's (ROADMAP C5). `best/` holds the port's payload
-(`core/checkpoint`), which stage 2's `radical_model` reads.
+batch is the device's (ROADMAP C5). `best/` holds the port's payload and
+JAX's state.msgpack (params, batch_stats), `core/checkpoint`; stage 2's
+`radical_model` reads either.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from fudanocr_tpu_torch.losses.clip_loss import (clip_symmetric_ce,
                                                  first_occurrence_targets)
 from fudanocr_tpu_torch.models.rec.ccr_clip import CCRCLIP
 from fudanocr_tpu_torch.train.state import ScheduledOptimizer, clip_adam
+from fudanocr_tpu_torch.utils.weights import jax_variables
 
 log = logging.getLogger("fudanocr_tpu_torch.ccr_clip")
 
@@ -154,7 +156,8 @@ class CLIPPretrainer:
             ckpt_lib.save(os.path.join(self.cfg.ckpt_dir, "best"),
                           {"state_dict": self.model.state_dict(),
                            "optimizer": self.optimizer.state_dict()},
-                          meta={"epoch": epoch, "acc": acc})
+                          meta={"epoch": epoch, "acc": acc},
+                          jax_tree=jax_variables(self.model))
         return {"acc": acc}
 
 

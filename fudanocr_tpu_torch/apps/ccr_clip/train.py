@@ -13,10 +13,11 @@ against the gallery (`greedy_decode_gallery`).
         --options radical_model=<stage-1 ckpt_dir>/best [k=v ...] \\
         [--device cuda]
 
-`radical_model` is a directory written by `apps.ccr_clip.pretrain` at
-its default 12 text layers; one holding only JAX's state.msgpack raises
-(ROADMAP A4). Without it the gallery comes from a random text tower
-(seed 0), as in JAX.
+`radical_model` is a stage-1 checkpoint directory at the default 12 text
+layers: the port's `apps.ccr_clip.pretrain` writes state.pt and
+state.msgpack, the JAX package's state.msgpack alone, which is read
+through the `ccr_clip` porter. Without it the gallery comes from a random
+text tower (seed 0), as in JAX.
 """
 
 from __future__ import annotations
@@ -63,7 +64,8 @@ def build_gallery(cfg, charset, codec, device) -> torch.Tensor:
     if cfg.radical_model:
         from fudanocr_tpu_torch.core.checkpoint import load_model_state
         clip.load_state_dict(load_model_state(cfg.radical_model,
-                                              map_location=device))
+                                              map_location=device,
+                                              module=clip))
     else:
         log.warning("no stage-1 checkpoint (radical_model); using a random "
                     "CLIP text tower for the gallery")

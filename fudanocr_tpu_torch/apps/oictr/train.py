@@ -17,7 +17,8 @@ orientation-independent-CTR/train.py + data/lmdbReader.py:80-133:
     python -m fudanocr_tpu_torch.apps.oictr.train [--options k=v ...] \\
         [--device cuda]
 
-One device; `best/` holds the port's payload (`core/checkpoint`).
+One device; `best/` holds the port's payload and JAX's state.msgpack
+(params, batch_stats), `core/checkpoint`.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from fudanocr_tpu_torch.core.config import Config, merge_cli_overrides
 from fudanocr_tpu_torch.data.glyphs import draw_text
 from fudanocr_tpu_torch.train.ctr import masked_token_ce
 from fudanocr_tpu_torch.train.state import ScheduledOptimizer
+from fudanocr_tpu_torch.utils.weights import jax_variables
 
 log = logging.getLogger("fudanocr_tpu_torch.oictr")
 
@@ -245,7 +247,8 @@ class OICTRTrainer:
                           {"state_dict": self.model.state_dict(),
                            "optimizer": self.optimizer.state_dict(),
                            "step": self.optimizer.count},
-                          meta={"step": self.optimizer.count, "acc": acc})
+                          meta={"step": self.optimizer.count, "acc": acc},
+                          jax_tree=jax_variables(self.model))
         return {"acc": acc}
 
 

@@ -37,7 +37,7 @@ from fudanocr_tpu_torch.core.registry import BACKBONES, HEADS, SEGMENTORS
 from fudanocr_tpu_torch.data.seg_pipeline import Normalize
 from fudanocr_tpu_torch.models.seg import (CascadeEncoderDecoder,
                                            EncoderDecoder, slide_inference)
-from fudanocr_tpu_torch.utils.weights import load_jax_variables
+from fudanocr_tpu_torch.utils.weights import load_jax_variables, porter_of
 
 DEFAULT_PALETTE = ((0, 0, 0), (220, 40, 40), (40, 220, 40), (40, 40, 220))
 
@@ -88,8 +88,10 @@ def init_segmentor(config_path: str, variables=None, device="cuda",
                    overrides: Sequence[str] = (), seed: int = 0,
                    kernels: bool = True, checkpoint: Optional[str] = None):
     """-> (model on `device`, in eval mode, config). `checkpoint` is a
-    checkpoint directory of `SegTrainer` (`best/`, `iter_N/`; a JAX
-    `state.msgpack` raises, ROADMAP A4); `variables` a JAX segmentor's
+    checkpoint directory of `SegTrainer` (`best/`, `iter_N/`), the port's
+    or the JAX package's (state.msgpack alone, read through the
+    `segmentor` or `segmentor_det` porter at the config's backbone
+    shape); `variables` a JAX segmentor's
     {"params": ..., "batch_stats": ...} tree (numpy arrays); without
     either, the modules' own initialisation under `torch.manual_seed
     (seed)` (the global generator's state is restored after)."""
@@ -98,11 +100,11 @@ def init_segmentor(config_path: str, variables=None, device="cuda",
         torch.manual_seed(seed)
         model = build_model(cfg, kernels=kernels)
     if checkpoint:
-        model.load_state_dict(ckpt_lib.load_model_state(checkpoint, "cpu"))
+        model.load_state_dict(ckpt_lib.load_model_state(
+            checkpoint, "cpu", module=model))
     elif variables is not None:
-        load_jax_variables(model, "segmentor_det" if is_det_guided(cfg)
-                           else "segmentor", variables,
-                           **backbone_kwargs(cfg))
+        porter, porter_kwargs = porter_of(model)
+        load_jax_variables(model, porter, variables, **porter_kwargs)
     return model.to(device), cfg
 
 

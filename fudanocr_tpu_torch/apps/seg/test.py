@@ -8,8 +8,9 @@ text-focused-Transformers/tools/test.py).
 
 Builds the configured segmentor (apps/seg/train.build_model: seed 0, then
 `--device`, default the card; a missing card raises), loads the weights of
-a `SegTrainer` checkpoint directory (`core/checkpoint.load_model_state`;
-a JAX `state.msgpack` raises, ROADMAP A4) and evaluates the config's test
+a `SegTrainer` checkpoint directory (`core/checkpoint.load_model_state`:
+its state.pt, or the JAX package's state.msgpack where it has no
+state.pt) and evaluates the config's test
 set. Without `--tta`, `SegTrainer.evaluate(save_best=False)` on whole
 images, as the JAX app's trainer, built without a crop, does. With
 `--tta`, `tta_inference` at scales (0.75, 1.0, 1.25) with horizontal
@@ -86,8 +87,8 @@ def main(argv=None):
 
     model = build_model(cfg, device)
     if args.checkpoint:
-        model.load_state_dict(ckpt_lib.load_model_state(args.checkpoint,
-                                                        device))
+        model.load_state_dict(ckpt_lib.load_model_state(
+            args.checkpoint, device, module=model))
     eval_data = build_data(cfg, train=False)
     if args.tta:
         res = tta_metrics(model, eval_data, cfg)

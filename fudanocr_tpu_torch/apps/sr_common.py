@@ -15,7 +15,10 @@ processes read, decode and collate the training batches
 Every model is built on the CPU from a seed and then moved: the SR model
 from TRAIN.manualSeed, the frozen text-focus oracle from 0 and the CRNN
 evaluator from 1 (the JAX apps' PRNG keys), so two runs of an app, on any
-device, start from the same weights.
+device, start from the same weights. A pretrained oracle
+(TRAIN.VAL.oracle_checkpoint) and `--resume` read checkpoints in the JAX
+package's format (`core/checkpoint.py`), so models trained with either
+package load in both.
 """
 
 from __future__ import annotations
@@ -64,7 +67,9 @@ def build_argparser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--srb", type=int, default=5)
     p.add_argument("--hd_u", type=int, default=32)
     p.add_argument("--resume", type=str, default="",
-                   help="a best.pt to load, or 'auto' for ckpt_dir/best.pt")
+                   help="a best.pt or a checkpoint directory in the JAX "
+                   "package's format to load, or 'auto' for "
+                   "ckpt_dir/best.pt (ckpt_dir/best/ without one)")
     p.add_argument("--options", nargs="*", default=[],
                    help="dotted-key config overrides, e.g. TRAIN.lr=2.0e-4")
     p.add_argument("--device", default="cuda",
@@ -155,21 +160,26 @@ def build_dataset(data_dirs, cfg, train: bool):
 
 def build_oracle(cfg, vocab: int, device) -> torch.nn.Module:
     """The frozen OCRTransformer(vocab, 1, (1, 2, 5, 3), 16 heads) of the
-    text-focus and stroke-focus losses, from seed 0. A pretrained oracle
-    (TRAIN.VAL.oracle_checkpoint) is a JAX checkpoint, which the port does
-    not read yet: it raises rather than train against a random oracle."""
+    text-focus and stroke-focus losses, from seed 0, its weights those of
+    TRAIN.VAL.oracle_checkpoint where one is configured: a checkpoint
+    directory in the JAX package's format (JAX's apps read it as their
+    oracle, apps/scene_text_telescope/main.py:44-57), through the
+    `ocr_transformer` porter."""
+    from fudanocr_tpu_torch.core import checkpoint as ckpt_lib
     from fudanocr_tpu_torch.models.rec.ocr_transformer import OCRTransformer
 
+    oracle = seeded(lambda: OCRTransformer(vocab=vocab, num_in=1,
+                                           layers=(1, 2, 5, 3),
+                                           num_heads=16), 0, device)
     path = cfg.TRAIN.VAL.get("oracle_checkpoint", "")
     if path:
-        raise NotImplementedError(
-            f"TRAIN.VAL.oracle_checkpoint = {path!r}: reading JAX-format "
-            "checkpoints is ROADMAP A4, not ported yet")
-    log.warning("no pretrained oracle checkpoint configured "
-                "(TRAIN.VAL.oracle_checkpoint); using a random-init oracle")
-    return seeded(lambda: OCRTransformer(vocab=vocab, num_in=1,
-                                         layers=(1, 2, 5, 3), num_heads=16),
-                  0, device)
+        oracle.load_state_dict(ckpt_lib.load_model_state(path,
+                                                         module=oracle))
+    else:
+        log.warning("no pretrained oracle checkpoint configured "
+                    "(TRAIN.VAL.oracle_checkpoint); using a random-init "
+                    "oracle")
+    return oracle
 
 
 def build_recognizer(device) -> torch.nn.Module:
@@ -182,10 +192,14 @@ def build_recognizer(device) -> torch.nn.Module:
 
 def resume_path(args, cfg) -> Optional[str]:
     """`--resume`'s checkpoint: the path given, or with 'auto'
-    ckpt_dir/best.pt when it exists; None without the flag."""
+    ckpt_dir/best.pt when it exists, else ckpt_dir/best/ (the JAX
+    package's format) when it exists; None without the flag."""
     if not args.resume:
         return None
     if args.resume != "auto":
         return args.resume
-    path = os.path.join(cfg.TRAIN.ckpt_dir, "best.pt")
-    return path if os.path.exists(path) else None
+    for name in ("best.pt", "best"):
+        path = os.path.join(cfg.TRAIN.ckpt_dir, name)
+        if os.path.exists(path):
+            return path
+    return None

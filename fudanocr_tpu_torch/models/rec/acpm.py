@@ -209,6 +209,7 @@ class ACPM(TokenDecoding):
                  encoder_width_div: int = 1, kernels: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.jax_porter = ("acpm", {})
         if encoder == "resnet":
             self.encoder = OCRResNet(
                 3, tuple(encoder_layers or (3, 4, 6, 3)),

@@ -226,6 +226,9 @@ class CCRCLIP(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
+        self.jax_porter = ("ccr_clip", dict(
+            layers=tuple(vision_layers),
+            transformer_layers=transformer_layers))
         self.visual = CLIPResNet50(vision_layers, dtype)
         self.token_embedding = nn.Embedding(vocab_size, transformer_width)
         nn.init.normal_(self.token_embedding.weight, std=0.02)

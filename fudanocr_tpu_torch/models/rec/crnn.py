@@ -49,6 +49,7 @@ class CRNN(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.jax_porter = ("crnn", {})
         feats = (64, 128, 256, 256, 512, 512, 512)
         with_bn = (False, False, True, False, True, False, True)
         self.cnn = nn.Sequential()

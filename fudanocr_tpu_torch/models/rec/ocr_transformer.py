@@ -282,6 +282,9 @@ class OCRTransformer(TokenDecoding):
                              f"and its positional code: d_model {d_model} "
                              f"must be 2 * d_embed {d_embed}")
         self.d_embed, self.dtype = d_embed, dtype
+        self.jax_porter = ("ocr_transformer", (
+            dict(encoder_preset=encoder_preset) if encoder_preset is not None
+            else dict(layers=tuple(layers))))
         self.encoder = _Encoder(OCRResNet(num_in, width_div=encoder_width_div,
                                           **kw))
         mem = self.encoder.cnn.out_features

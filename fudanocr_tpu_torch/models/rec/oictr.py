@@ -102,6 +102,7 @@ class OICTR(TokenDecoding):
                  encoder_width_div: int = 1, kernels: bool = True,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.jax_porter = ("oictr", {})
         if 2 * d_embed != d_model:
             raise ValueError(f"d_model {d_model} must be 2 * d_embed "
                              f"{d_embed}")

@@ -343,6 +343,9 @@ class CascadeMiT(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.jax_porter = ("cascade_mit", dict(
+            embed_dims=embed_dims, num_layers=tuple(num_layers),
+            num_heads=tuple(num_heads), sr_ratios=tuple(sr_ratios)))
         d, nh = embed_dims, tuple(num_heads)
         pyr = [d, d * nh[1], d * nh[2], d * nh[3]]
         dpr = drop_path_rates(drop_path_rate, num_layers)

@@ -194,6 +194,9 @@ class CascadeMiTDetGuided(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.jax_porter = ("cascade_mit_v10", dict(
+            embed_dims=embed_dims, num_layers=tuple(num_layers),
+            num_heads=tuple(num_heads), sr_ratios=tuple(sr_ratios)))
         d, nh = embed_dims, tuple(num_heads)
         dims = [d * n for n in nh]
         dpr = drop_path_rates(drop_path_rate, num_layers)

@@ -44,10 +44,17 @@ def nchw(img: torch.Tensor) -> torch.Tensor:
 class EncoderDecoder(nn.Module):
     """Backbone + decode head, keys `backbone.*` and `decode_head.*`."""
 
+    PORTER = "segmentor"
+
     def __init__(self, backbone: nn.Module, decode_head: nn.Module):
         super().__init__()
         self.backbone = backbone
         self.decode_head = decode_head
+
+    @property
+    def jax_porter(self):
+        """The whole segmentor's porter, with the backbone's shape."""
+        return self.PORTER, dict(self.backbone.jax_porter[1])
 
     def forward(self, img: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -62,6 +69,8 @@ class DetGuidedEncoderDecoder(EncoderDecoder):
     """Det-guided backbone + decode head: (logits (B, H, W, classes),
     det logits (B, H/4, W/4, 2)), both NHWC. `det_gt` (B, H, W) {0, 1}
     replaces the predicted text map in the attention masks."""
+
+    PORTER = "segmentor_det"
 
     def forward(self, img: torch.Tensor,
                 det_gt: Optional[torch.Tensor] = None, train: bool = False,
@@ -85,6 +94,9 @@ class CascadeEncoderDecoder(nn.Module):
         super().__init__()
         self.backbone = backbone
         self.decode_head = nn.ModuleList(decode_heads)
+
+    jax_porter = EncoderDecoder.jax_porter
+    PORTER = "cascade_segmentor"
 
     def forward(self, img: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -254,3 +254,6 @@ class TBSRN(SRGenerator):
                 fused_srb=fused_srb),
             scale_factor, width, height, stn, srb_nums, mask, hidden_units,
             dtype)
+        # the porter (utils/porters.py) and its arguments for this model
+        self.jax_porter = ("tbsrn", dict(srb_nums=srb_nums,
+                                         scale_factor=scale_factor, stn=stn))

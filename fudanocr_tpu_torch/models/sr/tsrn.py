@@ -75,3 +75,5 @@ class TSRN(SRGenerator):
                                                  kernels=kernels),
             scale_factor, width, height, stn, srb_nums, mask, hidden_units,
             dtype)
+        self.jax_porter = ("tsrn", dict(srb_nums=srb_nums,
+                                        scale_factor=scale_factor, stn=stn))

@@ -43,7 +43,14 @@ def _weights(n_in: int, n_out: int, dtype: torch.dtype,
     """JAX's `compute_weight_mat` for the triangle kernel with antialias,
     translation 0, computed in float32 as JAX computes it, then rounded to
     `dtype` on `device`: (n_in, n_out), column j the weights of output
-    j."""
+    j. Made outside inference mode, whatever the caller's: the cached
+    matrix also serves later training forwards, and autograd cannot save
+    an inference tensor for the backward."""
+    with torch.inference_mode(False):
+        return _weight_matrix(n_in, n_out).to(device=device, dtype=dtype)
+
+
+def _weight_matrix(n_in: int, n_out: int) -> torch.Tensor:
     inv = 1.0 / (n_out / n_in)            # Python floats, as in JAX
     stretch = max(inv, 1.0)
     f32 = torch.float32
@@ -55,8 +62,7 @@ def _weights(n_in: int, n_out: int, dtype: torch.dtype,
                     w / torch.where(total != 0, total, torch.ones(())),
                     torch.zeros(()))
     inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return torch.where(inside[None, :], w, torch.zeros(())).to(device=device,
-                                                              dtype=dtype)
+    return torch.where(inside[None, :], w, torch.zeros(()))
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:

@@ -12,8 +12,8 @@ per-token CE over real tokens only.
 
 Training runs on the model's one device (the JAX trainer's batch mesh is
 ROADMAP A8). `best/` is a `core/checkpoint` directory with the port's
-payload: the reference-layout state_dict, the optimizer state and the
-step (JAX's msgpack is ROADMAP A4).
+payload (the reference-layout state_dict, the optimizer state and the
+step) and the JAX trainer's (state.msgpack: params and batch_stats).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from fudanocr_tpu_torch.core import checkpoint as ckpt_lib
 from fudanocr_tpu_torch.models.rec.ocr_transformer import greedy_decode
 from fudanocr_tpu_torch.train.seg import iteration_generator
 from fudanocr_tpu_torch.train.state import ScheduledOptimizer, ctr_adadelta
+from fudanocr_tpu_torch.utils.weights import jax_variables
 
 log = logging.getLogger("fudanocr_tpu_torch.ctr")
 
@@ -161,7 +162,8 @@ class CTRTrainer:
         ckpt_lib.save(os.path.join(self.ckpt_dir, "best"),
                       {"state_dict": self.model.state_dict(),
                        "optimizer": self.optimizer.state_dict(),
-                       "step": self.step}, meta=meta)
+                       "step": self.step}, meta=meta,
+                      jax_tree=jax_variables(self.model))
 
     def evaluate(self, it: int = 0) -> Dict[str, float]:
         total, correct = 0, 0

@@ -20,9 +20,13 @@ model's device, one process, one device.
 Checkpoints keep the JAX trainer's layout (`core/checkpoint.py`):
 `ckpt_dir/iter_{it}/` every `ckpt_every` iterations (the newest `max_keep`
 kept) and `ckpt_dir/best/` on the best mIoU, each a meta.json (step, best)
-and the port's payload state.pt: the reference-layout state_dict, the
-`SegAdam` state and the step. `resume` (or `auto_resume`, from the latest
-iter_ checkpoint) restores all of it; the per-iteration generator is keyed
+beside two payloads: the port's state.pt (the reference-layout
+state_dict, the `SegAdam` state and the step) and JAX's state.msgpack
+(params, batch_stats and, in iter_, the optax state of JAX's
+`make_seg_optimizer`; JAX's `SegTrainer.resume` reads it). `resume` (or
+`auto_resume`, from the latest iter_ checkpoint) restores all of it from
+state.pt, or from state.msgpack where the directory has no state.pt (a
+checkpoint the JAX package wrote); the per-iteration generator is keyed
 by the iteration, so a run resumed at an epoch boundary replays the
 uninterrupted run's batches and dropout.
 """
@@ -47,6 +51,7 @@ from fudanocr_tpu_torch.losses.seg_losses import (cross_entropy_loss,
                                                   seg_accuracy)
 from fudanocr_tpu_torch.models.seg.encoder_decoder import slide_inference
 from fudanocr_tpu_torch.train.state import SegAdam
+from fudanocr_tpu_torch.utils.weights import jax_variables
 
 log = logging.getLogger("fudanocr_tpu_torch.seg")
 
@@ -251,21 +256,42 @@ class SegTrainer:
                 "optimizer": self.optimizer.adam.state_dict(),
                 "step": self.optimizer.count}
 
+    def _jax_tree(self, opt_state: bool) -> dict:
+        """The JAX trainer's checkpoint tree: params, batch_stats and, with
+        `opt_state`, the optimizer's state."""
+        tree = jax_variables(self.model)
+        if opt_state:
+            tree["opt_state"] = self.optimizer.jax_opt_state(self.model)
+        return tree
+
     def resume(self, ckpt_path: str) -> None:
         """Restore the weights, BN statistics, optimizer state, iteration
         and best mIoU from a checkpoint directory (the runner's
-        resume_from / --auto-resume)."""
-        payload = ckpt_lib.load(ckpt_path, map_location=self.device)
+        resume_from / --auto-resume): its state.pt, or its state.msgpack
+        where it has no state.pt."""
         meta = ckpt_lib.load_meta(ckpt_path)
-        self.model.load_state_dict(payload["state_dict"])
-        self.optimizer.adam.load_state_dict(payload["optimizer"])
-        self.optimizer.count = self.start_iter = int(payload["step"])
+        if ckpt_lib.has_payload(ckpt_path):
+            payload = ckpt_lib.load(ckpt_path, map_location=self.device)
+            self.model.load_state_dict(payload["state_dict"])
+            self.optimizer.adam.load_state_dict(payload["optimizer"])
+            self.optimizer.count = self.start_iter = int(payload["step"])
+        else:
+            tree = ckpt_lib.load_jax(ckpt_path)
+            if "opt_state" not in tree:
+                raise ValueError(f"{ckpt_path}: no optimizer state (a best/ "
+                                 "checkpoint?); resume from an iter_ one")
+            self.model.load_state_dict(ckpt_lib.jax_state_dict(tree,
+                                                               self.model))
+            self.optimizer.load_jax_opt_state(
+                self.model, tree["opt_state"], tree["batch_stats"])
+            self.start_iter = int(meta.get("step", 0))
         self.best = float(meta.get("best", -1.0))
         log.info("resumed from %s at iter %d", ckpt_path, self.start_iter)
 
     def _save_periodic(self, it: int) -> None:
         ckpt_lib.save(os.path.join(self.ckpt_dir, f"iter_{it}"),
-                      self._payload(), meta={"step": it, "best": self.best})
+                      self._payload(), meta={"step": it, "best": self.best},
+                      jax_tree=self._jax_tree(opt_state=True))
         subs = sorted((d for d in os.listdir(self.ckpt_dir)
                        if d.startswith("iter_")), key=lambda d: int(d[5:]))
         for d in subs[:-self.max_keep]:
@@ -342,5 +368,6 @@ class SegTrainer:
             ckpt_lib.save(os.path.join(self.ckpt_dir, "best"),
                           self._payload(),
                           meta={"step": self.optimizer.count,
-                                "best": self.best, **summary})
+                                "best": self.best, **summary},
+                          jax_tree=self._jax_tree(opt_state=False))
         return summary

@@ -31,6 +31,7 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from fudanocr_tpu_torch.core import checkpoint as ckpt_lib
 from fudanocr_tpu_torch.core.logging import MetricsLogger
 from fudanocr_tpu_torch.data.codecs import SequenceCodec, english_stroke_codec
 from fudanocr_tpu_torch.data.image import resize_bicubic
@@ -42,6 +43,7 @@ from fudanocr_tpu_torch.eval.metrics import psnr, sequence_accuracy, ssim
 from fudanocr_tpu_torch.losses.sr_losses import encode_text_labels
 from fudanocr_tpu_torch.models.rec.crnn import parse_crnn_input
 from fudanocr_tpu_torch.train.state import AdamWithClip, adam_with_clip
+from fudanocr_tpu_torch.utils.weights import jax_variables
 
 log = logging.getLogger("fudanocr_tpu_torch.sr")
 
@@ -154,10 +156,18 @@ class SRTrainer:
 
     def resume(self, ckpt_path: str) -> None:
         """Restore the model's weights and BatchNorm statistics from a
-        checkpoint written by `evaluate` (the reference's --resume)."""
-        ckpt = torch.load(ckpt_path, map_location=self.device)
-        self.model.load_state_dict(ckpt["state_dict_G"])
-        self.step = int(ckpt.get("step", 0))
+        checkpoint written by `evaluate` (the reference's --resume): a
+        `best.pt`, or a checkpoint directory in the JAX package's format
+        (`best/`, also what the JAX trainer writes), read through the
+        model's porter."""
+        if os.path.isdir(ckpt_path):
+            self.model.load_state_dict(ckpt_lib.load_model_state(
+                ckpt_path, module=self.model))
+            self.step = int(ckpt_lib.load_meta(ckpt_path).get("step", 0))
+        else:
+            ckpt = torch.load(ckpt_path, map_location=self.device)
+            self.model.load_state_dict(ckpt["state_dict_G"])
+            self.step = int(ckpt.get("step", 0))
         log.info("resumed from %s", ckpt_path)
 
     def _encode(self, labels):
@@ -292,7 +302,9 @@ class SRTrainer:
         """PSNR/SSIM (and accuracy with a recognizer and converter) over
         `eval_data`; saves the best checkpoint to `ckpt_dir/best.pt` as
         {"state_dict_G": the reference-layout state_dict, "step",
-        "metrics"}."""
+        "metrics"}, and to `ckpt_dir/best/` as the JAX trainer does
+        (state.msgpack with params and batch_stats, meta.json with the
+        step and metrics)."""
         if isinstance(self.eval_data, dict):
             res: Dict[str, float] = {}
             acc_sum = 0.0
@@ -316,6 +328,9 @@ class SRTrainer:
             torch.save({"state_dict_G": self.model.state_dict(),
                         "step": self.step, "metrics": res},
                        os.path.join(self.ckpt_dir, "best.pt"))
+            ckpt_lib.save_jax(os.path.join(self.ckpt_dir, "best"),
+                              jax_variables(self.model),
+                              meta={"step": self.step, **res})
         return res
 
 

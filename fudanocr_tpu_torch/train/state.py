@@ -28,14 +28,39 @@
 
 Adam is `torch.optim.Adam`, whose update (bias-corrected moments, eps
 outside the square root) is optax's.
+
+`SegAdam`'s state crosses to the JAX optimizer's and back
+(`jax_opt_state`, `load_jax_opt_state`), the state that JAX's
+`SegTrainer` keeps in its periodic checkpoints. optax's state of
+`multi_transform({"backbone", "head"})` over that chain is, in flax's
+state-dict form,
+
+  inner_states/{backbone,head}/inner_state/
+      0/inner_state = {}             (the masked decay: no state)
+      1/{count, mu, nu}              (scale_by_adam)
+      2/count                        (scale_by_schedule)
+
+where each group's mu and nu are params-shaped, the other group's
+top-level subtrees empty maps (optax's MaskedNode). The moments cross
+through the model's porter by parameter name, as the gradients do
+(`utils/weights.grad_state_dict`): exp_avg is mu, exp_avg_sq nu, torch's
+per-parameter step Adam's count, `ScheduledOptimizer.count` the
+schedule's. The port groups parameters by (lr multiplier, decay), JAX by
+top-level subtree with a decay mask inside; names, not group positions,
+tie the two. The other optimizers' state (Adadelta, CLIP's Adam) has no
+JAX checkpoint to cross to: the JAX package saves none.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, Optional
 
+import numpy as np
 import torch
 from torch import nn
+
+from fudanocr_tpu_torch.utils.weights import (export_state_dict, porter_of,
+                                              to_jax_variables)
 
 
 class AdamWithClip:
@@ -130,6 +155,7 @@ class SegAdam(ScheduledOptimizer):
     def __init__(self, model: nn.Module, schedule: Callable[[int], float],
                  weight_decay: float = 0.01, head_lr_mult: float = 10.0,
                  lr_mult: Optional[Callable[[str], float]] = None):
+        self.jax_layout = lr_mult is None   # JAX's two-group optimizer
         if lr_mult is None:
             lr_mult = lambda name: (head_lr_mult if name.split(".")[0]
                                     in HEAD_MODULES else 1.0)
@@ -146,6 +172,91 @@ class SegAdam(ScheduledOptimizer):
     @property
     def adam(self) -> torch.optim.Adam:
         return self.optimizer
+
+    def _check_jax_layout(self) -> None:
+        if not self.jax_layout:
+            raise NotImplementedError(
+                "only the two-group optimizer (make_seg_optimizer) has a "
+                "JAX checkpoint layout; JAX's trainer saves no other")
+
+    def jax_opt_state(self, model: nn.Module) -> Dict[str, Any]:
+        """The optax state of JAX's `make_seg_optimizer` that this state
+        is (see the module docstring), numpy leaves. A parameter that has
+        no Adam state yet has zero moments, as in JAX; the parameters'
+        steps must agree."""
+        self._check_jax_layout()
+        sd = model.state_dict()
+        mu, nu, steps = dict(sd), dict(sd), set()
+        for name, p in model.named_parameters():
+            st = self.adam.state.get(p)
+            if st:
+                mu[name], nu[name] = st["exp_avg"], st["exp_avg_sq"]
+                steps.add(int(st["step"]))
+            else:
+                mu[name] = nu[name] = torch.zeros_like(p)
+        if len(steps) > 1:
+            raise ValueError(f"parameters at different Adam steps {steps}: "
+                             "JAX keeps one count")
+        count = np.asarray(steps.pop() if steps else 0, np.int32)
+        porter, porter_kwargs = porter_of(model)
+        mu = to_jax_variables(mu, porter, **porter_kwargs)["params"]
+        nu = to_jax_variables(nu, porter, **porter_kwargs)["params"]
+
+        def group(g):
+            masked = lambda t: {k: v if _jax_group(k) == g else {}
+                                for k, v in t.items()}
+            return {"inner_state": {
+                "0": {"inner_state": {}},
+                "1": {"count": count, "mu": masked(mu), "nu": masked(nu)},
+                "2": {"count": np.asarray(self.count, np.int32)}}}
+
+        return {"inner_states": {g: group(g) for g in ("backbone", "head")}}
+
+    def load_jax_opt_state(self, model: nn.Module, opt_state: Dict,
+                           batch_stats: Dict) -> None:
+        """Take the optax state `opt_state` of JAX's `make_seg_optimizer`
+        (flax's state-dict form, as a checkpoint holds it) over `model`,
+        whose checkpoint's `batch_stats` complete the porter's tree. Every
+        count must agree; at count 0 no parameter has Adam state."""
+        self._check_jax_layout()
+        groups = {g: opt_state["inner_states"][g]["inner_state"]
+                  for g in ("backbone", "head")}
+        counts = {int(groups[g][i]["count"]) for g in groups
+                  for i in ("1", "2")}
+        if len(counts) != 1:
+            raise ValueError(f"the optimizer state's counts disagree: "
+                             f"{sorted(counts)}")
+        count = counts.pop()
+        template = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        porter, porter_kwargs = porter_of(model)
+
+        def moments(which):
+            tree = {k: groups[_jax_group(k)]["1"][which][k]
+                    for k in groups["backbone"]["1"][which]}
+            return export_state_dict(porter, {"params": tree,
+                                              "batch_stats": batch_stats},
+                                     template, **porter_kwargs)
+
+        mu, nu = moments("mu"), moments("nu")
+        names = {p: n for n, p in model.named_parameters()}
+        saved = self.adam.state_dict()
+        state, idx = {}, 0
+        for group in self.adam.param_groups:
+            for p in group["params"]:
+                if count:
+                    state[idx] = {
+                        "step": torch.tensor(float(count)),
+                        "exp_avg": mu[names[p]].to(p.device, p.dtype),
+                        "exp_avg_sq": nu[names[p]].to(p.device, p.dtype)}
+                idx += 1
+        self.adam.load_state_dict({"state": state,
+                                   "param_groups": saved["param_groups"]})
+        self.count = count
+
+
+def _jax_group(top_key: str) -> str:
+    """The JAX seg optimizer's label of a top-level params subtree."""
+    return "head" if top_key in HEAD_MODULES else "backbone"
 
 
 def _schedule(lr) -> Callable[[int], float]:

@@ -22,6 +22,15 @@ concatenations), so `utils/weights.py` inverts them mechanically.
 
 numpy only; the tests hold these trees equal, bit for bit, to the JAX
 package's porters on the same state_dict.
+
+As a command (the counterpart of the JAX package's
+utils/torch_port.py:624-649), a reference `.pth` to a checkpoint
+directory in the JAX package's format (`state.msgpack`, `meta.json`),
+with the porter's default arguments:
+
+    python -m fudanocr_tpu_torch.utils.porters <model> <pth> <out_dir>
+
+An SR checkpoint's `state_dict_G` is read from under that key.
 """
 
 from __future__ import annotations
@@ -835,3 +844,30 @@ PORTERS = {
     "ic_neck": port_ic_neck,
     "encoding": port_encoding,
 }
+
+
+def main(argv=None):
+    import argparse
+
+    import torch
+
+    from fudanocr_tpu_torch.core import checkpoint as ckpt_lib
+
+    p = argparse.ArgumentParser(
+        description="convert a reference torch .pth to a checkpoint "
+                    "directory in the JAX package's format")
+    p.add_argument("model", choices=sorted(PORTERS))
+    p.add_argument("pth")
+    p.add_argument("out_dir")
+    args = p.parse_args(argv)
+
+    sd = torch.load(args.pth, map_location="cpu")
+    if isinstance(sd, dict) and "state_dict_G" in sd:
+        sd = sd["state_dict_G"]   # SR checkpoints (interfaces/base.py:260)
+    ckpt_lib.save_jax(args.out_dir, PORTERS[args.model](sd),
+                      meta={"source": args.pth, "model": args.model})
+    print(f"wrote {args.out_dir}")
+
+
+if __name__ == "__main__":
+    main()

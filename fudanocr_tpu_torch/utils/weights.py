@@ -18,6 +18,19 @@ for the way back, on a module or on any state_dict-like mapping, such as
 parameter was: through the porter it gives the gradients in the JAX
 layout beside the (updated) BatchNorm statistics. Keys the porter never
 reads (BatchNorm `num_batches_tracked`) keep the module's values.
+
+Every model of the port names its porter and the porter's arguments in
+`jax_porter` (`porter_of`); `jax_variables(module)` is its tree.
+
+As a command (the counterpart of the JAX package's
+utils/torch_export.py:168-196), a checkpoint directory in the JAX
+package's format back to a reference `.pth`:
+
+    python -m fudanocr_tpu_torch.utils.weights <model> <ckpt_dir> \
+        <template_pth> <out_pth>
+
+the template giving the keys, shapes and dtypes (an SR checkpoint's
+`state_dict_G` is read and written under that key).
 """
 
 from __future__ import annotations
@@ -29,6 +42,28 @@ import torch
 from torch import nn
 
 from fudanocr_tpu_torch.utils.porters import PORTERS
+
+
+def porter_of(module: nn.Module) -> Tuple[str, Dict[str, Any]]:
+    """(porter name, porter kwargs) of a port model (its `jax_porter`)."""
+    spec = getattr(module, "jax_porter", None)
+    if spec is None:
+        raise ValueError(f"{type(module).__name__} names no porter "
+                         "(jax_porter)")
+    return spec[0], dict(spec[1])
+
+
+def jax_variables(module: nn.Module) -> Dict[str, Any]:
+    """`module`'s {"params": ..., "batch_stats": ...} through its own
+    porter (numpy arrays)."""
+    name, kw = porter_of(module)
+    return to_jax_variables(module, name, **kw)
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):      # bfloat16 leaves of a checkpoint
+        return x.float().numpy()
+    return np.asarray(x)
 
 
 def _walk(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -73,30 +108,34 @@ def export_state_dict(porter: str, variables, template: Dict[str, Any],
         raise ValueError(f"variables do not match porter {porter!r}: "
                          f"missing={missing[:5]} extra={extra[:5]}")
 
-    flat = np.zeros((total,), np.float64)
-    filled = np.zeros((total,), bool)
+    leaves = []
     for path, idx in idx_leaves.items():
         idx = np.asarray(idx)
         if idx.dtype not in (np.int32, np.int64):
             raise ValueError(f"porter leaf {'/'.join(path)} synthesizes "
                              "values; it cannot be inverted")
-        val = np.asarray(val_leaves[path], np.float64)
+        val = _host(val_leaves[path])
         if val.shape != idx.shape:
             raise ValueError(f"shape mismatch at {'/'.join(path)}: "
                              f"variables {val.shape} vs module {idx.shape}")
-        ids, vals = idx.ravel(), val.ravel()
-        if np.unique(ids).size != ids.size:
-            order = np.argsort(ids, kind="stable")
-            si, sv = ids[order], vals[order]
-            if not ((si[1:] != si[:-1]) | (sv[1:] == sv[:-1])).all():
-                raise ValueError(f"leaf {'/'.join(path)} maps one element "
-                                 "to several values")
-        dup = filled[ids]
-        if dup.any() and not np.array_equal(flat[ids[dup]], vals[dup]):
-            raise ValueError(f"leaf {'/'.join(path)} re-writes elements "
-                             "with other values")
+        leaves.append((path, idx.ravel(), val.ravel()))
+    # the values' own precision (float32 for a float32 tree): the template
+    # dtypes are applied per key below
+    flat = np.zeros((total,), np.result_type(*(v for _, _, v in leaves))
+                    if leaves else np.float64)
+    filled = np.zeros((total,), bool)
+    for _, ids, vals in leaves:
         flat[ids] = vals
         filled[ids] = True
+    # an element written twice (within a leaf or across leaves) must have
+    # been given one value: read back, every leaf is what it wrote. Where
+    # the leaves wrote as many elements as they filled, none was written
+    # twice
+    if sum(ids.size for _, ids, _ in leaves) != np.count_nonzero(filled):
+        for path, ids, vals in leaves:
+            if not np.array_equal(flat[ids], vals):
+                raise ValueError(f"leaf {'/'.join(path)} maps elements that "
+                                 "other positions give other values")
 
     out: Dict[str, torch.Tensor] = {}
     for k, (off, shape) in key_meta.items():
@@ -141,3 +180,32 @@ def to_jax_variables(module: Union[nn.Module, Mapping[str, torch.Tensor]],
     sd = module.state_dict() if isinstance(module, nn.Module) else module
     state = {k: v.detach().cpu() for k, v in sd.items()}
     return PORTERS[porter](state, **porter_kwargs)
+
+
+def main(argv=None):
+    import argparse
+
+    from fudanocr_tpu_torch.core import checkpoint as ckpt_lib
+
+    p = argparse.ArgumentParser(
+        description="export a checkpoint directory in the JAX package's "
+                    "format back to a reference torch state_dict")
+    p.add_argument("model", choices=sorted(PORTERS))
+    p.add_argument("ckpt_dir")
+    p.add_argument("template_pth", help="reference .pth of the same "
+                   "architecture (keys/shapes/dtypes only)")
+    p.add_argument("out_pth")
+    args = p.parse_args(argv)
+
+    template = torch.load(args.template_pth, map_location="cpu")
+    wrap_g = isinstance(template, dict) and "state_dict_G" in template
+    sd = template["state_dict_G"] if wrap_g else template
+    tree = ckpt_lib.load_jax(args.ckpt_dir)
+    variables = {k: tree[k] for k in ("params", "batch_stats") if k in tree}
+    out = export_state_dict(args.model, variables, sd)
+    torch.save({"state_dict_G": out} if wrap_g else out, args.out_pth)
+    print(f"wrote {args.out_pth}")
+
+
+if __name__ == "__main__":
+    main()

@@ -5,8 +5,8 @@ stroke and character mode, `apps.ccr_clip.pretrain` then
 monkeypatching, as stage 2's config fixes them, as JAX's does),
 `apps.oictr.train`. Each run writes `ckpt_dir/best/`, which loads strictly
 into a fresh model; SLD's evaluation of it reproduces the run's accuracy;
-a stage-1 directory holding only JAX's state.msgpack raises, naming
-ROADMAP A4."""
+a stage-1 directory whose state.msgpack is not a CCR-CLIP tree raises
+(a JAX checkpoint that is one loads: tests/test_torch_checkpoint_jax.py)."""
 
 import functools
 import os
@@ -78,8 +78,8 @@ def test_stage2_refuses_a_jax_checkpoint(tmp_path):
 
     jax_dir = tmp_path / "jax_best"
     jax_dir.mkdir()
-    (jax_dir / "state.msgpack").write_bytes(b"\x80")
-    with pytest.raises(NotImplementedError, match="A4"):
+    (jax_dir / "state.msgpack").write_bytes(b"\x80")    # an empty map
+    with pytest.raises(ValueError, match="missing"):
         train.main(["--device", "cpu", "--options",
                     f"radical_model={jax_dir}", f"ckpt_dir={tmp_path}"])
 

@@ -28,7 +28,7 @@ from fudanocr_tpu_torch.ops.fused_layernorm import (
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "fudanocr_tpu_torch"
 ALLOWED_JAX_PACKAGE = frozenset()   # the port imports nothing of it
-FORBIDDEN = ("jax", "jaxlib", "flax", "PIL", "optax", "cv2")
+FORBIDDEN = ("jax", "jaxlib", "flax", "PIL", "optax", "cv2", "msgpack")
 
 
 def _imports(path: Path):

@@ -169,7 +169,8 @@ def test_test_only_leaves_a_trained_best_as_it_is(tmp_path, trainers):
                 for name in sorted(os.listdir(tmp_path / "best"))}
 
     before = files()
-    assert set(before) == {"meta.json", ckpt_lib.PAYLOAD}
+    assert set(before) == {"meta.json", ckpt_lib.PAYLOAD,
+                           ckpt_lib.JAX_STATE}
     app.main([CONFIG, *_options(tmp_path), "--test-only"])
     assert files() == before
 

@@ -21,7 +21,10 @@ Bars, with what they measured (CPU, torch 2.13, jax 0.9):
   app on the same weights (a JAX checkpoint of them): aAcc / mIoU / mDice
   / mFscore within 1e-3 (one pixel of the 14,336 moves aAcc by 7e-5;
   measured: 6.9e-5 without TTA, one pixel; 0 with it). A JAX-format
-  checkpoint directory raises.
+  checkpoint directory of those weights loads; one of another shape is
+  refused.
+* The bf16 resize's cached weight matrices made under inference mode (an
+  evaluation) serve a later training forward's backward.
 """
 
 import jax
@@ -94,6 +97,19 @@ def test_resize_nearest_is_jax_resize(src, dst):
     np.testing.assert_array_equal(
         _port_resize(x, dst, torch.float32, resize_nearest),
         _jax_resize(x, dst, jnp.float32, "nearest"))
+
+
+def test_bf16_resize_weights_from_inference_serve_a_backward():
+    from fudanocr_tpu_torch.ops import resize
+
+    resize._weights.cache_clear()
+    x = torch.randn(1, 2, 6, 10).bfloat16()
+    with torch.inference_mode():       # an evaluation fills the cache
+        want = resize_bilinear(x, (9, 15))
+    y = x.clone().requires_grad_()
+    got = resize_bilinear(y, (9, 15))
+    got.float().sum().backward()
+    assert torch.equal(got.detach(), want) and y.grad.shape == y.shape
 
 
 def _pseudo_logits(x, lib):
@@ -203,12 +219,18 @@ def test_checkpoint_loading_and_jax_format_refused(photos, checkpoints):
                                     seed=5, checkpoint=port_ckpt)
     want = model.state_dict()
     assert all(torch.equal(v, want[k]) for k, v in loaded.state_dict().items())
-    with pytest.raises(NotImplementedError, match="A4"):
-        pinf.init_segmentor(CONFIG, device="cpu", overrides=overrides,
-                            checkpoint=jax_ckpt)
-    with pytest.raises(NotImplementedError, match="A4"):
+    # JAX's checkpoint of the same weights loads; one of another shape is
+    # refused
+    loaded, _ = pinf.init_segmentor(CONFIG, device="cpu", overrides=overrides,
+                                    seed=5, checkpoint=jax_ckpt)
+    assert all(torch.equal(v, want[k]) for k, v in loaded.state_dict().items())
+    deeper = [o for o in overrides if "num_layers" not in o]   # (2, 2, 2, 2)
+    with pytest.raises(ValueError, match="missing"):
+        pinf.init_segmentor(CONFIG, device="cpu", checkpoint=jax_ckpt,
+                            overrides=deeper)
+    with pytest.raises(ValueError, match="missing"):
         papp.main([CONFIG, "--checkpoint", jax_ckpt, "--device", "cpu",
-                   "--options", *overrides])
+                   "--options", *deeper])
 
 
 def test_tta_over_slide_of_a_segmentor_matches_jax(photos, checkpoints):

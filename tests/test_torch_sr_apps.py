@@ -11,8 +11,8 @@ apps/scene_text_telescope/main.py, apps/text_gestalt/main.py) on the CPU.
 * Both apps run end to end with `--device cpu --srb 1` at batch 4 on a
   tiny LMDB and on the synthetic fallback; `--test --resume auto`
   reproduces the saved best evaluation exactly; `--demo` writes PNG
-  strips; the overwrite guard, the oracle checkpoint (ROADMAP A4), the SR
-  baselines (A6) and a missing card refuse to run.
+  strips; the overwrite guard, an oracle checkpoint that is not there, the
+  SR baselines (A6) and a missing card refuse to run.
 * `metrics.jsonl` carries JAX's tags: "train/<metric>" every 50 steps,
   "eval/<metric>" per evaluation."""
 
@@ -215,10 +215,11 @@ def test_guard_refuses_a_used_run_dir(tmp_path, lmdbs):
 
 def test_apps_refuse_what_is_not_ported(tmp_path, lmdbs):
     cfg = _config(tmp_path, lmdbs)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    # a configured oracle that is not there: no random oracle instead
+    with pytest.raises(FileNotFoundError):
         stt.main(["--config", cfg, "--arch", "tbsrn", *COMMON, "--options",
                   "TRAIN.VAL.oracle_checkpoint=/ckpt/oracle"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    with pytest.raises(FileNotFoundError):
         gestalt.main(["--config", cfg, "--arch", "tsrn", *COMMON,
                       "--options", "TRAIN.VAL.oracle_checkpoint=/o"])
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
