@@ -317,7 +317,26 @@ Phases:
      128 in bf16 beside fp32 in turns (its towers reach no kernel: the
      loss within 1e-2 of the fp32 step's; the gradients' distance from
      fp32 by top-level module, at random init and after 30 fp32 steps);
-     bf16 B2 against its plain version at every CTR row of phases 31-34.
+     bf16 B2 against its plain version at every CTR row of phases 31-34;
+ 36. checkpoints in the JAX package's format: TBSRN serving, the text-
+     focus app, the seg trainer and apps.seg.test, CCR-CLIP stage 2;
+ 37. the SR remainder: (a) the five baselines through
+     `scene_text_telescope.main --arch` on phase 27's recipe (batch 64,
+     fp32, 2 steps from a 128-crop LMDB, one evaluation), SRResNet with
+     `--text_focus` (B2 3 a step, 12 in the run), each trained model's
+     forward against the CPU's, and `text_gestalt.main --arch rdn` (one
+     step); (b) `GANSRTrainer`, RRDBNet (nb 23) against the SRGAN
+     discriminator at batch 16 for 2 iterations, both nets moved, its
+     first iteration against the same seed's on the CPU; (c) the
+     auxiliary losses at (64, 32, 128, 3) against the CPU (the
+     perceptual loss's float32 gradients against float64); (d) the ASTER
+     head at its defaults on (64, 25, 512): teacher-forced logits, greedy
+     ids and beam search at width 5 against the CPU, ms of each.
+
+A check that reads a torch.profiler trace (a kernel's name, launches by
+role) takes the trace again, up to three traces, while a name it wants is
+missing or a count falls short, and prints a line for each retake. Each
+phase prints the seconds it took (`chip_smoke: phaseN took ... s`).
 
 Phases 8 and 11 end with a torch.profiler breakdown of one more canvas
 (device time by name, the device's busy time against the wall time).
@@ -340,6 +359,7 @@ also holds B2 at its training rows and at its decoder passes' rows).
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import gc
 import glob
@@ -592,31 +612,59 @@ def device_ms(fn, iters: int) -> float:
                if e.device_type.name == "CUDA") / 1e3 / iters
 
 
-def kernel_names(phase: str, what: str, fn, dt, prefix: str,
-                 want: list) -> None:
-    """Print the kernels named `prefix`... that ten calls of `fn` (after a
-    warm-up call) launch, by name in a torch.profiler trace of host and
-    device, as `profile_step` takes it; fail unless they are `want`. The
-    profiler on the card's machine now and then delivers no device event
-    at all for a short trace (seen right after another trace); such a
-    trace is taken again, at most twice."""
+# a check that reads a torch.profiler trace takes the trace again, up to
+# TRACE_TAKES traces in all, when a kernel name it wants is missing or a
+# count it wants falls short: on the card's machine the profiler drops
+# device events now and then, a whole trace's (once in phase 22) or a few
+# of a long run's (an fp32 B9 trace held 7 or 9 of its 10 conv launches;
+# PERF.md section 7). A kernel that does not run still fails, three times
+TRACE_TAKES = 3
+
+
+def retaken(phase: str, what: str, take, missing):
+    """`take()`, taken again while `missing(result)` names what the check
+    wants and the result lacks, TRACE_TAKES times at most; each retake
+    prints one line naming the phase and what was missing. Returns the
+    last result, which the caller checks."""
+    for n in range(1, TRACE_TAKES + 1):
+        got = take()
+        lack = missing(got)
+        if not lack or n == TRACE_TAKES:
+            return got
+        print(f"phase {phase}: {what}: the profiler trace lacks {lack}; "
+              f"taking it again ({n + 1} of {TRACE_TAKES})")
+
+
+def lacking(want, got) -> str:
+    """The names of `want` not in `got`, as `retaken` prints them."""
+    return ", ".join(sorted(set(want) - set(got)))
+
+
+def traced_kernels(fn) -> set:
+    """The names of the kernels that ten calls of `fn` launch (after a
+    warm-up call), from a torch.profiler trace of host and device, as
+    `profile_step` takes it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                fn()
-            torch.cuda.synchronize()
-        kernels = {re.split(r"[<(]", re.sub(
-            r"^void |\(anonymous namespace\)::", "", e.key))[0]
-            for e in prof.key_averages() if e.device_time_total > 0}
-        if kernels:
-            break
-        print(f"phase {phase}: {what} {dt}: the profiler trace held no "
-              "device event; taking it again")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    return {re.split(r"[<(]", re.sub(
+        r"^void |\(anonymous namespace\)::", "", e.key))[0]
+        for e in prof.key_averages() if e.device_time_total > 0}
+
+
+def kernel_names(phase: str, what: str, fn, dt, prefix: str,
+                 want: list) -> None:
+    """Print the kernels named `prefix`... that `fn` launches
+    (`traced_kernels`, taken again while one of `want` is missing); fail
+    unless they are `want`."""
+    kernels = retaken(phase, f"{what} {dt}", lambda: traced_kernels(fn),
+                      lambda k: lacking(want, k))
     names = sorted(n for n in kernels if n.startswith(prefix))
     print(f"phase {phase}: {what} {dt} ran {names}")
     if names != want:
@@ -640,6 +688,20 @@ def in_turns(a, b, iters: int):
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
+def clocked(fn):
+    """Print the seconds each call of the phase `fn` takes (the whole
+    run's time budget is read from these lines)."""
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            print(f"chip_smoke: {fn.__name__} took "
+                  f"{time.perf_counter() - t0:.1f} s")
+    return run
+
+
 def enhancer_params(gen: torch.Generator, dev) -> dict:
     d = 128
 
@@ -655,6 +717,7 @@ def enhancer_params(gen: torch.Generator, dev) -> dict:
             "wp": rn(d, 64, s=d ** -0.5), "bp": rn(64, s=0.1)}
 
 
+@clocked
 def phase1(dev, gpu: str) -> dict:
     gen = torch.Generator().manual_seed(SEED)
     params = enhancer_params(gen, dev)
@@ -764,6 +827,7 @@ def ocr_models(dev) -> tuple:
     return sr, sr_plain, crnn, gen
 
 
+@clocked
 def phase2(dev, gpu: str):
     sr, sr_plain, crnn, gen = ocr_models(dev)
     conv = CTCLabelConverter(ALPHABET)
@@ -832,6 +896,7 @@ def phase2(dev, gpu: str):
     return pipe, lr, launches
 
 
+@clocked
 def phase3(pipe: PixelsToStrings, lr: torch.Tensor, gpu: str,
            phase: str = "3") -> None:
     n = 40
@@ -940,6 +1005,7 @@ def ln_case(phase: str, rows: int, d: int, dt, gen: torch.Generator, dev,
             "library_ms": None}
 
 
+@clocked
 def phase4(dev, gpu: str) -> dict:
     gen = torch.Generator().manual_seed(SEED + 4)
     result = {}
@@ -1007,6 +1073,7 @@ def dropout_kernel_names(phase: str, what: str, fn, dt) -> None:
     kernel_names(phase, what, fn, dt, "attn_dropout_", DROPOUT_KERNELS[dt])
 
 
+@clocked
 def phase5(dev, gpu: str) -> dict:
     l = 1024
     gen = torch.Generator().manual_seed(SEED + 5)
@@ -1164,6 +1231,7 @@ def split_ms(model, loss_fn, batch, gen) -> tuple:
             ev[1].elapsed_time(ev[2]))
 
 
+@clocked
 def phase6(dev, gpu: str) -> tuple:
     torch.manual_seed(SEED + 6)
     sr_kw = dict(scale_factor=2, width=128, height=32, stn=True,
@@ -1334,6 +1402,7 @@ def _attn_check(name, got, want, dt):
     return err
 
 
+@clocked
 def phase7(dev, gpu: str) -> tuple:
     gen = torch.Generator().manual_seed(SEED + 7)
     b7, b5 = {}, {}
@@ -1509,6 +1578,7 @@ def profile_canvas(model, img: np.ndarray, gpu: str,
               f"{e.count:5d}x {e.key[:90]}")
 
 
+@clocked
 def phase8(dev, gpu: str, models) -> int:
     model, plain, cfg = models
     test = cfg.test
@@ -1523,6 +1593,7 @@ def phase8(dev, gpu: str, models) -> int:
     return counts[1]
 
 
+@clocked
 def phase9(dev, gpu: str, models) -> int:
     model, plain, _ = models
     launches = 0
@@ -1551,6 +1622,7 @@ def blob_regions(dev, side: int = 256) -> torch.Tensor:
     return regions
 
 
+@clocked
 def phase10(dev, gpu: str) -> dict:
     gen = torch.Generator().manual_seed(SEED + 10)
     regions = blob_regions(dev)
@@ -1672,6 +1744,7 @@ def nontrivial_text_maps(model, plain, inputs: list,
                          f"{stats}")
 
 
+@clocked
 def phase11_12(dev, gpu: str) -> int:
     model, plain, cfg = det_models(dev)
     test = cfg.test
@@ -1818,6 +1891,7 @@ def bwd_check(q, k, v, do, ids, heads: int, dt, gpu: str,
             "library_ms": lib_ms}
 
 
+@clocked
 def phase13(dev, gpu: str) -> tuple:
     gen = torch.Generator().manual_seed(SEED + 13)
     # an instance map and an all-background image (every row of its
@@ -1951,6 +2025,7 @@ def profile_step(step, batch, gen, gpu: str, what: str) -> tuple:
     return rows, busy
 
 
+@clocked
 def train_recipe(config: str, want: tuple, dev, gpu: str) -> tuple:
     """Phases 14-16 for one recipe; returns phase 14's launches per step
     and phase 16's kernel path ms per step."""
@@ -2087,6 +2162,7 @@ GRU_ATOL = 1e-5   # fp32, the same recurrence in another summation order
 STROKE_VOCAB = 10
 
 
+@clocked
 def phase17(dev, gpu: str) -> dict:
     gen = torch.Generator().manual_seed(SEED + 17)
     result = {}
@@ -2154,6 +2230,7 @@ def compare_paths(phase: str, what: str, sr_out, sr_ref, crnn) -> None:
         raise AssertionError(f"phase {phase}: disagrees with {what}")
 
 
+@clocked
 def phase18(dev, gpu: str, pipe: PixelsToStrings,
             lr: torch.Tensor) -> int:
     """Phase 2's TBSRN run unfused (`fused_enhancer=False`)."""
@@ -2268,6 +2345,7 @@ def check_gru_x(args: tuple, what: str) -> float:
     return err
 
 
+@clocked
 def phase19(dev, gpu: str) -> dict:
     gen = torch.Generator().manual_seed(SEED + 19)
     # (a) the projection-off entry (JAX's fused_bigru) over fp32 projections
@@ -2351,6 +2429,7 @@ def tsrn(dev, **kw) -> TSRN:
                 srb_nums=SRB_NUMS, hidden_units=32, **kw).to(dev)
 
 
+@clocked
 def phase20(dev, gpu: str, crnn, lr: torch.Tensor) -> int:
     torch.manual_seed(SEED + 20)
     gen = torch.Generator().manual_seed(SEED + 20)
@@ -2398,6 +2477,7 @@ def phase20(dev, gpu: str, crnn, lr: torch.Tensor) -> int:
     return launches
 
 
+@clocked
 def phase20_alone(dev, gpu: str) -> int:
     """Phase 20 without phase 2: a CRNN(37, 256) in bf16 with non-trivial
     BN statistics and an LR batch from phase 2's seeds."""
@@ -2409,6 +2489,7 @@ def phase20_alone(dev, gpu: str) -> int:
     return phase20(dev, gpu, crnn.to(dev).eval(), lr)
 
 
+@clocked
 def phase21(dev, gpu: str) -> int:
     torch.manual_seed(SEED + 21)
     oracle_kw = dict(vocab=STROKE_VOCAB, num_in=1, layers=(1, 2, 5, 3),
@@ -2666,6 +2747,7 @@ def cudnn_convs(x: torch.Tensor, ops: dict):
                             bs[1], padding=1)
 
 
+@clocked
 def phase22(dev, gpu: str) -> dict:
     gen = torch.Generator().manual_seed(SEED + 22)
     torch.manual_seed(SEED + 22)
@@ -2710,7 +2792,8 @@ def phase22(dev, gpu: str) -> dict:
         # 5 calls held 7 or 9 of its 10 conv launches), so the launches a
         # call are printed, and tests/test_torch_fused_srb.py
         # `test_a_call_runs_its_kernels` holds them in a fresh process
-        prof = profiled(lambda: fused_srb(x, ops), 5)
+        prof = profiled(lambda: fused_srb(x, ops), 5, "22",
+                        f"a B9 call {shape}", B9_KERNELS[dt])
         ran = {k: n for k, (_, n) in prof.items()}
         if sorted(ran) != sorted(B9_KERNELS[dt]):
             raise AssertionError(f"phase 22: a B9 call {shape} ran {ran}, "
@@ -2740,6 +2823,7 @@ def phase22(dev, gpu: str) -> dict:
     return result[(BATCH, torch.bfloat16)]
 
 
+@clocked
 def phase23(dev, gpu: str, pipe: PixelsToStrings,
             lr: torch.Tensor) -> int:
     """Phase 2's TBSRN with `fused_srb=True`: every SRB through B9."""
@@ -2811,6 +2895,7 @@ def phase23(dev, gpu: str, pipe: PixelsToStrings,
     return got[0]
 
 
+@clocked
 def phase24(dev, gpu: str) -> tuple:
     l, heads, dh = B10_L, HEADS, 32
     gen = torch.Generator().manual_seed(SEED + 24)
@@ -2988,6 +3073,7 @@ def bf16_step_bar(what: str, losses: tuple, models: tuple) -> dict:
     return r
 
 
+@clocked
 def phase25(dev, gpu: str) -> tuple:
     torch.manual_seed(SEED + 25)
     sr_kw = dict(scale_factor=2, width=128, height=32, stn=True,
@@ -3219,10 +3305,11 @@ def served_device_ms(pipe: PixelsToStrings, path: str) -> dict:
     return got
 
 
+@clocked
 def phase26(dev, gpu: str, pipe: PixelsToStrings) -> int:
     """LMDB -> strings through `LMDBToStrings` with phase 2's bf16 pipe."""
     n, batches_n = LMDB_IMAGES, -(-LMDB_IMAGES // BATCH)
-    sub = 2 * BATCH          # the host's diagnostics run on 512 images
+    sub = BATCH // 2         # the host's diagnostics run on 128 images
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lmdb_") as tmp:
         path, smooth = os.path.join(tmp, "db"), os.path.join(tmp, "smooth")
         t0 = time.perf_counter()
@@ -3330,6 +3417,7 @@ def phase26(dev, gpu: str, pipe: PixelsToStrings) -> int:
     return launches
 
 
+@clocked
 def phase26_alone(dev, gpu: str) -> int:
     """Phase 26 without phase 2: its pipe from phase 2's seeds."""
     sr, _, crnn, _ = ocr_models(dev)
@@ -3347,7 +3435,7 @@ SEG_APP_SHAPES = ((1024, 768),) * 8 + ((768, 1024),) * 8
 SEG_APP_VAL_SHAPES = ((1024, 768),) * 2
 # 4 + 2 iterations: at 6 + 2 phases 27-28 took 139 s (PERF.md §6, PR 17)
 SEG_APP_ITERS, SEG_APP_MORE = 4, 2
-SR_HOST_BATCHES, SEG_HOST_SAMPLES = 4, 2   # the host's timed share
+SR_HOST_BATCHES, SEG_HOST_SAMPLES = 2, 1   # the host's timed share
 
 
 @contextlib.contextmanager
@@ -3423,9 +3511,9 @@ def finite_losses(rec) -> list:
 
 
 def sr_app_config(tmp: str, name: str, train: list, val: list,
-                  epochs: int, val_every: int) -> tuple:
-    """A YAML config of the SR apps (phase 6's recipe, batch 64) -> (its
-    path, the checkpoint dir, the demo dir)."""
+                  epochs: int, val_every: int, **extra) -> tuple:
+    """A YAML config of the SR apps (phase 6's recipe, batch 64; `extra`
+    TRAIN keys over it) -> (its path, the checkpoint dir, the demo dir)."""
     ckpt, demo = (os.path.join(tmp, name, d) for d in ("ckpt", "demo"))
     cfg = {"TRAIN": {
         "train_data_dir": train, "batch_size": TRAIN_B, "width": 128,
@@ -3433,14 +3521,15 @@ def sr_app_config(tmp: str, name: str, train: list, val: list,
         "manualSeed": SEED + 27, "max_len": 100, "down_sample_scale": 2,
         "ckpt_dir": ckpt, "synthetic_samples": 512, "voc_type": "all",
         "VAL": {"val_data_dir": val, "valInterval": val_every, "n_vis": 10,
-                "vis_dir": demo}}}
+                "vis_dir": demo}, **extra}}
     path = os.path.join(tmp, f"{name}.yaml")
     with open(path, "w") as f:
         f.write(dump_yaml(cfg))
     return path, ckpt, demo
 
 
-SR_FEED_STEPS, SR_FEED_WARM = 8, 2   # steps a feed turn (an epoch), warm-up
+SR_FEED_STEPS, SR_FEED_WARM = 4, 2   # steps a feed turn, warm-up
+SR_FEED_ORDER = ("workers", "main", "thread")   # one turn each
 
 
 def sr_feed_turns(trainer) -> dict:
@@ -3449,9 +3538,9 @@ def sr_feed_turns(trainer) -> dict:
     forked processes, the prefetch thread stages each batch); "main", the
     feed with no workers (the host work and copy in the main thread before
     each step); "thread", the host work of no workers and the copy on the
-    prefetch thread (JAX's feed). In turns workers, main, thread, thread,
-    main, workers; per turn (ms per step over all SR_FEED_STEPS steps, ms
-    per step after SR_FEED_WARM)."""
+    prefetch thread (JAX's feed). In turns in SR_FEED_ORDER; per turn (ms
+    per step over all SR_FEED_STEPS steps, ms per step after
+    SR_FEED_WARM)."""
     data, workers = trainer.train_data, trainer.num_workers
 
     def feed(n: int, thread: bool = False):
@@ -3465,8 +3554,7 @@ def sr_feed_turns(trainer) -> dict:
              "thread": lambda: feed(0, thread=True)}
     walls = {k: [] for k in feeds}
     try:
-        for name in ("workers", "main", "thread", "thread", "main",
-                     "workers"):
+        for name in SR_FEED_ORDER:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             batches = feeds[name]()
@@ -3488,6 +3576,7 @@ def sr_feed_turns(trainer) -> dict:
     return walls
 
 
+@clocked
 def phase27(dev, gpu: str, step6_ms=None) -> None:
     """The SR training journey through the apps, fed from LMDBs on disk."""
     from fudanocr_tpu_torch.apps.scene_text_telescope import main as stt
@@ -3623,9 +3712,9 @@ def phase27(dev, gpu: str, step6_ms=None) -> None:
         steady = {k: float(np.median([w[1] for w in v]))
                   for k, v in walls.items()}
         print(f"phase 27a: feed turns of {SR_FEED_STEPS} steps, wall ms "
-              f"per step (all steps, after {SR_FEED_WARM}), each feed "
-              f"twice: {trainer.num_workers} forked workers into the "
-              f"prefetch thread (the app's) {walls['workers']}, main "
+              f"per step (all steps, after {SR_FEED_WARM}), in the order "
+              f"{SR_FEED_ORDER}: {trainer.num_workers} forked workers into "
+              f"the prefetch thread (the app's) {walls['workers']}, main "
               f"thread {walls['main']}, one process's host work on the "
               f"prefetch thread {walls['thread']}; medians after "
               f"{SR_FEED_WARM} {steady}: the workers' "
@@ -3716,6 +3805,7 @@ def seg_app_photos(root: str, shapes, seed: int) -> None:
             f.write(encode_png(ann))
 
 
+@clocked
 def phase28(dev, gpu: str, step16_ms=None) -> None:
     """The seg training journey through apps.seg.train, fed from a
     directory of JPEG photos and PNG annotations."""
@@ -3948,16 +4038,26 @@ def bf16_step_recipe(config: str, want: tuple, dev, gpu: str) -> tuple:
     _, step_k = recipe_step(model, cfg)
     _, step_f = recipe_step(fp, cfg)
     gk, gf = (torch.Generator(dev).manual_seed(9) for _ in range(2))
-    rows, busy = profile_step(step_k, batch, gk, gpu, f"phase 29: {tag} bf16")
-    by_role = bf16_step_launches(rows)
-    attn_dev = sum(e.device_time_total for e in rows
-                   if attn_template_args(e.key)[0].startswith("attn_")) / 1e3
     b7f, b7b, b6f, b6b = want
     want_roles = {"stats_fwd_plain": b7f, "dq_plain": b7b, "dkv_plain": b7b,
                   "reduce": b7b + b6b}
     if b6f:
         want_roles.update(stats_fwd_masked=b6f, dq_masked=b6b,
                           dkv_masked=b6b)
+
+    def short(traced) -> str:
+        got = bf16_step_launches(traced[0])
+        return ", ".join(f"{role} {got.get(role, 0)} of {n}"
+                         for role, n in want_roles.items()
+                         if got.get(role, 0) < n)
+
+    rows, busy = retaken("29", f"{tag}: the profiled bf16 step",
+                         lambda: profile_step(step_k, batch, gk, gpu,
+                                              f"phase 29: {tag} bf16"),
+                         short)
+    by_role = bf16_step_launches(rows)
+    attn_dev = sum(e.device_time_total for e in rows
+                   if attn_template_args(e.key)[0].startswith("attn_")) / 1e3
     print(f"phase 29: {tag}: bf16 launches per step by kernel (profiler "
           f"names of csrc/unmasked_attention.cu): {by_role} (expected "
           f"{want_roles}); attention {attn_dev:.3f} ms of {busy:.3f} ms "
@@ -4124,6 +4224,7 @@ def bf16_step_kernels(dev, gpu: str) -> dict:
     return rows
 
 
+@clocked
 def phase29(dev, gpu: str) -> dict:
     rows = bf16_step_kernels(dev, gpu)
     out = {}
@@ -4136,6 +4237,7 @@ def phase29(dev, gpu: str) -> dict:
             "bwd_plain": lvl0("bwd", False), "bwd_masked": lvl0("bwd", True)}
 
 
+@clocked
 def phase30(dev, gpu: str) -> dict:
     """bf16 seg inference: slide, whole image, det-guided slide and TTA
     through apps.seg.test, each against the bf16 plain path."""
@@ -4396,21 +4498,20 @@ def ctr_decode_check(phase: str, what: str, decode, model, plain,
     return n
 
 
-def profiled(fn, iters: int = 1) -> dict:
-    """`profile_kernels(fn, iters)`, taken again (up to three times) when
-    the trace holds no device event (late in a full run the profiler has
-    returned such traces, in phases 22 and 31-33; PERF.md section 7)."""
-    for _ in range(3):
-        split = profile_kernels(fn, iters)
-        if split:
-            break
-    return split
+def profiled(fn, iters: int = 1, phase: str = "", what: str = "",
+             want=()) -> dict:
+    """`profile_kernels(fn, iters)`, taken again (`retaken`) while a
+    kernel named in `want` is missing, or, with none wanted, while the
+    trace holds no device event."""
+    return retaken(phase, what, lambda: profile_kernels(fn, iters),
+                   lambda split: (lacking(want, split) if want else
+                                  "" if split else "every device event"))
 
 
-def profile_totals(fn) -> tuple:
+def profile_totals(fn, phase: str = "", what: str = "", want=()) -> tuple:
     """(device ms, launches, B2 launches by kernel name) of one call of
-    `fn` in a profiler trace."""
-    split = profiled(fn)
+    `fn` in a profiler trace (`profiled`)."""
+    split = profiled(fn, 1, phase, what, want)
     return (sum(ms for ms, _ in split.values()),
             sum(c for _, c in split.values()),
             {k: c for k, (_, c) in split.items() if k.startswith("ln_")})
@@ -4430,7 +4531,7 @@ def ctr_timings(phase: str, what: str, step_k, step_p, batch: dict,
     by_name, busy = {}, {}
     for key, fn in (("step", lambda: step_k(batch, gen)),
                     ("decode", decode_k)):
-        split = profiled(fn)
+        split = profiled(fn, 1, phase, f"{what} {key}", [LN_NAME])
         by_name[key] = {n: c for n, (_, c) in split.items()
                         if n.startswith("ln_")}
         busy[key] = sum(ms for ms, _ in split.values())
@@ -4480,6 +4581,7 @@ def ctr_report(phase: str, app: str, entry: int, per_step: int,
                       "b2_decode": ln[1], "card": gpu}))
 
 
+@clocked
 def phase31(dev, gpu: str) -> tuple:
     """SLD in stroke mode: ResNet (3, 4, 6, 3) with the stem pool only,
     d_embed 512, d_model 1024, d_ff 2048, 32x32, batch 32, max_len 30,
@@ -4517,6 +4619,7 @@ def phase31(dev, gpu: str) -> tuple:
     return entry, ln[0]
 
 
+@clocked
 def phase32(dev, gpu: str) -> int:
     """CCR-CLIP: stage 1 (`pretrain`: ResNet-50 on 128x128, 12 text layers
     of width 512, 8 heads, embed 2048, context 30, batch 32), then stage 2
@@ -4591,6 +4694,7 @@ def phase32(dev, gpu: str) -> int:
     return entry
 
 
+@clocked
 def phase33(dev, gpu: str) -> int:
     """OI-CTR: the oictr encoder (3, 4, 6), d_model 512, d_embed 256,
     32x128, batch 32, max_len 16; 11 epochs of 4 updates, across the SGDR
@@ -4636,6 +4740,7 @@ def phase33(dev, gpu: str) -> int:
     return entry
 
 
+@clocked
 def phase34(dev, gpu: str) -> tuple:
     """ACPM: the ResNet encoder (3, 4, 6, 3) with the stem pool only,
     d_model 1024, 32x32, batch 32, max_len 12, Adadelta lr 1.0, the L1
@@ -4719,6 +4824,7 @@ def grad_groups(model, other) -> dict:
             for k, (d, gf, ff) in sums.items()}
 
 
+@clocked
 def phase35(dev, gpu: str) -> tuple:
     """SLD (phase 31's model and batch) in bf16: one step and one greedy
     decode against `kernels=False`, step and decode ms beside fp32's in
@@ -4781,10 +4887,15 @@ def phase35(dev, gpu: str) -> tuple:
     s_ms = in_turns(lambda: steps[0](batch, gen), lambda: steps[3](batch, gen),
                     3)
     d_ms = in_turns(lambda: dec(models[0]), lambda: dec(models[3]), 2)
-    prof = {"step": [profile_totals(lambda: st(batch, gen)) for st in
-                     (steps[0], steps[3])],
-            "decode": [profile_totals(lambda: dec(m)) for m in
-                       (models[0], models[3])]}
+    # B2 by name in the kernel path's trace (the plain path has none)
+    prof = {"step": [profile_totals(lambda: st(batch, gen), "35",
+                                    f"bf16 SLD step {i}", want)
+                     for i, st, want in ((0, steps[0], [LN_NAME]),
+                                         (3, steps[3], []))],
+            "decode": [profile_totals(lambda: dec(m), "35",
+                                      f"bf16 SLD decode {i}", want)
+                       for i, m, want in ((0, models[0], [LN_NAME]),
+                                          (3, models[3], []))]}
     for key, want in (("step", per_step), ("decode", per_decode)):
         got = prof[key][0][2]
         if set(got) != {LN_NAME}:
@@ -4920,6 +5031,7 @@ def rewrites_bytes(path: str) -> bool:
     return serialization.to_bytes(serialization.from_bytes(raw)) == raw
 
 
+@clocked
 def phase36a(dev, gpu: str, tmp: str) -> dict:
     """Phase 2's TBSRN (bf16, batch 256) serves a batch, is saved as best/
     in JAX's format, and that checkpoint is loaded into the same warm
@@ -4982,6 +5094,7 @@ def phase36a(dev, gpu: str, tmp: str) -> dict:
                            "load_ms": load_ms}}
 
 
+@clocked
 def phase36b(dev, gpu: str, tmp: str) -> dict:
     """scene_text_telescope.main --text_focus, 2 steps, resumed (--resume
     auto) from a best/ holding only state.msgpack, three times: with the
@@ -5085,6 +5198,7 @@ def opt_states_equal(a: SegTrainer, b: SegTrainer) -> bool:
                for n in pa for k in ("step", "exp_avg", "exp_avg_sq"))
 
 
+@clocked
 def phase36c(dev, gpu: str, tmp: str) -> dict:
     """The plain seg recipe (512², batch 8): iter_2/ written by SegTrainer,
     resumed from a copy holding only state.msgpack and from state.pt, the
@@ -5171,6 +5285,7 @@ def phase36c(dev, gpu: str, tmp: str) -> dict:
                          "resume_msgpack_ms": jms, "resume_pt_ms": pms}}
 
 
+@clocked
 def phase36d(dev, gpu: str, tmp: str) -> dict:
     """CCR-CLIP stage 2's gallery from a stage-1 best/ holding only
     state.msgpack, bit-equal to the gallery from its state.pt."""
@@ -5211,6 +5326,7 @@ def phase36d(dev, gpu: str, tmp: str) -> dict:
                           "gallery_pt_ms": galleries["state.pt ms"]}}
 
 
+@clocked
 def phase36(dev, gpu: str) -> None:
     """Checkpoint interchange on the card: (a) TBSRN serving, (b) the text-
     focus app, (c) the seg trainer and apps.seg.test, (d) CCR-CLIP stage
@@ -5226,13 +5342,318 @@ def phase36(dev, gpu: str) -> None:
                       "card": gpu}))
 
 
+# -- phase 37: the SR remainder (ROADMAP A6) ---------------------------------
+
+SR_BASELINES = ("srcnn", "srresnet", "edsr", "rdn", "esrgan")
+# a baseline's forward on the card against the same weights on the CPU,
+# fp32 with TF32 off: max |card - CPU| over max(1, max |CPU|); cuDNN and
+# oneDNN sum each conv in other orders (EDSR: 66 convs over 2,304 terms)
+BASELINE_REL = 1e-4
+GAN_B, GAN_ITERS = 16, 2
+# the first GAN iteration on the card against the CPU: d_loss and pix
+# relative; g_adv reads D after an Adam step whose eps-1e-8 update is
+# +-lr * sign(g) also where g is rounding noise (the conv biases in front
+# of D's train-mode BatchNorms), so a sign there may differ
+GAN_REL = {"d_loss": 1e-4, "pix": 1e-4, "g_adv": 1e-3}
+AUX_SHAPE = (64, 32, 128, 3)       # NHWC: the SR batch of phase 6
+AUX_REL = 1e-5                     # loss values; gradients norm-relative 1e-4
+# the perceptual loss's float32 gradient on the card and on the CPU against
+# float64 on the card, norm-relative: 2.1e-3 (CPU) and 5.4e-3 (card)
+# measured (PERF.md section 6), a cancellation in the loss, not the devices'
+PERCEPTUAL_GRAD_REL = 1e-2
+ASTER_SHAPE = (64, 25, 512)        # batch, encoder steps, in_planes
+ASTER_ATOL = 1e-4                  # teacher-forced logits
+# beam scores, sums of 100 log-probabilities (|score| ~ 10^2): relative to
+# the largest |score|
+ASTER_SCORE_REL = 1e-5
+
+
+def rel_to_scale(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max(1, max |want|)."""
+    want = want.float()
+    return ((got.float().cpu() - want).abs().max()
+            / want.abs().max().clamp(min=1.0)).item()
+
+
+def he_init(module: torch.nn.Module, gen: torch.Generator):
+    """Conv weights normal with std sqrt(2 / fan_in) from `gen`, biases 0:
+    a random VGG16 whose relu5_3 keeps the input's scale."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                               * (2.0 / m.weight[0].numel()) ** 0.5)
+                m.bias.zero_()
+    return module
+
+
+@clocked
+def phase37a(dev, gpu: str, tmp: str) -> dict:
+    """The five baselines through `scene_text_telescope.main --arch`, 2
+    steps and one evaluation each (SRResNet with the text-focus oracle),
+    their forwards against the CPU's; `text_gestalt.main --arch rdn`, one
+    step."""
+    from fudanocr_tpu_torch.apps.scene_text_telescope import main as stt
+    from fudanocr_tpu_torch.apps.text_gestalt import main as gestalt
+
+    train, val = os.path.join(tmp, "train"), os.path.join(tmp, "val")
+    create_dataset(train, lmdb_crops(2 * TRAIN_B, SEED + 37))
+    create_dataset(val, lmdb_crops(TRAIN_B, SEED + 370))
+    x = torch.rand(4, *LR_HW, 3, generator=torch.Generator().manual_seed(
+        SEED + 37))
+    b2 = lambda: (fused_residual_layernorm.launches,)
+    out = {}
+    runs = [(stt, a, [train]) for a in SR_BASELINES] + [
+        (gestalt, "rdn", [os.path.join(tmp, "one")])]
+    create_dataset(runs[-1][2][0], lmdb_crops(TRAIN_B, SEED + 371))
+    for app, arch, data in runs:
+        name = f"{app.__name__.split('.')[-2]} --arch {arch}"
+        cfg, _, _ = sr_app_config(tmp, f"{arch}_{len(out)}", data, [val], 1,
+                                  10 ** 9, workers=0)
+        argv = ["--config", cfg, "--arch", arch]
+        focus = app is stt and arch == "srresnet"
+        if focus:
+            argv.append("--text_focus")
+        t0 = time.perf_counter()
+        fused_residual_layernorm.launches = 0      # the run, counted
+        with recording(train_sr, "make_sr_train_step", SRTrainer,
+                       b2) as rec:
+            res = app.main(argv)
+            torch.cuda.synchronize()
+        total = b2()
+        wall = time.perf_counter() - t0
+        losses = finite_losses(rec)
+        per_step = sorted({d for _, d, _ in rec["steps"]})
+        model = rec["trainers"][0].model
+        with torch.inference_mode():
+            err = rel_to_scale(model(x.to(dev)),
+                               copy.deepcopy(model).cpu()(x))
+        want_steps = 2 if app is stt else 1
+        # text focus: 3 B2 launches an oracle forward, one in the step (the
+        # HR map cached) and one for the HR map in epoch 0 (phase 27c)
+        want_b2 = ([(3,)], (6 * want_steps,)) if focus else ([(0,)], (0,))
+        print(f"phase 37a: {name}: {len(losses)} steps, losses "
+              f"{[round(v, 4) for v in losses]}, {len(rec['evals'])} "
+              f"evaluation {res}; B2 launches per step {per_step}, in the "
+              f"run {total} (expected {want_b2}); forward on the card "
+              f"against the CPU {err:.3e} of max(1, |out|) (bar "
+              f"{BASELINE_REL}); {wall:.2f} s [{gpu}]")
+        if (len(losses) != want_steps or len(rec["evals"]) != 1
+                or not np.isfinite(res["psnr"])
+                or (per_step, total) != want_b2 or not err <= BASELINE_REL):
+            raise AssertionError(f"phase 37a: {name} failed its checks")
+        out[name] = {"losses": losses, "forward_rel_err": err,
+                     "b2_per_step": per_step[0][0], "b2_run": total[0],
+                     "seconds": wall}
+        del rec, model
+    return {"apps": out}
+
+
+@clocked
+def phase37b(dev, gpu: str) -> dict:
+    """GANSRTrainer: RRDBNet (nb 23) against SRDiscriminator at batch 16, 2
+    iterations on the card; its first iteration against the same
+    iteration on the CPU, from the same seed's weights and batch."""
+    from fudanocr_tpu_torch.models.sr.baselines import (RRDBNet,
+                                                        SRDiscriminator)
+    from fudanocr_tpu_torch.train.gan import GANSRTrainer
+
+    data = SeededTextZoom(GAN_B * GAN_ITERS, SEED + 37)
+    t = GANSRTrainer(RRDBNet().to(dev), SRDiscriminator().to(dev), data,
+                     batch_size=GAN_B, seed=SEED + 37)
+    start = [{k: v.clone() for k, v in n.state_dict().items()}
+             for n in (t.g, t.d)]
+    seen = []
+    d_step, g_step = t.d_step, t.g_step
+
+    def d_rec(lr, hr):
+        seen.append({"d_loss": d_step(lr, hr).item()})
+        return torch.tensor(seen[-1]["d_loss"])
+
+    def g_rec(lr, hr):
+        out = g_step(lr, hr)
+        seen[-1].update({k: v.item() for k, v in out.items()})
+        return out
+
+    t.d_step, t.g_step = d_rec, g_rec
+    t0 = time.perf_counter()
+    last = t.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    moved = [sum(not torch.equal(v, s0[k]) for k, v in n.state_dict().items()
+                 if v.is_floating_point())
+             for n, s0 in zip((t.g, t.d), start)]
+    del t
+    torch.cuda.empty_cache()
+    # the CPU: the same seed draws the same weights; one iteration
+    tc = GANSRTrainer(RRDBNet(), SRDiscriminator(), None, batch_size=GAN_B,
+                      seed=SEED + 37)
+    hr, lr, _ = next(data.batches(GAN_B))
+    lr_c, hr_c = torch.from_numpy(lr), torch.from_numpy(hr)
+    t0 = time.perf_counter()
+    cpu = {"d_loss": tc.d_step(lr_c, hr_c).item(),
+           **{k: v.item() for k, v in tc.g_step(lr_c, hr_c).items()}}
+    cpu_s = time.perf_counter() - t0
+    rel = {k: abs(seen[0][k] - cpu[k]) / abs(cpu[k]) for k in GAN_REL}
+    print(f"phase 37b: GANSRTrainer RRDBNet (nb 23) + SRDiscriminator, batch "
+          f"{GAN_B}, {len(seen)} iterations in {wall:.2f} s: {seen}; "
+          f"returned {last}; parameters moved (G, D tensors) {moved}; the "
+          f"first iteration on the CPU {cpu} ({cpu_s:.2f} s), relative "
+          f"{rel} (bars {GAN_REL}) [{gpu}]")
+    if (len(seen) != GAN_ITERS or not np.isfinite(
+            [v for it in seen for v in it.values()]).all()
+            or not all(moved) or any(rel[k] > GAN_REL[k] for k in GAN_REL)):
+        raise AssertionError("phase 37b: GANSRTrainer failed its checks")
+    return {"gan": {"iterations": seen, "cpu_first": cpu, "rel": rel,
+                    "seconds": wall}}
+
+
+@clocked
+def phase37c(dev, gpu: str) -> dict:
+    """The auxiliary losses at (64, 32, 128, 3) on the card against the
+    CPU: values, and the gradient in the SR image. The perceptual loss's
+    float32 gradients, the card's and the CPU's, are held against its
+    float64 one on the card (PERCEPTUAL_GRAD_REL): relu5_3 of two noise
+    images nearly agree, so f(sr) - f(hr) cancels, and the float32
+    gradient is some 1e-3 (norm) off float64 on either device."""
+    from fudanocr_tpu_torch.losses import aux_losses as aux
+
+    gen = torch.Generator().manual_seed(SEED + 37)
+    sr, hr = (torch.rand(AUX_SHAPE, generator=gen) for _ in range(2))
+    logits = torch.randn(2, AUX_SHAPE[0], generator=gen) * 3
+    vgg = he_init(aux.VGG16Features(), gen)
+    nets = {(dev, torch.float32): copy.deepcopy(vgg).to(dev),
+            (torch.device("cpu"), torch.float32): vgg,
+            (dev, torch.float64): copy.deepcopy(vgg).to(dev, torch.float64)}
+    cases = {"gradient_prior": lambda s, h, v: aux.gradient_prior_loss(s, h),
+             "total_variation": lambda s, h, v: aux.total_variation_loss(s),
+             "perceptual": lambda s, h, v: aux.perceptual_loss(v, s, h),
+             "gan_generator": None, "gan_discriminator": None}
+    out, bad = {}, []
+    for name, fn in cases.items():
+        if fn is None:                  # on the logits
+            args = ((logits[0],) if name == "gan_generator"
+                    else (logits[0], logits[1]))
+            fn = getattr(aux, f"{name}_loss")
+            vals = [fn(*(a.to(d) for a in args)).item()
+                    for d in (dev, torch.device("cpu"))]
+            row = {"grad_rel": 0.0}
+        else:
+            runs = [(dev, torch.float32), (torch.device("cpu"), torch.float32)]
+            if name == "perceptual":
+                runs.append((dev, torch.float64))
+            vals, grads = [], []
+            for d, dt in runs:
+                s = sr.detach().to(d, dt).requires_grad_()
+                loss = fn(s, hr.to(d, dt), nets[(d, dt)])
+                loss.backward()
+                vals.append(loss.item())
+                grads.append(s.grad.double().cpu())
+            dist = lambda a, b: ((a - b).norm() / b.norm()).item()
+            row = {"grad_rel": dist(grads[0], grads[1])}
+            if name == "perceptual":
+                row.update(card_to_fp64=dist(grads[0], grads[2]),
+                           cpu_to_fp64=dist(grads[1], grads[2]))
+                if max(row["card_to_fp64"],
+                       row["cpu_to_fp64"]) > PERCEPTUAL_GRAD_REL:
+                    bad.append(name)
+            elif row["grad_rel"] > 1e-4:
+                bad.append(name)
+        row.update(card=vals[0], cpu=vals[1],
+                   rel=abs(vals[0] - vals[1]) / abs(vals[1]))
+        if row["rel"] > AUX_REL:
+            bad.append(name)
+        out[name] = row
+    print(f"phase 37c: auxiliary losses at {AUX_SHAPE} (NHWC), card against "
+          f"the CPU (bars: value {AUX_REL} relative; gradient 1e-4 "
+          f"norm-relative, the perceptual one's float32 on either device "
+          f"{PERCEPTUAL_GRAD_REL} from the card's float64): {out} [{gpu}]")
+    if bad:
+        raise AssertionError(f"phase 37c: {bad} disagree with the CPU")
+    return {"aux_losses": out}
+
+
+@clocked
+def phase37d(dev, gpu: str) -> dict:
+    """ASTERAttentionHead at its defaults (512 / 512 / 512, max_len 100) on
+    a seeded (64, 25, 512) sequence, card against CPU: teacher-forced
+    logits, greedy ids, beam search at width 5; ms of each."""
+    from fudanocr_tpu_torch.eval.attention_codec import \
+        AttentionLabelConverter
+    from fudanocr_tpu_torch.models.rec.aster_head import ASTERAttentionHead
+
+    codec = AttentionLabelConverter()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED + 37)
+        head = ASTERAttentionHead(codec.num_classes)
+        # logits that spread (std ~5) so that no greedy step or beam rank
+        # sits within the card's rounding of a tie
+        with torch.no_grad():
+            head.decoder.fc.weight.mul_(10.0)
+    gen = torch.Generator().manual_seed(SEED + 37)
+    x = torch.randn(ASTER_SHAPE, generator=gen)
+    rng = np.random.default_rng(SEED + 37)
+    labels = ["".join(rng.choice(list(ALPHABET), int(rng.integers(3, 30))))
+              for _ in range(ASTER_SHAPE[0])]
+    tgt = torch.from_numpy(codec.encode(labels, head.max_len)[0]).long()
+    head_dev = copy.deepcopy(head).to(dev)
+    xd, td = x.to(dev), tgt.to(dev)
+    with torch.inference_mode():
+        tf = [head_dev(xd, td), head(x, tgt)]
+    greedy = [head_dev.sample(xd), head.sample(x)]
+    beam = [head_dev.beam_search(xd, 5, codec.eos),
+            head.beam_search(x, 5, codec.eos)]
+    tf_err = (tf[0].cpu() - tf[1]).abs().max().item()
+    greedy_eq = torch.equal(greedy[0][0].cpu(), greedy[1][0])
+    beam_eq = torch.equal(beam[0][0].cpu(), beam[1][0])
+    beam_err = ((beam[0][1].cpu() - beam[1][1]).abs().max()
+                / beam[1][1].abs().max()).item()
+    with torch.inference_mode():
+        ms = {"teacher_forced": cuda_ms(lambda: head_dev(xd, td), 3),
+              "greedy": cuda_ms(lambda: head_dev.sample(xd), 3),
+              "beam5": cuda_ms(lambda: head_dev.beam_search(xd, 5, codec.eos),
+                               2)}
+    print(f"phase 37d: ASTER head (37 classes, 512 / 512 / 512, max_len "
+          f"{head.max_len}) on {ASTER_SHAPE}: teacher-forced logits card vs "
+          f"CPU {tf_err:.3e} (bar {ASTER_ATOL}), greedy ids equal "
+          f"{greedy_eq}, beam 5 ids equal {beam_eq}, scores {beam_err:.3e} "
+          f"of the largest |score| {beam[1][1].abs().max().item():.3f} (bar "
+          f"{ASTER_SCORE_REL}); ms {ms}; decoded[0] greedy "
+          f"{codec.decode_ids(greedy[1][0][:1].numpy())}, beam "
+          f"{codec.decode_ids(beam[1][0][:1].numpy())} [{gpu}]")
+    if not (tf_err <= ASTER_ATOL and greedy_eq and beam_eq
+            and beam_err <= ASTER_SCORE_REL):
+        raise AssertionError("phase 37d: the ASTER head disagrees with the "
+                             "CPU")
+    return {"aster": {"teacher_forced_err": tf_err, "beam_score_err":
+                      beam_err, "ms": ms}}
+
+
+@clocked
+def phase37(dev, gpu: str) -> None:
+    """The SR remainder: (a) the baselines through both apps, (b)
+    GANSRTrainer, (c) the auxiliary losses, (d) the ASTER head."""
+    out, seconds = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sr_a6_") as tmp:
+        for part in (lambda: phase37a(dev, gpu, tmp),
+                     lambda: phase37b(dev, gpu), lambda: phase37c(dev, gpu),
+                     lambda: phase37d(dev, gpu)):
+            t0 = time.perf_counter()
+            got = part()
+            torch.cuda.empty_cache()
+            out.update(got)
+            seconds["abcd"[len(seconds)]] = time.perf_counter() - t0
+    print(json.dumps({"phase": 37, **out, "seconds": seconds,
+                      "card": gpu}))
+
+
 STANDALONE = {"1": phase1, "4": phase4, "5": phase5, "6": phase6,
               "7": phase7, "10": phase10, "13": phase13, "17": phase17,
               "19": phase19, "20": phase20_alone, "22": phase22,
               "24": phase24, "25": phase25, "26": phase26_alone,
               "27": phase27, "28": phase28, "29": phase29, "30": phase30,
               "31": phase31, "32": phase32, "33": phase33, "34": phase34,
-              "35": phase35, "36": phase36}
+              "35": phase35, "36": phase36, "37": phase37}
 
 
 def main(argv: list) -> int:
@@ -5320,6 +5741,8 @@ def main(argv: list) -> int:
     ctr16_n, ln_ctr16 = phase35(dev, gpu)
     torch.cuda.empty_cache()
     phase36(dev, gpu)
+    torch.cuda.empty_cache()
+    phase37(dev, gpu)
     bf16_b = (torch.bfloat16, TRAIN_B)
     b10, b11_fwd, b11_bwd = b10_b11[(torch.float32, TRAIN_B)]
     _, b11_mma_fwd, b11_mma_bwd = b10_b11[bf16_b]

@@ -115,23 +115,24 @@ def seeded(build: Callable[[], torch.nn.Module], seed: int,
 
 
 def build_sr_model(args, cfg, device="cuda") -> torch.nn.Module:
-    """TBSRN or TSRN from the flags and config, from TRAIN.manualSeed, on
-    `device` (a missing card raises). The SR baselines come with ROADMAP
-    A6."""
+    """TBSRN, TSRN or one of the BASELINES (`models/sr/baselines.
+    build_baseline`, JAX's default widths; the STN, --srb and --hd_u
+    flags are TBSRN's and TSRN's) from the flags and config, from
+    TRAIN.manualSeed, on `device` (a missing card raises)."""
     from fudanocr_tpu_torch.models import sr as sr_models
+    from fudanocr_tpu_torch.models.sr.baselines import build_baseline
 
     kw = dict(scale_factor=cfg.TRAIN.down_sample_scale,
               width=cfg.TRAIN.width, height=cfg.TRAIN.height,
-              mask=args.mask, stn=args.STN, srb_nums=args.srb,
-              hidden_units=args.hd_u)
+              mask=args.mask)
+    trunk = dict(stn=args.STN, srb_nums=args.srb, hidden_units=args.hd_u)
     if args.arch == "tbsrn":
-        return seeded(lambda: sr_models.TBSRN(**kw), cfg.TRAIN.manualSeed,
-                      device)
-    if args.arch == "tsrn":
-        return seeded(lambda: sr_models.TSRN(**kw), cfg.TRAIN.manualSeed,
-                      device)
-    raise NotImplementedError(f"--arch {args.arch}: the SR baselines are "
-                              "not ported yet (ROADMAP A6)")
+        build = lambda: sr_models.TBSRN(**kw, **trunk)
+    elif args.arch == "tsrn":
+        build = lambda: sr_models.TSRN(**kw, **trunk)
+    else:
+        build = lambda: build_baseline(args.arch, **kw)
+    return seeded(build, cfg.TRAIN.manualSeed, device)
 
 
 def num_workers(cfg) -> int:

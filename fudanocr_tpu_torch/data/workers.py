@@ -8,6 +8,8 @@ the card computes, and hands them back IN ORDER.
     and file handles never cross a process boundary);
   * workers run numpy only: the parent may hold a CUDA context and
     torch's thread pools, and a forked child that calls torch can hang;
+    the workers fork when the stream is made (`iter()`), in the calling
+    thread;
   * at most 2 x num_workers batches are in flight, and they come back in
     submission order; a worker that raises, or dies, raises in the
     consumer (a dead worker breaks the pool: BrokenProcessPool);
@@ -25,6 +27,7 @@ Usage:
 from __future__ import annotations
 
 import collections
+import itertools
 import multiprocessing as mp
 from concurrent.futures import ProcessPoolExecutor
 from typing import Callable, Sequence
@@ -59,21 +62,32 @@ class WorkerBatches:
             yield chunk
 
     def __iter__(self):
+        """The batch stream. With workers, the pool forks them here, in the
+        calling thread, before the first batch is asked for: a forked child
+        keeps only the forking thread and frees what every other thread's
+        frames held, and a CUDA tensor freed in a child aborts it (CUDA
+        cannot initialise after a fork). So call iter() where no other
+        thread is inside a step (the main thread between steps), not from
+        a feed thread while the main thread computes."""
         ds = self.factory()
+        chunks = self._chunks(len(ds))
         if self.num_workers <= 0:
-            for chunk in self._chunks(len(ds)):
-                yield ds.collate(ds.fetch_items(chunk))
-            return
+            return (ds.collate(ds.fetch_items(c)) for c in chunks)
         pool = ProcessPoolExecutor(
             self.num_workers, mp_context=mp.get_context("fork"),
             initializer=_init_worker, initargs=(self.factory,))
+        ahead = collections.deque(
+            pool.submit(_make_batch, c)
+            for c in itertools.islice(chunks, 2 * self.num_workers))
+        return self._stream(pool, ahead, chunks)
+
+    @staticmethod
+    def _stream(pool, ahead, chunks):
         try:
-            ahead = collections.deque()
-            for chunk in self._chunks(len(ds)):
-                ahead.append(pool.submit(_make_batch, chunk))
-                if len(ahead) >= 2 * self.num_workers:
-                    yield ahead.popleft().result()
             while ahead:
-                yield ahead.popleft().result()
+                done = ahead.popleft()
+                for c in itertools.islice(chunks, 1):
+                    ahead.append(pool.submit(_make_batch, c))
+                yield done.result()
         finally:
             pool.shutdown(wait=True, cancel_futures=True)

@@ -186,7 +186,8 @@ class SRTrainer:
     def host_batches(self, data) -> Iterator[Dict[str, np.ndarray]]:
         """`data`'s training batches as `_host_batch` makes them: read,
         decoded and collated by `num_workers` forked processes, or in the
-        calling thread with none."""
+        thread that iterates them with none. The workers fork here, in the
+        calling thread (`WorkerBatches.__iter__`)."""
         if not self.num_workers:
             batches = data.batches(self.batch_size)
         elif getattr(data, "draws_in_read_order", False):
@@ -197,15 +198,16 @@ class SRTrainer:
         else:
             # the workers fork with `data` (an LMDB store is a read-only
             # mmap) and keep the batches in order
-            batches = WorkerBatches(lambda: data, self.batch_size,
-                                    num_workers=self.num_workers)
-        for hr, lr, labels in batches:
-            yield self._host_batch(hr, lr, labels)
+            batches = iter(WorkerBatches(lambda: data, self.batch_size,
+                                         num_workers=self.num_workers))
+        return (self._host_batch(hr, lr, labels)
+                for hr, lr, labels in batches)
 
     def feed(self, data) -> Iterator[Batch]:
         """`data`'s training batches on the device: with `num_workers`,
-        `host_batches` on a thread that stages each batch one ahead; with
-        none, in the main thread before each step."""
+        `host_batches` (its workers forked here, in the calling thread) on
+        a thread that stages each batch one ahead; with none, in the main
+        thread before each step."""
         if self.num_workers:
             return PrefetchIterator(self.host_batches(data), self.device,
                                     buffer_size=1)

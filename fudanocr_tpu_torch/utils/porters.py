@@ -11,9 +11,12 @@ whole EncoderDecoder / DetGuidedEncoderDecoder / CascadeEncoderDecoder;
 and, with no JAX counterpart (the JAX package ports no torch weights into
 them), porters from mmseg's key layout into the JAX necks (`port_fpn`,
 `port_multilevel_neck`, `port_jpu`, `port_mla_neck`, `port_ic_neck`) and
-`Encoding` (`port_encoding`), CCR-CLIP's ViT tower (`port_clip_vit`) and
+`Encoding` (`port_encoding`), CCR-CLIP's ViT tower (`port_clip_vit`),
 OI-CTR's reconstructor (in `port_oictr`, under the port's own key
-names). Each maps a torch state_dict
+names), the five SR baselines and the SRGAN discriminator (`port_srcnn`
+... `port_sr_discriminator`), ASTER's attention head (`port_aster_head`)
+and the perceptual loss's VGG16 (`port_vgg16_features`, torchvision's
+keys). Each maps a torch state_dict
 (reference key layout, which every port module carries) onto the JAX
 package's {"params": ..., "batch_stats": ...} tree: conv OIHW -> HWIO,
 linear W -> W^T, LSTM gate blocks transposed, BatchNorm running stats into
@@ -822,9 +825,157 @@ def port_encoding(sd: Dict) -> Dict:
                        "scale": _np(sd["scale"])}}
 
 
+# -- the SR baselines, the SRGAN discriminator, ASTER's head and VGG16.
+# The JAX package has no porter for these (it ports no torch weights into
+# them); each maps the reference's key layout (models/sr/baselines.py,
+# models/rec/aster_head.py, losses/aux_losses.py of the port) onto the
+# JAX module's tree, counting its blocks from the keys.
+
+def _prelu(sd, name):
+    return {"alpha": _np(sd[f"{name}.weight"]).reshape(1)}
+
+
+def port_srcnn(sd: Dict) -> Dict:
+    """srcnn.py:18-53 -> SRCNN variables."""
+    sd = strip_module_prefix(sd)
+    return {"params": {f"conv{i}": conv(sd, f"conv{i}") for i in (1, 2, 3)}}
+
+
+def port_srresnet(sd: Dict) -> Dict:
+    """srresnet.py:14-101 -> SRResNet variables."""
+    sd = strip_module_prefix(sd)
+    params: Dict[str, Any] = {"stem": conv(sd, "block1.0"),
+                              "stem_prelu": _prelu(sd, "block1.1")}
+    stats: Dict[str, Any] = {}
+    for i in range(5):
+        b = f"block{i + 2}"
+        p1, s1 = bn(sd, f"{b}.bn1")
+        p2, s2 = bn(sd, f"{b}.bn2")
+        params[f"res{i}"] = {"conv1": conv(sd, f"{b}.conv1"), "bn1": p1,
+                             "prelu": _prelu(sd, f"{b}.prelu"),
+                             "conv2": conv(sd, f"{b}.conv2"), "bn2": p2}
+        stats[f"res{i}"] = {"bn1": s1, "bn2": s2}
+    params["trunk_conv"] = conv(sd, "block7.0")
+    params["trunk_bn"], stats["trunk_bn"] = bn(sd, "block7.1")
+    n_up = _count(sd, "block8.{}.conv.weight")
+    for u in range(n_up):
+        params[f"up{u}_conv"] = conv(sd, f"block8.{u}.conv")
+        params[f"up{u}_prelu"] = _prelu(sd, f"block8.{u}.prelu")
+    params["out_conv"] = conv(sd, f"block8.{n_up}")
+    return {"params": params, "batch_stats": stats}
+
+
+def port_edsr(sd: Dict) -> Dict:
+    """edsr.py:35-88 -> EDSR variables (the frozen mean shifts are
+    constants in JAX: not read)."""
+    sd = strip_module_prefix(sd)
+    params: Dict[str, Any] = {"conv_input": conv(sd, "conv_input"),
+                              "conv_mid": conv(sd, "conv_mid"),
+                              "conv_output": conv(sd, "conv_output")}
+    for i in range(_count(sd, "residual.{}.conv1.weight")):
+        for c in ("conv1", "conv2"):
+            params[f"res{i}_{c}"] = conv(sd, f"residual.{i}.{c}")
+    u = 0
+    while f"upscale4x.{2 * u}.weight" in sd:
+        params[f"up{u}"] = conv(sd, f"upscale4x.{2 * u}")
+        u += 1
+    return {"params": params}
+
+
+def port_rdn(sd: Dict) -> Dict:
+    """rdn.py:54-93 -> RDN variables."""
+    sd = strip_module_prefix(sd)
+    params: Dict[str, Any] = {
+        "conv1": conv(sd, "conv1"), "conv2": conv(sd, "conv2"),
+        "gff1": conv(sd, "GFF_1x1"), "gff3": conv(sd, "GFF_3x3"),
+        "up_conv": conv(sd, "conv_up"), "conv3": conv(sd, "conv3")}
+    for k in (1, 2, 3):
+        rdb = f"RDB{k}"
+        params[f"rdb{k}"] = {
+            **{f"dense{i}": conv(sd, f"{rdb}.dense_layers.{i}.conv")
+               for i in range(_count(sd, rdb + ".dense_layers.{}.conv."
+                                     "weight"))},
+            "fuse": conv(sd, f"{rdb}.conv_1x1")}
+    return {"params": params}
+
+
+def port_esrgan(sd: Dict) -> Dict:
+    """esrgan.py:55-87 -> RRDBNet variables."""
+    sd = strip_module_prefix(sd)
+    params: Dict[str, Any] = {
+        "conv_first": conv(sd, "conv_first"),
+        "trunk_conv": conv(sd, "trunk_conv"), "HRconv": conv(sd, "HRconv"),
+        "conv_last": conv(sd, "conv_last")}
+    for i in range(_count(sd, "RRDB_trunk.{}.RDB1.conv1.weight")):
+        for j in range(3):
+            params[f"rrdb{i}_rdb{j}"] = {
+                f"conv{c}": conv(sd, f"RRDB_trunk.{i}.RDB{j + 1}.conv{c}")
+                for c in range(1, 6)}
+    u = 1
+    while f"upconv{u}.weight" in sd:
+        params[f"upconv{u}"] = conv(sd, f"upconv{u}")
+        u += 1
+    return {"params": params}
+
+
+def port_sr_discriminator(sd: Dict) -> Dict:
+    """srresnet.py:104-145 Discriminator (`net.{i}`) -> SRDiscriminator
+    variables: conv0 at 0, conv i at 3i - 1 with its BN at 3i, fc1 at 24,
+    fc2 at 26."""
+    sd = strip_module_prefix(sd)
+    params: Dict[str, Any] = {"conv0": conv(sd, "net.0")}
+    stats: Dict[str, Any] = {}
+    for i in range(1, 8):
+        params[f"conv{i}"] = conv(sd, f"net.{3 * i - 1}")
+        params[f"bn{i}"], stats[f"bn{i}"] = bn(sd, f"net.{3 * i}")
+    params["fc1"] = conv(sd, "net.24")
+    params["fc2"] = conv(sd, "net.26")
+    return {"params": params, "batch_stats": stats}
+
+
+def port_aster_head(sd: Dict) -> Dict:
+    """attention_recognition_head.py:10-181 (`decoder.*`) -> the JAX
+    ASTERAttentionHead's raw matrices."""
+    sd = strip_module_prefix(sd)
+    d = "decoder"
+    params: Dict[str, Any] = {}
+    for e in ("xEmbed", "sEmbed", "wEmbed"):
+        lin = linear(sd, f"{d}.attention_unit.{e}")
+        params[f"{e}_w"], params[f"{e}_b"] = lin["kernel"], lin["bias"]
+    params["tgt_embedding"] = _np(sd[f"{d}.tgt_embedding.weight"])
+    params["gru_wi"] = _np(sd[f"{d}.gru.weight_ih_l0"]).T
+    params["gru_wh"] = _np(sd[f"{d}.gru.weight_hh_l0"]).T
+    params["gru_bi"] = _np(sd[f"{d}.gru.bias_ih_l0"])
+    params["gru_bh"] = _np(sd[f"{d}.gru.bias_hh_l0"])
+    fc = linear(sd, f"{d}.fc")
+    params["fc_w"], params["fc_b"] = fc["kernel"], fc["bias"]
+    return {"params": params}
+
+
+# torchvision vgg16().features indices of the 13 convs (relu after each,
+# max pools at 4, 9, 16, 23)
+VGG16_CONVS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def port_vgg16_features(sd: Dict) -> Dict:
+    """torchvision vgg16 `features.{i}` (percptual_loss.py:9-12) -> the JAX
+    VGG16Features (conv0-conv12)."""
+    sd = strip_module_prefix(sd)
+    return {"params": {f"conv{n}": conv(sd, f"features.{i}")
+                       for n, i in enumerate(VGG16_CONVS)}}
+
+
 PORTERS = {
     "tbsrn": port_tbsrn,
     "tsrn": port_tsrn,
+    "srcnn": port_srcnn,
+    "srresnet": port_srresnet,
+    "edsr": port_edsr,
+    "rdn": port_rdn,
+    "esrgan": port_esrgan,
+    "sr_discriminator": port_sr_discriminator,
+    "aster_head": port_aster_head,
+    "vgg16_features": port_vgg16_features,
     "crnn": port_crnn,
     "ocr_transformer": port_ocr_transformer,
     "ccr_clip": port_ccr_clip,

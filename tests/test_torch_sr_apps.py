@@ -11,13 +11,15 @@ apps/scene_text_telescope/main.py, apps/text_gestalt/main.py) on the CPU.
 * Both apps run end to end with `--device cpu --srb 1` at batch 4 on a
   tiny LMDB and on the synthetic fallback; `--test --resume auto`
   reproduces the saved best evaluation exactly; `--demo` writes PNG
-  strips; the overwrite guard, an oracle checkpoint that is not there, the
-  SR baselines (A6) and a missing card refuse to run.
+  strips; the overwrite guard, an oracle checkpoint that is not there, an
+  unknown `--arch` and a missing card refuse to run (the SR baselines'
+  runs are in tests/test_torch_sr_baseline_apps.py).
 * `metrics.jsonl` carries JAX's tags: "train/<metric>" every 50 steps,
   "eval/<metric>" per evaluation."""
 
 import json
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -134,6 +136,39 @@ def test_worker_feed_of_the_synthetic_set_keeps_its_batches():
         assert all(np.array_equal(g[k], w[k]) for k in w)
 
 
+_FORKS = {"on": False, "threads": []}
+
+
+@pytest.fixture
+def fork_threads():
+    """The names of the threads that fork while the test runs."""
+    if not _FORKS.get("hooked"):
+        os.register_at_fork(before=lambda: _FORKS["on"] and _FORKS[
+            "threads"].append(threading.current_thread().name))
+        _FORKS["hooked"] = True
+    _FORKS["threads"], _FORKS["on"] = [], True
+    yield _FORKS["threads"]
+    _FORKS["on"] = False
+
+
+def test_feed_workers_fork_in_the_calling_thread(lmdbs, fork_threads):
+    """The workers fork when the feed is made, in the thread that makes it
+    (a child forked from the feed thread while the main thread holds CUDA
+    tensors in a step frees them and aborts), for the trainer's feed and
+    for a bare WorkerBatches stream, before any batch is asked for."""
+    from fudanocr_tpu_torch.data.workers import WorkerBatches
+
+    data = PairedLMDBDataset(lmdbs["train"], voc_type="all")
+    trainer = _tiny_trainer(SRTrainer, data, num_workers=2)
+    me = threading.current_thread().name
+    feed = trainer.feed(data)
+    assert fork_threads == [me, me]
+    assert len(list(feed)) == N // BATCH
+    stream = iter(WorkerBatches(lambda: data, BATCH, num_workers=2))
+    assert fork_threads == [me] * 4
+    assert len(list(stream)) == N // BATCH
+
+
 def test_mix_dataset_refuses_workers(lmdbs):
     from fudanocr_tpu_torch.data.lmdb_dataset import MixLMDBDataset
 
@@ -222,8 +257,10 @@ def test_apps_refuse_what_is_not_ported(tmp_path, lmdbs):
     with pytest.raises(FileNotFoundError):
         gestalt.main(["--config", cfg, "--arch", "tsrn", *COMMON,
                       "--options", "TRAIN.VAL.oracle_checkpoint=/o"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        stt.main(["--config", cfg, "--arch", "edsr", "--device", "cpu"])
+    # an --arch that neither package has
+    for app in (stt, gestalt):
+        with pytest.raises(SystemExit):
+            app.main(["--config", cfg, "--arch", "vdsr", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             stt.main(["--config", cfg, "--arch", "tbsrn"])
