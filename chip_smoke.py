@@ -331,7 +331,26 @@ Phases:
      auxiliary losses at (64, 32, 128, 3) against the CPU (the
      perceptual loss's float32 gradients against float64); (d) the ASTER
      head at its defaults on (64, 25, 512): teacher-forced logits, greedy
-     ids and beam search at width 5 against the CPU, ms of each.
+     ids and beam search at width 5 against the CPU, ms of each;
+ 38. data parallelism (core/mesh.py): (a) `scene_text_telescope.main`
+     (phase 27's recipe on the synthetic set, 2 steps) and `apps.seg.train`
+     (SEG_CONFIG, 512² batch 8, synthetic, 2 iterations), each run plain
+     and under torchrun's environment for a world of 1 (NCCL), in turns
+     (plain, NCCL, NCCL, plain), cuDNN deterministic: losses, saved weights
+     and final evaluation bit-equal where the plain runs are bit-equal to
+     each other, else the NCCL runs within 4x the plain runs' own distance
+     (atomics in a backward), step ms of each;
+     (b) 2 ranks of a gloo
+     group on the one card (NCCL refuses two ranks on one card), each a
+     process started with exec, against one process on the global batch:
+     the fp32 TBSRN text-focus step at batch 64 with dropout on (B4 at
+     offsets 0 and 32, 5 launches a rank) and the det seg step at batch 2
+     (CE + Lovász over the gathered errors + 0.1 det), loss, gradients
+     and BN statistics at the training bar (a gradient's bar raised to 4x
+     its distance between the one-process step with and without cuDNN
+     where that is larger: near-cancelled BatchNorm-bias gradients of the
+     det recipe move ~1.6e-3 between fp32 implementations), step ms of
+     each, first and warm.
 
 A check that reads a torch.profiler trace (a kernel's name, launches by
 role) takes the trace again, up to three traces, while a name it wants is
@@ -1962,14 +1981,15 @@ def trainer_kwargs(cfg) -> dict:
                 gt_guided_masks=tc.get("gt_guided_masks", False))
 
 
-def recipe_step(model, cfg, count: int = 0):
-    """(optimizer at update `count`, train step) of the config's recipe."""
+def recipe_step(model, cfg, count: int = 0, mesh=None):
+    """(optimizer at update `count`, train step) of the config's recipe,
+    on `mesh`'s data axis where given."""
     kw = trainer_kwargs(cfg)
     opt = make_seg_optimizer(model, kw["lr"], total_iters=kw["total_iters"])
     opt.count = count
     return opt, make_seg_train_step(model, opt, kw["loss_weights"],
                                     kw["det_loss_ratio"],
-                                    kw["gt_guided_masks"])
+                                    kw["gt_guided_masks"], mesh=mesh)
 
 
 def grads_agree(model, plain, what: str) -> tuple:
@@ -5647,13 +5667,416 @@ def phase37(dev, gpu: str) -> None:
                       "card": gpu}))
 
 
+# -- phase 38: data parallelism (core/mesh.py) --------------------------------
+
+P38_SR_SAMPLES, P38_SEG_ITERS = 2 * TRAIN_B, 2   # 2 steps of each app
+
+
+@contextlib.contextmanager
+def torchrun_env(world: int = 1, rank: int = 0):
+    """torchrun's environment for a world of `world` on this host (a free
+    port), restored after; a process group left up inside is destroyed."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def timed_steps(module, maker: str):
+    """While open, every train step that `module.<maker>` builds records
+    its loss (a float, after a synchronise) and its ms (CUDA events around
+    the call) into the yielded list."""
+    make, steps = getattr(module, maker), []
+
+    def make_timed(*args, **kw):
+        step = make(*args, **kw)
+
+        def timed(batch, generator=None):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = step(batch, generator)
+            ev[1].record()
+            torch.cuda.synchronize()
+            steps.append((out["loss"].item(), ev[0].elapsed_time(ev[1])))
+            return out
+        return timed
+
+    setattr(module, maker, make_timed)
+    try:
+        yield steps
+    finally:
+        setattr(module, maker, make)
+
+
+def p38_app_run(app: str, dev, tmp: str, turn: int, nccl: bool) -> dict:
+    """One run of an app (`sr`: scene_text_telescope.main, phase 27's
+    recipe on the synthetic set, 2 steps; `seg`: apps.seg.train on
+    SEG_CONFIG at 512² batch 8 on the synthetic set, 2 iterations), with
+    or without torchrun's environment for a world of 1 (NCCL): the
+    losses, step ms, final evaluation and the saved weights."""
+    import torch.distributed as dist
+
+    from fudanocr_tpu_torch.apps.scene_text_telescope import main as stt
+    from fudanocr_tpu_torch.apps.seg import train as seg_app
+
+    name = f"{app}{turn}"
+    if app == "sr":
+        cfg, ckpt, _ = sr_app_config(tmp, name, [], [], 1, 10 ** 9,
+                                     synthetic_samples=P38_SR_SAMPLES,
+                                     workers=0)
+        run = lambda: stt.main(["--config", cfg, "--arch", "tbsrn", "--STN",
+                                "--text_focus"])
+        module, maker = train_sr, "make_sr_train_step"
+        weights = lambda: torch.load(os.path.join(ckpt, "best.pt"),
+                                     map_location="cpu")["state_dict_G"]
+    else:
+        ckpt = os.path.join(tmp, name)
+        run = lambda: seg_app.main([
+            SEG_CONFIG, "--options", "data.dataset=synthetic",
+            "data.synthetic_samples=16", "data.synthetic_size=[512,512]",
+            f"schedule.total_iters={P38_SEG_ITERS}",
+            f"schedule.eval_every={P38_SEG_ITERS}", f"ckpt_dir={ckpt}"])
+        module, maker = train_seg, "make_seg_train_step"
+        weights = lambda: ckpt_lib.load(
+            os.path.join(ckpt, f"iter_{P38_SEG_ITERS}"),
+            map_location="cpu")["state_dict"]
+    backend = None
+    with (torchrun_env() if nccl else contextlib.nullcontext()), \
+            timed_steps(module, maker) as steps:
+        res = run()
+        if nccl:
+            backend = (dist.get_backend(), dist.get_world_size())
+    return {"losses": [l for l, _ in steps], "ms": [m for _, m in steps],
+            "res": res, "weights": weights(), "backend": backend}
+
+
+P38_SPREAD = 4.0   # NCCL runs against the plain runs' own spread
+
+
+def p38_spread(runs: list) -> tuple:
+    """(the plain runs' distance from each other, the NCCL runs' largest
+    distance from the first plain run, the final evaluations all equal):
+    a distance is the larger of the step losses' relative difference and
+    the saved tensors' max abs difference over the largest entry (integer
+    tensors must be equal). Runs in turns: plain, NCCL, NCCL, plain."""
+    def dist_(a, b):
+        d = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                    b["losses"]))
+        top = max(v.abs().max().item() for v in b["weights"].values()
+                  if v.is_floating_point())
+        for k, v in a["weights"].items():
+            if v.is_floating_point():
+                d = max(d, (v - b["weights"][k]).abs().max().item() / top)
+            elif not torch.equal(v, b["weights"][k]):
+                d = float("inf")
+        return d
+
+    p0, n0, n1, p1 = runs
+    return (dist_(p1, p0), max(dist_(n0, p0), dist_(n1, p0)),
+            all(r["res"] == p0["res"] for r in runs))
+
+
+@clocked
+def phase38a(dev, gpu: str, tmp: str) -> dict:
+    """Both apps with and without torchrun's environment for a world of 1
+    (NCCL), in turns, cuDNN in its deterministic algorithms: where the two
+    plain runs are bit-equal to each other (the SR app), the NCCL runs'
+    losses, saved weights and final evaluation are bit-equal to them;
+    where they are not (the seg app: bilinear upsampling's backward adds
+    with atomics), the NCCL runs lie within P38_SPREAD times the plain
+    runs' distance from each other (losses and weights); step ms of
+    each."""
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for app in ("sr", "seg"):
+            runs = [p38_app_run(app, dev, tmp, turn, nccl) for turn, nccl
+                    in enumerate((False, True, True, False))]
+            plain, nccl, same_eval = p38_spread(runs)
+            want_steps = 2
+            print(f"phase 38a: {app} app, 2 steps, plain / NCCL world 1 / "
+                  f"NCCL / plain: backends {[r['backend'] for r in runs]}, "
+                  f"losses {[r['losses'] for r in runs]}, step ms "
+                  f"{[[round(m, 3) for m in r['ms']] for r in runs]}, final "
+                  f"evaluation {runs[0]['res']} (equal in every run: "
+                  f"{same_eval}); losses and saved weights: the plain runs' "
+                  f"relative distance from each other {plain:.3e}, the NCCL "
+                  f"runs' from the first plain run {nccl:.3e} (bit-equal: "
+                  f"{nccl == 0.0}; bar {P38_SPREAD} x the plain runs') "
+                  f"[{gpu}]")
+            if (any(len(r["losses"]) != want_steps for r in runs)
+                    or [r["backend"] for r in runs]
+                    != [None, ("nccl", 1), ("nccl", 1), None]
+                    or not np.isfinite(runs[0]["losses"]).all()
+                    or nccl > P38_SPREAD * plain
+                    or (plain == 0.0 and not same_eval)):
+                raise AssertionError(f"phase 38a: the {app} app under "
+                                     "torchrun's environment (NCCL, world "
+                                     "1) differs from its plain run")
+            out[app] = {"plain_ms": [r["ms"] for r in runs[::3]],
+                        "nccl_ms": [r["ms"] for r in runs[1:3]],
+                        "bit_equal": nccl == 0.0, "plain_spread": plain,
+                        "nccl_distance": nccl}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def p38_sr_case(dev, mesh) -> tuple:
+    """(TBSRN at full width with STN + the full text-focus oracle, batch 64
+    fp32, dropout on: the step on `mesh`'s rows of the global batch)."""
+    gen = torch.Generator().manual_seed(SEED + 38)
+    torch.manual_seed(SEED + 38)
+    model = TBSRN(scale_factor=2, width=128, height=32, stn=True,
+                  srb_nums=SRB_NUMS, hidden_units=32)
+    oracle = OCRTransformer(vocab=LOSS_VOCAB, num_in=1, layers=(1, 2, 5, 3),
+                            num_heads=16, d_embed=512, d_model=1024,
+                            d_ff=2048)
+    randomize_stats(model, gen)
+    model, oracle = model.to(dev), oracle.to(dev)
+    hr, lr, labels = next(SeededTextZoom(TRAIN_B, SEED + 380)
+                          .batches(TRAIN_B))
+    ti, tg, ln = encode_text_labels(labels, LABEL_LEN)
+    batch = {k: torch.from_numpy(np.asarray(v)[mesh.rows(TRAIN_B)]).to(dev)
+             for k, v in (("hr", hr), ("lr", lr), ("text_input", ti),
+                          ("text_gt", tg), ("lengths", ln))}
+    for k in ("text_input", "text_gt", "lengths"):
+        batch[k] = batch[k].long()
+    step = make_sr_train_step(model, TextFocusLoss(oracle),
+                              adam_with_clip(model.parameters(), 1e-4),
+                              mesh=mesh)
+    return model, step, batch, torch.Generator(dev).manual_seed(38)
+
+
+def p38_seg_case(dev, mesh) -> tuple:
+    """(the det recipe at 1024², batch 2: CE + Lovász + 0.1 det, the step
+    on `mesh`'s rows)."""
+    model, cfg = init_segmentor(DET_CONFIG, device=dev, seed=SEED + 38)
+    randomize_stats(model, torch.Generator().manual_seed(SEED + 38))
+    side, bs = cfg.data.crop_size[0], cfg.data.batch_size
+    host = next(SeededTextSeg(bs, side, SEED + 381, True).batches(bs))
+    batch = {k: torch.from_numpy(v[mesh.rows(bs)]).to(dev)
+             for k, v in host.items()}
+    _, step = recipe_step(model, cfg, mesh=mesh)
+    return model, step, batch, torch.Generator(dev).manual_seed(381)
+
+
+def p38_step(case, dev, mesh) -> dict:
+    """One step of a phase-38b case: loss, gradients, BN statistics, the
+    batch offsets B4 was launched at, and the ms of it and of a second
+    step on the same batch (warm)."""
+    model, step, batch, gen = case(dev, mesh)
+    offsets, fwd = [], fa._dropout_fwd
+
+    def counted_fwd(q, k, v, seed, heads, rate, counter, offset=0):
+        if counter is fa.qkv_dropout_fwd:     # B4's forward launches
+            offsets.append(offset)
+        return fwd(q, k, v, seed, heads, rate, counter, offset)
+
+    def timed() -> tuple:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        out = step(batch, gen)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return out, ev[0].elapsed_time(ev[1])
+
+    fa._dropout_fwd = counted_fwd
+    try:
+        out, ms = timed()
+    finally:
+        fa._dropout_fwd = fwd
+    res = {"loss": out["loss"].item(), "ms": ms,
+           "grads": {n: p.grad.cpu() for n, p in model.named_parameters()
+                     if p.grad is not None},
+           "stats": {n: b.cpu() for n, b in model.named_buffers()
+                     if "running" in n},
+           "offsets": offsets}
+    res["warm_ms"] = timed()[1]
+    return res
+
+
+def phase38_rank(rank: int, init: str, out: str, cudnn: bool = True) -> int:
+    """A rank of phase 38b: a gloo group of 2 on card 0 (NCCL refuses two
+    ranks on one card), phase 38b's two steps on this rank's rows (with
+    `cudnn` False, convolutions without cuDNN)."""
+    import torch.distributed as dist
+
+    from fudanocr_tpu_torch.core.mesh import (make_mesh_for_batch,
+                                              setup_distributed)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.enabled = cudnn
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    setup_distributed("cuda", init_method=init, world_size=2, rank=rank,
+                      backend="gloo")
+    res = {}
+    for name, case, b in (("sr", p38_sr_case, TRAIN_B),
+                          ("seg", p38_seg_case, 2)):
+        res[name] = p38_step(case, dev, make_mesh_for_batch(b))
+        torch.cuda.empty_cache()
+    torch.save(res, out)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+P38_NOISE = 4.0   # a gradient's bar: at least 4 x its fp32 spread
+
+
+def p38_agree(got: dict, want: dict, again: dict) -> tuple:
+    """(loss rel err, worst per-tensor gradient err over its bar, that
+    tensor's name, rel err and the one-process step's own fp32 spread on
+    it, BN statistics' max abs err) of a rank's step against one
+    process's. A tensor's bar is STEP_GRAD_REL, or P38_NOISE times its
+    distance between two fp32 implementations of the one-process step
+    (`want` with cuDNN, `again` without) where that is larger: a gradient
+    that is a near-cancelled sum (the det recipe's early BatchNorm biases,
+    ~1e-3 of the largest gradient's norm) moves by ~1.6e-3 between them
+    (scripts/ddp_seg_noise.py), and a split batch changes cuDNN's
+    algorithms and the BatchNorm's reductions as much. Exactly-zero
+    gradients are held as in phase 6."""
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    top = max(g.norm().item() for g in want["grads"].values())
+    worst, name_, err_, noise_ = 0.0, "", 0.0, 0.0
+    for name, w in want["grads"].items():
+        g = got["grads"][name]
+        if w.norm().item() <= 1e-6 * top:
+            if (g - w).norm().item() > 1e-6 * top:
+                return loss_rel, float("inf"), name, 0.0, 0.0, 0.0
+            continue
+        err, noise = rel_err(g, w), rel_err(again["grads"][name], w)
+        ratio = err / max(STEP_GRAD_REL, P38_NOISE * noise)
+        if ratio > worst:
+            worst, name_, err_, noise_ = ratio, name, err, noise
+    stats = max((got["stats"][k] - v).abs().max().item()
+                for k, v in want["stats"].items())
+    return loss_rel, worst, name_, err_, noise_, stats
+
+
+@clocked
+def phase38b(dev, gpu: str, tmp: str, cudnn: bool = True) -> dict:
+    """2 gloo ranks on the one card against one process on the global
+    batch: the fp32 TBSRN text-focus step at batch 64 with dropout on (B4
+    at offsets 0 and 32) and the det seg step at batch 2, at the training
+    bar; ms of each."""
+    from fudanocr_tpu_torch.core.mesh import make_mesh_for_batch
+
+    init = f"file://{tmp}/rendezvous"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+         f"chip_smoke.phase38_rank({r}, {init!r}, "
+         f"{os.path.join(tmp, f'rank{r}.pt')!r}, {cudnn}))"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.enabled = cudnn
+        want, again = {}, {}
+        for name, case, b in (("sr", p38_sr_case, TRAIN_B),
+                              ("seg", p38_seg_case, 2)):
+            want[name] = p38_step(case, dev, make_mesh_for_batch(b))
+            torch.backends.cudnn.enabled = False
+            again[name] = p38_step(case, dev, make_mesh_for_batch(b))
+            torch.backends.cudnn.enabled = cudnn
+            torch.cuda.empty_cache()
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.enabled = True
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 38b: rank {r} failed "
+                                 f"({p.returncode}):\n{o[-4000:]}")
+    got = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    out, ok = {}, True
+    for name in ("sr", "seg"):
+        rows = [p38_agree(g[name], want[name], again[name]) for g in got]
+        offsets = [sorted(set(g[name]["offsets"])) for g in got]
+        launches = [len(g[name]["offsets"]) for g in got]
+        ms = [g[name]["ms"] for g in got]
+        print(f"phase 38b: {name} step on 2 gloo ranks of one card against "
+              f"one process on the global batch: loss rel "
+              f"{[f'{r[0]:.3e}' for r in rows]} (bar {STEP_LOSS_REL}), "
+              f"worst gradient against its bar "
+              f"{[f'{r[1]:.3f} ({r[2]}: rel {r[3]:.3e}, one process with and without cuDNN {r[4]:.3e})' for r in rows]} "
+              f"(bar: rel {STEP_GRAD_REL}, or {P38_NOISE} x that fp32 "
+              f"spread where larger), BN statistics max abs "
+              f"{[f'{r[5]:.3e}' for r in rows]} (bar 1e-5); B4 forward "
+              f"launches per rank {launches} at offsets {offsets} (one "
+              f"process: {len(want[name]['offsets'])} at "
+              f"{sorted(set(want[name]['offsets']))}); step ms (first, "
+              f"warm) ranks {[(round(g[name]['ms'], 3), round(g[name]['warm_ms'], 3)) for g in got]}, "
+              f"one process ({want[name]['ms']:.3f}, "
+              f"{want[name]['warm_ms']:.3f}) [{gpu}]")
+        ok = ok and all(r[0] <= STEP_LOSS_REL and r[1] <= 1.0
+                        and r[5] <= 1e-5 for r in rows)
+        if name == "sr":
+            ok = ok and offsets == [[0], [TRAIN_B // 2]] and launches == [
+                SRB_NUMS, SRB_NUMS]
+        out[name] = {"rank_ms": ms, "one_process_ms": want[name]["ms"],
+                     "rank_warm_ms": [g[name]["warm_ms"] for g in got],
+                     "one_process_warm_ms": want[name]["warm_ms"],
+                     "loss_rel": [r[0] for r in rows],
+                     "grad_rel": [r[3] for r in rows],
+                     "grad_over_bar": [r[1] for r in rows]}
+    if not ok:
+        raise AssertionError("phase 38b: the 2-rank steps miss the training "
+                             "bar against one process, or B4 ran at other "
+                             "offsets")
+    return out
+
+
+@clocked
+def phase38(dev, gpu: str) -> None:
+    """Data parallelism: (a) NCCL with a world of 1 through both apps, (b)
+    2 gloo ranks on the card against one process on the global batch."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as tmp:
+        t0 = time.perf_counter()
+        a = phase38a(dev, gpu, tmp)
+        ta = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        b = phase38b(dev, gpu, tmp)
+    print(json.dumps({"phase": 38, "a": a, "b": b,
+                      "seconds": {"a": ta,
+                                  "b": time.perf_counter() - t0 - ta},
+                      "card": gpu}))
+
+
 STANDALONE = {"1": phase1, "4": phase4, "5": phase5, "6": phase6,
               "7": phase7, "10": phase10, "13": phase13, "17": phase17,
               "19": phase19, "20": phase20_alone, "22": phase22,
               "24": phase24, "25": phase25, "26": phase26_alone,
               "27": phase27, "28": phase28, "29": phase29, "30": phase30,
               "31": phase31, "32": phase32, "33": phase33, "34": phase34,
-              "35": phase35, "36": phase36, "37": phase37}
+              "35": phase35, "36": phase36, "37": phase37, "38": phase38}
 
 
 def main(argv: list) -> int:
@@ -5743,6 +6166,8 @@ def main(argv: list) -> int:
     phase36(dev, gpu)
     torch.cuda.empty_cache()
     phase37(dev, gpu)
+    torch.cuda.empty_cache()
+    phase38(dev, gpu)
     bf16_b = (torch.bfloat16, TRAIN_B)
     b10, b11_fwd, b11_bwd = b10_b11[(torch.float32, TRAIN_B)]
     _, b11_mma_fwd, b11_mma_bwd = b10_b11[bf16_b]

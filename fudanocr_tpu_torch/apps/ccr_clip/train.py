@@ -17,7 +17,9 @@ against the gallery (`greedy_decode_gallery`).
 layers: the port's `apps.ccr_clip.pretrain` writes state.pt and
 state.msgpack, the JAX package's state.msgpack alone, which is read
 through the `ccr_clip` porter. Without it the gallery comes from a random
-text tower (seed 0), as in JAX.
+text tower (seed 0), as in JAX. Under torchrun it trains data-parallel, as
+`apps.sld.train` does; stage 1 (`pretrain`) stays on one process, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -81,7 +83,10 @@ def build_gallery(cfg, charset, codec, device) -> torch.Tensor:
 def gallery_loss(gallery: torch.Tensor):
     """`loss(out, batch)`: the masked CE of the cosine logits of each
     step's normalised fp32 embedding against the gallery, minus 0.001 x the
-    masked MSE between the embedding and its target's gallery row."""
+    masked MSE between the embedding and its target's gallery row (in a
+    data-parallel step, this rank's share: its sums over the global
+    count)."""
+    from fudanocr_tpu_torch.core.mesh import all_reduce_sum
     from fudanocr_tpu_torch.train.ctr import length_mask
 
     def loss(out, batch):
@@ -91,7 +96,7 @@ def gallery_loss(gallery: torch.Tensor):
         gt = batch["text_gt"].long()
         mask = length_mask(batch["lengths"], gt.shape[1])
         nll = -logits.log_softmax(-1).gather(-1, gt[..., None])[..., 0]
-        n = mask.sum()
+        n = all_reduce_sum(mask.sum())
         loss_rec = (nll * mask).sum() / n.clamp_min(1.0)
         reg = gallery[gt]
         mse = (((pred - reg) ** 2) * mask[..., None]).sum() / (
@@ -155,8 +160,8 @@ def main(argv=None):
                    help="torch device of the model (default: the card)")
     args = p.parse_args(argv)
     cfg = merge_cli_overrides(DEFAULT_CONFIG, args.options)
-    from fudanocr_tpu_torch.apps.sr_common import resolve_device
-    trainer, _ = build_trainer(cfg, resolve_device(args.device))
+    from fudanocr_tpu_torch.apps.sr_common import distributed_device
+    trainer, _ = build_trainer(cfg, distributed_device(args.device))
     if cfg.test_only:
         res = trainer.evaluate(0)
     else:

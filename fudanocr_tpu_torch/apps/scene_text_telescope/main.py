@@ -14,7 +14,11 @@ it resumes, and logs its metrics there (metrics.jsonl). Several
 TRAIN.VAL.val_data_dir entries become difficulty buckets named after
 their directories (easy/medium/hard). `--test` evaluates, `--demo` writes
 TRAIN.VAL.n_vis LR|SR|HR strips to TRAIN.VAL.vis_dir and evaluates.
-Returns the final evaluation's dict.
+Returns the final evaluation's dict. Under torchrun
+(`torchrun --nproc_per_node N -m fudanocr_tpu_torch.apps.
+scene_text_telescope.main ...`) it trains data-parallel on N cards, one
+process each, TRAIN.batch_size being the global batch
+(`apps/sr_common.distributed_device`, train/sr.py).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ def main(argv=None):
     args = sr_common.build_argparser(
         "Scene Text Telescope (TBSRN) on PyTorch").parse_args(argv)
     cfg = sr_common.load_app_config(args)
-    device = sr_common.resolve_device(args.device)
+    device = sr_common.distributed_device(args.device)
     training = not (args.test or args.demo)
 
     model = sr_common.build_sr_model(args, cfg, device)

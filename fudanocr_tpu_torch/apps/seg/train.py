@@ -16,7 +16,10 @@ tables there (`core/logging.MetricsLogger`). `--test-only` evaluates and
 writes nothing: it leaves a trained `best/` as it is (JAX's app writes
 `best/` from a test-only evaluation). The model is built on the CPU from
 seed 0 and moved to `--device` (default the card; a missing card raises).
-JAX's `setup_multi_processes` is not ported: no config sets its keys.
+The config's host knobs go through `core/runtime_env.setup_multi_processes`
+first, as in JAX's app. Under torchrun (`torchrun --nproc_per_node N -m
+fudanocr_tpu_torch.apps.seg.train <config> ...`) it trains data-parallel on
+N cards, data.batch_size being the global batch (train/seg.py).
 Returns the final evaluation's dict.
 """
 
@@ -25,7 +28,7 @@ from __future__ import annotations
 import argparse
 import logging
 
-from fudanocr_tpu_torch.apps.sr_common import resolve_device, seeded
+from fudanocr_tpu_torch.apps.sr_common import distributed_device, seeded
 from fudanocr_tpu_torch.core.config import load_config, merge_cli_overrides
 
 log = logging.getLogger("fudanocr_tpu_torch.seg_app")
@@ -98,10 +101,14 @@ def main(argv=None):
                    help="torch device of the model (default: the card)")
     args = p.parse_args(argv)
     cfg = merge_cli_overrides(load_config(args.config), args.options)
-    device = resolve_device(args.device)
 
+    # host-threading knobs before anything is built (tools/train.py), as
+    # JAX's app does
+    from fudanocr_tpu_torch.core.runtime_env import setup_multi_processes
     from fudanocr_tpu_torch.utils.collect_env import collect_env
 
+    setup_multi_processes(cfg)
+    device = distributed_device(args.device)
     for k, v in collect_env().items():
         log.info("%s: %s", k, v)
 

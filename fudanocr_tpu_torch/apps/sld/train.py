@@ -16,7 +16,10 @@ Without `decompose_table` a seeded synthetic stroke table over A-Z, 0-9
 Departure from the JAX app: the confusable-matched evaluation writes
 `ckpt_dir/best/` on its best accuracy as the trainer's own evaluation
 does (JAX's writes nothing). `resume` is in the config and unread, as in
-JAX. `main` returns the final evaluation's dict.
+JAX. `main` returns the final evaluation's dict. Under torchrun
+(`torchrun --nproc_per_node N -m fudanocr_tpu_torch.apps.sld.train ...`) it
+trains and evaluates data-parallel, `batch` being the global batch
+(train/ctr.py).
 """
 
 from __future__ import annotations
@@ -154,10 +157,12 @@ def attach_confusable_matching(trainer, codec, cfg) -> None:
     model, device = trainer.model, trainer.device
 
     def evaluate(it: int = 0):
+        if not trainer.mesh.active:
+            return {}
         gallery = _encode_chunks(
             model, np.stack([templates[c] for c in charset]), device)
         total, correct = 0, 0
-        for images, labels in trainer.eval_data.batches(trainer.batch_size):
+        for images, labels in trainer.batches(trainer.eval_data):
             preds = trainer.decode_batch(images)
             probe = _encode_chunks(model, images, device)
             with torch.no_grad():
@@ -173,6 +178,7 @@ def attach_confusable_matching(trainer, codec, cfg) -> None:
                     continue
                 scores = [dist[i, col[c]] for c in cands]
                 correct += int(cands[int(np.argmin(scores))] == gt_char)
+        correct, total = trainer.count_correct(correct, total)
         acc = correct / max(total, 1)
         log.info("confusable-matched eval @%d: acc %.4f (%d/%d)", it, acc,
                  correct, total)
@@ -212,8 +218,8 @@ def main(argv=None):
     args = p.parse_args(argv)
     cfg = merge_cli_overrides(DEFAULT_CONFIG, args.options)
 
-    from fudanocr_tpu_torch.apps.sr_common import resolve_device
-    trainer = build_trainer(cfg, resolve_device(args.device))
+    from fudanocr_tpu_torch.apps.sr_common import distributed_device
+    trainer = build_trainer(cfg, distributed_device(args.device))
     if cfg.test_only:
         res = trainer.evaluate(0)
     else:

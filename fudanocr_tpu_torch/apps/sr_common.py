@@ -102,6 +102,18 @@ def resolve_device(name) -> torch.device:
     return dev
 
 
+def distributed_device(name) -> torch.device:
+    """The `--device` of an app whose trainer runs data-parallel: under
+    torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+    MASTER_PORT) the process group starts (NCCL on the card, gloo on the
+    CPU; core/mesh.setup_distributed) and `cuda` names this rank's card,
+    cuda:LOCAL_RANK; without it, `resolve_device(name)`."""
+    from fudanocr_tpu_torch.core.mesh import local_device, setup_distributed
+
+    setup_distributed(str(resolve_device(name)))
+    return resolve_device(local_device(name))
+
+
 def seeded(build: Callable[[], torch.nn.Module], seed: int,
            device) -> torch.nn.Module:
     """`build()` under torch's generator seeded with `seed` (the global

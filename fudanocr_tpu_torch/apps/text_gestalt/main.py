@@ -14,6 +14,8 @@ as in the JAX app. `--resume` loads a best.pt ('auto':
 TRAIN.ckpt_dir/best.pt) before anything else; the JAX app takes the flag
 for its overwrite guard only. A training run logs its metrics to
 TRAIN.ckpt_dir (metrics.jsonl). Returns the final evaluation's dict.
+Under torchrun it trains data-parallel, one process per card, as
+`scene_text_telescope.main` does.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ def main(argv=None):
                         help="english_decomposition.txt path")
     args = parser.parse_args(argv)
     cfg = sr_common.load_app_config(args)
-    device = sr_common.resolve_device(args.device)
+    device = sr_common.distributed_device(args.device)
     training = not (args.test or args.demo)
 
     model = sr_common.build_sr_model(args, cfg, device)

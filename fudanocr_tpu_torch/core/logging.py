@@ -134,7 +134,16 @@ class Saver:
 def guard_run_dir(run_dir: str, sources=(), resume: bool = False) -> bool:
     """Refuse to clobber a run dir that already has contents unless the
     user confirms (tty) or resumes; then snapshot `sources` into it.
-    Returns False when the caller should stop."""
+    Returns False when the caller should stop. Under a process group rank
+    0 alone checks and writes, and every rank gets its answer."""
+    from fudanocr_tpu_torch.core.mesh import from_rank0, world
+
+    if world()[0] != 0:
+        return from_rank0(None)
+    return from_rank0(_guard_run_dir(run_dir, sources, resume))
+
+
+def _guard_run_dir(run_dir: str, sources, resume: bool) -> bool:
     saver = Saver(os.path.dirname(run_dir) or ".", os.path.basename(run_dir))
     if not resume and not saver.check_exp_name():
         log.error("experiment dir %s already has contents — pass --resume, "

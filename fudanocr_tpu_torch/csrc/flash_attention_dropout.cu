@@ -147,7 +147,7 @@ attn_dropout_fwd_mma_kernel(Operand q_op, Operand k_op, Operand v_op,
                             const int64_t* __restrict__ seed,
                             bf16* __restrict__ out, float* __restrict__ lse,
                             int L, int H, float scale, float inv_keep,
-                            uint32_t thresh) {
+                            uint32_t thresh, uint32_t b0) {
   constexpr int NS = kTile / 8, NO = kDH / 8;
   __shared__ __align__(16) bf16 kv[2][2 * kTileElems];   // [K | V] x 2
   const int b = blockIdx.z, h = blockIdx.y;
@@ -156,7 +156,7 @@ attn_dropout_fwd_mma_kernel(Operand q_op, Operand k_op, Operand v_op,
   const int row0 = blockIdx.x * kRows + warp * 16;
   const bf16* kb = (const bf16*)k_op.p + (int64_t)b * L * k_op.row + h * kDH;
   const bf16* vb = (const bf16*)v_op.p + (int64_t)b * L * v_op.row + h * kDH;
-  const uint32_t sbh = bh_seed((uint32_t)seed[0], b, h, H);
+  const uint32_t sbh = bh_seed((uint32_t)seed[0], b0 + b, h, H);
 
   copy_rows<kDH, VEC16, kMmaThreads>(kv[0], kb, k_op.row, kTile);
   copy_rows<kDH, VEC16, kMmaThreads>(kv[0] + kTileElems, vb, v_op.row,
@@ -260,7 +260,7 @@ attn_dropout_dsum_mma_kernel(Operand q_op, Operand k_op, Operand v_op,
                              const int64_t* __restrict__ seed,
                              float* __restrict__ dsum,
                              float* __restrict__ lse2, int L, int H,
-                             float scale, uint32_t thresh) {
+                             float scale, uint32_t thresh, uint32_t b0) {
   constexpr int NS = kTile / 8;
   __shared__ __align__(16) bf16 kv[2][2 * kTileElems];   // [K | V] x 2
   const int b = blockIdx.z, h = blockIdx.y;
@@ -271,7 +271,7 @@ attn_dropout_dsum_mma_kernel(Operand q_op, Operand k_op, Operand v_op,
   const int64_t bh = (int64_t)b * H + h;
   const bf16* kb = (const bf16*)k_op.p + (int64_t)b * L * k_op.row + h * kDH;
   const bf16* vb = (const bf16*)v_op.p + (int64_t)b * L * v_op.row + h * kDH;
-  const uint32_t sbh = bh_seed((uint32_t)seed[0], b, h, H);
+  const uint32_t sbh = bh_seed((uint32_t)seed[0], b0 + b, h, H);
 
   copy_rows<kDH, VEC16, kMmaThreads>(kv[0], kb, k_op.row, kTile);
   copy_rows<kDH, VEC16, kMmaThreads>(kv[0] + kTileElems, vb, v_op.row,
@@ -344,7 +344,7 @@ attn_dropout_bwd_mma_kernel(Operand q_op, Operand k_op, Operand v_op,
                             const float* __restrict__ lse2,
                             const int64_t* __restrict__ seed, Grad dq_g,
                             Grad dk_g, Grad dv_g, int L, int H, float scale,
-                            float inv_keep, uint32_t thresh) {
+                            float inv_keep, uint32_t thresh, uint32_t b0) {
   constexpr int NS = kTile / 8, NO = kDH / 8;
   // two stages of two tiles: [K | V] (dQ role), [Q | dO] (dK/dV)
   __shared__ __align__(16) bf16 sm[2][2 * kTileElems];
@@ -360,7 +360,7 @@ attn_dropout_bwd_mma_kernel(Operand q_op, Operand k_op, Operand v_op,
   const bf16* dob = dout + (int64_t)b * L * D + h * kDH;
   const float* dsum_bh = dsum + ((int64_t)b * H + h) * L;
   const float* lse2_bh = lse2 + ((int64_t)b * H + h) * L;
-  const uint32_t sbh = bh_seed((uint32_t)seed[0], b, h, H);
+  const uint32_t sbh = bh_seed((uint32_t)seed[0], b0 + b, h, H);
   const float dscale = scale * inv_keep;
 
   if ((int)blockIdx.x < nq) {
@@ -496,14 +496,16 @@ attn_dropout_bwd_mma_kernel(Operand q_op, Operand k_op, Operand v_op,
 
 __global__ void attn_dropout_keep_kernel(const int64_t* __restrict__ seed,
                                          uint8_t* __restrict__ mask, int B,
-                                         int H, int L, uint32_t thresh) {
+                                         int H, int L, uint32_t thresh,
+                                         uint32_t b0) {
   const int64_t n = (int64_t)B * H * L * L;
   const uint32_t s0 = (uint32_t)seed[0];
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * blockDim.x) {
     const int64_t bh = i / ((int64_t)L * L);
     const int64_t qk = i % ((int64_t)L * L);
-    const uint32_t sbh = bh_seed(s0, (uint32_t)(bh / H), (uint32_t)(bh % H),
+    const uint32_t sbh = bh_seed(s0, b0 + (uint32_t)(bh / H),
+                                 (uint32_t)(bh % H),
                                  (uint32_t)H);
     mask[i] = keep_qk(sbh, (uint32_t)(qk / L), (uint32_t)(qk % L),
                       (uint32_t)L, thresh);
@@ -528,14 +530,16 @@ bool aligned16(const void* p, int64_t row) {
 // column slices of one (B, L, 3*H*dh) qkv, row stride 3*H*dh, the split
 // layout (B11) three buffers. out (B, L, H*dh) and dout contiguous, lse
 // (B, H, L) fp32; seed points at one int64 on the device holding the uint32
-// seed; bf16 selects the element type of q/k/v/out/dout and the gradients
-// (fp32 otherwise); dh must be 32 and L a multiple of 128.
+// seed; b0 is the global index of image 0 (a data-parallel rank's first
+// row: the keep hash keys image b on b0 + b, 0 on one process); bf16
+// selects the element type of q/k/v/out/dout and the gradients (fp32
+// otherwise); dh must be 32 and L a multiple of 128.
 extern "C" int attn_dropout_fwd(const void* q, const void* k, const void* v,
                                 const void* seed, void* out, void* lse, int B,
                                 int L, int H, int dh, int64_t q_row,
                                 int64_t k_row, int64_t v_row, float scale,
-                                float inv_keep, unsigned int thresh, int bf16,
-                                void* stream) {
+                                float inv_keep, unsigned int thresh,
+                                unsigned int b0, int bf16, void* stream) {
   if (!shape_ok(B, L, H, dh)) return (int)cudaErrorInvalidValue;
   const dim3 grid(L / kRows, H, B);
   const Operand qo{q, q_row}, ko{k, k_row}, vo{v, v_row};
@@ -547,11 +551,12 @@ extern "C" int attn_dropout_fwd(const void* q, const void* k, const void* v,
                        : attn_dropout_fwd_mma_kernel<false>;
     kernel<<<grid, kMmaThreads, 0, s>>>(qo, ko, vo, (const int64_t*)seed,
                                         (__nv_bfloat16*)out, (float*)lse, L, H,
-                                        scale, inv_keep, thresh);
+                                        scale, inv_keep, thresh, b0);
     return (int)cudaGetLastError();
   }
   return dropout_attn::launch_fwd_tf32x3(
-      {qo, ko, vo, (const int64_t*)seed, B, L, H, scale, inv_keep, thresh},
+      {qo, ko, vo, (const int64_t*)seed, B, L, H, scale, inv_keep, thresh,
+       b0},
       (float*)out, (float*)lse, s);
 }
 
@@ -564,7 +569,7 @@ extern "C" int attn_dropout_bwd(
     void* dv, void* work, int B, int L, int H, int dh, int64_t q_row,
     int64_t k_row, int64_t v_row, int64_t dq_row, int64_t dk_row,
     int64_t dv_row, float scale, float inv_keep, unsigned int thresh,
-    int bf16, void* stream) {
+    unsigned int b0, int bf16, void* stream) {
   if (!shape_ok(B, L, H, dh)) return (int)cudaErrorInvalidValue;
   const dim3 grid(2 * (L / kRows), H, B);
   const Operand qo{q, q_row}, ko{k, k_row}, vo{v, v_row};
@@ -582,28 +587,32 @@ extern "C" int attn_dropout_bwd(
                      : attn_dropout_dsum_mma_kernel<false>;
     rows<<<dim3(L / kRows, H, B), kMmaThreads, 0, s>>>(
         qo, ko, vo, (const __nv_bfloat16*)dout, (const float*)lse,
-        (const int64_t*)seed, dsum, lse2, L, H, scale, thresh);
+        (const int64_t*)seed, dsum, lse2, L, H, scale, thresh, b0);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     auto* kernel = v16 ? attn_dropout_bwd_mma_kernel<true>
                        : attn_dropout_bwd_mma_kernel<false>;
     kernel<<<grid, kMmaThreads, 0, s>>>(
         qo, ko, vo, (const __nv_bfloat16*)dout, dsum, lse2,
-        (const int64_t*)seed, dqg, dkg, dvg, L, H, scale, inv_keep, thresh);
+        (const int64_t*)seed, dqg, dkg, dvg, L, H, scale, inv_keep, thresh,
+        b0);
     return (int)cudaGetLastError();
   }
   return dropout_attn::launch_bwd_tf32x3(
-      {qo, ko, vo, (const int64_t*)seed, B, L, H, scale, inv_keep, thresh},
+      {qo, ko, vo, (const int64_t*)seed, B, L, H, scale, inv_keep, thresh,
+       b0},
       (const float*)out, (const float*)dout, (const float*)lse, (float*)work,
       dqg, dkg, dvg, s);
 }
 
-// The (B, H, L, L) uint8 keep mask, from the same __device__ hash the two
-// kernels use (tests compare it with the plain version bit for bit).
+// The (B, H, L, L) uint8 keep mask of images b0 .. b0 + B - 1, from the
+// same __device__ hash the two kernels use (tests compare it with the plain
+// version bit for bit).
 extern "C" int attn_dropout_keep(const void* seed, void* mask, int B, int H,
-                                 int L, unsigned int thresh, void* stream) {
+                                 int L, unsigned int thresh, unsigned int b0,
+                                 void* stream) {
   if (B < 1 || H < 1 || L < 1) return (int)cudaErrorInvalidValue;
   attn_dropout_keep_kernel<<<1024, 256, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)seed, (uint8_t*)mask, B, H, L, thresh);
+      (const int64_t*)seed, (uint8_t*)mask, B, H, L, thresh, b0);
   return (int)cudaGetLastError();
 }

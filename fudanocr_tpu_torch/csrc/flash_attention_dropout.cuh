@@ -42,14 +42,15 @@ struct Grad {
 };
 
 // What every launch of the fp32 kernels takes: q, k, v, the device seed,
-// the shape (dh = 32), scale = 1/sqrt(dh), inv_keep = 1/(1 - rate) and the
-// keep threshold.
+// the shape (dh = 32), scale = 1/sqrt(dh), inv_keep = 1/(1 - rate), the
+// keep threshold and b0, the global index of image 0 (a data-parallel
+// rank's first row; the hash keys image b on b0 + b).
 struct Args {
   Operand q, k, v;
   const int64_t* seed;
   int B, L, H;
   float scale, inv_keep;
-  uint32_t thresh;
+  uint32_t thresh, b0;
 };
 
 // The fp32 forward: out (B, L, H*32) contiguous and lse (B, H, L);

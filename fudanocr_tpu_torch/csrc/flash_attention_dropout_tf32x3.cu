@@ -115,7 +115,8 @@ attn_dropout_fwd_tf32x3_kernel(Operand q_op, Operand k_op, Operand v_op,
                                const int64_t* __restrict__ seed,
                                float* __restrict__ out,
                                float* __restrict__ lse, int L, float scale,
-                               float inv_keep, uint32_t thresh, bool vec16) {
+                               float inv_keep, uint32_t thresh, uint32_t b0,
+                               bool vec16) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.z, h = blockIdx.y, H = gridDim.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -123,7 +124,7 @@ attn_dropout_fwd_tf32x3_kernel(Operand q_op, Operand k_op, Operand v_op,
   const int row0 = blockIdx.x * kRows + warp * 16;
   const float* kb = head_base(k_op, b, h, L);
   const float* vb = head_base(v_op, b, h, L);
-  const uint32_t sbh = bh_seed((uint32_t)seed[0], b, h, H);
+  const uint32_t sbh = bh_seed((uint32_t)seed[0], b0 + b, h, H);
 
   auto issue = [&](int j) {   // key tile j into stage j & 1
     float* st = smem + (j & 1) * kKvStage;
@@ -235,7 +236,7 @@ attn_dropout_bwd_dq_tf32x3_kernel(Operand q_op, Operand k_op, Operand v_op,
                                   const int64_t* __restrict__ seed,
                                   float* __restrict__ delta, Grad dq_g,
                                   int L, float scale, float inv_keep,
-                                  uint32_t thresh, bool vec16) {
+                                  uint32_t thresh, uint32_t b0, bool vec16) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.z, h = blockIdx.y, H = gridDim.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -246,7 +247,7 @@ attn_dropout_bwd_dq_tf32x3_kernel(Operand q_op, Operand k_op, Operand v_op,
   const int64_t prow0 = ((int64_t)b * L + row0) * D + h * kDH;
   const float* kb = head_base(k_op, b, h, L);
   const float* vb = head_base(v_op, b, h, L);
-  const uint32_t sbh = bh_seed((uint32_t)seed[0], b, h, H);
+  const uint32_t sbh = bh_seed((uint32_t)seed[0], b0 + b, h, H);
   float* mine = smem + 2 * kKvStage + (warp * 16 + g) * kP + 2 * t;
 
   auto issue = [&](int j) {
@@ -339,7 +340,7 @@ attn_dropout_bwd_dkv_tf32x3_kernel(Operand q_op, Operand k_op, Operand v_op,
                                    const int64_t* __restrict__ seed,
                                    Grad dk_g, Grad dv_g, int L, float scale,
                                    float inv_keep, uint32_t thresh,
-                                   bool vec16) {
+                                   uint32_t b0, bool vec16) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.z, h = blockIdx.y, H = gridDim.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -349,7 +350,7 @@ attn_dropout_bwd_dkv_tf32x3_kernel(Operand q_op, Operand k_op, Operand v_op,
   const float* qb = head_base(q_op, b, h, L);
   const float* dob = dout + (int64_t)b * L * D + h * kDH;
   const int64_t sbase = ((int64_t)b * H + h) * L;
-  const uint32_t sbh = bh_seed((uint32_t)seed[0], b, h, H);
+  const uint32_t sbh = bh_seed((uint32_t)seed[0], b0 + b, h, H);
   float* dk_mine = smem + 2 * kQStage + (warp * 16 + g) * kP + 2 * t;
   float* dv_mine = dk_mine + kRows * kP;
 
@@ -451,6 +452,7 @@ int dropout_attn::launch_fwd_tf32x3(const Args& a, float* out, float* lse,
   attn_dropout_fwd_tf32x3_kernel<<<dim3(a.L / kRows, a.H, a.B), kMmaThreads,
                                    kFwdBytes, s>>>(
       a.q, a.k, a.v, a.seed, out, lse, a.L, a.scale, a.inv_keep, a.thresh,
+      a.b0,
       vec16_f32(a.k.p, a.k.row) && vec16_f32(a.v.p, a.v.row));
   return (int)cudaGetLastError();
 }
@@ -466,13 +468,13 @@ int dropout_attn::launch_bwd_tf32x3(const Args& a, const float* out,
   const dim3 grid(a.L / kRows, a.H, a.B);
   attn_dropout_bwd_dq_tf32x3_kernel<<<grid, kMmaThreads, kDqBytes, s>>>(
       a.q, a.k, a.v, out, dout, lse, a.seed, delta, dq, a.L, a.scale,
-      a.inv_keep, a.thresh,
+      a.inv_keep, a.thresh, a.b0,
       vec16_f32(a.k.p, a.k.row) && vec16_f32(a.v.p, a.v.row));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   attn_dropout_bwd_dkv_tf32x3_kernel<<<grid, kMmaThreads, kDkvBytes, s>>>(
       a.q, a.k, a.v, dout, lse, delta, a.seed, dk, dv, a.L, a.scale,
-      a.inv_keep, a.thresh,
+      a.inv_keep, a.thresh, a.b0,
       vec16_f32(a.q.p, a.q.row) && vec16_f32(dout, (int64_t)a.H * kDH));
   return (int)cudaGetLastError();
 }

@@ -14,7 +14,7 @@ torch, so the datasets run inside forked worker processes.
 from __future__ import annotations
 
 import random
-from typing import Iterator, List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -22,6 +22,7 @@ from fudanocr_tpu_torch.data.collate import resize_normalize, sr_collate
 from fudanocr_tpu_torch.data.image import decode_image, resize_bicubic
 from fudanocr_tpu_torch.data.jpeg import encode_jpeg
 from fudanocr_tpu_torch.data.lmdb_store import LMDBReader, LMDBWriter
+from fudanocr_tpu_torch.data.workers import rows_of
 from fudanocr_tpu_torch.eval.metrics import str_filt
 
 
@@ -71,15 +72,19 @@ class _LMDBBase:
         kw.update(collate_kw)
         return sr_collate(items, **kw)
 
+    # `batches(shard=)` reads only a data-parallel rank's rows
+    builds_rows = True
+
     def batches(self, batch_size: int, drop_last: bool = True,
-                **collate_kw) -> Iterator:
+                shard: Tuple[int, int] = (0, 1), **collate_kw) -> Iterator:
         """Collated batches in index order; the last partial batch too
-        when `drop_last` is False."""
+        when `drop_last` is False. `shard=(k, n)` reads and collates only
+        rank k's rows of each (`data/workers.rows_of`)."""
         stop = len(self) - batch_size + 1 if drop_last else len(self)
         for start in range(0, max(stop, 0), batch_size):
             end = min(start + batch_size, len(self))
-            yield self.collate(self.fetch_items(range(start, end)),
-                               **collate_kw)
+            yield self.collate(self.fetch_items(
+                rows_of(range(start, end), shard)), **collate_kw)
 
 
 class LMDBDataset(_LMDBBase):
@@ -140,8 +145,10 @@ class MixLMDBDataset(_LMDBBase):
     has no LR."""
 
     # the coins come from one generator in read order: forked workers
-    # would each draw from a copy of it (train/sr.SRTrainer refuses that)
+    # would each draw from a copy of it (train/sr.SRTrainer refuses that),
+    # and a rank reading only its rows would draw others
     draws_in_read_order = True
+    builds_rows = False
 
     def __init__(self, *args, test: bool = False, seed: int = 0, **kw):
         super().__init__(*args, **kw)

@@ -28,6 +28,7 @@ from fudanocr_tpu_torch.data.glyphs import draw_text
 from fudanocr_tpu_torch.data.image import (decode_image, resize_bicubic,
                                            resize_bilinear)
 from fudanocr_tpu_torch.data.lmdb_store import LMDBReader
+from fudanocr_tpu_torch.data.workers import rows_of
 
 
 def str_q2b(s: str) -> str:
@@ -177,8 +178,12 @@ class SyntheticCharDataset:
         arr += rng.normal(0, 0.02, arr.shape).astype(np.float32)
         return arr, label
 
-    def batches(self, batch_size: int, **_):
+    builds_rows = True   # `batches(shard=)`: a data-parallel rank's rows
+
+    def batches(self, batch_size: int, shard: Tuple[int, int] = (0, 1),
+                **_):
         for start in range(0, len(self) - batch_size + 1, batch_size):
-            samples = [self[i] for i in range(start, start + batch_size)]
+            samples = [self[i] for i in rows_of(
+                range(start, start + batch_size), shard)]
             yield (np.stack([a for a, _ in samples]),
                    [l for _, l in samples])

@@ -25,6 +25,7 @@ import numpy as np
 
 from fudanocr_tpu_torch.data.glyphs import draw_text, text_bbox
 from fudanocr_tpu_torch.data.seg_pipeline import Compose, Sample
+from fudanocr_tpu_torch.data.workers import rows_of
 
 
 def stack_batch(items: List[Sample], valid: np.ndarray) -> Dict:
@@ -40,10 +41,14 @@ def stack_batch(items: List[Sample], valid: np.ndarray) -> Dict:
 
 
 def batches_from(getitem: Callable[[int], Sample], n: int, batch_size: int,
-                 shuffle: bool, seed: int,
-                 drop_last: bool) -> Iterator[Dict]:
+                 shuffle: bool, seed: int, drop_last: bool,
+                 shard: Tuple[int, int] = (0, 1)) -> Iterator[Dict]:
     """Batches of samples getitem(0..n-1), in order or shuffled by
-    `random.Random(seed)` (the JAX module's order for the same seed)."""
+    `random.Random(seed)` (the JAX module's order for the same seed).
+    `shard=(k, n)` builds only rank k's rows of each padded batch
+    (`data/workers.rows_of`), with their `valid` flags. A pipeline's random
+    transforms draw from the process's `random` module in read order
+    (unseeded in the apps, as in JAX's), so each rank draws its own."""
     order = list(range(n))
     if shuffle:
         random.Random(seed).shuffle(order)
@@ -55,7 +60,8 @@ def batches_from(getitem: Callable[[int], Sample], n: int, batch_size: int,
         valid[:len(idxs)] = 1.0
         while len(idxs) < batch_size:  # pad by repeating the last sample
             idxs.append(idxs[-1])
-        yield stack_batch([getitem(i) for i in idxs], valid)
+        rows = rows_of(range(batch_size), shard)
+        yield stack_batch([getitem(idxs[j]) for j in rows], valid[rows])
 
 
 class SegDataset:
@@ -104,10 +110,13 @@ class SegDataset:
             sample["det_path"] = det_path
         return self.pipeline(sample)
 
+    builds_rows = True   # `batches(shard=)`: a data-parallel rank's rows
+
     def batches(self, batch_size: int, shuffle: bool = False, seed: int = 0,
-                drop_last: bool = False) -> Iterator[Dict]:
+                drop_last: bool = False,
+                shard: Tuple[int, int] = (0, 1)) -> Iterator[Dict]:
         return batches_from(self.__getitem__, len(self), batch_size,
-                            shuffle, seed, drop_last)
+                            shuffle, seed, drop_last, shard)
 
 
 class SyntheticTextSeg:
@@ -163,7 +172,10 @@ class SyntheticTextSeg:
             sample = self.pipeline(sample)
         return sample
 
+    builds_rows = True   # `batches(shard=)`: a data-parallel rank's rows
+
     def batches(self, batch_size: int, shuffle: bool = False, seed: int = 0,
-                drop_last: bool = False) -> Iterator[Dict]:
+                drop_last: bool = False,
+                shard: Tuple[int, int] = (0, 1)) -> Iterator[Dict]:
         return batches_from(self.__getitem__, len(self), batch_size,
-                            shuffle, seed, drop_last)
+                            shuffle, seed, drop_last, shard)

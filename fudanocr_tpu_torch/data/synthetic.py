@@ -27,6 +27,7 @@ import numpy as np
 from fudanocr_tpu_torch.data.collate import sr_collate
 from fudanocr_tpu_torch.data.glyphs import draw_text
 from fudanocr_tpu_torch.data.image import gaussian_blur, resize_bicubic
+from fudanocr_tpu_torch.data.workers import rows_of
 
 
 class SyntheticTextZoom:
@@ -79,8 +80,11 @@ class SyntheticTextZoom:
     def collate(self, items, **collate_kw):
         return sr_collate(items, **collate_kw)
 
-    def batches(self, batch_size: int, **collate_kw):
+    # `batches(shard=)` draws only a data-parallel rank's rows
+    builds_rows = True
+
+    def batches(self, batch_size: int, shard: Tuple[int, int] = (0, 1),
+                **collate_kw):
         for start in range(0, len(self) - batch_size + 1, batch_size):
-            yield self.collate(self.fetch_items(range(start,
-                                                      start + batch_size)),
-                               **collate_kw)
+            yield self.collate(self.fetch_items(rows_of(
+                range(start, start + batch_size), shard)), **collate_kw)

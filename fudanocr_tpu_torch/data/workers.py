@@ -15,7 +15,9 @@ the card computes, and hands them back IN ORDER.
     consumer (a dead worker breaks the pool: BrokenProcessPool);
   * `num_workers=0` runs the same steps in-process;
   * `drop_last` (default True, as in JAX) drops the last partial batch;
-    serving passes False so every image is served.
+    serving passes False so every image is served;
+  * `shard=(k, n)` makes only rank k's rows of each batch of the n ranks
+    of a data-parallel run (`rows_of`).
 
 Usage:
     factory = functools.partial(LRServingLMDBDataset, "/data/textzoom",
@@ -30,9 +32,22 @@ import collections
 import itertools
 import multiprocessing as mp
 from concurrent.futures import ProcessPoolExecutor
-from typing import Callable, Sequence
+from typing import Callable, Sequence, Tuple
 
 _WORKER_DS = None     # each worker process's own dataset
+
+
+def rows_of(indices: Sequence, shard: Tuple[int, int]) -> Sequence:
+    """Rank k's rows of a batch's indices when `shard` is (k, n): the
+    [k·b, (k+1)·b) of n·b (core/mesh.Mesh.rows); all of them at (0, 1)."""
+    index, size = shard
+    if size == 1:
+        return indices
+    if len(indices) % size:
+        raise ValueError(f"a batch of {len(indices)} rows does not divide "
+                         f"across {size} ranks")
+    b = len(indices) // size
+    return indices[index * b:(index + 1) * b]
 
 
 def _init_worker(factory: Callable):
@@ -48,18 +63,20 @@ class WorkerBatches:
     """Order-preserving multi-process batch stream over an LMDB dataset."""
 
     def __init__(self, factory: Callable, batch_size: int,
-                 num_workers: int = 0, drop_last: bool = True):
+                 num_workers: int = 0, drop_last: bool = True,
+                 shard: Tuple[int, int] = (0, 1)):
         self.factory = factory
         self.batch_size = batch_size
         self.num_workers = num_workers
         self.drop_last = drop_last
+        self.shard = shard
 
     def _chunks(self, n: int):
         for start in range(0, n, self.batch_size):
             chunk = list(range(start, min(start + self.batch_size, n)))
             if len(chunk) < self.batch_size and self.drop_last:
                 continue
-            yield chunk
+            yield rows_of(chunk, self.shard)
 
     def __iter__(self):
         """The batch stream. With workers, the pool forks them here, in the

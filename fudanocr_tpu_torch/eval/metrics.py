@@ -15,10 +15,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fudanocr_tpu_torch.core.mesh import batch_mean
+from fudanocr_tpu_torch.nn.layers import at_least_f32
+
 
 def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
-    """Peak signal-to-noise ratio over [0, 1] images (any shape)."""
-    mse = ((img1 * 255.0 - img2 * 255.0) ** 2).mean()
+    """Peak signal-to-noise ratio over [0, 1] images (any shape); in a
+    data-parallel step over the global batch (`core/mesh.batch_mean`)."""
+    mse = batch_mean((img1 * 255.0 - img2 * 255.0) ** 2)
     return 20.0 * torch.log10(255.0 / mse.sqrt())
 
 
@@ -31,16 +35,18 @@ def _gaussian_window(size: int = 11, sigma: float = 1.5) -> np.ndarray:
 
 def ssim(img1: torch.Tensor, img2: torch.Tensor,
          window_size: int = 11) -> torch.Tensor:
-    """Mean SSIM over NHWC [0, 1] images (Gaussian window, per channel)."""
+    """Mean SSIM over NHWC [0, 1] images (Gaussian window, per channel);
+    in a data-parallel step over the global batch."""
     c = img1.shape[-1]
     w = torch.from_numpy(_gaussian_window(window_size)).to(img1.device)
     kernel = w[None, None].expand(c, 1, window_size, window_size)
 
     def filt(x):
-        return F.conv2d(x, kernel, padding=window_size // 2, groups=c)
+        return F.conv2d(x, kernel.to(x.dtype), padding=window_size // 2,
+                        groups=c)
 
-    a = img1.float().permute(0, 3, 1, 2)
-    b = img2.float().permute(0, 3, 1, 2)
+    a = at_least_f32(img1).permute(0, 3, 1, 2)
+    b = at_least_f32(img2).permute(0, 3, 1, 2)
     mu1, mu2 = filt(a), filt(b)
     mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
     sigma1_sq = filt(a * a) - mu1_sq
@@ -49,7 +55,7 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor,
     c1, c2 = 0.01 ** 2, 0.03 ** 2
     ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
         (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
-    return ssim_map.mean()
+    return batch_mean(ssim_map)
 
 
 def str_filt(s: str, voc_type: str = "lower") -> str:
@@ -67,10 +73,14 @@ def str_filt(s: str, voc_type: str = "lower") -> str:
     return s.lower()
 
 
+def sequence_hits(preds: list, gts: list, voc_type: str = "lower") -> int:
+    """Exact matches after vocabulary filtering."""
+    return sum(1 for p, g in zip(preds, gts)
+               if str_filt(p, voc_type) == str_filt(g, voc_type))
+
+
 def sequence_accuracy(preds: list, gts: list, voc_type: str = "lower") -> float:
     """Exact-match accuracy after vocabulary filtering."""
     if not gts:
         return 0.0
-    hits = sum(1 for p, g in zip(preds, gts)
-               if str_filt(p, voc_type) == str_filt(g, voc_type))
-    return hits / len(gts)
+    return sequence_hits(preds, gts, voc_type) / len(gts)

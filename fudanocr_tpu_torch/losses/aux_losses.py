@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fudanocr_tpu_torch.core.mesh import mean_share
 from fudanocr_tpu_torch.nn.layers import conv2d
 
 
@@ -82,11 +83,14 @@ def perceptual_loss(vgg: Callable[[torch.Tensor], torch.Tensor],
 
 
 def gan_generator_loss(fake_logits: torch.Tensor) -> torch.Tensor:
-    """The non-saturating generator loss, mean softplus(-D(G(z)))."""
-    return F.softplus(-fake_logits).mean()
+    """The non-saturating generator loss, mean softplus(-D(G(z))) (in a
+    data-parallel step this rank's share of the global batch's mean)."""
+    return mean_share(F.softplus(-fake_logits))
 
 
 def gan_discriminator_loss(real_logits: torch.Tensor,
                            fake_logits: torch.Tensor) -> torch.Tensor:
-    """The real/fake BCE on logits: softplus(-real) + softplus(fake)."""
-    return F.softplus(-real_logits).mean() + F.softplus(fake_logits).mean()
+    """The real/fake BCE on logits: softplus(-real) + softplus(fake)
+    (shares of the global means, as `gan_generator_loss`)."""
+    return (mean_share(F.softplus(-real_logits))
+            + mean_share(F.softplus(fake_logits)))

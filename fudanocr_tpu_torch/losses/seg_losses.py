@@ -12,6 +12,13 @@ its gradient a broadcast multiply, as in JAX. Two or more exactly equal
 errors may sort either way: the loss value does not depend on it, the
 gradient does. The JAX `lovasz_softmax_bucketed` is a recorded negative
 and is not ported.
+
+In a data-parallel step (`core/mesh.data_parallel`) every loss is this
+rank's share of the global batch's: the means divide by all-reduced
+denominators, and Lovász, whose sort is global, gathers the errors and
+labels of every rank in rank order (the global batch's pixel order),
+forms the global weights with a stable sort, and dots its own errors with
+its slice of them.
 """
 
 from __future__ import annotations
@@ -20,6 +27,9 @@ from typing import Optional
 
 import torch
 
+from fudanocr_tpu_torch.core import mesh
+from fudanocr_tpu_torch.nn.layers import at_least_f32
+
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        class_weight: Optional[torch.Tensor] = None,
@@ -27,12 +37,12 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     """Mean negative log-likelihood over the valid pixels (fp32)."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, 0).long()
-    logp = torch.log_softmax(logits.float(), -1)
+    logp = torch.log_softmax(at_least_f32(logits), -1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     w = valid.float()
     if class_weight is not None:
         w = w * class_weight[safe]
-    return (nll * w).sum() / w.sum().clamp(min=1.0)
+    return (nll * w).sum() / mesh.all_reduce_sum(w.sum()).clamp(min=1.0)
 
 
 def _lovasz_grad(gt_sorted: torch.Tensor) -> torch.Tensor:
@@ -45,16 +55,33 @@ def _lovasz_grad(gt_sorted: torch.Tensor) -> torch.Tensor:
     return torch.cat([jac[:1], jac[1:] - jac[:-1]])
 
 
-def _weights_in_place(errors: torch.Tensor, *gts) -> torch.Tensor:
+def _weights_in_place(errors: torch.Tensor, *gts,
+                      stable: bool = False) -> torch.Tensor:
     """Sort by descending error; the Lovász weights of each (ground truth,
     present) pair, 0 where the class is absent, summed and carried back to
     pixel order by one scatter. No host synchronisation."""
-    order = torch.sort(errors.detach(), descending=True).indices
-    w = torch.zeros_like(errors)
+    order = torch.sort(errors.detach(), descending=True,
+                       stable=stable).indices
+    w = torch.zeros_like(errors.detach())
     for gt, present in gts:
         w = w + torch.where(present, _lovasz_grad(gt[order]),
                             torch.zeros((), device=w.device))
-    return torch.zeros_like(errors).scatter_(0, order, w)
+    return torch.zeros_like(w).scatter_(0, order, w)
+
+
+def _global_weights(errors: torch.Tensor, *fgs) -> tuple:
+    """(this rank's slice of the global Lovász weights, each class's
+    global presence) in a data-parallel step: the ranks' errors and
+    ground truths gathered in rank order, the global batch's pixel order,
+    and sorted stably, so equal errors keep that order on any world size.
+    One process's unstable sort may order equal errors otherwise: the loss
+    value is the same, the gradients of the tied pixels may not be."""
+    m = mesh.current()
+    n = errors.shape[0]
+    all_errors = mesh.all_gather(errors.detach())
+    gts = [(g, g.sum() > 0) for g in (mesh.all_gather(fg) for fg in fgs)]
+    w = _weights_in_place(all_errors, *gts, stable=True)
+    return w[m.index * n:(m.index + 1) * n], [p for _, p in gts]
 
 
 def lovasz_softmax_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -65,7 +92,7 @@ def lovasz_softmax_loss(logits: torch.Tensor, labels: torch.Tensor,
     |fg1 - p1| = |fg0 - p0|, so one sort orders both classes (the JAX
     binary path :180-210); more classes sort per class (:212-236)."""
     c = logits.shape[-1]
-    probs = torch.softmax(logits.float(), -1).reshape(-1, c)
+    probs = torch.softmax(at_least_f32(logits), -1).reshape(-1, c)
     flat = labels.reshape(-1)
     valid = flat != ignore_index
     safe = torch.where(valid, flat, 0)
@@ -75,17 +102,24 @@ def lovasz_softmax_loss(logits: torch.Tensor, labels: torch.Tensor,
         fg0 = ((safe == 0) & valid).float()
         fg1 = ((safe == 1) & valid).float()
         errors = torch.where(valid, (fg0 - probs[:, 0]).abs(), zero)
-        p0, p1 = fg0.sum() > 0, fg1.sum() > 0
-        w = _weights_in_place(errors, (fg0, p0), (fg1, p1))
+        if mesh.current() is None:
+            p0, p1 = fg0.sum() > 0, fg1.sum() > 0
+            w = _weights_in_place(errors, (fg0, p0), (fg1, p1))
+        else:
+            w, (p0, p1) = _global_weights(errors, fg0, fg1)
         present = p0.float() + p1.float()
         return (errors * w).sum() / present.clamp(min=1.0)
 
     losses, present = [], []
     for ci in range(c):
         fg = ((safe == ci) & valid).float()
-        p = fg.sum() > 0
         errors = torch.where(valid, (fg - probs[:, ci]).abs(), zero)
-        loss_c = (errors * _weights_in_place(errors, (fg, p))).sum()
+        if mesh.current() is None:
+            p = fg.sum() > 0
+            w = _weights_in_place(errors, (fg, p))
+        else:
+            w, (p,) = _global_weights(errors, fg)
+        loss_c = (errors * w).sum()
         losses.append(torch.where(p, loss_c, zero))
         present.append(p.float())
     return torch.stack(losses).sum() / torch.stack(present).sum().clamp(
@@ -97,4 +131,5 @@ def seg_accuracy(logits: torch.Tensor, labels: torch.Tensor,
     """Share of valid pixels whose argmax class is the label."""
     valid = labels != ignore_index
     hit = ((logits.argmax(-1) == labels) & valid).float()
-    return hit.sum() / valid.float().sum().clamp(min=1.0)
+    return mesh.all_reduce_sum(hit.sum()) / mesh.all_reduce_sum(
+        valid.float().sum()).clamp(min=1.0)

@@ -9,7 +9,9 @@ The oracle is the frozen `OCRTransformer(vocab=37, num_in=1, layers=(1, 2,
 into the SR image, as in the reference (eval()'d, not detached). Labels
 are fixed-shape (B, Lmax) with a length mask; the CE and the map L1 are
 masked means, as in the JAX package. Without a confusion table the
-weighted CE is the plain CE.
+weighted CE is the plain CE. In a data-parallel step (`core/mesh`) each
+term is this rank's share of the global batch's mean: its own sum over
+the all-reduced denominator.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from fudanocr_tpu_torch.core.mesh import all_reduce_sum, mean_share
 from fudanocr_tpu_torch.eval.metrics import str_filt
+from fudanocr_tpu_torch.nn.layers import at_least_f32
 
 # '-' = 0 is both the start token and the padding index, as in the
 # reference english_alphabet (text_focus_loss.py:47).
@@ -65,13 +69,13 @@ def weighted_cross_entropy(pred: torch.Tensor, gt: torch.Tensor,
 
     pred (B, L, C) logits, gt (B, L) ids, mask (B, L) {0, 1}:
     loss_i = -log(w[gt_i, gt_i] exp(p_gt) / sum_j w[gt_i, j] exp(p_j))."""
-    logp = pred.float()
+    logp = at_least_f32(pred)
     gt = gt.long()
     if weight_table is not None:
         logp = logp + weight_table[gt].clamp_min(1e-20).log()
     nll = logp.logsumexp(-1) - logp.gather(-1, gt[..., None])[..., 0]
     mask = mask.float()
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return (nll * mask).sum() / all_reduce_sum(mask.sum()).clamp_min(1.0)
 
 
 def load_confuse_weight_table(path: str) -> np.ndarray:
@@ -129,7 +133,7 @@ class TextFocusLoss:
                  lengths: torch.Tensor,
                  hr_map: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        mse = ((sr.float() - hr.float()) ** 2).mean()
+        mse = mean_share((at_least_f32(sr) - at_least_f32(hr)) ** 2)
         if not self.text_focus:
             return mse, {"mse": mse}
         if hr_map is None:
@@ -140,9 +144,10 @@ class TextFocusLoss:
         mask = (torch.arange(l, device=lengths.device)[None, :]
                 < lengths[:, None])
         map_mask = mask[:, None, :, None].float()            # (B, 1, L, 1)
-        map_diff = (hr_map.float() - sr_out["map"].float()).abs() * map_mask
-        denom = (map_mask.sum().clamp_min(1.0) * hr_map.shape[1]
-                 * hr_map.shape[3])
+        map_diff = (at_least_f32(hr_map)
+                    - at_least_f32(sr_out["map"])).abs() * map_mask
+        denom = (all_reduce_sum(map_mask.sum()).clamp_min(1.0)
+                 * hr_map.shape[1] * hr_map.shape[3])
         attention_loss = map_diff.sum() / denom
         wt = (None if self.weight_table is None
               else self.weight_table.to(sr.device))

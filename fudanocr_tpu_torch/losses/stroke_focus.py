@@ -7,7 +7,9 @@ attention maps of a frozen stroke-decomposition transformer run on HR and
 on SR (the reference disables its recognition CE). The oracle is the
 shared `OCRTransformer` with vocab 10 (stroke digits) and a 1-channel
 encoder. The interface is `TextFocusLoss`'s (`oracle`, `text_focus`,
-`hr_oracle_map`), so `SRTrainer`'s HR-map cache serves it unchanged.
+`hr_oracle_map`), so `SRTrainer`'s HR-map cache serves it unchanged; in
+a data-parallel step its means are shares of the global batch's, as
+there.
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from fudanocr_tpu_torch.core.mesh import all_reduce_sum, mean_share
 from fudanocr_tpu_torch.losses.sr_losses import to_gray
+from fudanocr_tpu_torch.nn.layers import at_least_f32
 
 
 class StrokeFocusLoss:
@@ -43,7 +47,7 @@ class StrokeFocusLoss:
                  lengths: torch.Tensor,
                  hr_map: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        mse = ((sr.float() - hr.float()) ** 2).mean()
+        mse = mean_share((at_least_f32(sr) - at_least_f32(hr)) ** 2)
         if not self.text_focus:
             return mse, {"mse": mse}
         if hr_map is None:
@@ -54,9 +58,9 @@ class StrokeFocusLoss:
         mask = (torch.arange(l, device=lengths.device)[None, :]
                 < lengths[:, None])
         map_mask = mask[:, None, :, None].float()            # (B, 1, L, 1)
-        diff = (hr_map.float() - sr_map.float()).abs() * map_mask
-        denom = (map_mask.sum().clamp_min(1.0) * hr_map.shape[1]
-                 * hr_map.shape[3])
+        diff = (at_least_f32(hr_map) - at_least_f32(sr_map)).abs() * map_mask
+        denom = (all_reduce_sum(map_mask.sum()).clamp_min(1.0)
+                 * hr_map.shape[1] * hr_map.shape[3])
         attention_loss = diff.sum() / denom
         total = mse + attention_loss * self.stroke_lambda
         return total, {"mse": mse, "attention": attention_loss}

@@ -60,6 +60,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fudanocr_tpu_torch.core import mesh
 from fudanocr_tpu_torch.nn.layers import (batch_norm, conv2d, layer_norm,
                                           linear)
 from fudanocr_tpu_torch.ops.flash_attention import flash_mha
@@ -97,12 +98,13 @@ def drop_path(x: torch.Tensor, rate: float, train: bool,
               generator: Optional[torch.Generator]) -> torch.Tensor:
     """Stochastic depth (cascade_mit.py:47-54): in training each sample of
     x is kept with probability 1 - rate and scaled by 1 / (1 - rate), else
-    zeroed; the draws come from `generator` (on x's device)."""
+    zeroed; the draws come from `generator` (on x's device), the global
+    batch's in a data-parallel step (`core/mesh.global_rand`)."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    mask = mesh.global_rand(shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

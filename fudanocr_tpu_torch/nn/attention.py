@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fudanocr_tpu_torch.core import mesh
 from fudanocr_tpu_torch.nn.layers import dropout, linear
 from fudanocr_tpu_torch.ops.flash_attention import (
     KERNEL_HEAD_WIDTH, UNMASKED_HEAD_WIDTHS, flash_attention_supported,
@@ -71,8 +72,10 @@ class MultiHeadAttention(nn.Module):
     override or maps asked for, takes the attention kernels:
     self-attention at a shape `flash_packed_supported` takes runs off the
     fused [q|k|v] buffer, through `flash_mha_qkv_packed_dropout` (hash
-    dropout, one uint32 seed drawn from `generator` per call) in train
-    mode with `dropout_rate > 0`, else through `flash_mha_qkv_packed`;
+    dropout, one uint32 seed drawn from `generator` per call, images keyed
+    on their global index in a data-parallel step: `core/mesh.
+    batch_offset`) in train mode with `dropout_rate > 0`, else through
+    `flash_mha_qkv_packed`;
     otherwise, without train-mode dropout, a (B, H, L, dh) q that
     `flash_attention_supported` takes runs through `flash_mha`. Each
     route also needs a head width its kernel is built for (32 for the
@@ -130,7 +133,8 @@ class MultiHeadAttention(nn.Module):
                                          device=qkv.device)
                     run = (flash_mha_qkv_packed_dropout if self.kernels
                            else flash_mha_qkv_packed_dropout_reference)
-                    out = run(qkv, seed, h, self.dropout_rate)
+                    out = run(qkv, seed, h, self.dropout_rate,
+                              mesh.batch_offset(b))
                     return linear(self.linears[3], out), None
                 if not train_dropout and dk in UNMASKED_HEAD_WIDTHS:
                     run = (flash_mha_qkv_packed if self.kernels

@@ -14,7 +14,8 @@ exactly as the JAX module does:
   normalises with the biased batch variance and moves `running_var`
   towards that same biased variance (torch's own update uses the
   unbiased one, so the stock module drifts from the JAX `batch_stats`
-  after one step).
+  after one step). In a data-parallel step (`core/mesh.data_parallel`)
+  the statistics are the global batch's, from all-reduced sums.
 
 The `conv2d` / `conv_transpose2d` / `linear` / `batch_norm` /
 `layer_norm` helpers run a module's parameters at the activation's dtype
@@ -22,7 +23,8 @@ The `conv2d` / `conv_transpose2d` / `linear` / `batch_norm` /
 convolutions and products round their operands to it, the norms take
 float32 statistics and round only their result. Dropout draws its mask from an explicit
 `torch.Generator` on the activation's device (flax's `rngs={"dropout":
-...}`).
+...}`); in a data-parallel step every rank draws the global batch's mask
+and keeps its own rows.
 """
 
 from __future__ import annotations
@@ -30,12 +32,22 @@ from __future__ import annotations
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from fudanocr_tpu_torch.core import mesh
 from fudanocr_tpu_torch.ops.fused_layernorm import (
     fused_residual_layernorm, fused_residual_layernorm_reference,
     torch_layer_norm)
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or as it is in float64: the float32 islands of the
+    losses and metrics (flax's `astype(float32)`) keep a float64 run's
+    precision, so a data-parallel float64 step sums its shares as one
+    process sums the whole."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -83,10 +95,10 @@ def linear(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 
 def layer_norm(m: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """`m` with float32 statistics and affine, output in x's dtype (flax
-    LayerNorm with `dtype=`)."""
-    return F.layer_norm(x.float(), m.normalized_shape, m.weight, m.bias,
-                        m.eps).to(x.dtype)
+    """`m` with float32 statistics and affine (float64 in a float64 run),
+    output in x's dtype (flax LayerNorm with `dtype=`)."""
+    return F.layer_norm(at_least_f32(x), m.normalized_shape, m.weight,
+                        m.bias, m.eps).to(x.dtype)
 
 
 def batch_norm(m: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
@@ -103,14 +115,84 @@ def batch_norm(m: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     if not train:
         return F.batch_norm(x, m.running_mean, m.running_var, m.weight,
                             m.bias, False, 0.0, m.eps)
+    if mesh.current() is not None:
+        return _global_batch_norm(m, x)
+    axes = [0] + list(range(2, x.dim()))
     y = F.batch_norm(x, None, None, m.weight, m.bias, True, 0.0, m.eps)
     with torch.no_grad():
-        axes = [0] + list(range(2, x.dim()))
         var, mean = torch.var_mean(x.to(m.running_var.dtype), dim=axes,
                                    correction=0)
         m.running_mean.lerp_(mean, m.momentum)
         m.running_var.lerp_(var, m.momentum)
     return y
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch of the ranks in `group`
+    (normalised `xhat = (x - mean) / sqrt(var + eps)`, the biased
+    variance): the forward all-reduces the sum, then the sum of squares
+    about the mean; the backward all-reduces sum(dy) and sum(dy * xhat)
+    once and forms dx = w / sqrt(var + eps) * (dy - mean(dy) - xhat *
+    mean(dy * xhat)), cuDNN's form of it (autograd through the forward's
+    own steps cancels more in float32). The weight and bias get this
+    rank's share, summed over the ranks with the other gradients. Returns
+    (y, mean, var) in the statistics' dtype (float32, or float64)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group, size):
+        axes = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        count = x.numel() // x.shape[1] * size
+        total = x.sum(axes)
+        dist.all_reduce(total, group=group)
+        mean = total / count
+        centred = x - mean.view(shape)
+        sq = (centred * centred).sum(axes)
+        dist.all_reduce(sq, group=group)
+        var = sq / count
+        inv = torch.rsqrt(var + eps)
+        xhat = centred * inv.view(shape)
+        y = xhat if weight is None else (xhat * weight.view(shape)
+                                         + bias.view(shape))
+        ctx.save_for_backward(xhat, inv, weight)
+        ctx.group, ctx.count = group, count
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        xhat, inv, weight = ctx.saved_tensors
+        axes = [0] + list(range(2, dy.dim()))
+        shape = [1, -1] + [1] * (dy.dim() - 2)
+        dbias = dy.sum(axes)
+        dweight = (dy * xhat).sum(axes)
+        sums = torch.cat([dbias, dweight])
+        dist.all_reduce(sums, group=ctx.group)
+        g_mean, g_xhat = (sums / ctx.count).chunk(2)
+        scale = inv if weight is None else inv * weight
+        dx = scale.view(shape) * (dy - g_mean.view(shape)
+                                  - xhat * g_xhat.view(shape))
+        if weight is None:
+            return dx, None, None, None, None, None
+        return dx, dweight, dbias, None, None, None
+
+
+def _global_batch_norm(m: nn.modules.batchnorm._BatchNorm,
+                       x: torch.Tensor) -> torch.Tensor:
+    """Train-mode `batch_norm` over the global batch of a data-parallel
+    step (`core/mesh.data_parallel`, `_GlobalBatchNorm`), in float32
+    (float64 inputs stay float64); the running statistics move as flax's
+    do (C7), not as `nn.SyncBatchNorm`'s unbiased update."""
+    mesh_ = mesh.current()
+    xs = x if x.dtype in (torch.float32, torch.float64) else x.float()
+    w = None if m.weight is None else m.weight.to(xs.dtype)
+    b = None if m.bias is None else m.bias.to(xs.dtype)
+    y, mean, var = _GlobalBatchNorm.apply(xs, w, b, m.eps, mesh_.group,
+                                          mesh_.size)
+    with torch.no_grad():
+        m.running_mean.lerp_(mean.to(m.running_mean.dtype), m.momentum)
+        m.running_var.lerp_(var.to(m.running_var.dtype), m.momentum)
+    return y.to(x.dtype)
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -121,8 +203,7 @@ def dropout(x: torch.Tensor, rate: float,
     None), so a run is reproducible from the generator's state."""
     if rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator,
-                      device=x.device) < 1.0 - rate
+    keep = mesh.global_rand(x.shape, generator, x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

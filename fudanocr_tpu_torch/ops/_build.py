@@ -108,10 +108,10 @@ def load_library() -> ctypes.CDLL:
     lib.srb_conv3x3_qkv_bf16.argtypes = [p] * 7 + [i] * 3 + [p]
     lib.ln_residual_fwd.argtypes = [p] * 5 + [i64, i, f, i, p]
     lib.attn_dropout_fwd.argtypes = [p] * 6 + [i] * 4 + [i64] * 3 \
-        + [f, f, u32, i, p]
+        + [f, f, u32, u32, i, p]
     lib.attn_dropout_bwd.argtypes = [p] * 11 + [i] * 4 + [i64] * 6 \
-        + [f, f, u32, i, p]
-    lib.attn_dropout_keep.argtypes = [p, p, i, i, i, u32, p]
+        + [f, f, u32, u32, i, p]
+    lib.attn_dropout_keep.argtypes = [p, p, i, i, i, u32, u32, p]
     lib.attn_unmasked_packed_fwd.argtypes = [p] * 4 + [i] * 5 + [i64] * 4 \
         + [f, i, p]
     lib.attn_unmasked_bhld_fwd.argtypes = [p] * 4 + [i] * 5 + [i64] * 12 \

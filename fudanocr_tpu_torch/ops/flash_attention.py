@@ -113,33 +113,43 @@ def _seed_tensor(seed: Seed, device) -> torch.Tensor:
     return torch.tensor(int(seed), dtype=torch.int64, device=device)
 
 
+def _check_offset(offset: int) -> int:
+    if not 0 <= int(offset) <= MASK32:
+        raise ValueError(f"batch offset must be a uint32, got {offset}")
+    return int(offset)
+
+
 def dropout_keep_oracle(b: int, heads: int, l: int, seed: Seed,
-                        rate: float, device="cpu") -> torch.Tensor:
+                        rate: float, device="cpu",
+                        offset: int = 0) -> torch.Tensor:
     """(B, H, L, L) bool keep mask of the whole call, the counterpart of
     the JAX package's `dropout_keep_oracle` (flash_attention.py:603),
-    computed with torch ops on `device`."""
+    computed with torch ops on `device`; images are keyed on their global
+    index offset + b (`offset`: a data-parallel rank's first row)."""
     seed = _seed_tensor(seed, device)
-    bidx = torch.arange(b, dtype=torch.int64, device=device)
+    offset = _check_offset(offset)
+    bidx = torch.arange(offset, offset + b, dtype=torch.int64, device=device)
     return torch.stack([keep_mask(bh_seed(seed, bidx, h, heads), 0, l, l,
                                   thresh(rate)) for h in range(heads)], 1)
 
 
 def flash_mha_qkv_packed_dropout_reference(qkv: torch.Tensor, seed: Seed,
-                                           heads: int,
-                                           rate: float) -> torch.Tensor:
+                                           heads: int, rate: float,
+                                           offset: int = 0) -> torch.Tensor:
     """The plain PyTorch version, (B, L, 3D) -> (B, L, D) at qkv's dtype:
     `flash_mha_packed_dropout_reference` on qkv's column slices."""
     d = qkv.shape[-1] // 3
     return flash_mha_packed_dropout_reference(
-        qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], seed, heads, rate)
+        qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], seed, heads, rate,
+        offset)
 
 
 def flash_mha_packed_dropout_reference(q: torch.Tensor, k: torch.Tensor,
                                        v: torch.Tensor, seed: Seed,
-                                       heads: int,
-                                       rate: float) -> torch.Tensor:
+                                       heads: int, rate: float,
+                                       offset: int = 0) -> torch.Tensor:
     """The plain PyTorch version of B11, q, k, v (B, L, D) -> (B, L, D) at
-    q's dtype.
+    q's dtype; image b's mask is keyed on offset + b (the kernels' b0).
 
     Same math and rounding points as the JAX kernels: fp32 scores and
     softmax, probabilities rounded to the input dtype for the value
@@ -156,7 +166,9 @@ def flash_mha_packed_dropout_reference(q: torch.Tensor, k: torch.Tensor,
     scale = 1.0 / math.sqrt(dh)
     inv_keep = 1.0 / (1.0 - rate)
     seed = _seed_tensor(seed, q.device)
-    bidx = torch.arange(b, dtype=torch.int64, device=q.device)
+    offset = _check_offset(offset)
+    bidx = torch.arange(offset, offset + b, dtype=torch.int64,
+                        device=q.device)
     outs = []
     for h in range(heads):
         qh, kh, vh = (t[..., h * dh:(h + 1) * dh].float() for t in (q, k, v))
@@ -213,9 +225,11 @@ def _check_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return b, l, d
 
 
-def _dropout_fwd(q, k, v, seed, heads: int, rate: float, counter):
+def _dropout_fwd(q, k, v, seed, heads: int, rate: float, counter,
+                 offset: int = 0):
     """Check, count on `counter` and launch the forward kernel on q, k, v
-    read in place at their row strides: (o (B, L, D), lse (B, H, L) fp32)."""
+    read in place at their row strides, image b keyed on offset + b:
+    (o (B, L, D), lse (B, H, L) fp32)."""
     from fudanocr_tpu_torch.ops._build import check, load_library
 
     b, l, d = _check_dropout(q, k, v, heads, rate)
@@ -231,13 +245,13 @@ def _dropout_fwd(q, k, v, seed, heads: int, rate: float, counter):
             out.data_ptr(), lse.data_ptr(), b, l, heads, d // heads,
             q.stride(1), k.stride(1), v.stride(1),
             1.0 / math.sqrt(d // heads), 1.0 / (1.0 - rate), thresh(rate),
-            int(q.dtype == torch.bfloat16),
+            _check_offset(offset), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream), "attn_dropout_fwd")
     return out, lse
 
 
 def _dropout_bwd(q, k, v, out, dout, lse, seed, grads, heads: int,
-                 rate: float, counter) -> None:
+                 rate: float, counter, offset: int = 0) -> None:
     """Check, count on `counter` and launch the backward kernel, writing
     dq, dk, dv into `grads` (three (B, L, D) tensors or views with unit
     feature stride)."""
@@ -266,27 +280,30 @@ def _dropout_bwd(q, k, v, out, dout, lse, seed, grads, heads: int,
             d // heads,
             q.stride(1), k.stride(1), v.stride(1),
             *(g.stride(1) for g in grads), 1.0 / math.sqrt(d // heads),
-            1.0 / (1.0 - rate), thresh(rate), int(q.dtype == torch.bfloat16),
+            1.0 / (1.0 - rate), thresh(rate), _check_offset(offset),
+            int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream), "attn_dropout_bwd")
 
 
 def qkv_dropout_fwd(qkv: torch.Tensor, seed: torch.Tensor, heads: int,
-                    rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                    rate: float,
+                    offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on qkv's column slices: (o (B, L, D), lse
     (B, H, L) fp32). `qkv_dropout_fwd.launches` counts launches."""
-    return _dropout_fwd(*_columns(qkv), seed, heads, rate, qkv_dropout_fwd)
+    return _dropout_fwd(*_columns(qkv), seed, heads, rate, qkv_dropout_fwd,
+                        offset)
 
 
 def qkv_dropout_bwd(qkv: torch.Tensor, out: torch.Tensor,
                     dout: torch.Tensor, lse: torch.Tensor,
-                    seed: torch.Tensor, heads: int,
-                    rate: float) -> torch.Tensor:
+                    seed: torch.Tensor, heads: int, rate: float,
+                    offset: int = 0) -> torch.Tensor:
     """Launch the backward kernel: dqkv (B, L, 3D) at qkv's dtype, written
     through its column slices. `qkv_dropout_bwd.launches` counts
     launches."""
     dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
     _dropout_bwd(*_columns(qkv), out, dout, lse, seed, _columns(dqkv), heads,
-                 rate, qkv_dropout_bwd)
+                 rate, qkv_dropout_bwd, offset)
     return dqkv
 
 
@@ -295,10 +312,11 @@ qkv_dropout_bwd.launches = 0
 
 
 def dropout_keep_mask_cuda(seed: Seed, b: int, heads: int, l: int,
-                           rate: float, device) -> torch.Tensor:
-    """(B, H, L, L) bool keep mask computed on the card by the same
-    __device__ hash the kernels use (for tests; not counted as a launch
-    of either kernel)."""
+                           rate: float, device,
+                           offset: int = 0) -> torch.Tensor:
+    """(B, H, L, L) bool keep mask of images offset .. offset + B - 1,
+    computed on the card by the same __device__ hash the kernels use (for
+    tests; not counted as a launch of either kernel)."""
     from fudanocr_tpu_torch.ops._build import check, load_library
 
     seed = _seed_tensor(seed, device)
@@ -308,16 +326,17 @@ def dropout_keep_mask_cuda(seed: Seed, b: int, heads: int, l: int,
                            device=seed.device)
         check(lib.attn_dropout_keep(
             seed.data_ptr(), mask.data_ptr(), b, heads, l, thresh(rate),
-            torch.cuda.current_stream().cuda_stream), "attn_dropout_keep")
+            _check_offset(offset), torch.cuda.current_stream().cuda_stream),
+            "attn_dropout_keep")
     return mask.bool()
 
 
 class _QKVDropoutAttention(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, qkv, seed, heads, rate):
-        out, lse = qkv_dropout_fwd(qkv, seed, heads, rate)
-        ctx.heads, ctx.rate = heads, rate
+    def forward(ctx, qkv, seed, heads, rate, offset):
+        out, lse = qkv_dropout_fwd(qkv, seed, heads, rate, offset)
+        ctx.heads, ctx.rate, ctx.offset = heads, rate, offset
         ctx.save_for_backward(qkv, seed, out, lse)
         return out
 
@@ -325,15 +344,18 @@ class _QKVDropoutAttention(torch.autograd.Function):
     def backward(ctx, dout):
         qkv, seed, out, lse = ctx.saved_tensors
         dqkv = qkv_dropout_bwd(qkv, out, dout.contiguous(), lse, seed,
-                               ctx.heads, ctx.rate)
-        return dqkv, None, None, None
+                               ctx.heads, ctx.rate, ctx.offset)
+        return dqkv, None, None, None, None
 
 
 def flash_mha_qkv_packed_dropout(qkv: torch.Tensor, seed: Seed, heads: int,
-                                 rate: float) -> torch.Tensor:
+                                 rate: float,
+                                 offset: int = 0) -> torch.Tensor:
     """Dropout attention over the fused [q|k|v] (B, L, 3D) buffer ->
     (B, L, D), differentiable in qkv; the gradient comes back as one
-    (B, L, 3D) buffer.
+    (B, L, 3D) buffer. Image b's mask is keyed on offset + b: a
+    data-parallel rank passes the global index of its first row, so its
+    masks are those of its rows in one process's call on the global batch.
 
     CPU tensors run the plain version. CUDA tensors run the kernels (built
     at first use, see ops/_build.py) and raise on what they do not take:
@@ -341,12 +363,13 @@ def flash_mha_qkv_packed_dropout(qkv: torch.Tensor, seed: Seed, heads: int,
     images not one after another, a head width other than 32, or L not a
     multiple of 128."""
     if qkv.device.type == "cpu":
-        return flash_mha_qkv_packed_dropout_reference(qkv, seed, heads, rate)
+        return flash_mha_qkv_packed_dropout_reference(qkv, seed, heads, rate,
+                                                      offset)
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_mha_qkv_packed_dropout: no kernel for "
                          f"{qkv.device}")
     return _QKVDropoutAttention.apply(qkv, _seed_tensor(seed, qkv.device),
-                                      heads, rate)
+                                      heads, rate, _check_offset(offset))
 
 
 # -- dropout attention off separate q, k, v buffers (B11) --------------------
@@ -360,23 +383,25 @@ def flash_mha_qkv_packed_dropout(qkv: torch.Tensor, seed: Seed, heads: int,
 
 
 def packed_dropout_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       seed: torch.Tensor, heads: int,
-                       rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                       seed: torch.Tensor, heads: int, rate: float,
+                       offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on separate q, k, v: (o (B, L, D), lse
     (B, H, L) fp32). `packed_dropout_fwd.launches` counts launches."""
-    return _dropout_fwd(q, k, v, seed, heads, rate, packed_dropout_fwd)
+    return _dropout_fwd(q, k, v, seed, heads, rate, packed_dropout_fwd,
+                        offset)
 
 
 def packed_dropout_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        out: torch.Tensor, dout: torch.Tensor,
                        lse: torch.Tensor, seed: torch.Tensor, heads: int,
-                       rate: float) -> Tuple[torch.Tensor, ...]:
+                       rate: float, offset: int = 0) -> Tuple[torch.Tensor,
+                                                              ...]:
     """Launch the backward kernel: (dq, dk, dv), contiguous, at q's dtype.
     `packed_dropout_bwd.launches` counts launches."""
     grads = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
     _dropout_bwd(q, k, v, out, dout, lse, seed, grads, heads, rate,
-                 packed_dropout_bwd)
+                 packed_dropout_bwd, offset)
     return grads
 
 
@@ -387,9 +412,9 @@ packed_dropout_bwd.launches = 0
 class _PackedDropoutAttention(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, q, k, v, seed, heads, rate):
-        out, lse = packed_dropout_fwd(q, k, v, seed, heads, rate)
-        ctx.heads, ctx.rate = heads, rate
+    def forward(ctx, q, k, v, seed, heads, rate, offset):
+        out, lse = packed_dropout_fwd(q, k, v, seed, heads, rate, offset)
+        ctx.heads, ctx.rate, ctx.offset = heads, rate, offset
         ctx.save_for_backward(q, k, v, seed, out, lse)
         return out
 
@@ -397,16 +422,17 @@ class _PackedDropoutAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, seed, out, lse = ctx.saved_tensors
         dq, dk, dv = packed_dropout_bwd(q, k, v, out, dout.contiguous(), lse,
-                                        seed, ctx.heads, ctx.rate)
-        return dq, dk, dv, None, None, None
+                                        seed, ctx.heads, ctx.rate, ctx.offset)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_mha_packed_dropout(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, seed: Seed, heads: int,
-                             rate: float) -> torch.Tensor:
+                             rate: float, offset: int = 0) -> torch.Tensor:
     """Dropout attention over separate (B, L, D) q, k, v -> (B, L, D),
     differentiable in q, k and v (the train-mode counterpart of
-    `flash_mha_packed`).
+    `flash_mha_packed`); image b's mask is keyed on offset + b, as in
+    `flash_mha_qkv_packed_dropout`.
 
     CPU tensors run the plain version. CUDA tensors run the kernels (built
     at first use, see ops/_build.py) and raise on what they do not take: a
@@ -414,13 +440,14 @@ def flash_mha_packed_dropout(q: torch.Tensor, k: torch.Tensor,
     stride other than 1, a head width other than 32, or L not a multiple
     of 128."""
     if q.device.type == "cpu":
-        return flash_mha_packed_dropout_reference(q, k, v, seed, heads, rate)
+        return flash_mha_packed_dropout_reference(q, k, v, seed, heads, rate,
+                                                  offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha_packed_dropout: no kernel for "
                          f"{q.device}")
     return _PackedDropoutAttention.apply(q, k, v,
                                          _seed_tensor(seed, q.device), heads,
-                                         rate)
+                                         rate, _check_offset(offset))
 
 
 # -- unmasked attention (CascadeMiT) ----------------------------------------

@@ -15,13 +15,17 @@ discriminator step and then the generator step:
   G's BatchNorm statistics (SRResNet has some, RRDBNet none) move in its
   training forward; D receives no update.
 
-Each net has its own Adam(lr, b1 0.9), no clip (optax.adam). One device:
-the nets' own (the JAX trainer's data-sharded mesh comes with ROADMAP
-A8). Both nets are initialised from `rng`, a CPU torch.Generator, the
-generator first (JAX draws them from PRNGKey(seed) and seed + 1), by
-torch's default initialisers (`init_parameters`), so the same seed gives
-the same weights on any device; the forwards' draws (none in these nets)
-come from a device generator seeded from it.
+Each net has its own Adam(lr, b1 0.9), no clip (optax.adam). The nets'
+device; under a process group each rank of the trainer's mesh
+(`core/mesh.make_mesh_for_batch`, the JAX trainer's data-sharded mesh)
+holds its rows of each global batch, and both steps are the global
+batch's (as train/sr.py): BatchNorm statistics and the losses' means are
+global, and each step sums its own net's gradients over the ranks before
+that net's Adam. Both nets are initialised from `rng`, a CPU
+torch.Generator, the generator first (JAX draws them from PRNGKey(seed)
+and seed + 1), by torch's default initialisers (`init_parameters`), so
+the same seed gives the same weights on any device; the forwards' draws
+(none in these nets) come from a device generator seeded from it.
 """
 
 from __future__ import annotations
@@ -35,6 +39,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fudanocr_tpu_torch.core.mesh import (Mesh, all_reduce_grads,
+                                          current, data_parallel,
+                                          global_values, make_mesh_for_batch,
+                                          mean_share, rank_batches)
 from fudanocr_tpu_torch.losses.aux_losses import (gan_discriminator_loss,
                                                   gan_generator_loss)
 from fudanocr_tpu_torch.train.state import AdamWithClip
@@ -99,13 +107,16 @@ class GANSRTrainer:
     `discriminator` (`SRDiscriminator`), both on one device, over
     `train_data.batches(batch_size)` of (hr, lr, labels), NHWC float numpy
     arrays in [0, 1]. `train()` returns the last iteration's
-    {"d_loss", "pix", "g_adv"}."""
+    {"d_loss", "pix", "g_adv"}. `mesh` (default
+    `make_mesh_for_batch(batch_size)`) is the data axis; `batch_size` is
+    the global batch."""
 
     def __init__(self, generator: nn.Module, discriminator: nn.Module,
                  train_data, batch_size: int = 16, g_lr: float = 1e-4,
                  d_lr: float = 1e-4, lambda_adv: float = 5e-3,
                  lambda_pix: float = 1.0, epochs: int = 1, seed: int = 0,
-                 rng: Optional[torch.Generator] = None):
+                 rng: Optional[torch.Generator] = None,
+                 mesh: Optional[Mesh] = None):
         self.g, self.d = generator, discriminator
         self.train_data = train_data
         self.batch_size = batch_size
@@ -115,6 +126,7 @@ class GANSRTrainer:
         init_parameters(generator, rng)
         init_parameters(discriminator, rng)
         self.device = next(generator.parameters()).device
+        self.mesh = mesh or make_mesh_for_batch(batch_size)
         self.draws = torch.Generator(self.device).manual_seed(int(
             torch.randint(2 ** 62, (1,), generator=rng)))
         self.g_opt = AdamWithClip(generator.parameters(), g_lr, beta1=0.9,
@@ -123,35 +135,46 @@ class GANSRTrainer:
                                   beta1=0.9, clip=None)
 
     def d_step(self, lr: torch.Tensor, hr: torch.Tensor) -> torch.Tensor:
-        """One discriminator update; returns its loss (a device tensor)."""
-        with torch.no_grad():
-            sr = self.g(lr)
-        self.d_opt.zero_grad()
-        real = self.d(hr, train=True, generator=self.draws)
-        with bn_statistics_kept(self.d):
-            fake = self.d(sr, train=True, generator=self.draws)
-        loss = gan_discriminator_loss(real, fake)
-        loss.backward()
-        self.d_opt.step()
-        return loss.detach()
+        """One discriminator update; returns its loss (a device tensor).
+        On the mesh, lr and hr are this rank's rows and the loss is the
+        global batch's."""
+        with data_parallel(self.mesh):
+            with torch.no_grad():
+                sr = self.g(lr)
+            self.d_opt.zero_grad()
+            real = self.d(hr, train=True, generator=self.draws)
+            with bn_statistics_kept(self.d):
+                fake = self.d(sr, train=True, generator=self.draws)
+            loss = gan_discriminator_loss(real, fake)
+            loss.backward()
+            all_reduce_grads(self.d_opt.params, self.mesh)
+            self.d_opt.step()
+            return global_values({"d": loss.detach()})["d"]
 
     def g_step(self, lr: torch.Tensor, hr: torch.Tensor
                ) -> Dict[str, torch.Tensor]:
         """One generator update against the current discriminator; returns
-        {"pix", "g_adv"} (device tensors)."""
-        self.g_opt.zero_grad()
-        sr = self.g(lr, train=True, generator=self.draws)
-        with frozen(self.d):
-            adv = gan_generator_loss(self.d(sr))
-        pix = F.l1_loss(sr.float(), hr.float())
-        (self.lambda_pix * pix + self.lambda_adv * adv).backward()
-        self.g_opt.step()
-        return {"pix": pix.detach(), "g_adv": adv.detach()}
+        {"pix", "g_adv"} (device tensors; the global batch's on the
+        mesh). pix is a float32 mean, as JAX casts SR and HR to it."""
+        with data_parallel(self.mesh):
+            self.g_opt.zero_grad()
+            sr = self.g(lr, train=True, generator=self.draws)
+            with frozen(self.d):
+                adv = gan_generator_loss(self.d(sr))
+            pix = (F.l1_loss(sr.float(), hr.float()) if current() is None
+                   else mean_share((sr.float() - hr.float()).abs()))
+            (self.lambda_pix * pix + self.lambda_adv * adv).backward()
+            all_reduce_grads(self.g_opt.params, self.mesh)
+            self.g_opt.step()
+            return global_values({"pix": pix.detach(), "g_adv": adv.detach()})
 
     def train(self) -> Dict[str, float]:
         last: Dict[str, float] = {}
+        if not self.mesh.active:
+            return last
         for _ in range(self.epochs):
-            for hr, lr, _ in self.train_data.batches(self.batch_size):
+            for hr, lr, _ in rank_batches(self.train_data, self.batch_size,
+                                          self.mesh):
                 hr_t, lr_t = (torch.from_numpy(a).float().to(self.device)
                               for a in (hr, lr))
                 d_loss = self.d_step(lr_t, hr_t)

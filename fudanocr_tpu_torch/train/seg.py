@@ -15,7 +15,15 @@ backward and one `SegAdam` update (train/state.py). A model built with
 `dtype=torch.bfloat16` trains unchanged: its activations are bf16, its
 parameters, gradients and Adam state float32 (as optax keeps them), and
 the losses take the logits to float32. Everything runs eagerly on the
-model's device, one process, one device.
+model's device.
+
+Data-parallel (`core/mesh`, as train/sr.py): under a process group each
+rank of the trainer's mesh builds its rows of each global batch and runs
+the step inside `data_parallel`: BatchNorm statistics, drop-path and
+dropout draws, the CE's valid-pixel count and Lovász's sort are the
+global batch's, the gradients are summed before `SegAdam`, whose state
+stays replicated. Evaluation reduces the per-rank histograms; rank 0
+alone writes checkpoints and logs, and every rank resumes.
 
 Checkpoints keep the JAX trainer's layout (`core/checkpoint.py`):
 `ckpt_dir/iter_{it}/` every `ckpt_every` iterations (the newest `max_keep`
@@ -44,12 +52,17 @@ import torch.nn.functional as F
 
 from fudanocr_tpu_torch.core import checkpoint as ckpt_lib
 from fudanocr_tpu_torch.core.logging import MetricsLogger
+from fudanocr_tpu_torch.core.mesh import (Mesh, all_reduce_grads,
+                                          data_parallel, global_values,
+                                          make_mesh_for_batch, rank_batches,
+                                          reduce_sums)
 from fudanocr_tpu_torch.eval.seg_metrics import (intersect_and_union,
                                                  total_metrics)
 from fudanocr_tpu_torch.losses.seg_losses import (cross_entropy_loss,
                                                   lovasz_softmax_loss,
                                                   seg_accuracy)
 from fudanocr_tpu_torch.models.seg.encoder_decoder import slide_inference
+from fudanocr_tpu_torch.nn.layers import at_least_f32
 from fudanocr_tpu_torch.train.state import SegAdam
 from fudanocr_tpu_torch.utils.weights import jax_variables
 
@@ -129,7 +142,8 @@ def make_seg_train_step(model: torch.nn.Module, optimizer: SegAdam,
                         loss_weights: Optional[Dict[str, float]] = None,
                         det_loss_ratio: float = 0.1,
                         gt_guided_masks: bool = False,
-                        lovasz_impl: str = "sort"
+                        lovasz_impl: str = "sort",
+                        mesh: Optional[Mesh] = None
                         ) -> Callable[..., Dict[str, torch.Tensor]]:
     """`step(batch, generator) -> metrics`: one update of `model`.
 
@@ -139,7 +153,9 @@ def make_seg_train_step(model: torch.nn.Module, optimizer: SegAdam,
     dropout. With `gt_guided_masks` the loaded det annotation replaces the
     predicted text map in the attention masks. The metrics are device
     tensors: "loss" and the terms "ce", "lovasz", "det" (those the recipe
-    has) and "acc". Only the exact sort-based Lovász is ported."""
+    has) and "acc". Only the exact sort-based Lovász is ported. On a
+    `mesh` of several ranks `batch` is this rank's rows and the step and
+    its metrics are the global batch's."""
     if lovasz_impl != "sort":
         raise NotImplementedError(f"lovasz_impl={lovasz_impl!r}: the port "
                                   "has only the exact 'sort' Lovász")
@@ -155,6 +171,11 @@ def make_seg_train_step(model: torch.nn.Module, optimizer: SegAdam,
 
     def step(batch: Batch, generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
+        with data_parallel(mesh):
+            return update(batch, generator)
+
+    def update(batch: Batch, generator: Optional[torch.Generator]
+               ) -> Dict[str, torch.Tensor]:
         img, gt = batch["img"], batch["gt_seg"]
         gt_det, valid = batch.get("gt_det"), batch.get("valid")
         if valid is not None:   # padded tail samples contribute no loss
@@ -171,7 +192,7 @@ def make_seg_train_step(model: torch.nn.Module, optimizer: SegAdam,
         loss = 0.0
         aux = {}
         if det_logits is not None and gt_det is not None:
-            up = F.interpolate(det_logits.float().permute(0, 3, 1, 2),
+            up = F.interpolate(at_least_f32(det_logits).permute(0, 3, 1, 2),
                                size=tuple(gt_det.shape[1:]), mode="bilinear",
                                align_corners=False).permute(0, 2, 3, 1)
             det_loss = 0.0
@@ -182,11 +203,13 @@ def make_seg_train_step(model: torch.nn.Module, optimizer: SegAdam,
         for name, t in terms(logits, gt).items():
             aux[name] = t
             loss = loss + weights[name] * t
-        aux["acc"] = seg_accuracy(logits.detach(), gt)
+        acc = seg_accuracy(logits.detach(), gt)
         loss.backward()
+        all_reduce_grads(model.parameters(), mesh)
         optimizer.step()
-        return {"loss": loss.detach(),
-                **{k: v.detach() for k, v in aux.items()}}
+        return {**global_values({"loss": loss.detach(),
+                                 **{k: v.detach() for k, v in aux.items()}}),
+                "acc": acc}
 
     return step
 
@@ -209,7 +232,9 @@ class SegTrainer:
     where the batches are moved. `crop` evaluates with the sliding window
     (`stride` defaults to `crop`), else the whole image. With `log_dir`, a
     `MetricsLogger` records the train metrics every 50 iterations, each
-    evaluation and a prediction table of its first batch."""
+    evaluation and a prediction table of its first batch. `mesh` (default
+    `make_mesh_for_batch(batch_size)`) is the data axis; `batch_size` is
+    the global batch."""
 
     def __init__(self, model: torch.nn.Module, train_data, eval_data,
                  num_classes: int = 2, batch_size: int = 4,
@@ -223,7 +248,8 @@ class SegTrainer:
                  gt_guided_masks: bool = False, lovasz_impl: str = "sort",
                  log_dir: Optional[str] = None,
                  ckpt_every: Optional[int] = None,
-                 auto_resume: bool = False, max_keep: int = 3):
+                 auto_resume: bool = False, max_keep: int = 3,
+                 mesh: Optional[Mesh] = None):
         self.model = model
         self.train_data = train_data
         self.eval_data = eval_data
@@ -238,14 +264,16 @@ class SegTrainer:
         self.max_keep = max_keep
         self.seed = seed
         self.device = next(model.parameters()).device
+        self.mesh = mesh or make_mesh_for_batch(batch_size)
         self.optimizer = make_seg_optimizer(model, lr,
                                             total_iters=total_iters)
         self.train_step = make_seg_train_step(
             model, self.optimizer, loss_weights, det_loss_ratio,
-            gt_guided_masks, lovasz_impl)
+            gt_guided_masks, lovasz_impl, self.mesh)
         self.start_iter = 0
         self.best = -1.0
-        self.metrics_logger = MetricsLogger(log_dir) if log_dir else None
+        self.metrics_logger = (MetricsLogger(log_dir)
+                               if log_dir and self.mesh.writer else None)
         if auto_resume and ckpt_dir:
             path = ckpt_lib.latest(ckpt_dir, prefix="iter_")
             if path:
@@ -289,6 +317,8 @@ class SegTrainer:
         log.info("resumed from %s at iter %d", ckpt_path, self.start_iter)
 
     def _save_periodic(self, it: int) -> None:
+        if not self.mesh.writer:
+            return
         ckpt_lib.save(os.path.join(self.ckpt_dir, f"iter_{it}"),
                       self._payload(), meta={"step": it, "best": self.best},
                       jax_tree=self._jax_tree(opt_state=True))
@@ -308,16 +338,18 @@ class SegTrainer:
         it = self.start_iter
         stop = min(self.total_iters,
                    self.total_iters if stop_after is None else stop_after)
+        if not self.mesh.active:
+            return it
         while it < stop:
-            for batch in self.train_data.batches(self.batch_size,
-                                                 shuffle=True, seed=it):
+            for batch in rank_batches(self.train_data, self.batch_size,
+                                      self.mesh, shuffle=True, seed=it):
                 if it >= stop:
                     break
                 metrics = self.train_step(
                     self._device_batch(batch),
                     iteration_generator(self.seed, it, self.device))
                 it += 1
-                if it % 50 == 0:
+                if it % 50 == 0 and self.mesh.writer:
                     m = {k: float(v) for k, v in metrics.items()}
                     log.info("iter %d/%d %s", it, self.total_iters, m)
                     if self.metrics_logger:
@@ -332,7 +364,10 @@ class SegTrainer:
                  save_best: bool = True) -> Dict[str, float]:
         """mIoU / mDice / mFscore over `eval_data`. With a `ckpt_dir` and
         `save_best`, a result at or above the best so far (>=, as JAX's)
-        writes `ckpt_dir/best/`."""
+        writes `ckpt_dir/best/`. On a mesh each rank scores its rows and
+        the histograms are summed; rank 0 alone logs and writes."""
+        if not self.mesh.active:
+            return {}
         model = self.model
 
         def fwd(x):
@@ -341,8 +376,8 @@ class SegTrainer:
 
         hist = np.zeros((4, self.num_classes), np.float64)
         with torch.inference_mode():
-            for bi, batch in enumerate(self.eval_data.batches(
-                    self.batch_size)):
+            for bi, batch in enumerate(rank_batches(
+                    self.eval_data, self.batch_size, self.mesh)):
                 b = self._device_batch(batch)
                 img = b["img"].float()
                 logits = (slide_inference(fwd, img, self.crop,
@@ -358,6 +393,9 @@ class SegTrainer:
                         pred.cpu().numpy())
                 counts = intersect_and_union(pred, gt, self.num_classes)
                 hist += torch.stack(counts).cpu().numpy()
+        if self.mesh.size > 1:
+            hist = np.asarray(reduce_sums(hist.ravel(), self.mesh,
+                                          self.device)).reshape(hist.shape)
         res = total_metrics(*hist)
         summary = {k: res[k] for k in ("aAcc", "mIoU", "mDice", "mFscore")}
         log.info("eval @%d: %s", it, summary)
@@ -365,6 +403,8 @@ class SegTrainer:
             self.metrics_logger.scalars(summary, it, "eval/")
         if self.ckpt_dir and save_best and res["mIoU"] >= self.best:
             self.best = res["mIoU"]
+            if not self.mesh.writer:
+                return summary
             ckpt_lib.save(os.path.join(self.ckpt_dir, "best"),
                           self._payload(),
                           meta={"step": self.optimizer.count,

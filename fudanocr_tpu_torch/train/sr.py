@@ -10,7 +10,19 @@ path (TBSRN's fused-enhancer kernel, TSRN's fused GRU kernel when its
 `fused_gru` is on), scores PSNR/SSIM, and reads the SR image with a CRNN
 when one is given. `StrokeSRTrainer` is Text Gestalt's trainer: the same
 loop with the stroke codec's labels. Everything runs eagerly on the
-model's device, one process, one device.
+model's device.
+
+Data-parallel (JAX's batch-sharded jit, `core/mesh`): under a process
+group each rank of the trainer's mesh (`make_mesh_for_batch`, JAX's gcd
+rule) holds its rows of each global batch of `batch_size` and builds only
+those; its step runs inside `data_parallel`, so BatchNorm, dropout and the
+loss are the global batch's, and the gradients are summed over the ranks
+before the clip and Adam, which then act on the global batch's gradient.
+Evaluation shards each batch the same way and reduces PSNR's and SSIM's
+sums and the correct counts, so every rank sees the global metrics and
+takes the same `best` decision; only the mesh's rank 0 writes
+checkpoints and logs, and every rank resumes. Ranks outside the mesh sit
+the run out.
 
 The training feed reads, decodes and collates in `num_workers` forked
 processes (`data/workers.WorkerBatches`, the reference's DataLoader
@@ -33,15 +45,21 @@ import torch
 
 from fudanocr_tpu_torch.core import checkpoint as ckpt_lib
 from fudanocr_tpu_torch.core.logging import MetricsLogger
+from fudanocr_tpu_torch.core.mesh import (Mesh, all_reduce_grads,
+                                          data_parallel, global_values,
+                                          make_mesh_for_batch, rank_batches,
+                                          reduce_sums)
 from fudanocr_tpu_torch.data.codecs import SequenceCodec, english_stroke_codec
 from fudanocr_tpu_torch.data.image import resize_bicubic
 from fudanocr_tpu_torch.data.png import encode_png
 from fudanocr_tpu_torch.data.prefetch import PrefetchIterator
 from fudanocr_tpu_torch.data.workers import WorkerBatches
 from fudanocr_tpu_torch.eval.ctc import CTCLabelConverter, ctc_greedy_decode
-from fudanocr_tpu_torch.eval.metrics import psnr, sequence_accuracy, ssim
+from fudanocr_tpu_torch.eval.metrics import (psnr, sequence_accuracy,
+                                             sequence_hits, ssim)
 from fudanocr_tpu_torch.losses.sr_losses import encode_text_labels
 from fudanocr_tpu_torch.models.rec.crnn import parse_crnn_input
+from fudanocr_tpu_torch.nn.layers import at_least_f32
 from fudanocr_tpu_torch.train.state import AdamWithClip, adam_with_clip
 from fudanocr_tpu_torch.utils.weights import jax_variables
 
@@ -51,7 +69,8 @@ Batch = Dict[str, torch.Tensor]
 
 
 def make_sr_train_step(model: torch.nn.Module, loss_fn,
-                       optimizer: AdamWithClip, loss_scale: float = 100.0
+                       optimizer: AdamWithClip, loss_scale: float = 100.0,
+                       mesh: Optional[Mesh] = None
                        ) -> Callable[..., Dict[str, torch.Tensor]]:
     """`step(batch, generator) -> metrics`: one update of `model`.
 
@@ -60,20 +79,25 @@ def make_sr_train_step(model: torch.nn.Module, loss_fn,
     (on the model's device) feeds dropout. `loss_fn(sr, hr, text_input,
     text_gt, lengths[, hr_map]) -> (loss, aux)`. The metrics are device
     tensors: "loss" (x loss_scale, as the JAX step reports it), the aux
-    terms and "grad_norm" (before the clip)."""
+    terms and "grad_norm" (before the clip). On a `mesh` of several ranks
+    `batch` is this rank's rows of the global batch and the step is the
+    global batch's (module docstring); the metrics are the global ones."""
 
     def step(batch: Batch, generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
-        optimizer.zero_grad()
-        sr = model(batch["lr"], train=True, generator=generator)
-        extra = {"hr_map": batch["hr_map"]} if "hr_map" in batch else {}
-        loss, aux = loss_fn(sr, batch["hr"], batch["text_input"],
-                            batch["text_gt"], batch["lengths"], **extra)
-        scaled = loss * loss_scale
-        scaled.backward()
-        norm = optimizer.step()
-        return {"loss": scaled.detach(), "grad_norm": norm,
-                **{k: v.detach() for k, v in aux.items()}}
+        with data_parallel(mesh):
+            optimizer.zero_grad()
+            sr = model(batch["lr"], train=True, generator=generator)
+            extra = {"hr_map": batch["hr_map"]} if "hr_map" in batch else {}
+            loss, aux = loss_fn(sr, batch["hr"], batch["text_input"],
+                                batch["text_gt"], batch["lengths"], **extra)
+            scaled = loss * loss_scale
+            scaled.backward()
+            all_reduce_grads(optimizer.params, mesh)
+            norm = optimizer.step()
+            terms = global_values({"loss": scaled.detach(),
+                                   **{k: v.detach() for k, v in aux.items()}})
+        return {"loss": terms.pop("loss"), "grad_norm": norm, **terms}
 
     return step
 
@@ -90,7 +114,7 @@ def make_sr_eval_step(model: torch.nn.Module,
     def step(lr: torch.Tensor, hr: torch.Tensor) -> Batch:
         with torch.inference_mode():
             sr = model(lr)
-            sr01 = sr.float()
+            sr01 = at_least_f32(sr)
             out = {"sr": sr, "psnr": psnr(sr01[..., :3], hr[..., :3]),
                    "ssim": ssim(sr01[..., :3], hr[..., :3])}
             if recognizer is not None:
@@ -117,7 +141,11 @@ class SRTrainer:
     With a text-focus loss the frozen oracle's HR attention map of each
     batch ordinal is computed once, in epoch 0, and reused from then on
     (iteration order is deterministic), kept on the device up to
-    `hr_cache_cap_bytes` (4 GiB)."""
+    `hr_cache_cap_bytes` (4 GiB).
+
+    `mesh` (default `make_mesh_for_batch(batch_size)`: one rank without a
+    process group) is the data axis the trainer runs on; `batch_size` is
+    the global batch, as in JAX's configs."""
 
     def __init__(self, model: torch.nn.Module, loss_fn, train_data,
                  eval_data, batch_size: int = 64, lr: float = 1e-4,
@@ -126,7 +154,7 @@ class SRTrainer:
                  recognizer: Optional[torch.nn.Module] = None,
                  converter: Optional[CTCLabelConverter] = None,
                  seed: int = 1234, log_dir: Optional[str] = None,
-                 num_workers: int = 0):
+                 num_workers: int = 0, mesh: Optional[Mesh] = None):
         self.model = model
         self.loss_fn = loss_fn
         self.train_data = train_data
@@ -139,9 +167,14 @@ class SRTrainer:
         self.num_workers = num_workers
         self.converter = converter
         self.device = next(model.parameters()).device
+        # host batches in float64 for a float64 model, else float32
+        self.host_dtype = (np.float64 if next(model.parameters()).dtype
+                           == torch.float64 else np.float32)
+        self.mesh = mesh or make_mesh_for_batch(batch_size)
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.optimizer = adam_with_clip(model.parameters(), lr)
-        self.train_step = make_sr_train_step(model, loss_fn, self.optimizer)
+        self.train_step = make_sr_train_step(model, loss_fn, self.optimizer,
+                                             mesh=self.mesh)
         self.eval_step = make_sr_eval_step(model, recognizer)
         self.step = 0
         self._use_hr_cache = (getattr(loss_fn, "text_focus", False)
@@ -152,7 +185,8 @@ class SRTrainer:
         self.hr_cache_cap_bytes = 4 << 30
         self.history = []
         self.best = {"acc": -1.0, "psnr": -1.0}
-        self.metrics_logger = MetricsLogger(log_dir) if log_dir else None
+        self.metrics_logger = (MetricsLogger(log_dir)
+                               if log_dir and self.mesh.writer else None)
 
     def resume(self, ckpt_path: str) -> None:
         """Restore the model's weights and BatchNorm statistics from a
@@ -177,19 +211,20 @@ class SRTrainer:
     def _host_batch(self, hr, lr, labels) -> Dict[str, np.ndarray]:
         """A collated batch with its labels encoded, as host arrays."""
         text_input, text_gt, lengths = self._encode(labels)
-        return {"hr": np.asarray(hr, np.float32),
-                "lr": np.asarray(lr, np.float32),
+        return {"hr": np.asarray(hr, self.host_dtype),
+                "lr": np.asarray(lr, self.host_dtype),
                 "text_input": np.asarray(text_input, np.int64),
                 "text_gt": np.asarray(text_gt, np.int64),
                 "lengths": np.asarray(lengths, np.int64)}
 
     def host_batches(self, data) -> Iterator[Dict[str, np.ndarray]]:
-        """`data`'s training batches as `_host_batch` makes them: read,
-        decoded and collated by `num_workers` forked processes, or in the
-        thread that iterates them with none. The workers fork here, in the
-        calling thread (`WorkerBatches.__iter__`)."""
+        """`data`'s training batches as `_host_batch` makes them (this
+        rank's rows of each): read, decoded and collated by `num_workers`
+        forked processes, or in the thread that iterates them with none.
+        The workers fork here, in the calling thread
+        (`WorkerBatches.__iter__`)."""
         if not self.num_workers:
-            batches = data.batches(self.batch_size)
+            batches = rank_batches(data, self.batch_size, self.mesh)
         elif getattr(data, "draws_in_read_order", False):
             raise ValueError(f"{type(data).__name__} draws from one "
                              "generator in read order; forked workers "
@@ -199,7 +234,8 @@ class SRTrainer:
             # the workers fork with `data` (an LMDB store is a read-only
             # mmap) and keep the batches in order
             batches = iter(WorkerBatches(lambda: data, self.batch_size,
-                                         num_workers=self.num_workers))
+                                         num_workers=self.num_workers,
+                                         shard=self.mesh.shard))
         return (self._host_batch(hr, lr, labels)
                 for hr, lr, labels in batches)
 
@@ -234,6 +270,8 @@ class SRTrainer:
         return m
 
     def train(self) -> None:
+        if not self.mesh.active:
+            return
         for epoch in range(self.epochs):
             batches = self.feed(self.train_data)
             try:
@@ -242,7 +280,7 @@ class SRTrainer:
                         batch["hr_map"] = self._hr_map(bi, batch)
                     metrics = self.train_step(batch, self.generator)
                     self.step += 1
-                    if self.step % 50 == 0:
+                    if self.step % 50 == 0 and self.mesh.writer:
                         m = {k: float(v) for k, v in metrics.items()}
                         log.info("epoch %d iter %d %s", epoch, self.step, m)
                         if self.metrics_logger:
@@ -257,7 +295,9 @@ class SRTrainer:
         """Write `n_vis` LR|SR|HR strips of `eval_data` (the LR bicubic-
         upsampled to the HR size, the SR clipped to [0, 1]) as PNG files
         "{i:03d}_{label}.png" to `out_dir` (the reference's --demo image
-        dumps, super_resolution.py:331-425)."""
+        dumps, super_resolution.py:331-425); on a mesh, rank 0 alone."""
+        if not self.mesh.writer:
+            return out_dir
         os.makedirs(out_dir, exist_ok=True)
         data = self.eval_data
         if isinstance(data, dict):       # the first difficulty bucket
@@ -285,9 +325,10 @@ class SRTrainer:
 
     def _evaluate_one(self, data) -> Dict[str, float]:
         psnrs, ssims, preds, gts = [], [], [], []
-        for hr, lr, labels in data.batches(self.batch_size):
+        for hr, lr, labels in rank_batches(data, self.batch_size, self.mesh):
             batch = self._device_batch(hr, lr, labels)
-            out = self.eval_step(batch["lr"], batch["hr"])
+            with data_parallel(self.mesh):
+                out = self.eval_step(batch["lr"], batch["hr"])
             psnrs.append(float(out["psnr"]))
             ssims.append(float(out["ssim"]))
             if "rec_ids" in out and self.converter is not None:
@@ -296,8 +337,12 @@ class SRTrainer:
                 gts.extend(labels)
         res = {"psnr": float(np.mean(psnrs)) if psnrs else 0.0,
                "ssim": float(np.mean(ssims)) if ssims else 0.0}
-        if gts:
+        if gts and self.mesh.size == 1:
             res["acc"] = sequence_accuracy(preds, gts)
+        elif gts:
+            hits, n = reduce_sums([sequence_hits(preds, gts), len(gts)],
+                                  self.mesh, self.device)
+            res["acc"] = hits / n
         return res
 
     def evaluate(self, it: int = 0) -> Dict[str, float]:
@@ -306,7 +351,10 @@ class SRTrainer:
         {"state_dict_G": the reference-layout state_dict, "step",
         "metrics"}, and to `ckpt_dir/best/` as the JAX trainer does
         (state.msgpack with params and batch_stats, meta.json with the
-        step and metrics)."""
+        step and metrics). On a mesh, every rank evaluates its rows and
+        gets the global metrics; rank 0 alone logs and writes."""
+        if not self.mesh.active:
+            return {}
         if isinstance(self.eval_data, dict):
             res: Dict[str, float] = {}
             acc_sum = 0.0
@@ -326,6 +374,8 @@ class SRTrainer:
         if self.ckpt_dir and res.get("acc", res.get("psnr", 0.0)) >= \
                 self.best.get("acc", -1.0):
             self.best = res
+            if not self.mesh.writer:
+                return res
             os.makedirs(self.ckpt_dir, exist_ok=True)
             torch.save({"state_dict_G": self.model.state_dict(),
                         "step": self.step, "metrics": res},
