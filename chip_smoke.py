@@ -350,7 +350,26 @@ Phases:
      its distance between the one-process step with and without cuDNN
      where that is larger: near-cancelled BatchNorm-bias gradients of the
      det recipe move ~1.6e-3 between fp32 implementations), step ms of
-     each, first and warm.
+     each, first and warm;
+ 39. the LMDB tools, the bucketed Lovász and the tensor-parallel step:
+     (a) seeded corpora written with the port's encoders in each
+     recipe's layout (an MJSynth tree, SynthText and ICDAR `.odgt`
+     manifests, an SVT `gt.txt`, a detection set with masks, an image
+     directory with a label file, gt pairs), undersized, empty, truncated
+     and text files among them; every recipe of
+     data/corpus_recipes.py and `create_recognition_dataset` /
+     `create_sr_dataset`, each database held key for key and byte for
+     byte to what the seeds imply, ms per image; (b)
+     `scene_text_telescope.main` at phase 27's recipe for 2 steps from
+     `create_sr_dataset`'s LMDB and one evaluation (launches as 27a's),
+     then `SRTrainer` over `LMDBDataset` on the 90k recipe's database
+     (`image-` read as HR); (c) the det recipe's step with
+     `lovasz_impl="bucketed"` against `kernels=False` at the training
+     bar, its Lovász terms within the bucket width of the sort step's on
+     the same batch, ms of both in turns and peak memory; (d) phase 38b's
+     TBSRN step with its parameters placed over (data 1, model 2)
+     (`parallel.tp.TensorParallel`) on 2 gloo ranks of the one card
+     against one process, at 38b's bar.
 
 A check that reads a torch.profiler trace (a kernel's name, launches by
 role) takes the trace again, up to three traces, while a name it wants is
@@ -382,6 +401,7 @@ import copy
 import functools
 import gc
 import glob
+import io
 import itertools
 import json
 import os
@@ -401,7 +421,7 @@ import torch.nn.functional as F
 from fudanocr_tpu_torch.core import checkpoint as ckpt_lib
 from fudanocr_tpu_torch.core import serialization
 from fudanocr_tpu_torch.data.collate import normalize_uint8
-from fudanocr_tpu_torch.data.image import resize_bicubic
+from fudanocr_tpu_torch.data.image import decode_image, resize_bicubic
 from fudanocr_tpu_torch.core.config import dump_yaml
 from fudanocr_tpu_torch.data.jpeg import encode_jpeg
 from fudanocr_tpu_torch.data.lmdb_dataset import (LMDBDataset,
@@ -1981,15 +2001,17 @@ def trainer_kwargs(cfg) -> dict:
                 gt_guided_masks=tc.get("gt_guided_masks", False))
 
 
-def recipe_step(model, cfg, count: int = 0, mesh=None):
+def recipe_step(model, cfg, count: int = 0, mesh=None,
+                lovasz_impl: str = "sort"):
     """(optimizer at update `count`, train step) of the config's recipe,
-    on `mesh`'s data axis where given."""
+    on `mesh`'s data axis where given, its Lovász by `lovasz_impl`."""
     kw = trainer_kwargs(cfg)
     opt = make_seg_optimizer(model, kw["lr"], total_iters=kw["total_iters"])
     opt.count = count
     return opt, make_seg_train_step(model, opt, kw["loss_weights"],
                                     kw["det_loss_ratio"],
-                                    kw["gt_guided_masks"], mesh=mesh)
+                                    kw["gt_guided_masks"], lovasz_impl,
+                                    mesh=mesh)
 
 
 def grads_agree(model, plain, what: str) -> tuple:
@@ -5840,9 +5862,11 @@ def phase38a(dev, gpu: str, tmp: str) -> dict:
     return out
 
 
-def p38_sr_case(dev, mesh) -> tuple:
+def p38_sr_case(dev, mesh, tp_mesh=None) -> tuple:
     """(TBSRN at full width with STN + the full text-focus oracle, batch 64
-    fp32, dropout on: the step on `mesh`'s rows of the global batch)."""
+    fp32, dropout on: the step on `mesh`'s rows of the global batch; with
+    `tp_mesh`, a ('data', 'model') DeviceMesh whose data axis is `mesh`'s,
+    TBSRN's parameters placed on it, `parallel.tp.TensorParallel`)."""
     gen = torch.Generator().manual_seed(SEED + 38)
     torch.manual_seed(SEED + 38)
     model = TBSRN(scale_factor=2, width=128, height=32, stn=True,
@@ -5860,6 +5884,10 @@ def p38_sr_case(dev, mesh) -> tuple:
                           ("text_gt", tg), ("lengths", ln))}
     for k in ("text_input", "text_gt", "lengths"):
         batch[k] = batch[k].long()
+    if tp_mesh is not None:
+        from fudanocr_tpu_torch.parallel.tp import TensorParallel
+
+        model, mesh = TensorParallel(model, tp_mesh), tp_mesh
     step = make_sr_train_step(model, TextFocusLoss(oracle),
                               adam_with_clip(model.parameters(), 1e-4),
                               mesh=mesh)
@@ -5911,6 +5939,8 @@ def p38_step(case, dev, mesh) -> dict:
            "stats": {n: b.cpu() for n, b in model.named_buffers()
                      if "running" in n},
            "offsets": offsets}
+    if "grad_norm" in out:               # the SR step's pre-clip norm
+        res["grad_norm"] = out["grad_norm"].item()
     res["warm_ms"] = timed()[1]
     return res
 
@@ -6070,13 +6100,552 @@ def phase38(dev, gpu: str) -> None:
                       "card": gpu}))
 
 
+# -- phase 39: the LMDB tools, the bucketed Lovász, the tensor-parallel step --
+
+P39_LEAF = 96                 # files per MJSynth leaf directory (4 leaves)
+P39_BROKEN = ("empty", "truncated", "text")
+# a q95 JPEG of the crops (noise of sigma 6) off its source, mean absolute
+# error per image over 0-255 (tests/test_torch_corpus_recipes.py holds the
+# encoder to PIL's error on the CPU)
+P39_JPEG_ERR = 10.0
+
+
+def p39_crop(rng, h: int, w: int) -> np.ndarray:
+    """A word crop from a seed: light background, dark strokes, noise."""
+    img = np.empty((h, w, 3))
+    img[:] = rng.integers(120, 256, 3)
+    for _ in range(int(rng.integers(3, 10))):
+        x0 = int(rng.integers(0, max(w - 6, 1)))
+        img[h // 6:h - h // 6, x0:x0 + int(rng.integers(2, 6))] = \
+            rng.integers(0, 100, 3)
+    return np.clip(img + rng.normal(0, 6, img.shape), 0, 255).astype(
+        np.uint8)
+
+
+def p39_file(path: str, data: bytes) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def p39_bytes(rng, h: int, w: int, kind: str) -> bytes:
+    """A file's bytes: the port's JPEG (`jpeg`) or PNG, or a broken file
+    (empty, a JPEG cut inside its header, text)."""
+    if kind == "png":
+        return encode_png(p39_crop(rng, h, w))
+    if kind == "empty":
+        return b""
+    if kind == "text":
+        return b"not an image\n"
+    data = encode_jpeg(p39_crop(rng, h, w), 95)
+    return data[:60] if kind == "truncated" else data
+
+
+def p39_kind(rng) -> str:
+    return str(rng.choice(["jpeg"] * 6 + ["png"] + list(P39_BROKEN)))
+
+
+def p39_corpora(root: str, seed: int) -> dict:
+    """Seeded corpora in each recipe's layout under `root`, written with
+    the port's encoders, with undersized, empty, truncated and text files.
+    Returns, per recipe, its arguments and what the seeds imply it writes:
+    each kept sample's {key prefix: value} in the recipe's order (for
+    "ic", per routed database)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    def sample(data, label, **more):
+        return {b"image": data, b"label": label.encode(),
+                **{k.encode(): v for k, v in more.items()}}
+
+    # MJSynth 90k: root/<d1>/<d2>/<i>_<LABEL>_<j>.jpg in sorted order, a
+    # dotted directory (skipped), sizes around the 100x31 filter
+    kept = []
+    for d1, d2 in (("1", "1"), ("1", "2"), ("2", "1"), ("x.y", "1")):
+        for i in range(P39_LEAF):
+            label = "".join(rng.choice(list(ALPHABET),
+                                       int(rng.integers(3, 9))))
+            h = int(rng.choice([32] * 7 + [30]))
+            w = int(rng.integers(90, 200))
+            kind = p39_kind(rng)
+            data = p39_bytes(rng, h, w, kind)
+            p39_file(os.path.join(root, "90k", d1, d2,
+                                  f"{i:03d}_{label}_{i % 5}.jpg"), data)
+            if kind not in P39_BROKEN and w >= 100 and h >= 31 \
+                    and d1 != "x.y":
+                kept.append(sample(data, label))
+    out["90k"] = ((os.path.join(root, "90k"),), {}, kept)
+    # SynthText 800k: an .odgt of crops around the 256x64 filter
+    kept, lines = [], []
+    for j in range(32):
+        h, w = int(rng.integers(56, 80)), int(rng.integers(230, 300))
+        kind = p39_kind(rng)
+        data = p39_bytes(rng, h, w, kind)
+        p39_file(os.path.join(root, "800k", f"crop_{j}.jpg"), data)
+        lines.append(json.dumps({"im_path": os.path.join(root, "800k"),
+                                 "im_name": f"crop_{j}.jpg",
+                                 "label": f"word{j}"}))
+        if kind not in P39_BROKEN and h >= 64 and w >= 256:
+            kept.append(sample(data, f"word{j}"))
+    with open(os.path.join(root, "800k.odgt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    out["800k"] = ((os.path.join(root, "800k.odgt"),), {}, kept)
+    # ICDAR: one manifest routing lines to <dataset>_<type>, missing files
+    buckets, lines = {}, []
+    for j in range(32):
+        kind = "missing" if j % 11 == 5 else p39_kind(rng)
+        path = os.path.join(root, "ic", f"word_{j}.jpg")
+        rec = {"img_path": path, "img_gt": f"gt{j}",
+               "dataset": ("IC13", "IC15")[j % 2],
+               "type": ("train", "test")[(j // 2) % 2]}
+        lines.append(json.dumps(rec))
+        if kind == "missing":
+            continue
+        data = p39_bytes(rng, 32, int(rng.integers(40, 160)), kind)
+        p39_file(path, data)
+        if kind not in P39_BROKEN:
+            buckets.setdefault(f"{rec['dataset'].lower()}_{rec['type']}",
+                               []).append(sample(data, rec["img_gt"]))
+    with open(os.path.join(root, "ic.odgt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    out["ic"] = ((os.path.join(root, "ic.odgt"),), {}, buckets)
+    # SVT: a gt.txt of `name label`, a one-field line and a missing file
+    kept, rows = [], []
+    for j in range(24):
+        kind = p39_kind(rng)
+        data = p39_bytes(rng, 40, int(rng.integers(60, 200)), kind)
+        p39_file(os.path.join(root, "svt", f"img_{j}.jpg"), data)
+        rows.append(f"img_{j}.jpg LABEL{j}")
+        if kind not in P39_BROKEN:
+            kept.append(sample(data, f"LABEL{j}"))
+    with open(os.path.join(root, "svt", "gt.txt"), "w") as f:
+        f.write("\n".join(rows + ["lonely", "img_missing.jpg GONE"]) + "\n")
+    out["gt_txt"] = ((os.path.join(root, "svt"),), {}, kept)
+    # detection: images, polygon strings, labels, region and pixel masks;
+    # one sample without boxes, one without its image
+    det = {k: [] for k in ("image_paths", "boxes_x", "boxes_y", "labels",
+                           "region_masks", "pixel_masks")}
+    kept = []
+    for j in range(16):
+        path = os.path.join(root, "det", f"img_{j}.jpg")
+        data = p39_bytes(rng, 256, 256, "jpeg")
+        if j != 7:
+            p39_file(path, data)
+        masks = {}
+        for m in ("region", "pixel"):
+            mask = ((rng.random((256, 256, 1)) < 0.3) * 255).astype(np.uint8)
+            masks[f"{m}_mask"] = encode_png(mask)
+            det[f"{m}_masks"].append(os.path.join(root, "det",
+                                                  f"{m}_{j}.png"))
+            p39_file(det[f"{m}_masks"][-1], masks[f"{m}_mask"])
+        bx = "" if j == 3 else ",".join(map(str, rng.integers(0, 256, 4)))
+        by = ",".join(map(str, rng.integers(0, 256, 4)))
+        for k, v in (("image_paths", path), ("boxes_x", bx),
+                     ("boxes_y", by), ("labels", f"text{j}")):
+            det[k].append(v)
+        if bx and j != 7:
+            kept.append(sample(data, f"text{j}", boxes_x=bx.encode(),
+                               boxes_y=by.encode(), **masks))
+    out["detection"] = ((det["image_paths"], det["boxes_x"], det["boxes_y"]),
+                        {k: det[k] for k in ("labels", "region_masks",
+                                             "pixel_masks")}, kept)
+    # an image directory with a label file (and a missing file's line),
+    # and gt files for some of its JPEGs
+    names = [f"f{j}.png" if j % 4 == 0 else f"f{j}.jpg" for j in range(48)]
+    for name in names:
+        img = p39_crop(rng, 32, int(rng.integers(60, 200)))
+        p39_file(os.path.join(root, "flat", name),
+                 encode_png(img) if name.endswith(".png")
+                 else encode_jpeg(img, 95))
+    with open(os.path.join(root, "labels.txt"), "w") as f:
+        f.write("\n".join(f"{n} label {j}" for j, n in enumerate(names))
+                + "\n\nf_missing.jpg none\n")
+    with_gt = [j for j in range(48) if j % 4 and j % 5 != 2]
+    for j in with_gt:
+        p39_file(os.path.join(root, "gt", f"f{j}.txt"), f" gt {j}\n".encode())
+    out["flat"] = (os.path.join(root, "flat"),
+                   os.path.join(root, "labels.txt"), os.path.join(root, "gt"),
+                   len(names), len(with_gt))
+    return out
+
+
+def p39_db(path: str) -> dict:
+    """Every key -> value of the LMDB at `path`."""
+    from fudanocr_tpu_torch.data.lmdb_store import LMDBReader
+
+    with LMDBReader(path) as r:
+        return dict(r.items())
+
+
+def p39_expected(samples: list) -> dict:
+    """The database of `samples` ({key prefix: value} each) numbered from
+    1, with its count."""
+    want = {b"num-samples": str(len(samples)).encode()}
+    for n, s in enumerate(samples, 1):
+        want.update({b"%s-%09d" % (k, n): v for k, v in s.items()})
+    return want
+
+
+@clocked
+def phase39a(dev, gpu: str, tmp: str) -> dict:
+    """The LMDB tools on the card's machine: every recipe and both
+    writers on seeded corpora written with the port's encoders, their
+    databases against what the seeds imply; ms per image."""
+    from fudanocr_tpu_torch.data import corpus_recipes as cr
+    from fudanocr_tpu_torch.data import create_lmdb as cl
+
+    t0 = time.perf_counter()
+    corp = p39_corpora(os.path.join(tmp, "corpora"), SEED + 39)
+    print(f"phase 39a: wrote the seeded corpora in "
+          f"{time.perf_counter() - t0:.2f} s [{gpu}]")
+    out, dbs = {}, os.path.join(tmp, "dbs")
+    fns = {"90k": cr.create_90k, "800k": cr.create_800k, "ic": cr.create_ic,
+           "gt_txt": cr.create_gt_txt, "detection": cr.create_detection}
+    for name, fn in fns.items():
+        args, kw, kept = corp[name]
+        path = os.path.join(dbs, name)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            n = (fn(path, *args, **kw) if name == "detection"
+                 else fn(*args, path, **kw))
+        ms = (time.perf_counter() - t0) * 1e3
+        if name == "ic":
+            want = {k: len(v) for k, v in kept.items()}
+            ok = n == want and all(p39_db(os.path.join(path, k))
+                                   == p39_expected(v)
+                                   for k, v in kept.items())
+            images = sum(want.values())
+        else:
+            want = images = len(kept)
+            ok = n == want and p39_db(path) == p39_expected(kept)
+        lines = said.getvalue().strip().splitlines()
+        print(f"phase 39a: {name}: {n} samples (the seeds imply {want}); "
+              f"keys, labels and the files' bytes as the seeds imply: {ok}; "
+              f"its last line {lines[-1:]}; {ms:.2f} ms, "
+              f"{ms / max(images, 1):.3f} ms per image [{gpu}]")
+        if not ok:
+            raise AssertionError(f"phase 39a: the {name} recipe wrote "
+                                 "another database than the seeds imply")
+        out[name] = {"samples": n, "ms_per_image": ms / max(images, 1)}
+    flat, labels, gt, n_flat, n_gt = corp["flat"]
+    for name, samples, want in (
+            ("image dir + label file", cl.iter_imagedir_with_labelfile(
+                flat, labels), n_flat),
+            ("gt pairs", cl.iter_gt_pairs(flat, gt, ".jpg"), n_gt)):
+        items = list(samples) + [(np.zeros((1, 40, 3), np.uint8), "thin"),
+                                 (np.zeros((30, 1), np.uint8), "narrow")]
+        path = os.path.join(dbs, name.split()[0])
+        t0 = time.perf_counter()
+        n = cl.create_recognition_dataset(path, items)
+        ms = (time.perf_counter() - t0) * 1e3
+        db = p39_db(path)
+        worst = max(np.abs(decode_image(db[b"image-%09d" % i]).astype(float)
+                           - cl.as_rgb(img)).mean()
+                    for i, (img, _) in enumerate(items[:n], 1))
+        ok = (n == want and sorted(db) == sorted(
+            [b"num-samples"] + [b"%s-%09d" % (k, i) for i in range(1, n + 1)
+                                for k in (b"image", b"label")])
+              and [db[b"label-%09d" % i].decode() for i in range(1, n + 1)]
+              == [t for _, t in items[:n]] and worst < P39_JPEG_ERR)
+        print(f"phase 39a: create_recognition_dataset over the {name}: {n} "
+              f"samples (expected {want}: the 1-pixel images filtered), "
+              f"keys and labels in order: {ok}; q95 JPEG mean abs error "
+              f"worst {worst:.3f} of 255 (bar {P39_JPEG_ERR}); "
+              f"{ms / n:.3f} ms per image [{gpu}]")
+        if not ok:
+            raise AssertionError(f"phase 39a: create_recognition_dataset "
+                                 f"over the {name} failed its checks")
+        out[name] = {"samples": n, "ms_per_image": ms / n}
+    crops = list(lmdb_crops(3 * TRAIN_B, SEED + 390))
+    t0 = time.perf_counter()
+    n_sr = cl.create_sr_dataset(os.path.join(dbs, "sr_train"),
+                                crops[:2 * TRAIN_B])
+    n_val = cl.create_sr_dataset(os.path.join(dbs, "sr_val"),
+                                 crops[2 * TRAIN_B:])
+    ms = (time.perf_counter() - t0) * 1e3
+    ok = (n_sr, n_val) == (2 * TRAIN_B, TRAIN_B) and len(
+        p39_db(os.path.join(dbs, "sr_train"))) == 3 * n_sr + 1
+    print(f"phase 39a: create_sr_dataset: {n_sr} + {n_val} paired samples, "
+          f"{ms / (n_sr + n_val):.3f} ms per pair: {ok} [{gpu}]")
+    if not ok:
+        raise AssertionError("phase 39a: create_sr_dataset failed")
+    out["sr"] = {"samples": n_sr + n_val,
+                 "ms_per_image": ms / (n_sr + n_val)}
+    return out
+
+
+@clocked
+def phase39b(dev, gpu: str, tmp: str) -> dict:
+    """Training from the databases the tools wrote: the text-focus app at
+    phase 27's recipe from create_sr_dataset's (the app's training set
+    reads `image_hr-` / `image_lr-`, as JAX's), one evaluation; then
+    `SRTrainer` over `LMDBDataset` on the 90k recipe's database, whose
+    `image-` it reads as HR."""
+    from fudanocr_tpu_torch.apps.scene_text_telescope import main as stt
+
+    dbs = os.path.join(tmp, "dbs")
+    cfg, _, _ = sr_app_config(tmp, "p39", [os.path.join(dbs, "sr_train")],
+                              [os.path.join(dbs, "sr_val")], 1, 10 ** 9,
+                              workers=0)
+    reset_counts()
+    t0 = time.perf_counter()
+    with recording(train_sr, "make_sr_train_step", SRTrainer,
+                   train_counts) as rec:
+        res = stt.main(["--config", cfg, "--arch", "tbsrn", "--STN",
+                        "--text_focus"])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = train_counts()
+    losses = finite_losses(rec)
+    per_step = {d for _, d, _ in rec["steps"]}
+    want_step = (2 * SRB_NUMS + 3, SRB_NUMS, SRB_NUMS, 0)
+    eval_b1 = [d[3] for _, d in rec["evals"]]
+    print(f"phase 39b: scene_text_telescope.main --arch tbsrn --STN "
+          f"--text_focus from create_sr_dataset's LMDB: {len(losses)} steps "
+          f"in {wall:.3f} s, losses {[round(v, 4) for v in losses]}; "
+          f"launches per step (B2, B4 fwd, B4 bwd, B1) {sorted(per_step)} "
+          f"(expected [{want_step}]), B1 per evaluation {eval_b1} (expected "
+          f"[{2 * SRB_NUMS}]), app total {total}; evaluation {res} [{gpu}]")
+    if (len(losses) != 2 or per_step != {want_step}
+            or eval_b1 != [2 * SRB_NUMS] or not np.isfinite(res["psnr"])):
+        raise AssertionError("phase 39b: the app did not train and evaluate "
+                             "from the tools' database as expected")
+    trainer = rec["trainers"][0]
+    ds = LMDBDataset(os.path.join(dbs, "90k"), voc_type="all")
+    sub = SRTrainer(trainer.model, trainer.loss_fn, ds, None,
+                    batch_size=TRAIN_B, epochs=1, eval_every=10 ** 9,
+                    seed=SEED)
+    with recording(train_sr, "make_sr_train_step", SRTrainer,
+                   train_counts) as r:
+        sub.train_step = train_sr.make_sr_train_step(sub.model, sub.loss_fn,
+                                                     sub.optimizer)
+        sub.train()
+        torch.cuda.synchronize()
+    sub_losses = finite_losses(r)
+    sub_steps = {d for _, d, _ in r["steps"]}
+    print(f"phase 39b: SRTrainer over LMDBDataset on the 90k recipe's "
+          f"database ({len(ds)} crops, `image-` as HR): {len(sub_losses)} "
+          f"steps, losses {[round(v, 4) for v in sub_losses]}, launches per "
+          f"step {sorted(sub_steps)} [{gpu}]")
+    if len(sub_losses) != len(ds) // TRAIN_B or sub_steps != {want_step} \
+            or len(sub_losses) < 2:
+        raise AssertionError("phase 39b: SRTrainer did not train on the "
+                             "90k recipe's database")
+    return {"app_losses": losses, "app_eval": res, "app_s": wall,
+            "lmdbdataset_losses": sub_losses}
+
+
+LOVASZ_BUCKETS = 1024
+# |bucketed - sort| <= the bucket width: the two order the errors alike up
+# to ties within a bucket, each class's weights sum to at most 1
+LOVASZ_GAP = 1.0 / (LOVASZ_BUCKETS - 1) + 1e-5
+
+
+@clocked
+def phase39c(dev, gpu: str) -> dict:
+    """The det recipe's step with lovasz_impl="bucketed": kernel path
+    against kernels=False at the training bar, its Lovász terms against
+    the sort step's on the same batch, ms of both in turns, peak memory."""
+    gen = torch.Generator().manual_seed(SEED + 39)
+    model, cfg = init_segmentor(DET_CONFIG, device=dev, seed=SEED + 39)
+    randomize_stats(model, gen)
+    plain, _ = init_segmentor(DET_CONFIG, device=dev, kernels=False)
+    plain.load_state_dict(model.state_dict())
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    side, bs = cfg.data.crop_size[0], cfg.data.batch_size
+    batch = device_batch(next(SeededTextSeg(bs, side, SEED + 391, True)
+                              .batches(bs)), dev)
+    _, step_k = recipe_step(model, cfg, lovasz_impl="bucketed")
+    _, step_p = recipe_step(plain, cfg, lovasz_impl="bucketed")
+    torch.backends.cudnn.deterministic = True
+    try:
+        reset_train_seg_counts()
+        mk = step_k(batch, torch.Generator(dev).manual_seed(7))
+        torch.cuda.synchronize()
+        counts = train_seg_counts()
+        mp = step_p(batch, torch.Generator(dev).manual_seed(7))
+        torch.cuda.synchronize()
+        worst, worst_name, zero = grads_agree(model, plain, "phase 39c")
+        stats_err = max((a.float() - c.float()).abs().max().item()
+                        for (n, a), c in zip(model.named_buffers(),
+                                             plain.buffers())
+                        if n.endswith(("running_mean", "running_var")))
+        model.load_state_dict(init)
+        _, step_s = recipe_step(model, cfg)
+        msort = step_s(batch, torch.Generator(dev).manual_seed(7))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    loss_rel = abs(mk["loss"].item() - mp["loss"].item()) / abs(
+        mp["loss"].item())
+    gap = abs(mk["lovasz"].item() - msort["lovasz"].item())
+    det_gap = abs(mk["det"].item() - msort["det"].item())
+    print(f"phase 39c: det recipe ({side}², batch {bs}) step with "
+          f"lovasz_impl='bucketed' ({LOVASZ_BUCKETS} buckets): kernel path "
+          f"{ {k: round(v.item(), 6) for k, v in mk.items()} }, loss rel to "
+          f"kernels=False {loss_rel:.3e} (bar {STEP_LOSS_REL}), gradient rel "
+          f"max {worst:.3e} ({worst_name}; bar {STEP_GRAD_REL}), {zero} zero "
+          f"gradients equal, BN max abs {stats_err:.3e} (bar 1e-5); launches "
+          f"(B7 fwd, B7 bwd, B6 fwd, B6 bwd) {counts} (expected (8, 8, 8, "
+          f"8)); Lovász term {mk['lovasz'].item():.6f} against the sort "
+          f"step's {msort['lovasz'].item():.6f} (gap {gap:.3e}), the det "
+          f"term's gap {det_gap:.3e} (bar {LOVASZ_GAP:.3e}: the bucket "
+          f"width) [{gpu}]")
+    if (loss_rel > STEP_LOSS_REL or worst > STEP_GRAD_REL or stats_err > 1e-5
+            or counts != (8, 8, 8, 8) or max(gap, det_gap) > LOVASZ_GAP
+            or not all(np.isfinite(v.item()) for v in mk.values())):
+        raise AssertionError("phase 39c: the bucketed det step failed its "
+                             "checks")
+    model.load_state_dict(init)
+    _, step_b = recipe_step(model, cfg, lovasz_impl="bucketed")
+    peaks = {}
+    for name, step in (("bucketed", step_b), ("sort", step_s)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(batch, torch.Generator(dev).manual_seed(8))
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+    g = torch.Generator(dev).manual_seed(9)
+    b_ms, s_ms = in_turns(lambda: step_b(batch, g), lambda: step_s(batch, g),
+                          3)
+    print(f"phase 39c: det step ms in turns (bucketed, sort, sort, "
+          f"bucketed; 3 steps each): bucketed {b_ms:.3f}, sort {s_ms:.3f} "
+          f"({b_ms / s_ms:.3f}x); peak memory bucketed {peaks['bucketed']:.3f}"
+          f" GiB, sort {peaks['sort']:.3f} GiB [{gpu}]")
+    del model, plain
+    torch.cuda.empty_cache()
+    return {"bucketed_ms": b_ms, "sort_ms": s_ms, "lovasz_gap": gap,
+            "peak_gib": peaks, "loss_rel": loss_rel, "grad_rel": worst}
+
+
+
+
+def phase39_rank(rank: int, init: str, out: str) -> int:
+    """A rank of phase 39d: a gloo group of 2 on card 0, phase 38b's TBSRN
+    step over a (data 1, model 2) DeviceMesh with the parameters placed."""
+    import torch.distributed as dist
+
+    from fudanocr_tpu_torch.core.mesh import Mesh, setup_distributed
+    from fudanocr_tpu_torch.parallel.tp import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    setup_distributed("cuda", init_method=init, world_size=2, rank=rank,
+                      backend="gloo")
+    mesh = make_mesh("cuda", data=1, model=2)
+    res = p38_step(functools.partial(p38_sr_case, tp_mesh=mesh), dev, Mesh())
+    torch.save(res, out)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+@clocked
+def phase39d(dev, gpu: str, tmp: str) -> dict:
+    """TBSRN's text-focus step with its parameters placed over (data 1,
+    model 2): 2 gloo ranks on the one card against one process, at phase
+    38b's bar."""
+    from fudanocr_tpu_torch.core.mesh import make_mesh_for_batch
+
+    init = f"file://{tmp}/rendezvous"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+         f"chip_smoke.phase39_rank({r}, {init!r}, "
+         f"{os.path.join(tmp, f'tp{r}.pt')!r}))"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        torch.backends.cudnn.deterministic = True
+        want = p38_step(p38_sr_case, dev, make_mesh_for_batch(TRAIN_B))
+        torch.backends.cudnn.enabled = False
+        again = p38_step(p38_sr_case, dev, make_mesh_for_batch(TRAIN_B))
+        torch.backends.cudnn.enabled = True
+        torch.cuda.empty_cache()
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.enabled = True
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 39d: rank {r} failed "
+                                 f"({p.returncode}):\n{o[-4000:]}")
+    got = [torch.load(os.path.join(tmp, f"tp{r}.pt")) for r in range(2)]
+    # a sharded parameter's gradient: the ranks' halves along dim 0
+    sharded = sorted(n for n, g in got[0]["grads"].items()
+                     if g.shape != want["grads"][n].shape)
+    rows = []
+    for g in got:
+        full = {n: (torch.cat([got[0]["grads"][n], got[1]["grads"][n]])
+                    if n in sharded else v) for n, v in g["grads"].items()}
+        rows.append(p38_agree({**g, "grads": full}, want, again))
+    norm_rel = [abs(g["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+                for g in got]
+    offsets = [sorted(set(g["offsets"])) for g in got]
+    launches = [len(g["offsets"]) for g in got]
+    print(f"phase 39d: TBSRN text-focus step (batch {TRAIN_B} fp32, dropout "
+          f"on) over (data 1, model 2) with {len(sharded)} of "
+          f"{len(want['grads'])} parameters sharded over 'model', 2 gloo "
+          f"ranks on one card (NCCL refuses two ranks on one card, ROADMAP "
+          f"C36: the model axis' collectives run on gloo through host "
+          f"memory), against one process: loss rel "
+          f"{[f'{r[0]:.3e}' for r in rows]} (bar {STEP_LOSS_REL}), pre-clip "
+          f"norm rel {[f'{v:.3e}' for v in norm_rel]} (bar {STEP_LOSS_REL}), "
+          f"worst gradient against its bar "
+          f"{[f'{r[1]:.3f} ({r[2]}: rel {r[3]:.3e}, one process with and without cuDNN {r[4]:.3e})' for r in rows]} "
+          f"(bar: rel {STEP_GRAD_REL}, or {P38_NOISE} x that fp32 spread "
+          f"where larger), BN statistics max abs "
+          f"{[f'{r[5]:.3e}' for r in rows]} (bar 1e-5); B4 forward launches "
+          f"per rank {launches} at offsets {offsets}; step ms (first, warm) "
+          f"ranks {[(round(g['ms'], 3), round(g['warm_ms'], 3)) for g in got]}"
+          f", one process ({want['ms']:.3f}, {want['warm_ms']:.3f}) [{gpu}]")
+    if not (all(r[0] <= STEP_LOSS_REL and r[1] <= 1.0 and r[5] <= 1e-5
+                for r in rows) and max(norm_rel) <= STEP_LOSS_REL
+            and offsets == [[0], [0]] and launches == [SRB_NUMS] * 2
+            and len(sharded) >= 10):
+        raise AssertionError("phase 39d: the tensor-parallel step misses the "
+                             "training bar against one process")
+    return {"rank_ms": [g["ms"] for g in got],
+            "rank_warm_ms": [g["warm_ms"] for g in got],
+            "one_process_ms": want["ms"],
+            "one_process_warm_ms": want["warm_ms"],
+            "loss_rel": [r[0] for r in rows],
+            "grad_over_bar": [r[1] for r in rows], "sharded": len(sharded)}
+
+
+@clocked
+def phase39(dev, gpu: str) -> None:
+    """The LMDB tools (a), training from their databases (b), the
+    bucketed Lovász det step (c), the tensor-parallel TBSRN step (d)."""
+    out, seconds = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        for part, fn in (("a", lambda: phase39a(dev, gpu, tmp)),
+                         ("b", lambda: phase39b(dev, gpu, tmp)),
+                         ("c", lambda: phase39c(dev, gpu)),
+                         ("d", lambda: phase39d(dev, gpu, tmp))):
+            t0 = time.perf_counter()
+            out[part] = fn()
+            torch.cuda.empty_cache()
+            seconds[part] = time.perf_counter() - t0
+    print(json.dumps({"phase": 39, **out, "seconds": seconds, "card": gpu},
+                     default=float))
+
+
 STANDALONE = {"1": phase1, "4": phase4, "5": phase5, "6": phase6,
               "7": phase7, "10": phase10, "13": phase13, "17": phase17,
               "19": phase19, "20": phase20_alone, "22": phase22,
               "24": phase24, "25": phase25, "26": phase26_alone,
               "27": phase27, "28": phase28, "29": phase29, "30": phase30,
               "31": phase31, "32": phase32, "33": phase33, "34": phase34,
-              "35": phase35, "36": phase36, "37": phase37, "38": phase38}
+              "35": phase35, "36": phase36, "37": phase37, "38": phase38,
+              "39": phase39}
 
 
 def main(argv: list) -> int:
@@ -6168,6 +6737,8 @@ def main(argv: list) -> int:
     phase37(dev, gpu)
     torch.cuda.empty_cache()
     phase38(dev, gpu)
+    torch.cuda.empty_cache()
+    phase39(dev, gpu)
     bf16_b = (torch.bfloat16, TRAIN_B)
     b10, b11_fwd, b11_bwd = b10_b11[(torch.float32, TRAIN_B)]
     _, b11_mma_fwd, b11_mma_bwd = b10_b11[bf16_b]

@@ -253,7 +253,9 @@ def _via_host(x: torch.Tensor, group) -> bool:
     return x.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def _gather(x: torch.Tensor, group, size: int) -> torch.Tensor:
+def gather_dim0(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """The `size` ranks' x of `group` concatenated along dim 0 in rank
+    order, no gradient (a CUDA tensor through host memory under gloo)."""
     src = x.detach().contiguous()
     if _via_host(src, group):     # gloo gathers host tensors only
         src = src.cpu()
@@ -283,7 +285,7 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, size, index):
         ctx.group, ctx.index, ctx.n = group, index, x.shape[0]
-        return _gather(x, group, size)
+        return gather_dim0(x, group, size)
 
     @staticmethod
     def backward(ctx, g):

@@ -22,13 +22,24 @@ Each operation below is byte-equal to PIL's on uint8 images:
   each pass rounded to uint8, the horizontal passes first; edges repeat
   the border pixel. It is not a true Gaussian;
 * `to_gray`: RGB -> "L" (ITU-R 601-2 luma in PIL's fixed point).
+
+`image_size(path)` is what PIL's lazy `Image.open(path).size` tells the
+corpus recipes (data/corpus_recipes.py) without decoding: it walks a
+JPEG's markers up to the start of scan, or a PNG's chunks up to the first
+IDAT, as PIL's plugins do, and reads the size from SOF or IHDR. Where
+PIL's open fails (an empty file, no known signature, a header cut off or
+malformed before that point) it returns None; a signature that PIL opens
+but the port cannot read (GIF, BMP, TIFF, WebP, ...) raises.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple
+import re
+import struct
+import zlib
+from typing import BinaryIO, Optional, Tuple
 
 import numpy as np
 
@@ -77,6 +88,126 @@ def read_image(path: str, raw: bool = False) -> np.ndarray:
     with open(path, "rb") as f:
         buf = f.read()
     return decode_raw(buf) if raw else decode_image(buf)
+
+
+# signatures of formats PIL opens and the port does not read (a prefix,
+# or a pattern over the first 16 bytes)
+_OTHER_FORMATS = (
+    (b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"),
+    (b"II*\0", "TIFF"), (b"MM\0*", "TIFF"), (b"II+\0", "BigTIFF"),
+    (b"MM\0+", "BigTIFF"), (re.compile(rb"RIFF....WEBP", re.S), "WebP"),
+    (b"\0\0\1\0", "ICO"), (b"\0\0\2\0", "CUR"), (b"8BPS", "PSD"),
+    (b"\xff\x4f\xff\x51", "JPEG 2000"),
+    (b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"), (b"DDS ", "DDS"),
+    (b"icns", "ICNS"), (b"qoif", "QOI"), (b"\x01\xda", "SGI"),
+    (b"\x59\xa6\x6a\x95", "Sun raster"), (b"%!PS", "EPS"),
+    (b"\xc5\xd0\xd3\xc6", "EPS"), (re.compile(rb"P[1-7fy]"), "PPM"),
+    (re.compile(rb"\x0a[\x00\x02\x03\x05]"), "PCX"),
+    (re.compile(rb"....ftyp(avif|avis)", re.S), "AVIF"))
+# PIL's JPEG markers with no segment (RST, SOI, EOI, JPG, JPG0-13), those
+# it reads as a frame header, and the ones it does not know
+_BARE = {0xC8, *range(0xD0, 0xDA), *range(0xF0, 0xFE)}
+_FRAMES = {*range(0xC0, 0xC4), *range(0xC5, 0xC8), *range(0xC9, 0xCC),
+           *range(0xCD, 0xD0), 0xDE}
+# PNG (bit depth, colour type) pairs that PIL gives a mode
+_PNG_MODES = {(1, 0), (2, 0), (4, 0), (8, 0), (16, 0), (8, 2), (16, 2),
+              (1, 3), (2, 3), (4, 3), (8, 3), (8, 4), (16, 4), (8, 6),
+              (16, 6)}
+
+
+def _read(f: BinaryIO, n: int) -> bytes:
+    """Exactly n bytes (PIL's `_safe_read`), else the header is cut off."""
+    data = f.read(n) if n > 0 else b""
+    if len(data) < n:
+        raise EOFError("truncated")
+    return data
+
+
+def _jpeg_size(f: BinaryIO) -> Optional[Tuple[int, int]]:
+    """JpegImagePlugin's marker walk from just after FF D8 FF, up to the
+    start of scan: stray bytes and fill are skipped, every segment's
+    length read, the frame header sized, quantisation tables checked."""
+    size, byte = None, 0xFF
+    while True:
+        if byte != 0xFF:                         # junk between markers
+            byte = _read(f, 1)[0]
+            continue
+        m = _read(f, 1)[0]                       # the marker FF m
+        if m == 0xFF:                            # fill byte
+            continue
+        if m == 0x00:                            # an escaped 0xFF
+            byte = _read(f, 1)[0]
+            continue
+        if m < 0xC0:
+            return None                          # PIL: no marker found
+        if m not in _BARE:
+            seg = _read(f, struct.unpack(">H", _read(f, 2))[0] - 2)
+            if m in _FRAMES:
+                if len(seg) < 6 or seg[0] != 8 or seg[5] not in (1, 3, 4):
+                    return None
+                h, w = struct.unpack_from(">HH", seg, 1)
+                size = (w, h)
+            elif m == 0xDB:
+                while seg:
+                    n = 1 + (64 if seg[0] < 16 else 128)
+                    if len(seg) < n:
+                        return None
+                    seg = seg[n:]
+            elif m == 0xDA:                      # start of scan
+                return size if size and min(size) > 0 else None
+        byte = _read(f, 1)[0]
+
+
+def _png_size(f: BinaryIO) -> Optional[Tuple[int, int]]:
+    """PngImagePlugin's chunk walk after the signature, up to the first
+    IDAT (or IEND): each chunk's type must be a name, its CRC right."""
+    size = None
+    while True:
+        head = _read(f, 8)
+        length, cid = struct.unpack(">I", head[:4])[0], head[4:]
+        if not re.fullmatch(rb"\w{4}", cid):
+            return None
+        if cid in (b"IDAT", b"IEND", b"fdAT"):
+            return size if size and min(size) > 0 else None
+        data = _read(f, length)
+        if cid == b"IHDR":
+            if length < 13 or (data[8], data[9]) not in _PNG_MODES \
+                    or data[11]:
+                return None
+            size = struct.unpack(">II", data[:8])
+        if struct.unpack(">I", _read(f, 4))[0] != zlib.crc32(cid + data):
+            return None
+
+
+def image_size(path: str) -> Optional[Tuple[int, int]]:
+    """(w, h) of the JPEG or PNG at `path` from its header, without
+    decoding; None where PIL's `Image.open` would fail (the corpus recipes
+    then skip the file). Raises NotImplementedError, naming the format,
+    for a file PIL opens and the port cannot read."""
+    try:
+        f = open(path, "rb")
+    except OSError:            # missing, a directory: PIL's open fails
+        return None
+    with f:
+        prefix = f.read(16)
+        if prefix[:3] == b"\xff\xd8\xff":
+            read = _jpeg_size
+            f.seek(3)
+        elif prefix[:8] == PNG_SIGNATURE:
+            read = _png_size
+            f.seek(8)
+        else:
+            for sig, name in _OTHER_FORMATS:
+                if (sig.match(prefix) if isinstance(sig, re.Pattern)
+                        else prefix.startswith(sig)):
+                    raise NotImplementedError(
+                        f"{path}: a {name} file; the port reads JPEG and "
+                        "PNG only")
+            return None
+        try:
+            return read(f)
+        except (EOFError, struct.error):
+            return None
 
 
 def to_gray(rgb: np.ndarray) -> np.ndarray:

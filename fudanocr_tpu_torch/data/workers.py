@@ -9,7 +9,11 @@ the card computes, and hands them back IN ORDER.
   * workers run numpy only: the parent may hold a CUDA context and
     torch's thread pools, and a forked child that calls torch can hang;
     the workers fork when the stream is made (`iter()`), in the calling
-    thread;
+    thread, after the parent's garbage collector has run and with every
+    object the parent holds frozen (`gc.freeze`), so that no child's
+    collector frees an object of the parent's: a CUDA event or tensor
+    left in an uncollected reference cycle (a trainer and a step that
+    refer to each other) aborted a child freeing it;
   * at most 2 x num_workers batches are in flight, and they come back in
     submission order; a worker that raises, or dies, raises in the
     consumer (a dead worker breaks the pool: BrokenProcessPool);
@@ -29,6 +33,7 @@ Usage:
 from __future__ import annotations
 
 import collections
+import gc
 import itertools
 import multiprocessing as mp
 from concurrent.futures import ProcessPoolExecutor
@@ -93,9 +98,14 @@ class WorkerBatches:
         pool = ProcessPoolExecutor(
             self.num_workers, mp_context=mp.get_context("fork"),
             initializer=_init_worker, initargs=(self.factory,))
-        ahead = collections.deque(
-            pool.submit(_make_batch, c)
-            for c in itertools.islice(chunks, 2 * self.num_workers))
+        gc.collect()
+        gc.freeze()          # the first submit forks every worker
+        try:
+            ahead = collections.deque(
+                pool.submit(_make_batch, c)
+                for c in itertools.islice(chunks, 2 * self.num_workers))
+        finally:
+            gc.unfreeze()
         return self._stream(pool, ahead, chunks)
 
     @staticmethod

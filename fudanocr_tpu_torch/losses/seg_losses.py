@@ -1,6 +1,8 @@
-"""Segmentation losses of the train step: cross-entropy, Lovász-softmax and
-accuracy (port of fudanocr_tpu/losses/seg_losses.py: `cross_entropy_loss`
-:24-39, `lovasz_softmax_loss` :170-236 with `_lovasz_grad` :84-90,
+"""Segmentation losses: cross-entropy, Dice, focal, Tversky, Lovász-softmax
+(exact and bucketed) and accuracy (port of fudanocr_tpu/losses/
+seg_losses.py: `cross_entropy_loss` :24-39, `dice_loss` :42-53,
+`focal_loss` :56-65, `tversky_loss` :68-81, `lovasz_softmax_bucketed`
+:93-167, `lovasz_softmax_loss` :170-236 with `_lovasz_grad` :84-90,
 `seg_accuracy` :239-244).
 
 NHWC (B, H, W, C) logits and an integer (B, H, W) label map whose
@@ -10,15 +12,20 @@ weights are computed on the sorted ground truth without gradient, and one
 scatter puts them back in pixel order, so the loss is sum(errors * w) and
 its gradient a broadcast multiply, as in JAX. Two or more exactly equal
 errors may sort either way: the loss value does not depend on it, the
-gradient does. The JAX `lovasz_softmax_bucketed` is a recorded negative
-and is not ported.
+gradient does. `lovasz_softmax_bucketed` (binary only, the train step's
+`lovasz_impl="bucketed"`) orders the errors by K buckets instead of a
+sort: K-bin histograms (one scatter-add; JAX compares a P x K one-hot,
+8.6 GB at the det recipe's P) give each bucket's Lovász weight.
 
 In a data-parallel step (`core/mesh.data_parallel`) every loss is this
 rank's share of the global batch's: the means divide by all-reduced
 denominators, and Lovász, whose sort is global, gathers the errors and
 labels of every rank in rank order (the global batch's pixel order),
 forms the global weights with a stable sort, and dots its own errors with
-its slice of them.
+its slice of them. The bucketed Lovász all-reduces its histograms and the
+class totals instead (integer counts: exact), and dots its own errors with
+the global bucket weights. Dice and Tversky are per-image (JAX's sums run
+over the spatial axes) means over the batch and classes.
 """
 
 from __future__ import annotations
@@ -43,6 +50,62 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     if class_weight is not None:
         w = w * class_weight[safe]
     return (nll * w).sum() / mesh.all_reduce_sum(w.sum()).clamp(min=1.0)
+
+
+def _probs_onehot(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_index: int) -> tuple:
+    """(softmax probabilities, one-hot labels), both zero at ignored
+    pixels, in float32 (float64 kept), and the spatial axes to sum."""
+    c = logits.shape[-1]
+    valid = (labels != ignore_index)[..., None]
+    probs = torch.softmax(at_least_f32(logits), -1) * valid
+    onehot = torch.nn.functional.one_hot(
+        torch.where(valid[..., 0], labels, 0).long(), c).to(probs.dtype) \
+        * valid
+    return probs, onehot, tuple(range(1, logits.ndim - 1))
+
+
+def _one_minus_mean(x: torch.Tensor) -> torch.Tensor:
+    """1 - x.mean(), or this rank's share of it in a data-parallel step."""
+    if mesh.current() is None:
+        return 1.0 - x.mean()
+    return mesh.mean_share(1.0 - x)
+
+
+def dice_loss(logits: torch.Tensor, labels: torch.Tensor,
+              smooth: float = 1.0, ignore_index: int = 255) -> torch.Tensor:
+    """1 - the mean over images and classes of (2|P∩G| + s) / (|P| + |G| +
+    s), P the softmax, G the one-hot labels, over the valid pixels."""
+    probs, onehot, dims = _probs_onehot(logits, labels, ignore_index)
+    inter = (probs * onehot).sum(dims)
+    denom = probs.sum(dims) + onehot.sum(dims)
+    return _one_minus_mean((2 * inter + smooth) / (denom + smooth))
+
+
+def focal_loss(logits: torch.Tensor, labels: torch.Tensor,
+               gamma: float = 2.0, alpha: float = 0.25,
+               ignore_index: int = 255) -> torch.Tensor:
+    """Mean over the valid pixels of alpha (1 - p_t)^gamma (-log p_t)."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0).long()
+    logp = torch.log_softmax(at_least_f32(logits), -1)
+    lp = logp.gather(-1, safe[..., None])[..., 0]
+    loss = alpha * (1.0 - lp.exp()) ** gamma * -lp
+    w = valid.to(loss.dtype)
+    return (loss * w).sum() / mesh.all_reduce_sum(w.sum()).clamp(min=1.0)
+
+
+def tversky_loss(logits: torch.Tensor, labels: torch.Tensor,
+                 alpha: float = 0.3, beta: float = 0.7, smooth: float = 1.0,
+                 ignore_index: int = 255) -> torch.Tensor:
+    """1 - the mean over images and classes of (TP + s) / (TP + alpha FP +
+    beta FN + s) on the softmax, over the valid pixels."""
+    probs, onehot, dims = _probs_onehot(logits, labels, ignore_index)
+    tp = (probs * onehot).sum(dims)
+    fp = (probs * (1 - onehot)).sum(dims)
+    fn = ((1 - probs) * onehot).sum(dims)
+    return _one_minus_mean((tp + smooth)
+                           / (tp + alpha * fp + beta * fn + smooth))
 
 
 def _lovasz_grad(gt_sorted: torch.Tensor) -> torch.Tensor:
@@ -82,6 +145,66 @@ def _global_weights(errors: torch.Tensor, *fgs) -> tuple:
     gts = [(g, g.sum() > 0) for g in (mesh.all_gather(fg) for fg in fgs)]
     w = _weights_in_place(all_errors, *gts, stable=True)
     return w[m.index * n:(m.index + 1) * n], [p for _, p in gts]
+
+
+def _bucket_weights(g: torch.Tensor, cnt: torch.Tensor,
+                    gts: torch.Tensor) -> torch.Tensor:
+    """The Lovász weight of one pixel of each bucket (JAX's
+    `bucket_weights`): the Jaccard loss telescopes over the cumulative
+    counts, so bucket k's total weight is jac(C_k) - jac(C_k-1), shared by
+    its cnt_k pixels."""
+    cg = g.cumsum(0)
+    inter = gts - cg
+    union = gts + (cnt.cumsum(0) - cg)
+    jac = 1.0 - inter / union.clamp(min=1e-8)
+    return torch.cat([jac[:1], jac[1:] - jac[:-1]]) / cnt.clamp(min=1.0)
+
+
+def lovasz_softmax_bucketed(logits: torch.Tensor, labels: torch.Tensor,
+                            ignore_index: int = 255,
+                            num_buckets: int = 1024) -> torch.Tensor:
+    """Sort-free Lovász-softmax of two classes: the exact Lovász value of
+    the errors ordered by `num_buckets` levels, the weights spread evenly
+    within a bucket. It equals `lovasz_softmax_loss` where no two distinct
+    errors share a bucket.
+
+    The bucket of an error e is (k-1) - clip(int(e (k-1) + 0.5), 0, k-1)
+    in float32, as JAX forms it (bucket 0 the largest errors). The counts
+    per bucket come from one scatter-add, not JAX's P x K one-hot: they
+    are integers below 2^24, so exactly JAX's."""
+    c = logits.shape[-1]
+    if c != 2:
+        raise ValueError(f"the bucketed Lovász takes two classes, not {c}")
+    k = num_buckets
+    probs = torch.softmax(at_least_f32(logits), -1).reshape(-1, c)
+    flat = labels.reshape(-1)
+    valid = flat != ignore_index
+    safe = torch.where(valid, flat, 0)
+    fg0 = ((safe == 0) & valid).to(probs.dtype)
+    fg1 = ((safe == 1) & valid).to(probs.dtype)
+    errors = torch.where(valid, (fg0 - probs[:, 0]).abs(),
+                         torch.zeros((), dtype=probs.dtype,
+                                     device=probs.device))
+    e32 = errors.detach().float()
+    b = (k - 1) - (e32 * (k - 1) + 0.5).to(torch.int32).clamp(0, k - 1)
+    b = b.long()
+    # (count, fg0, valid) per bucket, then the class totals
+    hist = torch.zeros((3, k), dtype=probs.dtype, device=probs.device)
+    hist.scatter_add_(1, b.expand(3, -1),
+                      torch.stack([torch.ones_like(fg0), fg0,
+                                   valid.to(probs.dtype)]))
+    totals = torch.stack([fg0.sum(), fg1.sum()])
+    if mesh.current() is not None:
+        both = mesh.all_reduce_sum(torch.cat([hist.reshape(-1), totals]))
+        hist, totals = both[:3 * k].view(3, k), both[3 * k:]
+    cnt, g0, vk = hist
+    p0, p1 = totals > 0
+    zero = torch.zeros((), dtype=probs.dtype, device=probs.device)
+    wbar = (torch.where(p0, _bucket_weights(g0, cnt, totals[0]), zero)
+            + torch.where(p1, _bucket_weights(vk - g0, cnt, totals[1]),
+                          zero))
+    loss = (errors * wbar[b]).sum()
+    return loss / (p0.to(loss.dtype) + p1.to(loss.dtype)).clamp(min=1.0)
 
 
 def lovasz_softmax_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -4,19 +4,21 @@
 
 starts N processes on this host, one rank each of a gloo process group on
 the CPU (the JAX check runs over N virtual CPU devices), and runs in each
-at JAX's tiny shapes, on the data axis of `make_mesh_for_batch(b)` with
-b = max(N, 8):
+at JAX's tiny shapes, with a global batch of b = max(N, 8):
 
 * one TBSRN train step with the text-focus loss of a small frozen
-  OCRTransformer oracle (`train/sr.make_sr_train_step`, dropout on);
+  OCRTransformer oracle (`train/sr.make_sr_train_step`, dropout on): on
+  the data axis of `make_mesh_for_batch(b)`, or, with N >= 4 and even, as
+  JAX runs it, over a (data = N/2, model = 2) device mesh with TBSRN's
+  parameters placed (`parallel/tp.TensorParallel`: each sharded parameter
+  gathered over 'model' for the step, its gradient reduce-scattered back);
 * one det-guided segmentation step, CE + Lovász + 0.1 x the det loss
-  (`train/seg.make_seg_train_step`);
+  (`train/seg.make_seg_train_step`), on the data axis of all N ranks (JAX
+  places nothing there either);
 
-and, with N >= 4 and even, places TBSRN's parameters over a
-(data = N/2, model = 2) device mesh (`parallel/tp.shard_params_tp`) and
-checks that the placement holds the same values. The steps themselves run
-on the data axis only: a step over DTensor parameters is ROADMAP A8b.
-Each loss must be finite and the same on every rank (the global batch's).
+and, with N >= 4 and even, checks that `parallel/tp.shard_params_tp`'s
+placement of TBSRN over that mesh holds the same values. Each loss must be
+finite and the same on every rank (the global batch's).
 """
 
 from __future__ import annotations
@@ -72,13 +74,16 @@ def _same_on_ranks(value: float, what: str) -> None:
                              f"{-float(t[1])})")
 
 
-def sr_step(n: int) -> float:
-    """One TBSRN + text-focus-oracle step on this rank's rows."""
+def sr_step(n: int, model_par: int = 1) -> tuple:
+    """One TBSRN + text-focus-oracle step on this rank's rows, on the data
+    axis, or over a (n / model_par, model_par) mesh with the parameters
+    placed; (loss, parameters sharded over 'model', parameters)."""
     from fudanocr_tpu_torch.core.mesh import make_mesh_for_batch, shard_batch
     from fudanocr_tpu_torch.losses.sr_losses import (TextFocusLoss,
                                                      encode_text_labels)
     from fudanocr_tpu_torch.models.rec.ocr_transformer import OCRTransformer
     from fudanocr_tpu_torch.models.sr import TBSRN
+    from fudanocr_tpu_torch.parallel.tp import TensorParallel, make_mesh
     from fudanocr_tpu_torch.train.sr import make_sr_train_step
     from fudanocr_tpu_torch.train.state import adam_with_clip
 
@@ -88,18 +93,27 @@ def sr_step(n: int) -> float:
                   srb_nums=1)
     oracle = OCRTransformer(vocab=37, num_in=1, layers=(1, 1, 1, 1),
                             num_heads=4, d_embed=64, d_model=128, d_ff=256)
-    mesh = make_mesh_for_batch(b)
+    if model_par > 1:
+        mesh = make_mesh("cpu", data=n // model_par, model=model_par)
+        run = TensorParallel(model, mesh)
+        data = run.data
+    else:
+        mesh = data = make_mesh_for_batch(b)
+        run = model
     text_input, text_gt, lengths = encode_text_labels(["dryrun"] * b, 8)
-    batch = shard_batch(mesh, {
+    batch = shard_batch(data, {
         "lr": torch.full((b, 16, 32, 3), 0.4),
         "hr": torch.full((b, 32, 64, 3), 0.4),
         "text_input": torch.from_numpy(text_input).long(),
         "text_gt": torch.from_numpy(text_gt).long(),
         "lengths": torch.from_numpy(lengths).long()})
-    step = make_sr_train_step(model, TextFocusLoss(oracle),
-                              adam_with_clip(model.parameters(), 1e-4),
+    step = make_sr_train_step(run, TextFocusLoss(oracle),
+                              adam_with_clip(run.parameters(), 1e-4),
                               mesh=mesh)
-    return float(step(batch, torch.Generator().manual_seed(2))["loss"])
+    loss = float(step(batch, torch.Generator().manual_seed(2))["loss"])
+    sharded = (sum(sp[1].is_shard() for sp in run.specs.values())
+               if model_par > 1 else 0)
+    return loss, sharded, len(list(model.parameters()))
 
 
 def seg_step(n: int) -> float:
@@ -170,14 +184,19 @@ def main(argv=None) -> int:
     setup_distributed("cpu", init_method=args.init, world_size=args.ranks,
                       rank=args.rank)
     n = args.ranks
-    loss = sr_step(n)
+    tp = n >= 4 and n % 2 == 0
+    loss, sharded, total = sr_step(n, 2 if tp else 1)
     _same_on_ranks(loss, "TBSRN step loss")
     seg = seg_step(n)
     _same_on_ranks(seg, "det-guided seg step loss")
     report = [f"dryrun_multichip({n}) ok: loss={loss:.4f}",
               f"dryrun seg det-guided({n}) ok: loss={seg:.4f}"]
-    if n >= 4 and n % 2 == 0:
-        report.append(placement(n))
+    if tp:
+        report += [placement(n),
+                   f"dryrun tensor-parallel TBSRN step (data={n // 2}, "
+                   f"model=2) ok: {sharded} of {total} parameters sharded "
+                   f"over 'model' and gathered for the step; "
+                   f"loss={loss:.4f} on every rank"]
     if args.rank == 0:
         print("\n".join(report), flush=True)
     dist.barrier()

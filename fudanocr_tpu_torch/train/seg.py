@@ -59,6 +59,7 @@ from fudanocr_tpu_torch.core.mesh import (Mesh, all_reduce_grads,
 from fudanocr_tpu_torch.eval.seg_metrics import (intersect_and_union,
                                                  total_metrics)
 from fudanocr_tpu_torch.losses.seg_losses import (cross_entropy_loss,
+                                                  lovasz_softmax_bucketed,
                                                   lovasz_softmax_loss,
                                                   seg_accuracy)
 from fudanocr_tpu_torch.models.seg.encoder_decoder import slide_inference
@@ -138,6 +139,11 @@ def make_layer_decay_optimizer(model: torch.nn.Module, base_lr: float = 6e-5,
                        max_id - layer_id_for_param(name, num_layers)))
 
 
+# JAX's make_seg_train_step: "bucketed" or, for any other value, the sort
+LOVASZ_IMPLS = {"sort": lovasz_softmax_loss, "auto": lovasz_softmax_loss,
+                "bucketed": lovasz_softmax_bucketed}
+
+
 def make_seg_train_step(model: torch.nn.Module, optimizer: SegAdam,
                         loss_weights: Optional[Dict[str, float]] = None,
                         det_loss_ratio: float = 0.1,
@@ -153,12 +159,15 @@ def make_seg_train_step(model: torch.nn.Module, optimizer: SegAdam,
     dropout. With `gt_guided_masks` the loaded det annotation replaces the
     predicted text map in the attention masks. The metrics are device
     tensors: "loss" and the terms "ce", "lovasz", "det" (those the recipe
-    has) and "acc". Only the exact sort-based Lovász is ported. On a
-    `mesh` of several ranks `batch` is this rank's rows and the step and
-    its metrics are the global batch's."""
-    if lovasz_impl != "sort":
-        raise NotImplementedError(f"lovasz_impl={lovasz_impl!r}: the port "
-                                  "has only the exact 'sort' Lovász")
+    has) and "acc". `lovasz_impl` "bucketed" takes the sort-free Lovász
+    (`lovasz_softmax_bucketed`, two classes) in both the seg and the det
+    loss; "sort" and "auto" the exact one (JAX sends every value but
+    "bucketed" there). On a `mesh` of several ranks `batch` is this rank's
+    rows and the step and its metrics are the global batch's."""
+    lovasz = LOVASZ_IMPLS.get(lovasz_impl)
+    if lovasz is None:
+        raise ValueError(f"lovasz_impl={lovasz_impl!r}: one of "
+                         f"{sorted(LOVASZ_IMPLS)}")
     weights = loss_weights or {"ce": 1.0}
 
     def terms(logits, gt) -> Dict[str, torch.Tensor]:
@@ -166,7 +175,7 @@ def make_seg_train_step(model: torch.nn.Module, optimizer: SegAdam,
         if weights.get("ce"):
             out["ce"] = cross_entropy_loss(logits, gt)
         if weights.get("lovasz"):
-            out["lovasz"] = lovasz_softmax_loss(logits, gt)
+            out["lovasz"] = lovasz(logits, gt)
         return out
 
     def step(batch: Batch, generator: Optional[torch.Generator] = None

@@ -81,7 +81,20 @@ def make_sr_train_step(model: torch.nn.Module, loss_fn,
     tensors: "loss" (x loss_scale, as the JAX step reports it), the aux
     terms and "grad_norm" (before the clip). On a `mesh` of several ranks
     `batch` is this rank's rows of the global batch and the step is the
-    global batch's (module docstring); the metrics are the global ones."""
+    global batch's (module docstring); the metrics are the global ones.
+    `mesh` may be a ('data', 'model') DeviceMesh (parallel/tp.make_mesh):
+    `model` is then a `parallel.tp.TensorParallel` on it, `optimizer`
+    holds its placed parameters, the batch is this rank's rows of the data
+    axis, and B4 is keyed on the data axis' offset."""
+    if hasattr(mesh, "mesh_dim_names"):
+        from fudanocr_tpu_torch.parallel.tp import TensorParallel, axis
+
+        if axis(mesh, "model").size > 1 and not (
+                isinstance(model, TensorParallel) and model.mesh is mesh):
+            raise ValueError("a model axis of more than one rank needs the "
+                             "model placed on it: parallel.tp."
+                             "TensorParallel(model, mesh)")
+        mesh = axis(mesh, "data")
 
     def step(batch: Batch, generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:

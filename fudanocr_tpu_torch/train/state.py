@@ -57,6 +57,7 @@ from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from fudanocr_tpu_torch.utils.weights import (export_state_dict, porter_of,
@@ -81,11 +82,15 @@ class AdamWithClip:
     def clip_gradients(self) -> Optional[torch.Tensor]:
         """Scale the gradients in place; returns their global norm before
         the clip (None when no parameter has a gradient)."""
-        grads = [p.grad for p in self.params if p.grad is not None]
+        with_grad = [p for p in self.params if p.grad is not None]
+        grads = [p.grad for p in with_grad]
         if not grads:
             return None
-        norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g.float()) for g in grads]))
+        norms = [torch.linalg.vector_norm(g.float()) for g in grads]
+        groups = [getattr(p, "model_group", None) for p in with_grad]
+        if any(g is not None for g in groups):
+            norms = _whole_norms(norms, groups)
+        norm = torch.linalg.vector_norm(torch.stack(norms))
         if self.clip is not None:
             scale = (self.clip / norm).clamp(max=1.0)
             for g in grads:
@@ -97,6 +102,20 @@ class AdamWithClip:
         norm = self.clip_gradients()
         self.adam.step()
         return norm
+
+
+def _whole_norms(norms: list, groups: list) -> list:
+    """Each parameter's gradient norm over the whole parameter: a shard's
+    (its `model_group` set, parallel/tp.TensorParallel) from the squares
+    summed over its group in one all-reduce; a replicated one's as it is,
+    counted once."""
+    at = [i for i, g in enumerate(groups) if g is not None]
+    sq = torch.stack([norms[i] ** 2 for i in at])
+    dist.all_reduce(sq, group=groups[at[0]])
+    out = list(norms)
+    for i, s in zip(at, sq.sqrt()):
+        out[i] = s
+    return out
 
 
 def adam_with_clip(params: Iterable[torch.nn.Parameter], lr: float,

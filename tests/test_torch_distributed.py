@@ -173,15 +173,16 @@ def test_batch_norm_is_the_global_batch(ranks):
 
 def test_losses_are_the_global_batch(ranks, monkeypatch):
     """The CE over valid pixels, Lovász (errors that tie: the ranks' stable
-    global sort against one process sorting stably), seg accuracy and the
+    global sort against one process sorting stably), the bucketed Lovász
+    (all-reduced histograms), Dice, focal and Tversky, seg accuracy and the
     masked token CE: the ranks' shares sum to one process's loss, and each
     rank's gradient is that loss's gradient on its rows."""
     inp = cases.mesh_inputs(WORLD)
     monkeypatch.setattr(seg_losses, "_weights_in_place", functools.partial(
         seg_losses._weights_in_place, stable=True))
     labels = torch.from_numpy(inp["labels"])
-    for name, fn in (("ce", seg_losses.cross_entropy_loss),
-                     ("lovasz", seg_losses.lovasz_softmax_loss)):
+    for name, fn_name in cases.SEG_LOSSES_BY_NAME.items():
+        fn = getattr(seg_losses, fn_name)
         lg = torch.from_numpy(inp["seg"]).requires_grad_()
         loss = fn(lg, labels)
         loss.backward()

@@ -114,6 +114,11 @@ def test_seg_metrics_match_jax(c):
 
 
 def test_only_the_sort_lovasz_is_ported():
-    with pytest.raises(NotImplementedError, match="bucketed"):
+    """Every `lovasz_impl` of JAX's step is taken ("bucketed" since the
+    sort-free Lovász was ported; "auto" is the sort); any other raises."""
+    for impl in ("sort", "auto", "bucketed"):
+        assert callable(make_seg_train_step(torch.nn.Linear(1, 1), None,
+                                            lovasz_impl=impl))
+    with pytest.raises(ValueError, match="bucket"):
         make_seg_train_step(torch.nn.Linear(1, 1), None,
-                            lovasz_impl="bucketed")
+                            lovasz_impl="bucket")

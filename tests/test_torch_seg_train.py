@@ -130,11 +130,15 @@ def _leaves(tree):
             for p, a in jax.tree_util.tree_leaves_with_path(tree)}
 
 
-def train_step_parity(det: bool) -> None:
+def train_step_parity(det: bool, lovasz_impl: str = None) -> None:
     """One train step of either recipe against JAX (see the module
-    docstring); the step files run it per recipe."""
+    docstring); the step files run it per recipe. With `lovasz_impl` the
+    step adds Lovász to CE on either model and both packages take that
+    Lovász route."""
     porter = "segmentor_det" if det else "segmentor"
-    weights = {"ce": 1.0, "lovasz": 1.0} if det else {"ce": 1.0}
+    weights = ({"ce": 1.0, "lovasz": 1.0} if det or lovasz_impl
+               else {"ce": 1.0})
+    impl = {"lovasz_impl": lovasz_impl} if lovasz_impl else {}
     m = _port_model(det)
     v = _randomize(to_jax_variables(m, porter, **NARROW),
                    np.random.default_rng(21 + det))
@@ -146,7 +150,8 @@ def train_step_parity(det: bool) -> None:
     state = TrainState.create(v["params"], v["batch_stats"],
                               _capture_grads())
     step = jseg.make_seg_train_step(jm, make_mesh_for_batch(2), weights,
-                                    det_loss_ratio=0.1, wrap_jit=False)
+                                    det_loss_ratio=0.1, wrap_jit=False,
+                                    **impl)
     if not det:
         # under jit, XLA:CPU fuses the det model's soft_argmax,
         # softmax(logits * 1e10), into NaN at some pixels (ROADMAP C10):
@@ -164,11 +169,13 @@ def train_step_parity(det: bool) -> None:
 
     load_jax_variables(m, porter, v, **NARROW)
     opt = pseg.make_seg_optimizer(m, 6e-5, total_iters=1000)
-    pstep = pseg.make_seg_train_step(m, opt, weights, det_loss_ratio=0.1)
+    pstep = pseg.make_seg_train_step(m, opt, weights, det_loss_ratio=0.1,
+                                     **impl)
     got = pstep({k: torch.from_numpy(a) for k, a in batch.items()},
                 torch.Generator().manual_seed(0))
 
-    want_keys = {"loss", "ce", "acc"} | ({"lovasz", "det"} if det else set())
+    want_keys = ({"loss", "acc"} | set(weights)
+                 | ({"det"} if det else set()))
     assert set(got) == set(want) == want_keys
     for k in want_keys:
         np.testing.assert_allclose(got[k].item(), float(want[k]),

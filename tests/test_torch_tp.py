@@ -4,7 +4,7 @@ hold out-features on dim 0, flax kernels on their last axis), the
 placement and its numerics over (data, model) = (2, 2) and (4, 1) meshes
 on 4 gloo ranks, and the multi-rank dry run
 (fudanocr_tpu_torch/parallel/dryrun.py) at N = 2 and 4, all started
-together."""
+together; at N = 4 its TBSRN step runs over placed parameters."""
 
 from concurrent.futures import ThreadPoolExecutor
 
@@ -83,3 +83,17 @@ def test_dryrun_multichip(runs, n):
         [ln.split("loss=")[1] for ln in dry[2][:2]]
     if n == 4:
         assert lines[2].startswith("dryrun placement (data=2, model=2) ok:")
+
+
+def test_dryrun_runs_the_tp_step(runs):
+    """At N = 4 the dry run's TBSRN step is the tensor-parallel one, over
+    (data 2, model 2) with parameters sharded, its loss the same on every
+    rank and the data-parallel step's at N = 2."""
+    _, dry = runs
+    line = dry[4][3]
+    assert line.startswith("dryrun tensor-parallel TBSRN step (data=2, "
+                           "model=2) ok: ")
+    sharded = int(line.split("ok: ")[1].split(" of ")[0])
+    assert sharded >= 10
+    assert line.split("loss=")[1].split()[0] == \
+        dry[2][0].split("loss=")[1]

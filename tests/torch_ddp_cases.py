@@ -262,11 +262,11 @@ def sr_case(stroke: bool = False) -> dict:
             "moved": moved(start, model)}
 
 
-def seg_case(det: bool = False) -> dict:
+def seg_case(det: bool = False, lovasz_impl: str = "sort") -> dict:
     """A small CascadeMiT + SegFormer head (drop-path 0.1, head dropout),
-    CE; with `det` the det-guided model with CE + Lovász + 0.1 x the det
-    loss: 2 iterations of `SegTrainer.train()` at batch 4 (the second
-    batch padded: 6 samples), then `evaluate()`."""
+    CE; with `det` the det-guided model with CE + Lovász (`lovasz_impl`)
+    + 0.1 x the det loss: 2 iterations of `SegTrainer.train()` at batch 4
+    (the second batch padded: 6 samples), then `evaluate()`."""
     from fudanocr_tpu_torch.data.seg_dataset import SyntheticTextSeg
     from fudanocr_tpu_torch.data.seg_pipeline import Normalize
     from fudanocr_tpu_torch.models.seg import (CascadeMiT,
@@ -291,7 +291,8 @@ def seg_case(det: bool = False) -> dict:
     val = Float64(SyntheticTextSeg(4, (32, 32), [Normalize()], seed=1))
     weights = {"ce": 1.0, "lovasz": 1.0} if det else {"ce": 1.0}
     t = SegTrainer(model, train, val, batch_size=4, total_iters=2,
-                   eval_every=10 ** 6, loss_weights=weights, seed=7)
+                   eval_every=10 ** 6, loss_weights=weights, seed=7,
+                   lovasz_impl=lovasz_impl)
     linear_updates(t.optimizer.adam)
     t.optimizer.count = 1500      # past the warmup: the recipe's own lr
     rec, start = recorded(t), state_of(model)
@@ -387,16 +388,27 @@ def mesh_inputs(world: int) -> dict:
             "w": rng.standard_normal((world, 4 * world))}
 
 
+# the seg losses whose shares mesh_case takes (names in losses/seg_losses)
+SEG_LOSSES_BY_NAME = {"ce": "cross_entropy_loss",
+                      "lovasz": "lovasz_softmax_loss",
+                      "lovasz_bucketed": "lovasz_softmax_bucketed",
+                      "dice": "dice_loss", "focal": "focal_loss",
+                      "tversky": "tversky_loss"}
+
+
 def mesh_case() -> dict:
     """On 3 ranks: JAX's gcd rule at batches 4 and 6, the striping, and,
     on the 3-rank axis, the collectives' values and gradients, the
-    global draws, and BatchNorm, the CE, Lovász (tied errors), seg
-    accuracy and the masked token CE of this rank's rows."""
+    global draws, and BatchNorm, the seg losses of SEG_LOSSES_BY_NAME
+    (Lovász with tied errors), seg accuracy and the masked token CE of
+    this rank's rows."""
     from fudanocr_tpu_torch.core import mesh as M
     from fudanocr_tpu_torch.losses import seg_losses
     from fudanocr_tpu_torch.nn.layers import batch_norm, dropout
     from fudanocr_tpu_torch.train.ctr import masked_token_ce
 
+    SEG_LOSSES = {k: getattr(seg_losses, v)
+                  for k, v in SEG_LOSSES_BY_NAME.items()}
     rank, world = M.world()
     m4, m6 = M.make_mesh_for_batch(4), M.make_mesh_for_batch(6)
     out = {"m4": (m4.size, m4.index), "m6": (m6.size, m6.index),
@@ -432,8 +444,7 @@ def mesh_case() -> dict:
                      "mean": bn.running_mean.numpy(),
                      "var": bn.running_var.numpy()}
         # the seg losses and the masked token CE: shares and gradients
-        for name, fn in (("ce", seg_losses.cross_entropy_loss),
-                         ("lovasz", seg_losses.lovasz_softmax_loss)):
+        for name, fn in SEG_LOSSES.items():
             lg = t["seg"].clone().requires_grad_()
             share = fn(lg, t["labels"])
             share.backward()
@@ -482,6 +493,69 @@ def tp_case() -> dict:
     return out
 
 
+def tp_step_case(model_par: int = 2, placed: bool = True) -> dict:
+    """TBSRN (sr_case's: no STN, 1 SRB, dropout on) with the text-focus
+    loss, 2 steps of `make_sr_train_step` at global batch 4, Adam at eps 1.
+    On 4 ranks: over a (data 4 / model_par, model model_par) mesh with the
+    parameters placed (`parallel.tp.TensorParallel`), the batch cut along
+    'data', "shards" this rank's placed parameters after the steps; not
+    `placed`, on the data axis of `make_mesh_for_batch`. With no
+    process group: one process on the global batch."""
+    from fudanocr_tpu_torch.core import mesh as M
+    from fudanocr_tpu_torch.losses.sr_losses import (TextFocusLoss,
+                                                     encode_text_labels)
+    from fudanocr_tpu_torch.models.rec.ocr_transformer import OCRTransformer
+    from fudanocr_tpu_torch.models.sr import TBSRN
+    from fudanocr_tpu_torch.parallel.tp import (TensorParallel, make_mesh,
+                                                shard_params_tp)
+    from fudanocr_tpu_torch.train.sr import make_sr_train_step
+    from fudanocr_tpu_torch.train.state import AdamWithClip
+
+    model = seeded(lambda: TBSRN(width=64, stn=False, srb_nums=1,
+                                 dtype=F64).double())
+    oracle = seeded(lambda: OCRTransformer(**ORACLE, dtype=F64), 2).double()
+    randomize_bn(model)
+    start = state_of(model)
+    run, mesh, rows, tp = model, None, slice(None), None
+    if M.world()[1] > 1 and placed:
+        mesh = make_mesh("cpu", data=M.world()[1] // model_par,
+                         model=model_par)
+        run = tp = TensorParallel(model, mesh)
+        rows = tp.data.rows(SR_B)
+        want = shard_params_tp({k: v.detach() for k, v in
+                                model.named_parameters()}, mesh)
+        placed = tp.placed()
+        placed_as_shard_params_tp = all(
+            v.placements == want[k].placements and torch.equal(
+                v.to_local(), want[k].to_local()) for k, v in placed.items())
+    elif M.world()[1] > 1:
+        mesh = M.make_mesh_for_batch(SR_B)
+        rows = mesh.rows(SR_B)
+    opt = AdamWithClip(run.parameters(), lr=1e-3, eps=1.0)
+    step = make_sr_train_step(run, TextFocusLoss(oracle), opt, mesh=mesh)
+    gen, steps = torch.Generator().manual_seed(5), []
+    for hr, lr, labels in small_text_zoom(SR_SAMPLES, 0).batches(SR_B):
+        ti, tg, ln = encode_text_labels(labels, 32)
+        batch = {"hr": torch.from_numpy(np.asarray(hr, np.float64)[rows]),
+                 "lr": torch.from_numpy(np.asarray(lr, np.float64)[rows]),
+                 **{k: torch.from_numpy(np.asarray(v, np.int64)[rows])
+                    for k, v in (("text_input", ti), ("text_gt", tg),
+                                 ("lengths", ln))}}
+        steps.append({k: float(v) for k, v in step(batch, gen).items()})
+    out = {"steps": steps}
+    if tp is not None:
+        out["shards"] = {k: t.detach().numpy().copy()
+                         for k, t in tp.local.items()}
+        out["sharded"] = sorted(k for k, sp in tp.specs.items()
+                                if sp[1].is_shard())
+        out["model_index"] = tp.model.index
+        out["placed_as_shard_params_tp"] = placed_as_shard_params_tp
+        tp.write_back()
+    out["state"] = state_of(model)
+    out["moved"] = moved(start, model)
+    return out
+
+
 CASE_DIR = None   # the run's directory (main sets it): the witness's input
 
 
@@ -525,7 +599,10 @@ def witness_case() -> dict:
 
 CASES = {"sr": sr_case, "stroke": lambda: sr_case(stroke=True),
          "seg": seg_case, "seg_det": lambda: seg_case(det=True),
+         "seg_bucketed": lambda: seg_case(det=True, lovasz_impl="bucketed"),
          "sld": sld_case, "gan": gan_case, "mesh": mesh_case, "tp": tp_case,
+         "tp_step": tp_step_case, "tp_model1": lambda: tp_step_case(1),
+         "tp_data": lambda: tp_step_case(1, placed=False),
          "witness": witness_case}
 
 
