@@ -15,11 +15,15 @@ Phases:
   1. the fused-enhancer kernel against its plain version at the main-path
      shape (L=1024, C=64; B=64 in fp32 and bf16, B=256 in bf16), with
      random weights and non-trivial LayerNorm scales; kernel and plain ms,
-     the kernel's device ms by kernel (`qkv_proj_mma_kernel`,
-     `attn_epilogue_kernel`) from a profiler trace (bf16), the fp32 call's
-     ms and bound (the SR apps' evaluation runs it), and, at B=256 bf16,
-     SDPA on B1's attention part alone, (256, 4, 1024, 32), as the
-     yardstick (timed only; the port never calls it);
+     the kernel's device ms by kernel from a profiler trace (bf16
+     `qkv_proj_mma_kernel`, `attn_epilogue_kernel`; fp32, the split-TF32
+     `qkv_proj_tf32x3_kernel`, `attn_epilogue_tf32x3_kernel`), the bound
+     (fp32: the 3xTF32 floor, the CUDA-core one beside it), and SDPA on
+     B1's attention part alone, (B, 4, 1024, 32) in the call's type, as
+     the yardstick (timed only; the port never calls it); then TBSRN's
+     fp32 inference forward, the module an SR app evaluation runs, on
+     (64, 16, 64, 3) LR crops against kernels=False, in turns (5 B1 calls,
+     output at the fp32 bar);
   2. the full slice, LR pixels -> TBSRN (full width: x2, 32x128 HR,
      STN built, 5 SRBs, hidden 32) -> bicubic 32x100 gray -> CRNN(37, 256)
      -> greedy CTC -> strings, through `PixelsToStrings`, on a (256, 16, 64,
@@ -177,9 +181,9 @@ Phases:
      launches (csrc/fused_srb.cu's two wgmma convolutions, the second with
      the enhancer's qkv projection in its epilogue, then B1's attention
      epilogue with the block residual), in fp32 four (two CUDA-core
-     convolutions, B1's two kernels): the kernels are read from a profiler
-     trace (the launches a call it holds are printed; the card test
-     `test_a_call_runs_its_kernels` holds their count), and each conv
+     convolutions, B1's two split-TF32 kernels): the kernels are read from
+     a profiler trace (the launches a call it holds are printed; the card
+     test `test_a_call_runs_its_kernels` holds their count), and each conv
      launch is held against its plain twin on the same input (bf16 r1, r
      and qkv within one bf16 ulp).
      Kernel, plain and module-path ms (cuDNN convs, BN, mish, B1, add;
@@ -757,7 +761,7 @@ def enhancer_params(gen: torch.Generator, dev) -> dict:
 
 
 @clocked
-def phase1(dev, gpu: str) -> dict:
+def phase1(dev, gpu: str) -> tuple:
     gen = torch.Generator().manual_seed(SEED)
     params = enhancer_params(gen, dev)
     h, w = LR_HW
@@ -791,26 +795,29 @@ def phase1(dev, gpu: str) -> dict:
                              + 6 * 128 * 128 + 2 * 128 * 64)
         nbytes = 2 * b * h * w * 64 * es + h * w * (64 * es + 384 * 4)
         if dt == torch.float32:
-            # fp32 as every fp32 kernel of the port: the 3xTF32 floor, the
-            # CUDA-core floor (where this kernel runs today) beside it
+            # fp32 as every fp32 kernel of the port: split TF32 on the
+            # tensor cores, bounded at the 3xTF32 floor (the CUDA-core
+            # floor beside it)
             k_ms, p_ms = in_turns(lambda: fused_enhancer(x, ops),
                                   lambda: fused_enhancer_reference(x, ops),
                                   10)
+            split = kernel_split(lambda: fused_enhancer(x, ops), 10)
+            lib_ms = sdpa_ms(gen, b, h * w, dt, dev)
+            bd = seg_attn_bound(flops, nbytes, dt)
             print(f"phase 1: B={b} L={h * w} fp32 enhancer (the SR apps' "
-                  f"evaluation): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
-                  f"{bound_note(seg_attn_bound(flops, nbytes, dt))} "
-                  f"[{gpu}]")
+                  f"evaluation): kernel {k_ms:.4f} ms (device ms by kernel "
+                  f"{split}), plain {p_ms:.4f} ms; fp32 SDPA on its "
+                  f"attention part alone ({b}, {HEADS}, {h * w}, 32) "
+                  f"{lib_ms:.4f} ms; {bound_note(bd)} [{gpu}]")
+            result[dt] = {"max_abs_err": max_err, "ms": k_ms,
+                          "plain_ms": p_ms, **bd, "library_ms": lib_ms,
+                          "library": "SDPA on the attention part only",
+                          "device_ms_by_kernel": split}
         if dt == torch.bfloat16:
             k_ms, p_ms = in_turns(lambda: fused_enhancer(x, ops),
                                   lambda: fused_enhancer_reference(x, ops), 10)
             split = kernel_split(lambda: fused_enhancer(x, ops), 10)
-            # the yardstick covers the attention part only: no one PyTorch
-            # call computes the whole enhancer
-            q, k, v = (torch.randn(b, HEADS, h * w, 32, generator=gen)
-                       .to(dev, dt) for _ in range(3))
-            lib_ms = cuda_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v), 10)
-            del q, k, v
+            lib_ms = sdpa_ms(gen, b, h * w, dt, dev)
             print(f"phase 1: B={b} L={h * w} bf16 enhancer: kernel "
                   f"{k_ms:.4f} ms (device ms by kernel {split}), plain "
                   f"{p_ms:.4f} ms; SDPA on its attention part alone "
@@ -818,7 +825,47 @@ def phase1(dev, gpu: str) -> dict:
             result[b] = {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
                          **bound(flops, nbytes, dt), "library_ms": lib_ms,
                          "library": "SDPA on the attention part only"}
-    return result[BATCH]
+    tbsrn_fp32_ms(dev, gpu, gen)
+    return result[BATCH], result[torch.float32]
+
+
+def sdpa_ms(gen: torch.Generator, b: int, l: int, dt, dev) -> float:
+    """ms of SDPA on B1's attention part alone, (b, HEADS, l, 32): the
+    yardstick, as no one PyTorch call computes the whole enhancer."""
+    q, k, v = (torch.randn(b, HEADS, l, 32, generator=gen).to(dev, dt)
+               for _ in range(3))
+    return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
+
+
+def tbsrn_fp32_ms(dev, gpu: str, gen: torch.Generator) -> None:
+    """TBSRN's fp32 inference forward, the module an SR evaluation runs
+    (phase 6d, phase 27a), on (TRAIN_B, 16, 64, 3) LR crops: 5 B1 calls
+    against the same model with kernels=False, in turns; outputs at the
+    fp32 bar."""
+    sr = TBSRN(scale_factor=2, width=128, height=32, stn=True,
+               srb_nums=SRB_NUMS, hidden_units=32)
+    randomize_stats(sr, gen)
+    plain = TBSRN(scale_factor=2, width=128, height=32, stn=True,
+                  srb_nums=SRB_NUMS, hidden_units=32, kernels=False)
+    plain.load_state_dict(sr.state_dict())
+    sr, plain = sr.to(dev).eval(), plain.to(dev).eval()
+    lr = torch.rand(TRAIN_B, *LR_HW, 3, generator=gen).to(dev)
+    with torch.inference_mode():
+        fused_enhancer.launches = 0
+        got = sr(lr)
+        torch.cuda.synchronize()
+        launches = fused_enhancer.launches
+        want = plain(lr)
+        err = (got - want).abs().max().item()
+        k_ms, p_ms = in_turns(lambda: sr(lr), lambda: plain(lr), 5)
+    print(f"phase 1: TBSRN fp32 inference forward on ({TRAIN_B}, "
+          f"{LR_HW[0]}, {LR_HW[1]}, 3): kernels {k_ms:.4f} ms ({launches} "
+          f"B1 launches), kernels=False {p_ms:.4f} ms; max abs err "
+          f"{err:.3e} [{gpu}]")
+    if launches != 2 * SRB_NUMS:
+        raise AssertionError(f"phase 1: TBSRN fp32 ran {launches} B1 "
+                             f"launches, want {2 * SRB_NUMS}")
+    torch.testing.assert_close(got, want, rtol=FP32_RTOL, atol=FP32_ATOL)
 
 
 def randomize_stats(model: torch.nn.Module, gen: torch.Generator) -> None:
@@ -2734,13 +2781,14 @@ def kernel_split(fn, iters: int) -> dict:
 
 # the kernels of one B9 call and their launches, by dtype: bf16 on the
 # tensor cores (csrc/fused_srb.cu's two wgmma convs, the second with the
-# enhancer's qkv projection; then B1's attention epilogue), fp32 on the
-# CUDA cores (two convs, B1's qkv projection and epilogue)
+# enhancer's qkv projection; then B1's attention epilogue), fp32 two
+# CUDA-core convs, then B1's qkv projection and epilogue in split TF32
 B9_KERNELS = {torch.bfloat16: {"conv3x3_mish_wgmma_kernel": 1,
                                "conv3x3_qkv_wgmma_kernel": 1,
                                "attn_epilogue_kernel": 1},
-              torch.float32: {"conv3x3_fma_kernel": 2, "qkv_proj_kernel": 1,
-                              "attn_epilogue_kernel": 1}}
+              torch.float32: {"conv3x3_fma_kernel": 2,
+                              "qkv_proj_tf32x3_kernel": 1,
+                              "attn_epilogue_tf32x3_kernel": 1}}
 
 
 def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
@@ -2846,7 +2894,7 @@ def phase22(dev, gpu: str) -> dict:
         lb = {k: round(v, 4) for k, v in srb_launch_bounds(b, h, w,
                                                            dt).items()}
         front = sum(v * B9_KERNELS[dt][k] for k, v in split.items()
-                    if k.startswith("conv3x3") or k == "qkv_proj_kernel")
+                    if k.startswith(("conv3x3", "qkv_proj")))
         print(f"phase 22: whole SRB (B9) {shape}: max abs err {max_err:.3e}, "
               f"mean {mean_err:.3e}; launches against their twins: "
               f"{launches}")
@@ -3328,7 +3376,7 @@ def served_device_ms(pipe: PixelsToStrings, path: str) -> dict:
             copy = e.key.startswith(("Memcpy", "Memset"))
             got["copy_ms" if copy else "kernel_ms"] += \
                 e.device_time_total / 1e3
-            if re.search(r"qkv_proj(_mma)?_kernel|attn_epilogue_kernel",
+            if re.search(r"qkv_proj_\w*kernel|attn_epilogue_\w*kernel",
                          e.key):
                 got["b1_traced"] += e.count
 
@@ -3619,8 +3667,9 @@ def sr_feed_turns(trainer) -> dict:
 
 
 @clocked
-def phase27(dev, gpu: str, step6_ms=None) -> None:
-    """The SR training journey through the apps, fed from LMDBs on disk."""
+def phase27(dev, gpu: str, step6_ms=None) -> int:
+    """The SR training journey through the apps, fed from LMDBs on disk;
+    returns the B1 launches of one app evaluation (fp32)."""
     from fudanocr_tpu_torch.apps.scene_text_telescope import main as stt
     from fudanocr_tpu_torch.apps.text_gestalt import main as gestalt
 
@@ -3683,6 +3732,7 @@ def phase27(dev, gpu: str, step6_ms=None) -> None:
                 or eval_b1 != [want_eval] * 2 or total != want_total):
             raise AssertionError("phase 27: the app did not run the "
                                  "expected kernel launches")
+        b1_per_eval = eval_b1[0]   # the fp32 B1 launches of one evaluation
         best = torch.load(os.path.join(ckpt, "best.pt"), map_location="cpu")
         again = stt.main(argv + ["--test", "--resume", "auto"])
         rel = max(abs(again[k] - res[k]) / max(abs(res[k]), 1e-12)
@@ -3818,6 +3868,7 @@ def phase27(dev, gpu: str, step6_ms=None) -> None:
                 or not np.isfinite(res["psnr"])):
             raise AssertionError("phase 27: text_gestalt did not run the "
                                  "expected path")
+    return b1_per_eval
 
 
 def seg_app_photos(root: str, shapes, seed: int) -> None:
@@ -6674,7 +6725,7 @@ def main(argv: list) -> int:
             torch.cuda.empty_cache()
         print(f"chip_smoke: ran phases {only} only; no result line")
         return 0
-    enh = phase1(dev, gpu)
+    enh, enh32 = phase1(dev, gpu)
     pipe, lr, launches = phase2(dev, gpu)
     phase3(pipe, lr, gpu)
     torch.cuda.empty_cache()
@@ -6714,7 +6765,7 @@ def main(argv: list) -> int:
     torch.cuda.empty_cache()
     ln_bf16_n, b4_mma_fwd_n, b4_mma_bwd_n, _ = phase25(dev, gpu)
     torch.cuda.empty_cache()
-    phase27(dev, gpu, step6_ms)
+    eval_b1 = phase27(dev, gpu, step6_ms)
     torch.cuda.empty_cache()
     phase28(dev, gpu, step16_ms[SEG_CONFIG])
     torch.cuda.empty_cache()
@@ -6766,6 +6817,14 @@ def main(argv: list) -> int:
          "source": "fudanocr_tpu_torch/csrc/fused_enhancer.cu",
          "replaces": "fudanocr_tpu/ops/fused_enhancer.py:188",
          "launches": launches, **enh},
+        # the fp32 path in split TF32 (phase 1 at (64, 1024)): launches of
+        # one SR app evaluation (phase 27a)
+        {"name": "fused_enhancer_fp32", "route": "cuda",
+         "source": "fudanocr_tpu_torch/csrc/fused_enhancer.cu",
+         "cuda_kernels": ["qkv_proj_tf32x3_kernel",
+                          "attn_epilogue_tf32x3_kernel"],
+         "replaces": "fudanocr_tpu/ops/fused_enhancer.py:188",
+         "launches": eval_b1, **enh32},
         {"name": "fused_residual_layernorm", "route": "cuda",
          "source": "fudanocr_tpu_torch/csrc/fused_layernorm.cu",
          "replaces": "fudanocr_tpu/ops/fused_layernorm.py:53",

@@ -25,7 +25,8 @@ enhancer's qkv projection in its epilogue (`srb_conv_qkv`: r and the
 wgmma with the weights resident in shared memory and the input bands
 loaded by TMA (csrc/fused_srb.cu), then csrc/fused_enhancer.cu's attention
 epilogue with the block input as its residual. In fp32, four: the two
-CUDA-core convolutions, the enhancer's qkv projection and its epilogue.
+CUDA-core convolutions, the enhancer's qkv projection and its epilogue
+(both in split TF32 on the tensor cores).
 `fused_srb.launches` counts calls (`srb_conv_mish.launches` and
 `srb_conv_qkv.launches` count their own calls; the enhancer's own counter
 `fused_enhancer.launches` is not moved). CPU tensors run the plain
@@ -287,7 +288,7 @@ def srb_conv_qkv(r1: torch.Tensor, ops: Dict[str, torch.Tensor]
     """The second launch of `fused_srb` alone: (r, qkv) of
     `srb_conv_qkv_reference` for a (B, H, W, 64) map. CPU tensors run
     that; CUDA tensors launch (bf16: one wgmma kernel; fp32: the CUDA-core
-    conv, then the enhancer's qkv projection) or raise."""
+    conv, then the enhancer's split-TF32 qkv projection) or raise."""
     if r1.device.type == "cpu":
         return srb_conv_qkv_reference(r1, ops)
     _cuda_only(r1, "srb_conv_qkv")

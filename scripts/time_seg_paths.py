@@ -56,14 +56,17 @@ def run_tree() -> None:
         torch.cuda.empty_cache()
 
 
-def turns(trees: list, script: str = __file__, timing=TIMING) -> int:
-    """Run `script` in each of `trees` in order; summarise each tree's
-    lines that `timing` matches."""
-    runs = {}
+def turns(trees: list, script: str = __file__, timing=TIMING,
+          same=None, args: tuple = ()) -> int:
+    """Run `script` (with `args`) in each of `trees` in order; summarise
+    each tree's lines that `timing` matches. Lines that `same` matches must
+    be equal in every turn: they are compared, and a difference fails."""
+    runs, alike = {}, []
     for i, tree in enumerate(trees):
         path = os.path.abspath(os.path.join(ROOT, tree))
-        proc = subprocess.run([sys.executable, os.path.abspath(script)],
-                              cwd=path, capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, os.path.abspath(script),
+                               *args], cwd=path, capture_output=True,
+                              text=True)
         print(f"turn {i} ({tree}): exit {proc.returncode}", flush=True)
         for line in proc.stdout.splitlines():
             print(f"turn {i} ({tree}): {line}")
@@ -73,6 +76,9 @@ def turns(trees: list, script: str = __file__, timing=TIMING) -> int:
         runs.setdefault(tree, []).append(   # without the card's name
             [re.sub(r" \[[^]]*\]$", "", line)
              for line in proc.stdout.splitlines() if timing.search(line)])
+        if same is not None:
+            alike.append([line for line in proc.stdout.splitlines()
+                          if same.search(line)])
     for tree, lines in runs.items():
         for rows in zip(*lines):
             values = [[float(x) for x in NUMBER.findall(r)] for r in rows]
@@ -82,6 +88,11 @@ def turns(trees: list, script: str = __file__, timing=TIMING) -> int:
                 text += (f"{statistics.median(col)} [{min(col)}, "
                          f"{max(col)}]{part}")
             print(f"median of {len(rows)} ({tree}): {text}")
+    if same is not None:
+        equal = all(lines == alike[0] for lines in alike)
+        print(f"lines matching {same.pattern!r} equal in all "
+              f"{len(alike)} turns: {equal}")
+        return 0 if equal else 1
     return 0
 
 

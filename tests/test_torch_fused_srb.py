@@ -405,8 +405,8 @@ def _launches_per_call(fn, want: dict, calls: int = 3) -> dict:
     (torch.bfloat16, {"conv3x3_mish_wgmma_kernel": 1,
                       "conv3x3_qkv_wgmma_kernel": 1,
                       "attn_epilogue_kernel": 1}),
-    (torch.float32, {"conv3x3_fma_kernel": 2, "qkv_proj_kernel": 1,
-                     "attn_epilogue_kernel": 1})])
+    (torch.float32, {"conv3x3_fma_kernel": 2, "qkv_proj_tf32x3_kernel": 1,
+                     "attn_epilogue_tf32x3_kernel": 1})])
 def test_a_call_runs_its_kernels(cuda, dtype, want):
     _, ops = _block_ops(cuda, dtype, 16, 64)
     x = torch.randn(2, 16, 64, C, device=cuda).to(dtype)
